@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the SGD study engine (``repro`` is the JAX reference).
+
+``core`` holds the GLM losses and gradients, the ELL sparse layout and the
+SyncSGD / AsyncLocalSGD engine; ``kernels`` the hand-written Hopper kernels
+(``kernels/csrc``) behind a per-family registry; ``data`` the synthetic
+generators; ``convert`` carries state across from the reference.  What
+makes tensors (``data``, the ELL builders, ``convert``) puts them on
+``cuda`` unless the caller passes ``device="cpu"``; the engine and the
+kernels run where their tensors are.
+"""
