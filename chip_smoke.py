@@ -1,24 +1,41 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the SGD study engine on one NVIDIA card.
+"""Run the PyTorch/CUDA port (SGD study engine, scoring service and live
+learner) on one NVIDIA card.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
 Phases, one JSON line each:
 
 1. ``env``     card name and power limit, torch, CUDA, nvcc, triton;
-2. ``build``   compiles the four kernels from src/repro_torch/kernels/csrc
+2. ``build``   compiles the five kernels from src/repro_torch/kernels/csrc
                (one nvcc per source, all at once) and reports ptxas usage;
 3. ``kernels`` holds each kernel against its plain PyTorch version on the
                card: both tasks, both glm_grad layouts, covtype and w8a
-               widths, a ragged N, a replica axis, real-sim's width; and
-               that the sparse kernels refuse an index outside [0, d);
+               widths, a ragged N, a replica axis, real-sim's width, and
+               glm_score at w8a, real-sim and news widths with filler rows
+               that must score link(0) exactly; and that the sparse
+               kernels refuse an index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
                just before and read just after; then the same strategies at
                N=4,100 through the kernels and through the plain versions on
                the card, loss for loss;
-5. ``timing``  each kernel and its plain version at the main path's shapes,
+5. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
+               requests under the model phase ``train``'s SyncSGD run ended
+               with (max_batch 128, with a swap_model halfway, and 32), and
+               8,192 real-sim-width requests; launch counts zeroed just
+               before and read just after; every response held against the
+               plain version under the snapshot version it carries;
+6. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
+               stream publishing into an engine that a second thread
+               serves, exact and int8-compressed, with replicas killed and
+               revived; each configuration also run in lockstep through the
+               kernels and through the plain versions and held merge by
+               merge (int8: also with the plain learner resynced after each
+               merge, and its codes compared); short glm_sparse and dense
+               runs;
+7. ``timing``  each kernel and its plain version at the main path's shapes,
                and a check of the async replica epochs at the full partition
                size (covtype R=8 B=1, w8a R=10 full partition).
 
@@ -29,6 +46,7 @@ line.  Without a card, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -55,6 +73,7 @@ REPLACES = {
     "glm_grad": "src/repro/kernels/glm_grad/kernel.py:90",
     "glm_sgd_sparse": "src/repro/kernels/glm_sgd_sparse/kernel.py:86",
     "glm_sparse": "src/repro/kernels/glm_sparse/kernel.py:108",
+    "glm_score": "src/repro/kernels/glm_score/kernel.py:72",
 }
 
 
@@ -65,6 +84,7 @@ KERNEL_SYMBOLS = {
                  "glm_grad_reduce_kernel"),
     "glm_sgd_sparse": ("ell_sgd_kernel",),
     "glm_sparse": ("ell_grad_kernel",),
+    "glm_score": ("glm_score_kernel",),
 }
 
 
@@ -141,6 +161,14 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ell_bytes(values: torch.Tensor) -> int:
+    """Bytes a padded-ELL operand has to move: every value (a kernel finds
+    the padding by reading it) and the 4-byte index of each nonzero.  The
+    padding sits at the end of each row, so a kernel that skips value-0
+    entries never needs their indices."""
+    return nbytes(values) + 4 * int((values != 0).sum())
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -193,10 +221,25 @@ def _ell_inputs(rng, n, d, avg, k, dev, seed):
     return ds.ell.values, ds.ell.indices, ds.y, w
 
 
+def _wide_ell_inputs(n, d, k, dev, seed):
+    """Padded-ELL rows at a width ``make_sparse`` is too slow for (news):
+    row lengths uniform in [1, k], indices uniform in [0, d), drawn on the
+    card; the padding is value 0 at index 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nnz = torch.randint(1, k + 1, (n, 1), device=dev, generator=g)
+    live = torch.arange(k, device=dev)[None] < nnz
+    v = torch.randn(n, k, device=dev, generator=g) * live
+    i = torch.randint(0, d, (n, k), device=dev, generator=g,
+                      dtype=torch.int32) * live
+    w = torch.randn(d, device=dev, generator=g) * 0.1
+    return v, i, w
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Every kernel against its plain version on the card, small shapes."""
     import repro_torch.kernels as K
     from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_score.ref import glm_score_ref
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
@@ -251,12 +294,32 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         record("glm_sgd_sparse", f"{task} w8a R=10 per=410 mb=10",
                K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05, micro_batch=10),
                ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, 10), EPOCH_TOL)
+        # glm_score: every fifth row an all-zero filler row, which must
+        # score link(0) exactly (0.5 for LR, 0.0 for SVM)
+        link0 = 0.5 if task == "lr" else 0.0
+        for n, d, avg, k, label in ((4096, 300, 11.65, 69, "w8a"),
+                                    (37, 300, 11.65, 69, "w8a ragged"),
+                                    (2000, 20_958, 51.30, 307, "real-sim"),
+                                    (512, 1_355_191, 454.99, 2_729, "news")):
+            if label == "news":
+                v, i, w = _wide_ell_inputs(n, d, k, dev, seed=n)
+            else:
+                v, i, _, w = _ell_inputs(rng, n, d, avg, k, dev, seed=n + 1)
+                v, i = v.clone(), i.clone()
+            v[::5], i[::5] = 0.0, 0
+            out = K.glm_score(task, w, v, i)
+            record("glm_score", f"{task} {label} n={n} d={d} K={k}", out,
+                   glm_score_ref(task, w, v, i), GRAD_TOL)
+            cases.append({"kernel": "glm_score",
+                          "case": f"{task} {label} filler rows == {link0}",
+                          "ok": bool((out[::5] == link0).all())})
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
             ("glm_sparse", lambda bad: K.ell_glm_grad("lr", w, v, bad, y)),
             ("glm_sgd_sparse", lambda bad: K.ell_sgd_epoch(
-                "lr", w, v, bad, y, step=0.05, micro_batch=10))):
+                "lr", w, v, bad, y, step=0.05, micro_batch=10)),
+            ("glm_score", lambda bad: K.glm_score("lr", w, v, bad))):
         for j in (-1, 300):
             bad = i.clone()
             bad[5, 0] = j
@@ -305,8 +368,13 @@ def falling(losses: np.ndarray) -> bool:
                 and (losses[1:] <= losses[:-1] * (1 + 1e-3)).all())
 
 
-def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict]:
-    """The main path at full size; returns the phase line and the launches."""
+#: the kernels of the training path (the serving path adds glm_score)
+TRAIN_KERNELS = ("glm_grad", "glm_sgd", "glm_sgd_sparse", "glm_sparse")
+
+
+def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
+    """The main path at full size; returns the phase line, the launches and
+    the runs' results."""
     from repro_torch.core import convergence, sgd
     from repro_torch.kernels import common
 
@@ -322,7 +390,8 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict]:
                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
                      "falling": falling(res.losses)})
     launches = dict(common.LAUNCHES)
-    ok = all(r["falling"] for r in runs) and all(v > 0 for v in launches.values())
+    ok = all(r["falling"] for r in runs) and all(launches[k] > 0
+                                                 for k in TRAIN_KERNELS)
     # the paper's statistical and end-to-end axes: epochs and time to 1% of
     # the lowest loss any strategy reached on the same dataset
     for data in {r["data"] for r in runs}:
@@ -345,7 +414,7 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict]:
             short_name(key): ms for key, (ms, _) in
             sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]}
     return {"phase": "train", "epochs": epochs, "runs": runs,
-            "launches": launches, "ok": ok}, launches
+            "launches": launches, "ok": ok}, launches, results
 
 
 def phase_parity(covtype, w8a, n: int, epochs: int) -> dict:
@@ -368,13 +437,446 @@ def phase_parity(covtype, w8a, n: int, epochs: int) -> dict:
             "ok": all(r["ok"] for r in runs)}
 
 
+# ---------------------------------------------------------------------------
+# The serving path and train-while-serving
+# ---------------------------------------------------------------------------
+
+
+def _requests(values: torch.Tensor, indices: torch.Tensor) -> list:
+    """One ``ScoreRequest`` per ELL row, carrying only its nonzeros (the
+    padding sits at the end of each row); the engine pads them back."""
+    from repro_torch.serve.glm import ScoreRequest
+
+    vals, idx = values.cpu().numpy(), indices.cpu().numpy()
+    nnz = (vals != 0).sum(axis=1)
+    return [ScoreRequest(r, vals[r, :nnz[r]], idx[r, :nnz[r]])
+            for r in range(len(vals))]
+
+
+def _drive(engine, reqs, swap=None) -> tuple[list, int, float]:
+    """Admit until the bounded FIFO is full, flush, repeat, as
+    benchmarks/bench_serve.py drives an engine; ``swap = (i, w)`` publishes
+    ``w`` right after request i is admitted.  Returns the responses, the
+    flushes that scored something, and the wall seconds."""
+    responses, flushes, nxt = [], 0, 0
+    t0 = time.perf_counter()
+    while nxt < len(reqs) or len(engine):
+        while nxt < len(reqs) and engine.try_admit(reqs[nxt]):
+            nxt += 1
+            if swap is not None and nxt == swap[0]:
+                engine.swap_model(swap[1])
+        batch = engine.flush()
+        flushes += bool(batch)
+        responses.extend(batch)
+    return responses, flushes, time.perf_counter() - t0
+
+
+def _quantiles(latencies) -> dict:
+    lat = np.sort(np.asarray(latencies))
+    return {"p50_ms": float(np.median(lat)) * 1e3,
+            "p99_ms": float(lat[min(len(lat) - 1, int(0.99 * len(lat)))]) * 1e3}
+
+
+def _busy_stretch(fn) -> dict:
+    """Device busy ms and idle share over one profiled call of ``fn``: the
+    device time of every kernel and copy the profiler saw, over the host
+    wall time of the stretch (the profiler's own host cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return {"stretch_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms}
+
+
+def _check_scores(responses, values, indices, snapshots, task) -> dict:
+    """Every response against the plain version over the same row under the
+    weights of the snapshot version it carries (``snapshots``: version ->
+    weights on the card)."""
+    from repro_torch.kernels.glm_score.ref import glm_score_ref
+
+    rid = torch.tensor([r.rid for r in responses], device=values.device)
+    ver = np.array([r.model_version for r in responses])
+    got = torch.tensor([r.score for r in responses], device=values.device)
+    err, ok = 0.0, bool(np.isin(ver, list(snapshots)).all())
+    for v in np.unique(ver):
+        sel = torch.from_numpy(np.nonzero(ver == v)[0]).to(values.device)
+        rows = rid[sel]
+        e, o = close(got[sel], glm_score_ref(task, snapshots[int(v)],
+                                             values[rows], indices[rows]),
+                     GRAD_TOL)
+        err, ok = max(err, e), ok and o
+    return {"max_abs_err": err, "ok": ok,
+            "versions": sorted(int(v) for v in np.unique(ver)),
+            "versions_in_order": bool((np.diff(ver) >= 0).all())}
+
+
+def phase_serve(dev, w8, realsim, w_sync, w_swap) -> tuple[dict, int]:
+    """The scoring engine at full width; returns the phase line and the
+    glm_score launches of its runs."""
+    from repro_torch.kernels import common
+    from repro_torch.serve.glm import GLMScoreEngine
+
+    rng = np.random.default_rng(2)
+    w_rs = torch.from_numpy(rng.normal(0, 0.1, realsim.d)
+                            .astype(np.float32)).to(dev)
+    cells = [("w8a", w8, 128, w_sync, w_swap), ("w8a", w8, 32, w_sync, None),
+             ("real-sim", realsim, 128, w_rs, None)]
+    runs, total = [], 0
+    common.reset_launches()
+    for data, ds, mb, w, w2 in cells:
+        values, indices = ds.ell.values, ds.ell.indices
+        reqs = _requests(values, indices)
+        engine = GLMScoreEngine("lr", w, ell_width=ds.ell.max_nnz,
+                                max_batch=mb, queue_depth=2 * mb,
+                                flush_deadline_s=0.0)
+        before = common.LAUNCHES["glm_score"]
+        swap = None if w2 is None else (len(reqs) // 2, w2)
+        responses, flushes, wall = _drive(engine, reqs, swap)
+        launches = common.LAUNCHES["glm_score"] - before
+        snapshots = {0: w} if w2 is None else {0: w, 1: w2}
+        check = _check_scores(responses, values, indices, snapshots, "lr")
+        # admission's host work on a row (its checks and copies), and the
+        # index check alone, over this run's requests
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine._admit_row(r)
+        admit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for r in reqs:
+            common.check_host_indices(f"request {r.rid}",
+                                      np.asarray(r.indices), ds.d)
+        check_s = time.perf_counter() - t0
+        run = {"data": data, "n": len(reqs), "d": ds.d, "K": ds.ell.max_nnz,
+               "max_batch": mb, "device": str(engine.device),
+               "requests_per_s": len(reqs) / wall, "wall_s": wall,
+               **_quantiles([r.latency_s for r in responses]),
+               "flushes": flushes, "glm_score_launches": launches,
+               "swap_at": None if swap is None else swap[0],
+               "admit_row_us_per_request": admit_s / len(reqs) * 1e6,
+               "index_check_us_per_request": check_s / len(reqs) * 1e6,
+               "index_check_us_per_batch": check_s / flushes * 1e6,
+               "check": check}
+        # one profiled stretch: the first 64 batches again, on a fresh engine
+        stretch = GLMScoreEngine("lr", w, ell_width=ds.ell.max_nnz,
+                                 max_batch=mb, queue_depth=2 * mb,
+                                 flush_deadline_s=0.0)
+        run["profiled"] = {"requests": 64 * mb, **_busy_stretch(
+            lambda: _drive(stretch, reqs[:64 * mb]))}
+        run["ok"] = bool(
+            engine.device.type == "cuda" and launches == flushes
+            and len(responses) == len(reqs) and check["ok"]
+            and sorted(r.rid for r in responses) == list(range(len(reqs)))
+            and check["versions"] == sorted(snapshots)
+            and check["versions_in_order"])
+        runs.append(run)
+        total += launches
+    return {"phase": "serve", "tol": GRAD_TOL, "runs": runs,
+            "ok": all(r["ok"] for r in runs)}, total
+
+
+#: the live stream at real-sim's width (Table 3), and its learner
+LIVE_STREAM = dict(n_batch=256, d=20_958, avg_nnz=51.3, max_nnz=307)
+LIVE_CONFIG = dict(task="lr", replicas=8, merge_every=4, local_batch=1,
+                   step_size=0.1)
+
+
+def _record_merges(learner) -> list[dict]:
+    """Wrap ``learner.merge`` to keep, at every merge that ran, what went
+    into it (the replicas, the anchor, the error feedback, the alive mask)
+    and the anchor it made."""
+    records, merge = [], learner.merge
+
+    def recorded():
+        ef = learner._ef
+        before = {"W": learner.W.clone(), "anchor": learner.anchor.clone(),
+                  "ef": None if ef is None else ef.clone(),
+                  "alive": learner.alive()}
+        out = merge()
+        if out is not None:
+            records.append({**before, "out": out.clone()})
+        return out
+
+    learner.merge = recorded
+    return records
+
+
+def _live_run(cfg: dict, stream_kw: dict, steps: int, faults: dict,
+              serve: bool) -> dict:
+    """One learner run on the card; with ``serve``, a SnapshotPublisher
+    feeds a GLMScoreEngine that a second thread serves throughout."""
+    import threading
+
+    from repro_torch.kernels import common
+    from repro_torch.live import (LiveConfig, LiveLearner, SnapshotPublisher,
+                                  SyntheticStream)
+    from repro_torch.serve.glm import GLMScoreEngine, ScoreRequest
+
+    stream = SyntheticStream(seed=7, **stream_kw)
+    learner = LiveLearner(LiveConfig(**cfg), stream)
+    out = {"device": str(learner.device)}
+    if not stream.dense:
+        hold, hy = stream.holdout(1024)
+        out["holdout_loss_start"] = learner.loss(hold, hy)
+    engine = None
+    if serve:
+        engine = GLMScoreEngine(cfg["task"], learner.merged_model,
+                                ell_width=stream.ell_width, max_batch=128,
+                                queue_depth=256, flush_deadline_s=0.0)
+        pub = SnapshotPublisher(engine).attach(learner)
+        bound = pub.bound_steps(learner.config.merge_every)
+        snapshots = {0: engine.model.w}
+        learner.add_merge_hook(
+            lambda _: snapshots.setdefault(engine.model.version,
+                                           engine.model.w))
+        reqs = _requests(hold.values, hold.indices)
+        served, flushes, stop = [], [0], threading.Event()
+
+        def server():
+            rid = 0
+            while not stop.is_set() or len(engine):
+                while not stop.is_set():
+                    row = reqs[rid % len(reqs)]
+                    if not engine.try_admit(
+                            ScoreRequest(rid, row.values, row.indices)):
+                        break
+                    rid += 1
+                batch = engine.flush()
+                flushes[0] += bool(batch)
+                served.extend(batch)
+
+        thread = threading.Thread(target=server)
+    common.reset_launches()
+    staleness = []
+    t0 = time.perf_counter()
+    if serve:
+        thread.start()
+    try:
+        for i in range(steps):
+            for r in faults.get(i, {}).get("kill", ()):
+                learner.kill(r)
+            for r in faults.get(i, {}).get("revive", ()):
+                learner.revive(r)
+            learner.step()
+            if serve:
+                staleness.append(pub.staleness(learner))
+    finally:
+        if serve:
+            stop.set()
+            thread.join(timeout=120)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = dict(common.LAUNCHES)
+    out["steps"], out["merges"] = learner.steps, learner.merges
+    if not stream.dense:
+        out["holdout_loss_end"] = learner.loss(hold, hy)
+    if serve:
+        lag = [s for s in staleness if s is not None]
+        rows = torch.tensor([r.rid % len(reqs) for r in served],
+                            device=hold.values.device)
+        remapped = [dataclasses.replace(r, rid=i) for i, r in enumerate(served)]
+        out["serve"] = {
+            "thread_done": not thread.is_alive(), "responses": len(served),
+            "flushes": flushes[0], "publishes": pub.publishes,
+            "staleness_max": max(lag) if lag else None, "bound_steps": bound,
+            **_quantiles([r.latency_s for r in served]),
+            "check": _check_scores(remapped, hold.values[rows],
+                                   hold.indices[rows], snapshots, cfg["task"])}
+    return out
+
+
+def _twin(cfg: dict, stream_kw: dict, steps: int, faults: dict,
+          resync: bool) -> dict:
+    """The learner through the kernels and the same learner through the
+    plain versions, step by step on the same stream, every merge recorded
+    in both.  With ``resync`` the plain learner takes the kernel learner's
+    state after each merge, so that every merge compares the work of one
+    interval from the same start."""
+    from repro_torch.kernels import common
+    from repro_torch.live import LiveConfig, LiveLearner, SyntheticStream
+
+    kern, plain = (LiveLearner(LiveConfig(**cfg),
+                               SyntheticStream(seed=7, **stream_kw))
+                   for _ in range(2))
+    records = [_record_merges(kern), _record_merges(plain)]
+    common.reset_launches()
+    for i in range(steps):
+        for learner in (kern, plain):
+            for r in faults.get(i, {}).get("kill", ()):
+                learner.kill(r)
+            for r in faults.get(i, {}).get("revive", ()):
+                learner.revive(r)
+        merges = kern.merges
+        kern.step()
+        with common.plain_versions():
+            plain.step()
+        if resync and kern.merges > merges:
+            plain.W, plain.anchor = kern.W.clone(), kern.anchor.clone()
+            if kern._ef is not None:
+                plain._ef = kern._ef.clone()
+    torch.cuda.synchronize()
+    return {"launches": dict(common.LAUNCHES),
+            "held": {"resync": resync, **_held(*records, resync)}}
+
+
+def _codes(a: dict, b: dict) -> dict:
+    """The int8 codes both runs' merge made from its inputs, replica by
+    alive replica (as ``optim.compress.quantize_leaf`` makes them), and
+    where they differ: ``x`` is a delta in units of its block's step, and
+    a code differs only where the two runs' ``x`` lie on either side of a
+    half step (``dist``: the plain run's distance to it) and no further
+    apart than the replicas' EPOCH_TOL and the difference of the anchors
+    and error feedbacks let them (``xtol``).  ``slack`` is what the
+    differing codes and scales can move the merged anchor by."""
+    from repro_torch.optim import compress as C
+
+    d = a["W"].shape[1]
+    alive = np.nonzero(b["alive"])[0]
+    out = {"compared": 0, "flips": 0, "max_code_diff": 0, "max_dist": 0.0,
+           "max_x_diff": 0.0, "explained": True,
+           "slack": torch.zeros_like(b["out"])}
+    for r in alive:
+        qx = []
+        for run in (a, b):
+            delta = run["W"][r] - run["anchor"] + run["ef"][r]
+            q, s = C.quantize_leaf(delta)
+            step = s.expand(-1, C.BLOCK).reshape(-1)[:d]
+            qx.append((q.reshape(-1)[:d].int(), step, delta / step))
+        (qa, sa, xa), (qb, sb, xb) = qx
+        diff = (qa - qb).abs()
+        flip = diff > 0
+        dist = (xb - torch.floor(xb) - 0.5).abs()
+        xdiff = (xa - xb).abs()
+        dtol = (EPOCH_TOL["atol"] + EPOCH_TOL["rtol"] * b["W"][r].abs()
+                + (a["anchor"] - b["anchor"]).abs()
+                + (a["ef"][r] - b["ef"][r]).abs())
+        xtol = dtol / sa + xb.abs() * (sa - sb).abs() / sa
+        out["compared"] += d
+        out["flips"] += int(flip.sum())
+        out["max_code_diff"] = max(out["max_code_diff"], int(diff.max()))
+        if flip.any():
+            out["max_dist"] = max(out["max_dist"], float(dist[flip].max()))
+            out["max_x_diff"] = max(out["max_x_diff"], float(xdiff[flip].max()))
+            out["explained"] = out["explained"] and bool(
+                ((dist <= xdiff) & (xdiff <= xtol))[flip].all())
+        out["slack"] = out["slack"] + (
+            diff * sa + 127 * (sa - sb).abs()) / len(alive)
+    return out
+
+
+def _held(kernel: list, plain: list, resync: bool) -> dict:
+    """The kernel run against the plain run, merge by merge.  The inputs of
+    the merge (the replicas) agree within EPOCH_TOL.  An exact merge's
+    anchor agrees within EPOCH_TOL too.  An int8 merge's codes differ by at
+    most one, only where the two runs' deltas straddle a half step within
+    round-off (``_codes``), and its anchor within EPOCH_TOL plus what those
+    codes and scales move it by.  Without ``resync`` two int8 runs part at
+    the first merge whose codes differ: that merge is the last one held,
+    and the errors after it are reported only."""
+    out = {"merges": len(kernel), "checked_merges": 0,
+           "inputs_max_abs_err": 0.0, "anchor_max_abs_err": 0.0,
+           "first_differing_merge": None}
+    ok = len(kernel) == len(plain) > 0
+    codes = []
+    for m, (a, b) in enumerate(zip(kernel, plain)):
+        err, inputs_ok = close(a["W"], b["W"], EPOCH_TOL)
+        out["inputs_max_abs_err"] = max(out["inputs_max_abs_err"], err)
+        err, anchor_ok = close(a["out"], b["out"], EPOCH_TOL)
+        out["anchor_max_abs_err"] = max(out["anchor_max_abs_err"], err)
+        if out["first_differing_merge"] is not None and not resync:
+            continue
+        out["checked_merges"] += 1
+        ok = ok and inputs_ok and bool((a["alive"] == b["alive"]).all())
+        if b["ef"] is None:
+            ok = ok and anchor_ok
+            continue
+        c = _codes(a, b)
+        bound = (EPOCH_TOL["atol"] + EPOCH_TOL["rtol"] * b["out"].abs()
+                 + c.pop("slack"))
+        ok = ok and c["max_code_diff"] <= 1 and c["explained"] and bool(
+            ((a["out"] - b["out"]).abs() <= bound).all())
+        codes.append(c)
+        if c["flips"] and out["first_differing_merge"] is None:
+            out["first_differing_merge"] = m
+    if codes:
+        out["int8_codes"] = {
+            "compared": sum(c["compared"] for c in codes),
+            "differing": sum(c["flips"] for c in codes),
+            "differing_by_merge": [c["flips"] for c in codes],
+            "max_code_diff": max(c["max_code_diff"] for c in codes),
+            "differing_max_dist_to_half_step": max(c["max_dist"] for c in codes),
+            "differing_max_x_diff": max(c["max_x_diff"] for c in codes),
+            "all_explained": all(c["explained"] for c in codes)}
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_live(dev) -> dict:
+    """Train-while-serving on the card; each configuration also run step
+    by step through the kernels and through the plain versions."""
+    faults = {16: {"kill": (1, 3)}, 40: {"revive": (1, 3)}}
+    runs = []
+    for compress in (False, True):
+        cfg = dict(LIVE_CONFIG, compress=compress)
+        kern = _live_run(cfg, LIVE_STREAM, 64, faults, serve=True)
+        # the same learner with no serving thread beside it
+        alone = _live_run(cfg, LIVE_STREAM, 64, faults, serve=False)
+        # free-running: an int8 code rounded the other way at one merge
+        # carries into every later one, so an int8 pair is held up to that
+        # merge, and once more with the plain learner resynced after each
+        # merge, which holds every merge to one interval's work
+        twins = [_twin(cfg, LIVE_STREAM, 64, faults, resync=r)
+                 for r in ((False, True) if compress else (False,))]
+        srv = kern["serve"]
+        run = {"path": "glm_sgd_sparse", "compress": compress, "steps": 64,
+               "kill_at": 16, "revive_at": 40, "device": kern["device"],
+               "wall_s": kern["wall_s"], "wall_s_without_serving":
+               alone["wall_s"], "merges": kern["merges"],
+               "holdout_loss": [kern["holdout_loss_start"],
+                                kern["holdout_loss_end"]],
+               "launches": kern["launches"], "serve": srv,
+               "vs_plain": [t["held"] for t in twins]}
+        run["ok"] = bool(
+            kern["device"].startswith("cuda")
+            and kern["holdout_loss_end"] < kern["holdout_loss_start"]
+            and all(h["ok"] for h in run["vs_plain"]) and srv["check"]["ok"]
+            and srv["check"]["versions_in_order"] and srv["thread_done"]
+            and srv["staleness_max"] is not None
+            and srv["staleness_max"] <= srv["bound_steps"]
+            and kern["launches"]["glm_sgd_sparse"] == 64
+            and all(t["launches"]["glm_sgd_sparse"] == 64 for t in twins)
+            and kern["launches"]["glm_score"] == srv["flushes"] > 0)
+        runs.append(run)
+    # the two other replica passes, short: the full-partition sum gradient
+    # (local_batch == per) and a dense stream at covtype's width
+    for path, cfg, stream_kw in (
+            ("glm_sparse", dict(LIVE_CONFIG, local_batch=32), LIVE_STREAM),
+            ("glm_sgd", LIVE_CONFIG, dict(n_batch=256, d=54, dense=True))):
+        twin = _twin(cfg, stream_kw, 8, {}, resync=False)
+        run = {"path": path, "compress": False, "steps": 8,
+               "local_batch": cfg["local_batch"], "d": stream_kw["d"],
+               "launches": twin["launches"], "vs_plain": [twin["held"]]}
+        run["ok"] = bool(twin["held"]["ok"]
+                         and twin["launches"][path] == 8)
+        runs.append(run)
+    return {"phase": "live", "stream": LIVE_STREAM, "config": LIVE_CONFIG,
+            "tol": EPOCH_TOL, "runs": runs, "ok": all(r["ok"] for r in runs)}
+
+
 def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     """Each kernel and its plain version at the main path's shapes: one
-    timed row per kernel, and a check of the two shapes those rows leave
-    out (the replica epochs at the full partition size)."""
+    timed row per kernel (glm_score: a serving batch and all of w8a), and a
+    check of the two shapes those rows leave out (the replica epochs at the
+    full partition size)."""
     import repro_torch.kernels as K
     from repro_torch.core import sgd
     from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_score.ref import glm_score_ref
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
@@ -389,13 +891,18 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     nnz = int((m.values != 0).sum())
     rows = []
 
-    def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol):
+    def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol,
+            library=None, line=True):
         out, ref = kernel(), plain()
         err, ok = close(out, ref, tol)
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, plain_reps)
         b, by = bound_ms(in_bytes, flops)
-        rows.append({"name": name, "route": "cuda",
+        lib = {"library_ms": None}
+        if library is not None:
+            lib = {"library_ms": cuda_ms(library, reps),
+                   "library_max_abs_err": close(library(), ref, tol)[0]}
+        rows.append({"name": name, "route": "cuda", "line": line,
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "replaces": REPLACES[name], "shape": shape,
                      "max_abs_err": err, "ok": ok,
@@ -403,7 +910,7 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
                      "device_ms": kernel_device_ms(device_profile(kernel, reps),
                                                    KERNEL_SYMBOLS[name]),
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None})
+                     **lib})
 
     # SyncSGD() on covtype: the full-batch sum gradient
     row("glm_grad", f"covtype N={n} d={d} row",
@@ -421,14 +928,32 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     row("glm_sgd_sparse", f"w8a N={ns} K={k} d={m.d} R=10 MB=10",
         lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2, micro_batch=10),
         lambda: ell_sgd_epoch_ref("lr", W, vp, ip, yp, 0.2, 10),
-        10, 1, nbytes(vp, ip, yp, W, W), 4.0 * nnz + 8.0 * ns, EPOCH_TOL)
+        10, 1, ell_bytes(vp) + nbytes(yp, W, W), 4.0 * nnz + 8.0 * ns,
+        EPOCH_TOL)
     # SyncSGD() on w8a: the full-batch sparse sum gradient
     row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1",
         lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
         lambda: ell_glm_grad_ref("lr", ws[None], m.values[None], m.indices[None],
                                  ys[None])[0],
-        20, 20, nbytes(m.values, m.indices, ys, ws, ws), 4.0 * nnz + 8.0 * ns,
+        20, 20, ell_bytes(m.values) + nbytes(ys, ws, ws), 4.0 * nnz + 8.0 * ns,
         GRAD_TOL)
+
+    # the serving path: glm_score on one 128-row batch, which is what a
+    # flush launches (the kernels line's row), and on all of w8a.  The
+    # yardstick is one embedding_bag with per-sample weights, which is the
+    # SVM score; the LR score adds a sigmoid, timed with it
+    idx64 = m.indices.long()
+    for rows_n, reps, line in ((128, 200, True), (ns, 20, False)):
+        v, i, i64 = m.values[:rows_n], m.indices[:rows_n], idx64[:rows_n]
+        touched = int(torch.unique(i[v != 0]).numel())
+        row("glm_score", f"w8a N={rows_n} K={k} d={m.d} lr",
+            lambda: K.glm_score("lr", ws, v, i),
+            lambda: glm_score_ref("lr", ws, v, i), reps, reps,
+            ell_bytes(v) + 4 * rows_n + 4 * touched,
+            2.0 * int((v != 0).sum()) + 4.0 * rows_n, GRAD_TOL,
+            library=lambda: torch.sigmoid(torch.nn.functional.embedding_bag(
+                i64, ws.view(-1, 1), per_sample_weights=v, mode="sum"))[:, 0],
+            line=line)
 
     checks = []
 
@@ -483,7 +1008,7 @@ def main() -> int:
           "covtype": list(cov.X.shape), "w8a": [w8.n, w8.d, w8.ell.max_nnz],
           "w8a_nnz": int((w8.ell.values != 0).sum())})
 
-    line, launches = phase_train(covtype, w8a, epochs=4)
+    line, launches, results = phase_train(covtype, w8a, epochs=4)
     emit(line)
     if not line["ok"]:
         return 1
@@ -492,21 +1017,38 @@ def main() -> int:
     if not line["ok"]:
         return 1
 
-    rows, checks = phase_timing(covtype, w8a, worst)
+    # the serving path: w8a under the model SyncSGD ended with, swapped
+    # halfway for the one AsyncLocalSGD(replicas=10, local_batch=10) merged
+    realsim = synthetic.paper_dataset("real-sim", seed=0, max_n=8192,
+                                      device=dev)
+    line, launches["glm_score"] = phase_serve(
+        dev, w8, realsim, results[3].model, results[4].model[0])
+    emit(line)
+    if not line["ok"]:
+        return 1
+    checks = [{"kernel": "glm_score", "max_abs_err": r["check"]["max_abs_err"]}
+              for r in line["runs"]]
+    line = phase_live(dev)
+    emit(line)
+    if not line["ok"]:
+        return 1
+
+    rows, full_checks = phase_timing(covtype, w8a, worst)
+    checks += full_checks
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             c["max_abs_err"] for c in checks if c["kernel"] == r["name"]])
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
-          "full_shape_checks": checks,
+          "full_shape_checks": full_checks,
           "seconds_total": time.perf_counter() - t_start})
-    if not all(r["ok"] for r in rows + checks):
+    if not all(r["ok"] for r in rows + full_checks):
         return 1
 
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"kernels": [{k: r[k] for k in keys} for r in rows if r["line"]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -147,6 +147,8 @@ class RunResult:
     epoch_times: np.ndarray     # [epochs]   wall seconds per epoch
     strategy: str
     task: str
+    #: the final state: w [d] (SyncSGD) or W [R, d] (AsyncLocalSGD)
+    model: torch.Tensor | None = None
 
     def epochs_to(self, target: float) -> int | None:
         """Statistical efficiency: #epochs to reach loss <= target."""
@@ -305,4 +307,5 @@ def run(problem, strategy, epochs: int, *, sparse_data: bool = False) -> RunResu
         epoch_times=np.asarray(times),
         strategy=strategy.name,
         task=task,
+        model=state,
     )

@@ -18,6 +18,7 @@ from repro_torch.kernels.common import (  # noqa: F401
     resolve_backend,
 )
 from repro_torch.kernels.glm_grad import glm_grad  # noqa: F401
+from repro_torch.kernels.glm_score import glm_score  # noqa: F401
 from repro_torch.kernels.glm_sgd import glm_sgd_epoch  # noqa: F401
 from repro_torch.kernels.glm_sgd_sparse import ell_sgd_epoch  # noqa: F401
 from repro_torch.kernels.glm_sparse import ell_glm_grad  # noqa: F401

@@ -21,8 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Callable
 
+import numpy as np
 import torch
 
 CUDA = "cuda"
@@ -44,6 +46,9 @@ _REGISTRY: dict[str, dict[str, Callable]] = {}
 #: launches of each hand-written kernel in this process; a cuda flavor
 #: adds one per kernel launch, nothing else touches it
 LAUNCHES: dict[str, int] = {}
+#: guards LAUNCHES: the live path launches from a learner thread and a
+#: serving thread at once, and ``+=`` on a dict entry is not atomic
+_LAUNCH_LOCK = threading.Lock()
 
 #: inside ``plain_versions()``: CUDA tensors go to the plain versions
 _plain_on_card = False
@@ -128,12 +133,14 @@ def plain_versions():
 
 
 def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def check_smem(kernel: str, nbytes: int, what: str) -> None:
@@ -157,7 +164,33 @@ def check_indices(kernel: str, indices: torch.Tensor, d: int) -> None:
         lo, hi = torch.aminmax(indices)
         if not bool((lo >= 0) & (hi < d)):
             raise ValueError(f"{kernel}: ELL indices must lie in [0, {d})")
-    indices._repro_indices_ok = mark
+    mark_indices_checked(indices, d)
+
+
+def check_host_indices(what: str, indices: np.ndarray, d: int) -> None:
+    """Raise unless every index of the host array ``indices`` lies in
+    [0, d): the check of host data before it is copied to the card."""
+    if indices.size and (indices.min() < 0 or indices.max() >= d):
+        raise ValueError(f"{what}: index out of range [0, {d})")
+
+
+def host_checked_indices(kernel: str, indices: np.ndarray, d: int,
+                         dev: torch.device) -> torch.Tensor:
+    """``indices`` on ``dev`` as int32, checked against [0, d) on the host
+    before the copy, and marked as :func:`check_indices` marks an operand
+    it has read: an operand built from host data each step then costs the
+    card no read and no wait for the check."""
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    check_host_indices(kernel, indices, d)
+    t = torch.from_numpy(indices).to(dev)
+    mark_indices_checked(t, d)
+    return t
+
+
+def mark_indices_checked(indices: torch.Tensor, d: int) -> None:
+    """Record that ``indices`` lies in [0, d), for a caller that checked
+    the host data it was copied from."""
+    indices._repro_indices_ok = (d, indices._version)
 
 
 def plain_fp32(t: torch.Tensor) -> None:

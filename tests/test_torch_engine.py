@@ -61,11 +61,15 @@ def _problems(task, data, sparse_data, step):
     return jp, convert.problem_from_reference(task, X, y, step, CPU)
 
 
-def _both(task, data, jstrat, epochs, step, sparse_data=False):
-    jp, tp = _problems(task, data, sparse_data, step)
-    tstrat = getattr(tsgd, type(jstrat).__name__)(
+def _port_strategy(jstrat):
+    return getattr(tsgd, type(jstrat).__name__)(
         **{f.name: getattr(jstrat, f.name) for f in dataclasses.fields(jstrat)
            if f.name != "kernel_backend"})
+
+
+def _both(task, data, jstrat, epochs, step, sparse_data=False):
+    jp, tp = _problems(task, data, sparse_data, step)
+    tstrat = _port_strategy(jstrat)
     ref = jsgd.run(jp, dataclasses.replace(jstrat,
                                            kernel_backend="pallas-interpret"),
                    epochs, sparse_data=sparse_data)
@@ -125,6 +129,25 @@ def test_run_dense_svm_one_epoch_matches_jax(case, dense):
 def test_run_sparse_svm_one_epoch_matches_jax(case, ell):
     ref, out = _both("svm", ell, case[0], 1, case[1], sparse_data=True)
     np.testing.assert_allclose(out.losses, ref.losses, **TOL)
+
+
+@pytest.mark.parametrize("case", [DENSE_STRATEGIES[1], DENSE_STRATEGIES[3]],
+                         ids=_id)
+def test_run_result_carries_the_final_state(case, dense):
+    """``RunResult.model`` is the state the last loss was taken of, and
+    equals the reference run's final state (the scoring engine serves it)."""
+    jstrat, step = case
+    jp, tp = _problems("lr", dense, False, step)
+    _, out = _both("lr", dense, jstrat, 2, step)
+    init, _, loss_fn, _ = tsgd.make_epoch_fn(tp, _port_strategy(jstrat))
+    assert out.model.shape == init.shape
+    assert float(loss_fn(out.model)) == pytest.approx(out.losses[-1], rel=1e-6)
+    jinit, jepoch, _, _ = jsgd.make_epoch_fn(jp, dataclasses.replace(
+        jstrat, kernel_backend="pallas-interpret"))
+    jstate = jinit
+    for _ in range(2):
+        jstate = jepoch(jstate)
+    np.testing.assert_allclose(out.model.numpy(), np.asarray(jstate), **TOL)
 
 
 @pytest.mark.parametrize("sparse_data", [False, True])

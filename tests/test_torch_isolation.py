@@ -32,8 +32,13 @@ def test_port_has_the_expected_modules():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"core/glm.py", "core/sparse.py", "core/sgd.py",
             "core/convergence.py", "data/synthetic.py", "convert.py",
-            "kernels/common.py", "kernels/_build.py"} <= names
-    for fam in ("glm_sgd", "glm_grad", "glm_sgd_sparse", "glm_sparse"):
+            "kernels/common.py", "kernels/_build.py",
+            "obs/trace.py", "obs/metrics.py", "serve/glm.py",
+            "data/ingest/libsvm.py", "optim/compress.py", "train/fault.py",
+            "live/__init__.py", "live/stream.py", "live/learner.py",
+            "live/publish.py"} <= names
+    for fam in ("glm_sgd", "glm_grad", "glm_sgd_sparse", "glm_sparse",
+                "glm_score"):
         assert {f"kernels/{fam}/ops.py", f"kernels/{fam}/ref.py"} <= names
         assert (PORT / "kernels" / "csrc" / f"{fam}.cu").is_file()
 

@@ -234,7 +234,7 @@ def test_plain_versions_route_cuda_tensors_to_the_plain_version():
 
 def test_every_family_registers_both_flavors():
     assert common.registered_kernels() == (
-        "glm_grad", "glm_sgd", "glm_sgd_sparse", "glm_sparse")
+        "glm_grad", "glm_score", "glm_sgd", "glm_sgd_sparse", "glm_sparse")
     for fam in common.registered_kernels():
         assert common.backends_for(fam) == (common.CUDA, common.TORCH_REFERENCE)
 
@@ -304,8 +304,8 @@ def test_tiling_helpers():
 
 
 def test_build_compiles_each_source_for_sm90a(monkeypatch):
-    assert _build.sources() == ["glm_grad", "glm_sgd", "glm_sgd_sparse",
-                                "glm_sparse"]
+    assert _build.sources() == ["glm_grad", "glm_score", "glm_sgd",
+                                "glm_sgd_sparse", "glm_sparse"]
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     cmd = _build.nvcc_command("glm_sgd", _build.library_path("glm_sgd"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
