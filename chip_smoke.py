@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port (SGD study engine, scoring service and live
-learner) on one NVIDIA card.
+"""Run the PyTorch/CUDA port (SGD study engine, scoring service, live
+learner and LM serving) on one NVIDIA card.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
 Phases, one JSON line each:
 
 1. ``env``     card name and power limit, torch, CUDA, nvcc, triton;
-2. ``build``   compiles the five kernels from src/repro_torch/kernels/csrc
+2. ``build``   compiles the six kernels from src/repro_torch/kernels/csrc
                (one nvcc per source, all at once) and reports ptxas usage;
 3. ``kernels`` holds each kernel against its plain PyTorch version on the
                card: both tasks, both glm_grad layouts, covtype and w8a
                widths, a ragged N, a replica axis, real-sim's width, and
                glm_score at w8a, real-sim and news widths with filler rows
-               that must score link(0) exactly; and that the sparse
-               kernels refuse an index outside [0, d);
+               that must score link(0) exactly; flash_attn at danube's
+               prefill (S=8192, window 4096), a full causal 2048 at
+               minitron's heads, decode rows over ragged cache lengths and
+               small fp32 cases; and that the sparse kernels refuse an
+               index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -35,7 +38,16 @@ Phases, one JSON line each:
                merge (int8: also with the plain learner resynced after each
                merge, and its codes compared); short glm_sparse and dense
                runs;
-7. ``timing``  each kernel and its plain version at the main path's shapes,
+7. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
+               weights from a seeded generator on the card): the serving
+               run of ``repro_torch.launch.serve`` (8 requests, 4 slots,
+               max_new 16, max_len 128) with launch counts zeroed just
+               before and read just after; its logits at every step and
+               its caches held against the same steps through the plain
+               versions, with the same weights in fp32 as the yardstick
+               (``_held_bf16``); a profiled stretch of ticks; and one
+               prefill forward at S=8192 held the same way;
+8. ``timing``  each kernel and its plain version at the main path's shapes,
                and a check of the async replica epochs at the full partition
                size (covtype R=8 B=1, w8a R=10 full partition).
 
@@ -46,6 +58,7 @@ line.  Without a card, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -63,10 +76,18 @@ sys.path.insert(0, str(ROOT / "src"))
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+#: bf16 on the tensor cores, dense (the attention bound counts bf16 work)
+BF16_FLOPS_PER_S = 989e12
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)    # the JAX conformance suite's
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
+#: fp32 attention against its plain version
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+#: bf16 attention: kernel and plain version both compute in fp32 and round
+#: once to bf16, so an element may land one bf16 step apart (at most 2^-7
+#: of its value); atol covers fp32 summation order near zero
+ATTN_BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
 
 REPLACES = {
     "glm_sgd": "src/repro/kernels/glm_sgd/kernel.py:73",
@@ -74,6 +95,7 @@ REPLACES = {
     "glm_sgd_sparse": "src/repro/kernels/glm_sgd_sparse/kernel.py:86",
     "glm_sparse": "src/repro/kernels/glm_sparse/kernel.py:108",
     "glm_score": "src/repro/kernels/glm_score/kernel.py:72",
+    "flash_attn": "src/repro/kernels/flash_attn/kernel.py:110",
 }
 
 
@@ -85,6 +107,7 @@ KERNEL_SYMBOLS = {
     "glm_sgd_sparse": ("ell_sgd_kernel",),
     "glm_sparse": ("ell_grad_kernel",),
     "glm_score": ("glm_score_kernel",),
+    "flash_attn": ("flash_attn_kernel",),
 }
 
 
@@ -151,9 +174,10 @@ def short_name(kernel: str) -> str:
     return name.split("(")[0][:60]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -167,6 +191,64 @@ def ell_bytes(values: torch.Tensor) -> int:
     padding sits at the end of each row, so a kernel that skips value-0
     entries never needs their indices."""
     return nbytes(values) + 4 * int((values != 0).sum())
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs attention computes: query i sits at i + sk - sq
+    and sees key j iff j <= its position (causal) and it is less than
+    ``window`` behind."""
+    pos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_work(q, k, causal, window) -> tuple[int, float]:
+    """Bytes (q, k, v read once, the output written once) and flops (QK^T
+    and P.V over the visible pairs) of one attention call."""
+    b, hq, sq, hd = q.shape
+    pairs = visible_pairs(sq, k.shape[2], causal, window)
+    return 2 * nbytes(q) + 2 * nbytes(k), 4.0 * hd * pairs * b * hq
+
+
+def end_aligned_mask(sq, sk, causal, window, dev) -> torch.Tensor | None:
+    """The reference's visibility as a boolean [sq, sk] mask for
+    ``scaled_dot_product_attention`` (whose ``is_causal`` aligns the
+    first query with the first key); None where every key is visible."""
+    qi = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    kj = torch.arange(sk, device=dev)[None]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= qi - kj < window
+    return None if bool(mask.all()) else mask
+
+
+def _attn_inputs(shape, dtype, dev, seed):
+    """q [B, Hq, Sq, hd], k, v [B, Hkv, Sk, hd] drawn on the card."""
+    b, hq, hkv, sq, sk, hd = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, hq, sq, hd, device=dev, generator=g).to(dtype),
+            torch.randn(b, hkv, sk, hd, device=dev, generator=g).to(dtype),
+            torch.randn(b, hkv, sk, hd, device=dev, generator=g).to(dtype))
+
+
+#: flash_attn cases of phase ``kernels``: (label, (B, Hq, Hkv, Sq, Sk, hd),
+#: dtype, causal, window)
+ATTN_CASES = (
+    ("danube prefill", (1, 32, 8, 8192, 8192, 80), torch.bfloat16, True, 4096),
+    ("full causal, minitron heads", (1, 24, 8, 2048, 2048, 128),
+     torch.bfloat16, True, None),
+    ("decode Sk=1", (4, 32, 8, 1, 1, 80), torch.bfloat16, True, None),
+    ("decode Sk=127", (4, 32, 8, 1, 127, 80), torch.bfloat16, True, None),
+    ("decode Sk=4096", (4, 32, 8, 1, 4096, 80), torch.bfloat16, True, None),
+    ("fp32 ragged Sq<Sk", (2, 4, 2, 5, 37, 16), torch.float32, True, None),
+    ("fp32 acausal GQA 2:1", (2, 6, 3, 7, 40, 24), torch.float32, False, None),
+    ("fp32 window, Sq<Sk", (1, 4, 2, 33, 70, 80), torch.float32, True, 9),
+    ("fp32 acausal window, hd 128", (1, 4, 1, 20, 50, 128), torch.float32,
+     False, 7),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +395,22 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             cases.append({"kernel": "glm_score",
                           "case": f"{task} {label} filler rows == {link0}",
                           "ok": bool((out[::5] == link0).all())})
+    # flash_attn: distinct kv heads throughout (each drawn on its own), so
+    # a kernel that read kv head h % Hkv rather than h // rep would show
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    for n, (label, shape, dtype, causal, window) in enumerate(ATTN_CASES):
+        q, k, v = _attn_inputs(shape, dtype, dev, seed=100 + n)
+        tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+        record("flash_attn", f"{label} {list(shape)} {dtype} causal={causal} "
+               f"window={window}",
+               K.flash_attention(q, k, v, causal=causal, window=window),
+               attention_ref(q, k, v, causal=causal, window=window), tol)
+    # decode's call: the first 77 rows of a 128-row cache, read in place
+    q, kc, vc = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev, 99)
+    record("flash_attn", "decode over a cache prefix, 77 of 128 rows",
+           K.flash_attention(q, kc[:, :, :77], vc[:, :, :77], causal=False),
+           attention_ref(q, kc[:, :, :77], vc[:, :, :77], causal=False),
+           ATTN_BF16_TOL)
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
@@ -868,6 +966,217 @@ def phase_live(dev) -> dict:
             "tol": EPOCH_TOL, "runs": runs, "ok": all(r["ok"] for r in runs)}
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path
+# ---------------------------------------------------------------------------
+
+#: the serving run of phase ``lm``, as ``repro_torch.launch.serve`` takes it
+LM_ARGV = ["--arch", "h2o-danube-1.8b", "--requests", "8", "--slots", "4",
+           "--max-new", "16", "--max-len", "128", "--seed", "0"]
+#: the prefill forward of phase ``lm``: twice danube's window
+LM_PREFILL = 8192
+
+
+#: how much further from the fp32 model the kernel path may stand than the
+#: plain bf16 path does (``_held_bf16``)
+BF16_MODEL_SLACK = 1.5
+
+
+def _held_bf16(out: torch.Tensor, plain: torch.Tensor,
+               fp32: torch.Tensor) -> dict:
+    """A bf16 model output through the kernels against the same output
+    through the plain versions, with the same weights run in fp32 as the
+    yardstick.  The kernel and plain paths differ by where their fp32
+    sums round to bf16 inside attention, and the layers after carry that
+    on, so the two bf16 paths drift apart as far as each drifts from the
+    fp32 model (measured on the card: max |kernel - plain| 0.77-1.0x max
+    |plain - fp32| for danube's logits, caches and hidden states); no fixed
+    tolerance fits every depth and step.  So the limit is the working
+    type's own error: the kernel path must stand no further from the fp32
+    model than BF16_MODEL_SLACK times the plain bf16 path does (the max of
+    two independent roundings varies by tens of percent: measured 0.77-1.04
+    in one run).  A wrong mask or head shows as errors of the logits'
+    own size (about 5)."""
+    err = float((out.float() - plain.float()).abs().max())
+    floor = float((plain.float() - fp32.float()).abs().max())
+    mine = float((out.float() - fp32.float()).abs().max())
+    return {"max_abs_err": err, "bf16_vs_fp32_max_abs_err": floor,
+            "kernel_vs_fp32_max_abs_err": mine, "slack": BF16_MODEL_SLACK,
+            "ok": bool(mine <= BF16_MODEL_SLACK * floor
+                       and torch.isfinite(out).all())}
+
+
+def _lm_profile(fn, ticks: int) -> dict:
+    """Where a decode tick's time goes, from one profiled call of ``fn``
+    (``ticks`` ticks): host ops by self CPU time, aten calls (nested ones
+    included), kernel launches, and device kernels by device time (kernel
+    events only: an op's device time repeats its kernels'), each per
+    tick."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    host = sorted((e for e in ev if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    dev = sorted((e for e in ev if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    return {
+        "host_ms_per_tick": sum(e.self_cpu_time_total for e in host)
+        / 1e3 / ticks,
+        "aten_calls_per_tick": sum(e.count for e in ev
+                                 if e.key.startswith("aten::")) / ticks,
+        "launches_per_tick": sum(e.count for e in ev
+                                 if "LaunchKernel" in e.key) / ticks,
+        "host_top": [[e.key, e.self_cpu_time_total / 1e3 / ticks,
+                      e.count / ticks] for e in host[:12]],
+        "device_ms_per_tick": sum(e.self_device_time_total for e in dev)
+        / 1e3 / ticks,
+        "device_top": [[short_name(e.key), e.self_device_time_total / 1e3
+                        / ticks, e.count / ticks] for e in dev[:8]]}
+
+
+def _record_steps(engine) -> list:
+    """Wrap ``engine._step`` to keep every decode step's tokens, index and
+    logits (the logits tensor each step returns anyway; nothing copied)."""
+    steps, step = [], engine._step
+
+    def recorded(tokens, idx):
+        logits = step(tokens, idx)
+        steps.append((tokens.copy(), idx, logits))
+        return logits
+
+    engine._step = recorded
+    return steps
+
+
+def phase_lm(dev) -> tuple[dict, int]:
+    """Full-width h2o-danube-1.8b: the serving run as the launcher runs it,
+    its logits against the plain versions step by step, a profiled stretch
+    of ticks, and one prefill forward against the plain versions.  Returns
+    the phase line and the serving run's flash_attn launches."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.nn import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    args = serve.parse_args(LM_ARGV)
+    t0 = time.perf_counter()
+    cfg, engine, reqs = serve.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = engine.params
+    steps = _record_steps(engine)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.LAUNCHES["flash_attn"]
+    tokens = sum(len(r.out) for r in done)
+    prompt = sum(len(r.prompt) for r in reqs)
+    run = {"argv": LM_ARGV, "setup_s": setup_s, "device": str(engine.device),
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "requests": len(reqs), "done": len(done), "tokens": tokens,
+           "prompt_tokens": prompt, "decode_steps": engine.steps,
+           "ticks": engine.steps - prompt, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ms_per_step": wall / engine.steps * 1e3,
+           "flash_attn_launches": launches,
+           "expected_launches": cfg.n_layers * engine.steps,
+           "tokens_in_range": all(0 <= t < cfg.vocab
+                                  for r in done for t in r.out)}
+
+    # the same steps (tokens, index) from fresh caches through the plain
+    # versions, in bf16 and with the same weights in fp32 (the limit of
+    # _held_bf16): every step's logits and the final caches compared
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    params32 = copy.deepcopy(params).float()
+    plain, plain32 = (ServeEngine(c, p, slots=args.slots,
+                                  max_len=args.max_len, device=dev)
+                      for c, p in ((cfg, params), (cfg32, params32)))
+    with common.plain_versions():
+        refs = [(plain._step(t, i), plain32._step(t, i)) for t, i, _ in steps]
+    logits = torch.stack([lg for _, _, lg in steps])
+    ref, ref32 = (torch.stack(r) for r in zip(*refs))
+    held = {"logits": _held_bf16(logits, ref, ref32),
+            **{f"cache_{key}": _held_bf16(engine.cache[key], plain.cache[key],
+                                          plain32.cache[key])
+               for key in ("k", "v")}}
+    run["vs_plain"] = {
+        "steps": len(steps), **held,
+        "logits_max_abs_err_by_step": (logits - ref).abs().amax(
+            dim=(1, 2)).tolist(),
+        "logits_max_abs": float(logits.abs().max()),
+        "argmax_differs": int((logits.argmax(-1) != ref.argmax(-1)).sum()),
+        "ok": all(h["ok"] for h in held.values())}
+    del plain, plain32, refs
+
+    # ticks alone, then a profiled stretch of ticks, on 4 live slots
+    stretch = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
+                          device=dev)
+    for i in range(args.slots):
+        stretch.try_admit(Request(100 + i, np.arange(1, 5) + i, max_new=64))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        stretch.tick()
+    torch.cuda.synchronize()
+    run["ms_per_tick"] = (time.perf_counter() - t0) / 16 * 1e3
+    run["profiled_ticks"] = {"ticks": 16, **_busy_stretch(
+        lambda: [stretch.tick() for _ in range(16)])}
+    run["tick_breakdown"] = _lm_profile(
+        lambda: [stretch.tick() for _ in range(4)], 4)
+
+    # one prefill forward at twice the window, kernel against plain
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, LM_PREFILL), device=dev,
+                         generator=g)
+    common.reset_launches()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, cache = transformer.forward(params, cfg, {"tokens": toks},
+                                       mode="prefill")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = common.LAUNCHES["flash_attn"]
+        with common.plain_versions():
+            t0 = time.perf_counter()
+            h_ref, cache_ref = transformer.forward(params, cfg,
+                                                   {"tokens": toks},
+                                                   mode="prefill")
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            h32, cache32 = transformer.forward(params32, cfg32,
+                                               {"tokens": toks},
+                                               mode="prefill")
+    held = {"hidden": _held_bf16(h, h_ref, h32),
+            **{f"cache_{key}": _held_bf16(cache[key], cache_ref[key],
+                                          cache32[key]) for key in ("k", "v")}}
+    prefill = {"B": 1, "S": LM_PREFILL, "window": cfg.window,
+               "wall_s": prefill_s, "plain_wall_s": plain_s,
+               "flash_attn_launches": prefill_launches,
+               "hidden_shape": list(h.shape),
+               "cache_shape": list(cache["k"].shape),
+               "hidden_max_abs": float(h.abs().max()), **held,
+               "ok": bool(all(x["ok"] for x in held.values())
+                          and prefill_launches == cfg.n_layers)}
+    ok = bool(run["device"].startswith("cuda") and run["done"] == len(reqs)
+              and all(r.done for r in reqs) and run["tokens_in_range"]
+              and launches == run["expected_launches"] > 0
+              and run["vs_plain"]["ok"] and prefill["ok"])
+    return {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
+            "window": cfg.window, "dtype": str(cfg.param_dtype),
+            "serve": run, "prefill": prefill, "ok": ok}, launches
+
+
 def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     """Each kernel and its plain version at the main path's shapes: one
     timed row per kernel (glm_score: a serving batch and all of w8a), and a
@@ -892,12 +1201,12 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     rows = []
 
     def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol,
-            library=None, line=True):
+            library=None, line=True, flops_per_s=FP32_FLOPS_PER_S):
         out, ref = kernel(), plain()
         err, ok = close(out, ref, tol)
         ms = cuda_ms(kernel, reps)
         plain_ms = cuda_ms(plain, plain_reps)
-        b, by = bound_ms(in_bytes, flops)
+        b, by = bound_ms(in_bytes, flops, flops_per_s)
         lib = {"library_ms": None}
         if library is not None:
             lib = {"library_ms": cuda_ms(library, reps),
@@ -954,6 +1263,27 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             library=lambda: torch.sigmoid(torch.nn.functional.embedding_bag(
                 i64, ws.view(-1, 1), per_sample_weights=v, mode="sum"))[:, 0],
             line=line)
+
+    # the LM path: flash_attn at the decode shape of phase lm's serving run
+    # (4 slots over a full 128-entry cache; the kernels line's row) and at
+    # its prefill (S=8192, window 4096).  The yardstick is one
+    # scaled_dot_product_attention with enable_gqa and the end-aligned mask
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, shape, causal, window, reps, plain_reps, line in (
+            ("decode", (4, 32, 8, 1, 128, 80), True, None, 200, 50, True),
+            ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
+             5, 2, False)):
+        qa, ka, va = _attn_inputs(shape, torch.bfloat16, X.device, seed=7)
+        mask = end_aligned_mask(shape[3], shape[4], causal, window, X.device)
+        attn_bytes, attn_flops = attn_work(qa, ka, causal, window)
+        row("flash_attn", f"{label} B,Hq,Hkv,Sq,Sk,hd={list(shape)} bf16 "
+            f"causal={causal} window={window}",
+            lambda: K.flash_attention(qa, ka, va, causal=causal, window=window),
+            lambda: attention_ref(qa, ka, va, causal=causal, window=window),
+            reps, plain_reps, attn_bytes, attn_flops, ATTN_BF16_TOL,
+            library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
+            line=line, flops_per_s=BF16_FLOPS_PER_S)
 
     checks = []
 
@@ -1029,6 +1359,10 @@ def main() -> int:
     checks = [{"kernel": "glm_score", "max_abs_err": r["check"]["max_abs_err"]}
               for r in line["runs"]]
     line = phase_live(dev)
+    emit(line)
+    if not line["ok"]:
+        return 1
+    line, launches["flash_attn"] = phase_lm(dev)
     emit(line)
     if not line["ok"]:
         return 1

@@ -17,6 +17,7 @@ from repro_torch.kernels.common import (  # noqa: F401
     reset_launches,
     resolve_backend,
 )
+from repro_torch.kernels.flash_attn import flash_attention  # noqa: F401
 from repro_torch.kernels.glm_grad import glm_grad  # noqa: F401
 from repro_torch.kernels.glm_score import glm_score  # noqa: F401
 from repro_torch.kernels.glm_sgd import glm_sgd_epoch  # noqa: F401

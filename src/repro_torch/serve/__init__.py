@@ -1,1 +1,2 @@
-"""Serving: the GLM scoring engine (:mod:`repro_torch.serve.glm`)."""
+"""Serving: the GLM scoring engine (:mod:`repro_torch.serve.glm`) and the
+LM slot engine (:mod:`repro_torch.serve.engine`)."""

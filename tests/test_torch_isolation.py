@@ -36,9 +36,15 @@ def test_port_has_the_expected_modules():
             "obs/trace.py", "obs/metrics.py", "serve/glm.py",
             "data/ingest/libsvm.py", "optim/compress.py", "train/fault.py",
             "live/__init__.py", "live/stream.py", "live/learner.py",
-            "live/publish.py"} <= names
+            "live/publish.py", "configs/__init__.py", "nn/param.py",
+            "nn/layers.py", "nn/attention.py", "nn/transformer.py",
+            "nn/decode.py", "serve/engine.py", "launch/serve.py"} <= names
+    assert {f"configs/{m}.py" for m in (
+        "minitron_4b", "command_r_35b", "h2o_danube_1_8b", "minitron_8b",
+        "olmoe_1b_7b", "kimi_k2_1t_a32b", "musicgen_large", "zamba2_1_2b",
+        "xlstm_1_3b", "llama_3_2_vision_11b")} <= names
     for fam in ("glm_sgd", "glm_grad", "glm_sgd_sparse", "glm_sparse",
-                "glm_score"):
+                "glm_score", "flash_attn"):
         assert {f"kernels/{fam}/ops.py", f"kernels/{fam}/ref.py"} <= names
         assert (PORT / "kernels" / "csrc" / f"{fam}.cu").is_file()
 

@@ -15,6 +15,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.data import synthetic as jsynthetic
+from repro.kernels.flash_attn import flash_attention as jflash_attention
+from repro.kernels.flash_attn.ref import attention_ref as jattention_ref
 from repro.kernels.glm_grad import glm_grad as jglm_grad
 from repro.kernels.glm_sgd import glm_sgd_epoch as jglm_sgd_epoch
 from repro.kernels.glm_sgd_sparse import ell_sgd_epoch as jell_sgd_epoch
@@ -22,11 +24,13 @@ from repro.kernels.glm_sparse import ell_glm_grad as jell_glm_grad
 
 import repro_torch.kernels as tk
 from repro_torch.kernels import _build, common
+from repro_torch.kernels.flash_attn import ref as attn_ref
 from repro_torch.kernels.glm_sgd_sparse import ops as sgd_sparse_ops
 
 TASKS = ("lr", "svm")
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)     # fp32 attention
 CPU = torch.device("cpu")
 
 
@@ -203,6 +207,7 @@ def _calls():
             "lr", ws, values, indices, ys, step=0.1, **kw),
         "glm_sparse": lambda **kw: tk.ell_glm_grad("lr", ws, values, indices,
                                                    ys, **kw),
+        "flash_attn": lambda: tk.flash_attention(*_t(*_qkv(1, 4, 2, 3, 9, 8))),
     }
 
 
@@ -234,7 +239,8 @@ def test_plain_versions_route_cuda_tensors_to_the_plain_version():
 
 def test_every_family_registers_both_flavors():
     assert common.registered_kernels() == (
-        "glm_grad", "glm_score", "glm_sgd", "glm_sgd_sparse", "glm_sparse")
+        "flash_attn", "glm_grad", "glm_score", "glm_sgd", "glm_sgd_sparse",
+        "glm_sparse")
     for fam in common.registered_kernels():
         assert common.backends_for(fam) == (common.CUDA, common.TORCH_REFERENCE)
 
@@ -299,13 +305,157 @@ def test_tiling_helpers():
 
 
 # ---------------------------------------------------------------------------
+# flash_attn
+# ---------------------------------------------------------------------------
+
+
+def _qkv(b, hq, hkv, sq, sk, hd, seed=0):
+    """Seeded q [B, Hq, Sq, hd], k, v [B, Hkv, Sk, hd]: every kv head its
+    own draw, so a kernel that read the wrong kv head would show."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, hq, sq, hd)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, sk, hd)).astype(np.float32),
+            rng.normal(0, 1, (b, hkv, sk, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,window,block_q,block_k", [
+    (4, 2, 32, 32, True, None, 8, 8),      # causal, GQA 2:1
+    (4, 2, 32, 32, True, 8, 8, 8),         # sliding window, tiles skipped
+    (6, 2, 16, 48, True, 12, 8, 16),       # Sq < Sk (end-aligned), GQA 3:1
+    (4, 1, 16, 32, False, None, 8, 8),     # acausal, one kv head
+    (4, 4, 24, 40, False, 10, 8, 8),       # acausal window
+    (4, 2, 1, 64, True, None, 1, 16),      # decode: Sq = 1, block_q = 1
+])
+def test_flash_attention_matches_jax_kernel(hq, hkv, sq, sk, causal, window,
+                                            block_q, block_k):
+    q, k, v = _qkv(2, hq, hkv, sq, sk, 16)
+    want = jflash_attention(*_j(q, k, v), causal=causal, window=window,
+                            block_q=block_q, block_k=block_k,
+                            backend="pallas-interpret")
+    got = tk.flash_attention(*_t(q, k, v), causal=causal, window=window)
+    assert got.shape == (2, hq, sq, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,hd,causal,window", [
+    (4, 2, 5, 37, 16, True, None),
+    (6, 3, 7, 40, 24, False, None),
+    (4, 2, 33, 70, 80, True, 9),
+    (4, 1, 20, 50, 128, False, 7),
+    (32, 8, 1, 127, 80, True, None),       # danube's heads, one decode row
+    (3, 1, 11, 11, 8, True, 1),            # window 1: each query sees itself
+])
+def test_flash_attention_ragged_matches_jax_reference(hq, hkv, sq, sk, hd,
+                                                      causal, window):
+    """Shapes the Pallas flavor refuses (ragged, odd head dims): the port
+    against the reference's oracle with the kv heads repeated."""
+    q, k, v = _qkv(1, hq, hkv, sq, sk, hd, seed=sk)
+    rep = hq // hkv
+    want = jattention_ref(*_j(q, np.repeat(k, rep, 1), np.repeat(v, rep, 1)),
+                          causal=causal, window=window)
+    got = tk.flash_attention(*_t(q, k, v), causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_flash_attention_query_head_reads_kv_head_h_div_rep():
+    """GQA grouping is the reference's repeat, not a tile: query head h
+    reads kv head h // (Hq / Hkv)."""
+    q, k, v = _t(*_qkv(1, 6, 3, 4, 10, 8, seed=5))
+    out = tk.flash_attention(q, k, v)
+    for h in range(6):
+        one = tk.flash_attention(q[:, h:h + 1], k[:, h // 2:h // 2 + 1],
+                                 v[:, h // 2:h // 2 + 1])
+        torch.testing.assert_close(out[:, h:h + 1], one, rtol=0, atol=0)
+        wrong = tk.flash_attention(q[:, h:h + 1], k[:, h % 3:h % 3 + 1],
+                                   v[:, h % 3:h % 3 + 1])
+        if h // 2 != h % 3:
+            assert not torch.allclose(out[:, h:h + 1], wrong)
+
+
+def test_flash_attention_reads_a_cache_prefix_and_masks_nothing_else():
+    """Decode's call: one query over the first ``valid`` rows of a longer
+    cache equals attention over those rows alone."""
+    q, k, v = _t(*_qkv(2, 4, 2, 1, 12, 16, seed=2))
+    for valid in (1, 5, 12):
+        got = tk.flash_attention(q, k[:, :, :valid], v[:, :, :valid],
+                                 causal=False)
+        want = attn_ref.attention_ref(q, k[:, :, :valid].contiguous(),
+                                      v[:, :, :valid].contiguous(),
+                                      causal=False)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.allclose(tk.flash_attention(q, k[:, :, :1], v[:, :, :1]),
+                          v[:, :, :1].repeat_interleave(2, 1))
+
+
+def test_flash_attention_bf16_rounds_only_the_output():
+    """fp32 inside, the output cast once to bf16 (the Pallas kernel's
+    precision): within one bf16 step of the fp32 result on the same
+    bf16 values."""
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(1, 4, 2, 9, 21, 16)))
+    got = tk.flash_attention(q, k, v, window=6)
+    want = tk.flash_attention(q.float(), k.float(), v.float(), window=6)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               rtol=2 ** -7, atol=1e-5)
+
+
+def test_flash_attention_plain_version_zeroes_a_row_that_sees_no_key():
+    """The l == 0 guard: called directly with more queries than keys, the
+    first queries sit before key 0 and see nothing: 0, not NaN."""
+    q, k, v = _t(*_qkv(1, 2, 1, 3, 1, 8))
+    out = attn_ref.attention_ref(q, k, v, causal=True)
+    assert not out[:, :, :2].any()
+    torch.testing.assert_close(out[:, :, 2], v[:, :, 0].expand(1, 2, 8))
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((1, 3, 4, 8), (1, 2, 4, 8)), "not a multiple of Hkv"),
+    (((1, 4, 5, 8), (1, 2, 4, 8)), "1 <= Sq <= Sk"),
+    (((1, 4, 4, 12), (1, 2, 4, 12)), "head dim 12"),
+    (((1, 4, 4, 136), (1, 2, 4, 136)), "head dim 136"),
+    (((1, 4, 4, 8), (2, 2, 4, 8)), "shapes"),
+])
+def test_flash_attention_rejects_bad_shapes(shapes, match):
+    (qs, ks) = shapes
+    q, k = torch.zeros(qs), torch.zeros(ks)
+    with pytest.raises(ValueError, match=match):
+        tk.flash_attention(q, k, k)
+
+
+def test_flash_attention_rejects_mixed_dtypes_window_and_grad():
+    q, k, v = _t(*_qkv(1, 4, 2, 3, 5, 8))
+    with pytest.raises(ValueError, match="share one dtype"):
+        tk.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="share one dtype"):
+        tk.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        tk.flash_attention(q, k, v, window=0)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        tk.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert torch.isfinite(tk.flash_attention(q, k, v)).all()
+
+
+def test_flash_attention_dispatches_on_the_device_alone(monkeypatch):
+    """No backend argument: CPU tensors run the plain version; naming the
+    kernel for them through the port's variable raises."""
+    q, k, v = _t(*_qkv(1, 4, 2, 3, 5, 8))
+    with pytest.raises(TypeError):
+        tk.flash_attention(q, k, v, backend=common.TORCH_REFERENCE)
+    monkeypatch.setenv(common.ENV_BACKEND, common.CUDA)
+    with pytest.raises(RuntimeError, match="cannot take tensors on cpu"):
+        tk.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
 # Build
 # ---------------------------------------------------------------------------
 
 
 def test_build_compiles_each_source_for_sm90a(monkeypatch):
-    assert _build.sources() == ["glm_grad", "glm_score", "glm_sgd",
-                                "glm_sgd_sparse", "glm_sparse"]
+    assert _build.sources() == ["flash_attn", "glm_grad", "glm_score",
+                                "glm_sgd", "glm_sgd_sparse", "glm_sparse"]
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     cmd = _build.nvcc_command("glm_sgd", _build.library_path("glm_sgd"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
