@@ -13,11 +13,16 @@ Phases, one JSON line each:
                card: both tasks, both glm_grad layouts, covtype and w8a
                widths, a ragged N, a replica axis, real-sim's width, and
                glm_score at w8a, real-sim and news widths with filler rows
-               that must score link(0) exactly; flash_attn at danube's
+               that must score link(0) exactly; glm_sgd at d = 3, 54, 300,
+               1024 and 1025 (both variants), micro-batches 1 to 64 with
+               ragged tails, 1, 8 and 10 replicas; flash_attn at danube's
                prefill (S=8192, window 4096), a full causal 2048 at
-               minitron's heads, decode rows over ragged cache lengths and
-               small fp32 cases; and that the sparse kernels refuse an
-               index outside [0, d);
+               minitron's heads, the tensor-core variant's edges (rep 3 with
+               a ragged S, padded head dims, a query chunk over a longer
+               cache, a window inside one key tile, acausal, exactly 16
+               rows, rows that see no key), decode rows over ragged cache
+               lengths and small fp32 cases; and that the sparse kernels
+               refuse an index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -47,12 +52,15 @@ Phases, one JSON line each:
                versions, with the same weights in fp32 as the yardstick
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
-8. ``timing``  each kernel and its plain version at the main path's shapes,
-               and a check of the async replica epochs at the full partition
-               size (covtype R=8 B=1, w8a R=10 full partition).
+8. ``timing``  each kernel and its plain version at the main path's shapes
+               (glm_sgd also at covtype R=8 B=1), with the variant each row
+               ran and its device time (profiler, or a CUDA event pair
+               around one call where the profiler saw no launch), and a
+               check of w8a's R=10 full-partition gradient.
 
 It then prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(launches on the main path, error, times, bound) and, last,
+(launches on the main path, error, times, bound, variant: flash_attn has a
+row for each of its kernels) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a card, or without the repository beside it, it fails.
 """
@@ -99,16 +107,22 @@ REPLACES = {
 }
 
 
-#: the __global__ functions each wrapper launches (csrc/<name>.cu)
+#: the __global__ functions each wrapper launches (csrc/<name>.cu), by the
+#: variant its ops.variant() picks (None: the family has one)
 KERNEL_SYMBOLS = {
-    "glm_sgd": ("glm_sgd_kernel",),
-    "glm_grad": ("glm_grad_row_kernel", "glm_grad_col_kernel",
-                 "glm_grad_reduce_kernel"),
-    "glm_sgd_sparse": ("ell_sgd_kernel",),
-    "glm_sparse": ("ell_grad_kernel",),
-    "glm_score": ("glm_score_kernel",),
-    "flash_attn": ("flash_attn_kernel",),
+    "glm_sgd": {"warp": ("glm_sgd_warp_kernel",),
+                "smem": ("glm_sgd_kernel",)},
+    "glm_grad": {None: ("glm_grad_row_kernel", "glm_grad_col_kernel",
+                        "glm_grad_reduce_kernel")},
+    "glm_sgd_sparse": {None: ("ell_sgd_kernel",)},
+    "glm_sparse": {None: ("ell_grad_kernel",)},
+    "glm_score": {None: ("glm_score_kernel",)},
+    "flash_attn": {"mma": ("flash_attn_mma_kernel",),
+                   "simt": ("flash_attn_kernel",)},
 }
+#: cycles the card spins before an event-timed call (about 1 ms at the
+#: H100's 1.98 GHz boost), longer than the host takes to enqueue the call
+SLEEP_CYCLES = 2_000_000
 
 
 def emit(obj) -> None:
@@ -145,27 +159,63 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_profile(fn, reps: int) -> dict[str, tuple[float, int]]:
     """Device time of the kernels ``fn`` runs, from ``torch.profiler`` over
-    ``reps`` calls after one warm-up call: name -> (total ms, launches)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``reps`` calls: name -> (total ms, launches).  The trace opens with a
+    warm-up step of ``reps`` calls whose records it discards: a trace's
+    first launches can go unrecorded (seen on the card: the first 8 to 17
+    launches of a window, all of them when a window held 3 to 10 long
+    ones), so the step that counts starts after them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends, the counted one starts
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        # leaving the block ends the counted step: a step() here would
+        # start a new cycle and clear its records
     return {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
-def kernel_device_ms(prof: dict[str, tuple[float, int]], names: tuple[str, ...]):
-    """Device ms of one call: the mean time of each kernel whose name holds
-    one of ``names``, summed (each runs once a call).  The mean over the
-    launches the profiler recorded, since a trace may miss one.  None when
-    the profiler saw none of them."""
-    hits = [ms / count for key, (ms, count) in prof.items()
+def event_device_ms(fn) -> float:
+    """Device ms of one call of ``fn`` from a CUDA event pair around it,
+    with the card kept busy by a spin kernel while the host enqueues the
+    call, so the pair holds the call's device work and no host time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def kernel_device_time(fn, reps: int, names: tuple[str, ...]) -> dict:
+    """Device ms of one call of ``fn``: from ``torch.profiler`` over
+    ``reps`` calls (the mean time of each kernel whose name holds one of
+    ``names``, summed: each runs once a call; the mean over the launches
+    the trace recorded), or, where the trace recorded none of them, from
+    ``event_device_ms``.  Also how many launches the trace recorded of the
+    ``reps`` calls."""
+    prof = device_profile(fn, reps)
+    hits = [(ms, count) for key, (ms, count) in prof.items()
             if any(n in key for n in names)]
-    return sum(hits) if hits else None
+    out = {"profiled_calls": reps,
+           "profiler_launches": sum(count for _, count in hits)}
+    if hits:
+        return {"device_ms": sum(ms / count for ms, count in hits),
+                "device_ms_from": "profiler", **out}
+    return {"device_ms": event_device_ms(fn), "device_ms_from": "events",
+            **out}
 
 
 def short_name(kernel: str) -> str:
@@ -248,6 +298,20 @@ ATTN_CASES = (
     ("fp32 window, Sq<Sk", (1, 4, 2, 33, 70, 80), torch.float32, True, 9),
     ("fp32 acausal window, hd 128", (1, 4, 1, 20, 50, 128), torch.float32,
      False, 7),
+    # the tensor-core variant's edges
+    ("rep 3, ragged S", (1, 24, 8, 1000, 1000, 128), torch.bfloat16, True,
+     None),
+    ("hd 72, depth padded to 80", (2, 8, 2, 300, 300, 72), torch.bfloat16,
+     True, None),
+    ("hd 120, window", (1, 8, 8, 200, 200, 120), torch.bfloat16, True, 50),
+    ("query chunk over a longer cache", (2, 32, 8, 37, 900, 80),
+     torch.bfloat16, True, 256),
+    ("window 7 inside one key tile", (1, 4, 1, 500, 500, 64), torch.bfloat16,
+     True, 7),
+    ("acausal bf16", (2, 12, 4, 130, 200, 80), torch.bfloat16, False, None),
+    ("16 rows: the smallest mma call", (1, 4, 1, 4, 40, 32), torch.bfloat16,
+     True, None),
+    ("15 rows: simt", (1, 5, 1, 3, 40, 32), torch.bfloat16, True, None),
 )
 
 
@@ -395,16 +459,49 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             cases.append({"kernel": "glm_score",
                           "case": f"{task} {label} filler rows == {link0}",
                           "ok": bool((out[::5] == link0).all())})
+    # glm_sgd at both variants' edges: skin's and covtype's widths, 300,
+    # the warp kernel's widest and one past it (the shared-memory kernel);
+    # micro-batches 1 to 64 (one butterfly, or rows in chunks); n = 1037,
+    # 203 and 130 leave a ragged tail at every micro-batch above 1
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    for d in (3, 54, 300, sgd_ops.WARP_MAX_D, sgd_ops.WARP_MAX_D + 1):
+        for mb in (1, 10, 16, 64):
+            for n, reps in ((1037, 1), (203, 8), (130, 10)):
+                X, y, w = _dense_inputs(rng, n * reps, d, dev)
+                Xr, yr = X.reshape(reps, n, d), y.reshape(reps, n)
+                W = w[None] * torch.linspace(
+                    -1.0, 1.0, reps, device=dev)[:, None]
+                record("glm_sgd", f"lr d={d} mb={mb} R={reps} per={n} "
+                       f"{sgd_ops.variant(d, mb)}",
+                       K.glm_sgd_epoch("lr", W, Xr, yr, step=0.05,
+                                       micro_batch=mb),
+                       glm_sgd_epoch_ref("lr", W, Xr, yr, 0.05, mb), EPOCH_TOL)
     # flash_attn: distinct kv heads throughout (each drawn on its own), so
     # a kernel that read kv head h % Hkv rather than h // rep would show
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
     for n, (label, shape, dtype, causal, window) in enumerate(ATTN_CASES):
         q, k, v = _attn_inputs(shape, dtype, dev, seed=100 + n)
         tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+        kind = attn_ops.variant(dtype, shape[3], shape[1] // shape[2])
         record("flash_attn", f"{label} {list(shape)} {dtype} causal={causal} "
-               f"window={window}",
+               f"window={window} {kind}",
                K.flash_attention(q, k, v, causal=causal, window=window),
                attention_ref(q, k, v, causal=causal, window=window), tol)
+    # rows that see no key: with Sq > Sk the first Sq - Sk queries sit
+    # before key 0 (the l == 0 guard gives 0).  The public wrapper refuses
+    # Sq > Sk, so the cuda flavor is called directly, in both variants
+    for dtype, tol in ((torch.bfloat16, ATTN_BF16_TOL),
+                       (torch.float32, ATTN_TOL)):
+        q, k, v = _attn_inputs((1, 8, 2, 100, 40, 80), dtype, dev, seed=98)
+        out = attn_ops._flash_attn_cuda(q, k, v, causal=True, window=None)
+        kind = attn_ops.variant(dtype, 100, 4)
+        record("flash_attn", f"rows that see no key, Sq=100 > Sk=40 {dtype} "
+               f"{kind}", out, attention_ref(q, k, v, causal=True,
+                                             window=None), tol)
+        cases.append({"kernel": "flash_attn",
+                      "case": f"the 60 rows before key 0 are 0 ({kind})",
+                      "ok": bool((out[:, :, :60] == 0).all())})
     # decode's call: the first 77 rows of a 128-row cache, read in place
     q, kc, vc = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev, 99)
     record("flash_attn", "decode over a cache prefix, 77 of 128 rows",
@@ -501,12 +598,20 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
             t = res.time_to(target)
             r["time_to_1pct_ms"] = None if t is None else t * 1e3
     # where an epoch's time goes: device busy time by kernel, one more epoch
-    # each (after the launch counts were read)
+    # each (after the launch counts were read); where the trace recorded no
+    # kernel of the path, the device time of the epoch from an event pair
+    symbols = [n for k in TRAIN_KERNELS for v in KERNEL_SYMBOLS[k].values()
+               for n in v]
     for run, (_, problem, strat, sparse_data) in zip(runs, main_path(covtype, w8a)):
         init, epoch_fn, _, _ = sgd.make_epoch_fn(problem, strat,
                                                   sparse_data=sparse_data)
         prof = device_profile(lambda: epoch_fn(init), 1)
-        run["device_busy_ms"] = sum(ms for ms, _ in prof.values())
+        if any(n in key for key in prof for n in symbols):
+            run["device_busy_ms"] = sum(ms for ms, _ in prof.values())
+            run["device_busy_from"] = "profiler"
+        else:
+            run["device_busy_ms"] = event_device_ms(lambda: epoch_fn(init))
+            run["device_busy_from"] = "events"
         run["device_idle_share"] = 1.0 - run["device_busy_ms"] / run["ms_per_epoch"]
         run["device_ms_by_kernel"] = {
             short_name(key): ms for key, (ms, _) in
@@ -1055,12 +1160,14 @@ def _record_steps(engine) -> list:
     return steps
 
 
-def phase_lm(dev) -> tuple[dict, int]:
+def phase_lm(dev) -> tuple[dict, int, int]:
     """Full-width h2o-danube-1.8b: the serving run as the launcher runs it,
     its logits against the plain versions step by step, a profiled stretch
     of ticks, and one prefill forward against the plain versions.  Returns
-    the phase line and the serving run's flash_attn launches."""
+    the phase line, the serving run's flash_attn launches (decode: the
+    ``simt`` kernel) and the prefill forward's (the ``mma`` kernel)."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import serve
     from repro_torch.nn import transformer
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1068,6 +1175,7 @@ def phase_lm(dev) -> tuple[dict, int]:
     args = serve.parse_args(LM_ARGV)
     t0 = time.perf_counter()
     cfg, engine, reqs = serve.setup(args)
+    rep = cfg.n_heads // cfg.n_kv
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     params = engine.params
@@ -1088,6 +1196,7 @@ def phase_lm(dev) -> tuple[dict, int]:
            "tokens_per_s": tokens / wall,
            "ms_per_step": wall / engine.steps * 1e3,
            "flash_attn_launches": launches,
+           "flash_attn_variant": attn_ops.variant(cfg.param_dtype, 1, rep),
            "expected_launches": cfg.n_layers * engine.steps,
            "tokens_in_range": all(0 <= t < cfg.vocab
                                   for r in done for t in r.out)}
@@ -1159,33 +1268,41 @@ def phase_lm(dev) -> tuple[dict, int]:
     held = {"hidden": _held_bf16(h, h_ref, h32),
             **{f"cache_{key}": _held_bf16(cache[key], cache_ref[key],
                                           cache32[key]) for key in ("k", "v")}}
+    kind = attn_ops.variant(cfg.param_dtype, LM_PREFILL, rep)
     prefill = {"B": 1, "S": LM_PREFILL, "window": cfg.window,
                "wall_s": prefill_s, "plain_wall_s": plain_s,
                "flash_attn_launches": prefill_launches,
+               "flash_attn_variant": kind,
                "hidden_shape": list(h.shape),
                "cache_shape": list(cache["k"].shape),
                "hidden_max_abs": float(h.abs().max()), **held,
                "ok": bool(all(x["ok"] for x in held.values())
-                          and prefill_launches == cfg.n_layers)}
+                          and prefill_launches == cfg.n_layers
+                          and kind == "mma")}
     ok = bool(run["device"].startswith("cuda") and run["done"] == len(reqs)
               and all(r.done for r in reqs) and run["tokens_in_range"]
               and launches == run["expected_launches"] > 0
+              and run["flash_attn_variant"] == "simt"
               and run["vs_plain"]["ok"] and prefill["ok"])
     return {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
             "window": cfg.window, "dtype": str(cfg.param_dtype),
-            "serve": run, "prefill": prefill, "ok": ok}, launches
+            "serve": run, "prefill": prefill, "ok": ok}, launches, \
+        prefill_launches
 
 
 def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     """Each kernel and its plain version at the main path's shapes: one
-    timed row per kernel (glm_score: a serving batch and all of w8a), and a
-    check of the two shapes those rows leave out (the replica epochs at the
-    full partition size)."""
+    timed row per kernel and variant (glm_score: a serving batch and all of
+    w8a; glm_sgd: SyncSGD(batch=16) and the R=8 B=1 replica epochs; the
+    kernels line takes the rows marked ``line``), and a check of w8a's R=10
+    full-partition gradient, the one shape those rows leave out."""
     import repro_torch.kernels as K
     from repro_torch.core import sgd
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.glm_grad.ref import glm_grad_ref
     from repro_torch.kernels.glm_score.ref import glm_score_ref
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
@@ -1201,7 +1318,10 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     rows = []
 
     def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol,
-            library=None, line=True, flops_per_s=FP32_FLOPS_PER_S):
+            library=None, line=None, flops_per_s=FP32_FLOPS_PER_S,
+            variant=None, updates=None):
+        """``line``: the row's name in the kernels line (None: not there);
+        ``updates``: the dependent updates of a fused epoch's chain."""
         out, ref = kernel(), plain()
         err, ok = close(out, ref, tol)
         ms = cuda_ms(kernel, reps)
@@ -1211,25 +1331,44 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
         if library is not None:
             lib = {"library_ms": cuda_ms(library, reps),
                    "library_max_abs_err": close(library(), ref, tol)[0]}
+        symbols = KERNEL_SYMBOLS[name][variant]
+        dev_time = kernel_device_time(kernel, reps, symbols)
+        if updates is not None:
+            dev_time["us_per_update"] = ms * 1e3 / updates
+            dev_time["device_us_per_update"] = \
+                dev_time["device_ms"] * 1e3 / updates
         rows.append({"name": name, "route": "cuda", "line": line,
+                     "variant": "/".join(symbols),
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "replaces": REPLACES[name], "shape": shape,
                      "max_abs_err": err, "ok": ok,
-                     "check_max_abs_err": worst[name], "ms": ms,
-                     "device_ms": kernel_device_ms(device_profile(kernel, reps),
-                                                   KERNEL_SYMBOLS[name]),
+                     "check_max_abs_err": worst[name], "ms": ms, **dev_time,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      **lib})
 
     # SyncSGD() on covtype: the full-batch sum gradient
     row("glm_grad", f"covtype N={n} d={d} row",
         lambda: K.glm_grad("lr", w, X, yd), lambda: glm_grad_ref("lr", w, X, yd),
-        20, 20, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL)
+        20, 20, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
+        line="glm_grad")
     # SyncSGD(batch=16) on covtype: one fused epoch, 36,314 updates
     row("glm_sgd", f"covtype N={n} d={d} MB=16 R=1",
         lambda: K.glm_sgd_epoch("lr", w, X, yd, step=0.01, micro_batch=16),
         lambda: glm_sgd_epoch_ref("lr", w[None], X[None], yd[None], 0.01, 16)[0],
-        3, 1, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, EPOCH_TOL)
+        3, 1, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, EPOCH_TOL,
+        line="glm_sgd", variant=sgd_ops.variant(d, 16), updates=-(-n // 16))
+    # AsyncLocalSGD(replicas=8, local_batch=1) on covtype: 72,626 updates
+    # per replica, replicas 125 MB apart
+    parts8 = torch.from_numpy(sgd.partition_indices(n, 8)).to(X.device).long()
+    Xp, ydp = X[parts8], yd[parts8]
+    W8 = w[None] * torch.linspace(-1.0, 1.0, 8, device=X.device)[:, None]
+    per = Xp.shape[1]
+    row("glm_sgd", f"covtype R=8 per={per} d={d} MB=1",
+        lambda: K.glm_sgd_epoch("lr", W8, Xp, ydp, step=1e-3, micro_batch=1),
+        lambda: glm_sgd_epoch_ref("lr", W8, Xp, ydp, 1e-3, 1),
+        3, 1, nbytes(Xp, ydp, W8, W8), 4.0 * Xp.numel() + 8.0 * 8 * per,
+        EPOCH_TOL, variant=sgd_ops.variant(d, 1), updates=per)
+    del Xp
     # AsyncLocalSGD(replicas=10, local_batch=10) on w8a: replica epochs
     parts = torch.from_numpy(sgd.partition_indices(ns, 10)).to(X.device).long()
     vp, ip, yp = m.values[parts], m.indices[parts], ys[parts]
@@ -1238,21 +1377,21 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
         lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2, micro_batch=10),
         lambda: ell_sgd_epoch_ref("lr", W, vp, ip, yp, 0.2, 10),
         10, 1, ell_bytes(vp) + nbytes(yp, W, W), 4.0 * nnz + 8.0 * ns,
-        EPOCH_TOL)
+        EPOCH_TOL, line="glm_sgd_sparse", updates=-(-vp.shape[1] // 10))
     # SyncSGD() on w8a: the full-batch sparse sum gradient
     row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1",
         lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
         lambda: ell_glm_grad_ref("lr", ws[None], m.values[None], m.indices[None],
                                  ys[None])[0],
         20, 20, ell_bytes(m.values) + nbytes(ys, ws, ws), 4.0 * nnz + 8.0 * ns,
-        GRAD_TOL)
+        GRAD_TOL, line="glm_sparse")
 
     # the serving path: glm_score on one 128-row batch, which is what a
     # flush launches (the kernels line's row), and on all of w8a.  The
     # yardstick is one embedding_bag with per-sample weights, which is the
     # SVM score; the LR score adds a sigmoid, timed with it
     idx64 = m.indices.long()
-    for rows_n, reps, line in ((128, 200, True), (ns, 20, False)):
+    for rows_n, reps, line in ((128, 200, "glm_score"), (ns, 20, None)):
         v, i, i64 = m.values[:rows_n], m.indices[:rows_n], idx64[:rows_n]
         touched = int(torch.unique(i[v != 0]).numel())
         row("glm_score", f"w8a N={rows_n} K={k} d={m.d} lr",
@@ -1265,15 +1404,17 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             line=line)
 
     # the LM path: flash_attn at the decode shape of phase lm's serving run
-    # (4 slots over a full 128-entry cache; the kernels line's row) and at
-    # its prefill (S=8192, window 4096).  The yardstick is one
-    # scaled_dot_product_attention with enable_gqa and the end-aligned mask
+    # (4 slots over a full 128-entry cache: the simt kernel) and at its
+    # prefill (S=8192, window 4096: the mma kernel), each in the kernels
+    # line.  The yardstick is one scaled_dot_product_attention with
+    # enable_gqa and the end-aligned mask
     from repro_torch.kernels.flash_attn.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for label, shape, causal, window, reps, plain_reps, line in (
-            ("decode", (4, 32, 8, 1, 128, 80), True, None, 200, 50, True),
+            ("decode", (4, 32, 8, 1, 128, 80), True, None, 200, 50,
+             "flash_attn"),
             ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
-             5, 2, False)):
+             20, 2, "flash_attn_mma")):
         qa, ka, va = _attn_inputs(shape, torch.bfloat16, X.device, seed=7)
         mask = end_aligned_mask(shape[3], shape[4], causal, window, X.device)
         attn_bytes, attn_flops = attn_work(qa, ka, causal, window)
@@ -1283,7 +1424,9 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             lambda: attention_ref(qa, ka, va, causal=causal, window=window),
             reps, plain_reps, attn_bytes, attn_flops, ATTN_BF16_TOL,
             library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
-            line=line, flops_per_s=BF16_FLOPS_PER_S)
+            line=line, flops_per_s=BF16_FLOPS_PER_S,
+            variant=attn_ops.variant(torch.bfloat16, shape[3],
+                                     shape[1] // shape[2]))
 
     checks = []
 
@@ -1292,15 +1435,6 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
         checks.append({"kernel": name, "shape": shape, "max_abs_err": err,
                        "tol": tol, "ok": ok})
 
-    # AsyncLocalSGD(replicas=8, local_batch=1) on covtype: 72,626 updates
-    # per replica, replicas 125 MB apart
-    parts8 = torch.from_numpy(sgd.partition_indices(n, 8)).to(X.device).long()
-    Xp, ydp = X[parts8], yd[parts8]
-    W8 = w[None] * torch.linspace(-1.0, 1.0, 8, device=X.device)[:, None]
-    check("glm_sgd", f"covtype R=8 per={Xp.shape[1]} d={d} MB=1",
-          K.glm_sgd_epoch("lr", W8, Xp, ydp, step=1e-3, micro_batch=1),
-          glm_sgd_epoch_ref("lr", W8, Xp, ydp, 1e-3, 1), EPOCH_TOL)
-    del Xp
     # AsyncLocalSGD(replicas=10, local_batch=per) on w8a: the full-partition
     # sum gradient over the replica axis
     check("glm_sparse", f"w8a R=10 per={vp.shape[1]} K={k} d={m.d}",
@@ -1362,17 +1496,20 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    line, launches["flash_attn"] = phase_lm(dev)
+    line, launches["flash_attn"], launches["flash_attn_mma"] = phase_lm(dev)
     emit(line)
     if not line["ok"]:
         return 1
 
     rows, full_checks = phase_timing(covtype, w8a, worst)
     checks += full_checks
+    # a kernels-line row's error: the worst of its kernel's rows and checks
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["max_abs_err"] = max([r["max_abs_err"]] + [
-            c["max_abs_err"] for c in checks if c["kernel"] == r["name"]])
+        r["launches"] = launches[r["line"]] if r["line"] else None
+        r["max_abs_err"] = max(
+            [o["max_abs_err"] for o in rows
+             if (o["name"], o["variant"]) == (r["name"], r["variant"])]
+            + [c["max_abs_err"] for c in checks if c["kernel"] == r["name"]])
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "full_shape_checks": full_checks,
           "seconds_total": time.perf_counter() - t_start})
@@ -1380,9 +1517,10 @@ def main() -> int:
         return 1
 
     print(smi)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows if r["line"]]})
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "variant")
+    emit({"kernels": [{"name": r["line"], **{k: r[k] for k in keys}}
+                      for r in rows if r["line"]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,49 +2,89 @@
 // sliding-window masks, queries end-aligned with keys.
 //
 // Replaces: flash_attention_pallas (src/repro/kernels/flash_attn/kernel.py:91,
-//   body _kernel l.27), which keeps a [TQ, hd] query tile in VMEM while
-//   [TK, hd] key/value tiles stream through, carries the running max,
-//   normaliser and accumulator in VMEM scratch across the sequential k axis
-//   of its grid, and skips key tiles no query of the tile can see.  Its
-//   scores, m, l, accumulator and P.V are fp32; only the output is cast to
-//   the input's dtype.  This kernel computes the same function: query i
-//   (at position i + Sk - Sq) sees key j iff j <= i + Sk - Sq (causal) and
-//   i + Sk - Sq - j < window (when a window is set); scale 1/sqrt(hd);
-//   out = acc / l, or acc / 1 where l == 0 (a row that sees no key gives 0).
+//   body _kernel l.27, pallas_call l.110), which keeps a [TQ, hd] query tile
+//   in VMEM while [TK, hd] key/value tiles stream through, carries the
+//   running max, normaliser and accumulator in VMEM scratch across the
+//   sequential k axis of its grid, and skips key tiles no query of the tile
+//   can see.  Its QK^T takes the operands' dtype into fp32 (l.65); scores,
+//   m, l, the accumulator and P (fp32 into jnp.dot(p, v), l.81) are fp32;
+//   only the output is cast to the input's dtype.  Both kernels here compute
+//   the same function: query i (at position i + Sk - Sq) sees key j iff
+//   j <= i + Sk - Sq (causal) and i + Sk - Sq - j < window (when a window is
+//   set); scale 1/sqrt(hd); out = acc / l, or acc / 1 where l == 0 (a row
+//   that sees no key gives 0).
 //
-// What bounds it on the H100: prefill (Sq = Sk) is bound by operations:
-//   4 * hd bf16 flops per visible (query, key) pair, at 989 TFLOP/s on the
-//   tensor cores; with danube's window of 4096 a query sees at most 4096
-//   keys, so prefill costs O(S * window), not O(S^2).  Decode (Sq = 1) is
-//   bound by bytes: the K/V rows it reads, at 3.35 TB/s.
+// Rows: a row is a (query position i, query head of the kv head's group)
+//   pair, the head fastest, so the rep = Hq / Hkv query heads that read one
+//   kv head share every K/V tile a block stages: query head h reads kv head
+//   h / rep (the reference's jnp.repeat), never materialised.  One block per
+//   (batch, kv head, tile of rows).  A block loads only the keys its rows
+//   can see, [k_begin, k_end) from the causal and window bounds of its first
+//   and last row (the Pallas kernel's tile skipping, at key granularity).
 //
-// Design (simple first; fp32 everywhere inside, as the Pallas kernel):
-// - One block per (batch, kv head, tile of query rows).  A row is a (query
-//   position i, query head of the kv head's group) pair, the head fastest,
-//   so the rep = Hq / Hkv query heads that read one kv head share every K/V
-//   tile the block stages: query head h reads kv head h / rep (the
-//   reference's jnp.repeat), and the repeat is never materialised.
-// - Four warps; each owns RPW rows.  The tile height follows the work:
-//   RPW = 1 when the block's rows fit one per warp (decode: Sq = 1 gives
-//   rep rows, so a block per (batch, kv head) with no idle row slots), else
-//   RPW = 8 (32 rows a block).
-// - The block loads only the keys its rows can see: [k_begin, k_end) from
-//   the causal and window bounds of its first and last row (the Pallas
-//   kernel's tile skipping, at key granularity).  32-key K and V tiles are
-//   staged in shared memory as fp32, rows padded to hd + 4 floats so the
-//   lanes' 16-byte reads of 8 different rows hit distinct banks.
-// - Scores: lane j owns key k0 + j and dots it with the warp's rows (query
-//   rows are read from shared memory as broadcasts).  The online softmax
-//   takes the tile max with warp shuffles; each lane keeps a partial l,
-//   summed once at the end.  P goes to shared memory; P.V then has lane c
-//   own output columns c, c + 32, ... (up to hd <= 128), accumulated in
-//   registers across tiles.
-// - Any Sq <= Sk and any Sk: ragged key tiles are masked by their length,
-//   ragged row tiles by the row count; nothing is padded.
-// Left for later: tensor cores (wgmma, or mma.sync), TMA loads into a ring
-//   of tiles, and a split over keys for decode (a decode block walks all of
-//   its keys alone, and B * Hkv blocks do not fill 132 SMs).
+// Two kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep)
+// and passed in as `variant`:
+//
+// flash_attn_mma_kernel (bf16 operands and Sq * rep >= 16 rows: prefill and
+//   any chunk of queries).  Bound on the H100 by bf16 operations: 4 * hd
+//   flops per visible (query, key) pair at 989 TFLOP/s on the tensor cores;
+//   with danube's window of 4096 a query sees at most 4096 keys, so prefill
+//   costs O(S * window).  Design:
+//   - mma.sync.m16n8k16 with bf16 operands and fp32 accumulators; 4 warps of
+//     16 rows each, so a block has 64 rows.  Q's A fragments are loaded once
+//     with ldmatrix and stay in registers; K's B fragments come from
+//     ldmatrix, V's from ldmatrix.trans.
+//   - The S accumulator of QK^T is reused in registers as P.V's A fragment
+//     (FlashAttention-2), so P never goes to shared memory.  P stays
+//     fp32-grade: each fp32 P fragment is split into hi = bf16(P) and
+//     lo = bf16(P - hi), and both go through an MMA against the same V
+//     fragment (V is exact in bf16, the sum fp32): P's error is near 2^-17
+//     of its value, where one bf16 P would add up to 2^-9 of |v| and eat the
+//     output's one-bf16-step tolerance.  The split costs 1.5x the MMAs of a
+//     plain bf16 kernel: the price of computing what the TPU kernel does.
+//   - K and V tiles of 64 keys stay bf16 in shared memory, in a ring of two
+//     stages filled by cp.async (16 bytes a thread), so the next tile's copy
+//     overlaps this tile's MMAs; rows are padded by 16 bytes, which keeps
+//     ldmatrix free of bank conflicts.  Keys past k_end are zero-filled.
+//   - Only tiles that straddle a causal, window or ragged edge apply the
+//     elementwise mask; masked scores are -inf, so p = 0 exactly, and a
+//     row's first visible key resets m and l.  Softmax in base 2, log2(e)
+//     folded into the scale.
+//   - Head dims: any multiple of 8 up to 128; for hd % 16 == 8 the QK^T
+//     depth is zero-padded to the next 16 in shared memory (exact: the zeros
+//     add nothing); P.V steps by 8 columns and stores only the first hd.
+//   Left for later: wgmma over 64-row warpgroups with TMA loads completing
+//   on mbarriers and producer/consumer warp specialisation (the route to the
+//   card's full tensor-core rate; mma.sync lets the S fragment feed P.V from
+//   registers without a shared-memory layout for wgmma's B operand, and
+//   keeps the hi/lo split simple).
+//
+// flash_attn_kernel (fp32 operands, whose 1e-5 tolerance bf16 products
+//   cannot meet, and decode at Sq * rep < 16, where 4 rows would waste 12 of
+//   an MMA's 16).  fp32 on the CUDA cores.  Decode (Sq = 1) is bound
+//   by bytes, the K/V rows it reads at 3.35 TB/s, and by launch latency at
+//   serving sizes.  Design:
+//   - Four warps; each owns RPW rows.  The tile height follows the work:
+//     RPW = 1 when the block's rows fit one per warp (decode: Sq = 1 gives
+//     rep rows, so a block per (batch, kv head) with no idle row slots),
+//     else RPW = 8 (32 rows a block).
+//   - 32-key K and V tiles are staged in shared memory as fp32, rows padded
+//     to hd + 4 floats so the lanes' 16-byte reads of 8 different rows hit
+//     distinct banks.
+//   - Scores: lane j owns key k0 + j and dots it with the warp's rows (query
+//     rows are read from shared memory as broadcasts).  The online softmax
+//     takes the tile max with warp shuffles; each lane keeps a partial l,
+//     summed once at the end.  P goes to shared memory; P.V then has lane c
+//     own output columns c, c + 32, ... (up to hd <= 128), accumulated in
+//     registers across tiles.
+//   - Ragged key tiles are masked by their length, ragged row tiles by the
+//     row count; nothing is padded.
+//   Left for later: a split over keys for decode (a decode block walks all
+//   of its keys alone, and B * Hkv blocks do not fill 132 SMs), after CUDA
+//   graphs over the decode step.
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -305,18 +345,351 @@ int by_rows(const void* q, const void* k, const void* v, void* out, int B,
                           kv_head_stride, causal, window, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// flash_attn_mma_kernel: bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaRows = kWarps * 16;  // rows a block: 16 per warp
+constexpr int kMmaKeys = 64;           // keys a staged tile
+constexpr int kStages = 2;             // K/V tiles in the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros instead where `fill` is false
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices; lanes 8m .. 8m + 7 give matrix m's row addresses
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), the lower
+// column in the lower half
+__device__ __forceinline__ void split(float a, float b, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// HDP: hd rounded up to 16, the depth of QK^T.  Per thread: rows g and
+// g + 8 of its warp's 16 (g = lane / 4), and columns 2 (lane % 4) + {0, 1}
+// of every 8-wide n-tile (the m16n8 accumulator layout).
+template <int HDP>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_mma_kernel(const bf16* __restrict__ q,   // [B, Hq, Sq, hd]
+                      const bf16* __restrict__ k,   // [B, Hkv] heads of [Sk, hd]
+                      const bf16* __restrict__ v,   // same layout as k
+                      bf16* __restrict__ out,       // [B, Hq, Sq, hd]
+                      int Hq, int Hkv, int Sq, int Sk, int hd,
+                      long long kv_head_stride, int causal, int window,
+                      float scale_log2) {
+  constexpr int LD = HDP + 8;      // row stride (bf16): 16 bytes of padding
+  constexpr int KSTEPS = HDP / 16;  // QK^T depth steps
+  constexpr int NT = HDP / 8;       // P.V output n-tiles
+  extern __shared__ __align__(16) unsigned char raw[];
+  bf16* qs = reinterpret_cast<bf16*>(raw);  // [kMmaRows][LD]
+  bf16* ks = qs + kMmaRows * LD;            // [kStages][kMmaKeys][LD]
+  bf16* vs = ks + kStages * kMmaKeys * LD;  // [kStages][kMmaKeys][LD]
+
+  const int rep = Hq / Hkv;
+  const int bkv = blockIdx.y;  // b * Hkv + kv head
+  const int b = bkv / Hkv, hkv = bkv - b * Hkv;
+  const int total = Sq * rep;
+  const int r0 = blockIdx.x * kMmaRows;
+  const int off = Sk - Sq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int chunks = hd / 8;  // 16-byte chunks a row
+
+  // the depth padding [hd, HDP) of every staged row, once: copies never
+  // write it
+  if (HDP != hd)
+    for (int r = tid; r < kMmaRows + 2 * kStages * kMmaKeys; r += kThreads)
+      *reinterpret_cast<uint4*>(qs + r * LD + hd) = make_uint4(0, 0, 0, 0);
+
+  // query rows (zeros past the last row): in the first copy group
+  for (int e = tid; e < kMmaRows * chunks; e += kThreads) {
+    const int r = e / chunks, c = (e - r * chunks) * 8;
+    const int R = r0 + r;
+    const bool live = R < total;
+    const int i = live ? R / rep : 0, h = hkv * rep + (live ? R % rep : 0);
+    copy16(qs + r * LD + c,
+           q + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd + c, live);
+  }
+
+  // the keys some row of this block can see
+  const int i_lo = r0 / rep;
+  const int i_hi = (min(r0 + kMmaRows, total) - 1) / rep;
+  const int k_end = causal ? min(Sk, i_hi + off + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, i_lo + off - window + 1) : 0;
+  const int ntiles =
+      k_end > k_begin ? (k_end - k_begin + kMmaKeys - 1) / kMmaKeys : 0;
+  const bf16* kb = k + bkv * kv_head_stride;
+  const bf16* vb = v + bkv * kv_head_stride;
+
+  auto load_tile = [&](int t) {
+    const int k0 = k_begin + t * kMmaKeys;
+    bf16* kd = ks + (t % kStages) * kMmaKeys * LD;
+    bf16* vd = vs + (t % kStages) * kMmaKeys * LD;
+    for (int e = tid; e < kMmaKeys * chunks; e += kThreads) {
+      const int r = e / chunks, c = (e - r * chunks) * 8;
+      const bool in = k0 + r < k_end;
+      const long long o = static_cast<long long>(in ? k0 + r : 0) * hd + c;
+      copy16(kd + r * LD + c, kb + o, in);
+      copy16(vd + r * LD + c, vb + o, in);
+    }
+  };
+  if (ntiles > 0) load_tile(0);
+  copies_commit();
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int qrow = warp * 16 + g;  // this thread's first row in the block
+  int qpos[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) qpos[h2] = (r0 + qrow + 8 * h2) / rep + off;
+  // ldmatrix row addresses: lane l gives row l % 8 of matrix l / 8
+  const int lrow = lane % 8, lmat = lane / 8;
+
+  uint32_t qf[KSTEPS][4];
+  float o[NT][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_tile(t + 1);
+    copies_commit();
+    copies_wait<1>();  // all but the newest group: tile t (and the queries)
+    __syncthreads();
+    if (t == 0) {
+      // A fragments: matrices (rows 0-7, 8-15) x (depth 0-7, 8-15)
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldsm4(qf[kk], qs + (warp * 16 + (lmat % 2) * 8 + lrow) * LD + kk * 16 +
+                          (lmat / 2) * 8);
+    }
+    const bf16* kt = ks + (t % kStages) * kMmaKeys * LD;
+    const bf16* vt = vs + (t % kStages) * kMmaKeys * LD;
+    const int k0 = k_begin + t * kMmaKeys;
+
+    // S = Q K^T: 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        // matrices (keys 0-7, 8-15 of the pair) x (depth 0-7, 8-15)
+        uint32_t bk[4];
+        ldsm4(bk, kt + (np * 16 + (lmat / 2) * 8 + lrow) * LD + kk * 16 +
+                      (lmat % 2) * 8);
+        mma(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // the elementwise mask, only on a tile that straddles an edge
+    const bool edge = k0 + kMmaKeys > k_end ||
+                      (causal && k0 + kMmaKeys - 1 > i_lo + off) ||
+                      (window > 0 && k0 <= i_hi + off - window);
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int qp = qpos[e / 2];
+          const bool vis = j < k_end && (!causal || j <= qp) &&
+                           (window <= 0 || qp - j < window);
+          if (!vis) s[nt][e] = -INFINITY;
+        }
+    }
+
+    // online softmax in base 2, rows g (h2 = 0) and g + 8 (h2 = 1); the
+    // four lanes of a quad share a row
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h2], s[nt][2 * h2 + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(repro::kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(repro::kFullMask, mx, 2));
+      const float mn = fmaxf(m[h2], mx * scale_log2);
+      // before the row's first visible key m stays -inf, and p and the
+      // correction are 0 (no -inf - -inf)
+      const float mu = mn == -INFINITY ? 0.0f : mn;
+      const float corr = exp2f(m[h2] - mu);
+      m[h2] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e) {
+          const float p = exp2f(fmaf(s[nt][e], scale_log2, -mu));
+          s[nt][e] = p;
+          sum += p;
+        }
+      l[h2] = l[h2] * corr + sum;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        o[nt][2 * h2] *= corr;
+        o[nt][2 * h2 + 1] *= corr;
+      }
+    }
+
+    // O += P V, P as bf16 hi + lo from the S registers; 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      split(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // matrices (keys 0-7, 8-15) x (columns 0-7, 8-15), transposed
+        uint32_t bv[4];
+        ldsm4_t(bv, vt + (kk * 16 + (lmat % 2) * 8 + lrow) * LD + np * 16 +
+                        (lmat / 2) * 8);
+        mma(o[2 * np], ph, bv[0], bv[1]);
+        mma(o[2 * np], pl, bv[0], bv[1]);
+        mma(o[2 * np + 1], ph, bv[2], bv[3]);
+        mma(o[2 * np + 1], pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // the stage is read before a later copy refills it
+  }
+  copies_wait<0>();
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float lt = l[h2];
+    lt += __shfl_xor_sync(repro::kFullMask, lt, 1);
+    lt += __shfl_xor_sync(repro::kFullMask, lt, 2);
+    const float div = lt == 0.0f ? 1.0f : lt;
+    const int R = r0 + qrow + 8 * h2;
+    if (R >= total) continue;
+    const int i = R / rep, h = hkv * rep + R % rep;
+    bf16* dst = out + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + 2 * t4;
+      if (col < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+            o[nt][2 * h2] / div, o[nt][2 * h2 + 1] / div);
+    }
+  }
+}
+
+template <int HDP>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
+               int Hq, int Hkv, int Sq, int Sk, int hd,
+               long long kv_head_stride, int causal, int window, float scale,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (kMmaRows + 2 * kStages * kMmaKeys) *
+                      static_cast<size_t>(HDP + 8);
+  auto kernel = flash_attn_mma_kernel<HDP>;
+  const cudaError_t e = repro::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq * (Hq / Hkv) + kMmaRows - 1) / kMmaRows, B * Hkv);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, Sq, Sk,
+      hd, kv_head_stride, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mma_by_depth(const void* q, const void* k, const void* v, void* out, int B,
+                 int Hq, int Hkv, int Sq, int Sk, int hd,
+                 long long kv_head_stride, int causal, int window, float scale,
+                 cudaStream_t s) {
+#define REPRO_MMA_CASE(n)                                                    \
+  case n:                                                                    \
+    return launch_mma<16 * n>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,          \
+                              kv_head_stride, causal, window, scale, s);
+  switch ((hd + 15) / 16) {
+    REPRO_MMA_CASE(1)
+    REPRO_MMA_CASE(2)
+    REPRO_MMA_CASE(3)
+    REPRO_MMA_CASE(4)
+    REPRO_MMA_CASE(5)
+    REPRO_MMA_CASE(6)
+    REPRO_MMA_CASE(7)
+    REPRO_MMA_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_MMA_CASE
+}
+
 }  // namespace
 
 // q, out: contiguous [B, Hq, Sq, hd]; k, v: B * Hkv heads of Sk contiguous
 // rows of hd, kv_head_stride elements apart (a prefix of a longer cache
 // passes its own stride).  hd a multiple of 8 up to 128, every pointer and
-// head 16-byte aligned, Hq a multiple of Hkv, 1 <= Sq <= Sk: the wrapper
-// checks.  window <= 0 means none.  bf16 != 0: bf16 operands, else fp32.
+// head 16-byte aligned, Hq a multiple of Hkv: the wrapper checks, and takes
+// 1 <= Sq <= Sk (with Sq > Sk the first queries sit before key 0 and see
+// nothing: 0).  window <= 0 means none.  bf16 != 0: bf16 operands, else
+// fp32.  variant: 0 flash_attn_kernel, 1 flash_attn_mma_kernel (bf16 only).
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, int B, int Hq, int Hkv, int Sq, int Sk,
                           int hd, long long kv_head_stride, int causal,
-                          int window, float scale, int bf16, void* stream) {
+                          int window, float scale, int bf16, int variant,
+                          void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return mma_by_depth(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
+                        causal, window, scale, s);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return by_rows<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
                                   kv_head_stride, causal, window, scale, s);

@@ -5,8 +5,22 @@
 every staged K/V tile, key tiles no row of the block can see never loaded.
 It takes any ``1 <= Sq <= Sk`` (decode calls it at ``Sq = 1`` over a
 cache prefix), bf16 or fp32, head dims that are multiples of 8 up to 128.
+:func:`variant` picks the kernel from the dtype and the rows a kv head's
+block serves (``Sq * Hq / Hkv``) alone:
+
+* ``"mma"`` (``flash_attn_mma_kernel``): bf16 with at least 16 rows, which
+  is prefill and any chunk of queries.  QK^T and P.V on the tensor cores
+  (``mma.sync`` m16n8k16, fp32 accumulators), P kept fp32-grade as a bf16
+  hi + lo pair, as the Pallas kernel keeps P in fp32;
+* ``"simt"`` (``flash_attn_kernel``, the first port, fp32 on the CUDA
+  cores) for the rest: fp32 operands, whose 1e-5 tolerance bf16 products
+  cannot meet, and decode (``Sq = 1``: 4 rows at danube's rep would leave
+  12 of an MMA's 16 idle; at serving sizes decode is launch-bound, about
+  0.013 ms of device time a call on an H100, and a split over keys for it
+  is later work).
+
 ``torch-reference`` runs ref.py.  The flavor follows the tensors' device;
-there are no block-size arguments (the tiles are constants of the kernel).
+there are no block-size arguments (the tiles are constants of the kernels).
 """
 from __future__ import annotations
 
@@ -22,7 +36,21 @@ MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 8
 DTYPES = (torch.float32, torch.bfloat16)
 
+#: rows an MMA block's warp fills (the m of mma.sync's m16n8k16)
+MMA_MIN_ROWS = 16
+#: the C entry point's code for each variant
+VARIANTS = ("simt", "mma")
+
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+
+def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
+    """The kernel that runs a call: ``"mma"`` for bf16 operands when a kv
+    head's block has at least MMA_MIN_ROWS rows (``sq * rep``), else
+    ``"simt"``."""
+    if dtype == torch.bfloat16 and sq * rep >= MMA_MIN_ROWS:
+        return "mma"
+    return "simt"
 
 
 def _kv_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -57,12 +85,13 @@ def _flash_attn_cuda(q, k, v, *, causal, window):
         k_stride = k.stride(1)
     out = torch.empty_like(q)
     fn = _build.function("flash_attn", "flash_attn", _P, _P, _P, _P, _I, _I,
-                         _I, _I, _I, _I, _L, _I, _I, _F, _I, _P)
+                         _I, _I, _I, _I, _L, _I, _I, _F, _I, _I, _P)
+    kind = VARIANTS.index(variant(q.dtype, sq, hq // hkv))
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, hkv, sq, sk, hd, k_stride, int(causal),
                   window or 0, hd ** -0.5, int(q.dtype == torch.bfloat16),
-                  common.stream(q))
+                  kind, common.stream(q))
     _build.check("flash_attn", code)
     common.count_launch("flash_attn")
     return out

@@ -24,13 +24,18 @@ from repro.kernels.glm_sparse import ell_glm_grad as jell_glm_grad
 
 import repro_torch.kernels as tk
 from repro_torch.kernels import _build, common
+from repro_torch.kernels.flash_attn import ops as attn_ops
 from repro_torch.kernels.flash_attn import ref as attn_ref
+from repro_torch.kernels.glm_sgd import ops as sgd_ops
 from repro_torch.kernels.glm_sgd_sparse import ops as sgd_sparse_ops
 
 TASKS = ("lr", "svm")
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)     # fp32 attention
+#: bf16 attention: fp32 inside, one rounding of the output, so an element
+#: may land one bf16 step (2^-7 of its value) away (chip_smoke.py's)
+ATTN_BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
 CPU = torch.device("cpu")
 
 
@@ -124,6 +129,51 @@ def test_glm_sgd_replica_axis_matches_per_replica_jax():
         ref = jglm_sgd_epoch("lr", *_j(W[r], Xr[r], yr[r]), step=0.05,
                              micro_batch=4, backend="pallas-interpret")
         np.testing.assert_allclose(out[r].numpy(), np.asarray(ref), **EPOCH_TOL)
+
+
+@pytest.mark.parametrize("d,mb,want", [
+    (3, 1, "warp"),                           # skin
+    (54, 16, "warp"),                         # covtype, SyncSGD(batch=16)
+    (54, 1, "warp"),                          # covtype, AsyncLocalSGD b1
+    (300, 64, "warp"),
+    (sgd_ops.WARP_MAX_D, 1, "warp"),
+    (sgd_ops.WARP_MAX_D, 27, "warp"),         # the widest two-stage ring
+    (sgd_ops.WARP_MAX_D, 28, "smem"),         # two stages no longer fit
+    (sgd_ops.WARP_MAX_D + 1, 1, "smem"),
+    (20_000, 64, "smem"),
+])
+def test_glm_sgd_variant_is_chosen_from_the_shape(d, mb, want):
+    assert sgd_ops.variant(d, mb) == want
+    stages, group = sgd_ops.warp_plan(d, mb)
+    if want == "warp":
+        assert stages >= 2 and group >= 1
+        assert sgd_ops.warp_smem_bytes(d, mb, stages, group) \
+            <= common.MAX_SMEM_BYTES
+
+
+def test_glm_sgd_warp_ring_holds_about_32_rows_a_stage():
+    """covtype's batches group into 32-row stages, 16 of them; MB=1 stages
+    32 batches each; a batch over 32 rows is a stage of its own."""
+    assert sgd_ops.warp_plan(54, 16) == (sgd_ops.WARP_MAX_STAGES, 2)
+    assert sgd_ops.warp_plan(54, 1) == (sgd_ops.WARP_MAX_STAGES, 32)
+    assert sgd_ops.warp_plan(54, 64)[1] == 1
+    assert sgd_ops.warp_columns(54) == 2 and sgd_ops.warp_columns(300) == 16
+
+
+def test_glm_sgd_accepted_shapes_did_not_shrink():
+    """Every (d, micro_batch) the shared-memory kernel takes is still taken
+    (by one variant or the other), and the shared-memory limit raises at
+    the same shapes, naming it."""
+    for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111):
+        for mb in (1, 2, 10, 16, 27, 28, 64, 111, 112):
+            if sgd_ops.smem_bytes(d, mb) <= common.MAX_SMEM_BYTES:
+                assert sgd_ops.variant(d, mb) in ("warp", "smem")
+            else:
+                with pytest.raises(ValueError, match="232448"):
+                    sgd_ops.variant(d, mb)
+    assert sgd_ops.variant(58_111, 1) == "smem"
+    with pytest.raises(ValueError, match="d=58112 and micro_batch=1"):
+        sgd_ops.variant(58_112, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +447,75 @@ def test_flash_attention_bf16_rounds_only_the_output():
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
                                rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,sq,rep,want", [
+    (torch.bfloat16, 15, 1, "simt"),     # 15 rows: short of an MMA's 16
+    (torch.bfloat16, 16, 1, "mma"),
+    (torch.bfloat16, 4, 4, "mma"),       # danube's rep: 4 positions fill 16
+    (torch.bfloat16, 5, 3, "simt"),      # rep 3 (minitron): 15 rows
+    (torch.bfloat16, 8192, 4, "mma"),    # danube's prefill
+    (torch.bfloat16, 1, 4, "simt"),      # decode
+    (torch.bfloat16, 1, 16, "mma"),      # decode with 16 heads a kv head
+    (torch.float32, 8192, 4, "simt"),    # fp32: its tolerance needs fp32
+])
+def test_flash_attention_variant_is_chosen_from_dtype_and_rows(dtype, sq,
+                                                                rep, want):
+    assert attn_ops.variant(dtype, sq, rep) == want
+    # the C entry point's code: 0 flash_attn_kernel, 1 flash_attn_mma_kernel
+    assert attn_ops.VARIANTS.index(want) == {"simt": 0, "mma": 1}[want]
+
+
+def _mma_arithmetic(q, k, v, *, causal, window, split):
+    """The tensor-core kernel's arithmetic in plain PyTorch: bf16 q, k, v;
+    scores in fp32 (bf16 products are exact in fp32); P in fp32 for the
+    normaliser, and into P.V as bf16 hi + bf16 lo (``split``) or rounded
+    once to bf16; sums in fp32."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    sq, sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * hd ** -0.5
+    qi = torch.arange(sq)[:, None] + (sk - sq)
+    kj = torch.arange(sk)[None]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= qi - kj < window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    o = torch.einsum("bhqk,bhkd->bhqd", hi, vf)
+    if split:
+        lo = (p - hi).bfloat16().float()
+        o = o + torch.einsum("bhqk,bhkd->bhqd", lo, vf)
+    return o / p.sum(-1, keepdim=True)
+
+
+def test_flash_attention_split_p_keeps_the_pallas_kernels_precision():
+    """The design's precision argument, on the CPU: P split into bf16 hi +
+    lo stays within ATTN_BF16_TOL of the JAX Pallas kernel (interpret mode,
+    bf16, two layers' worth of danube-like calls: hd 80, rep 4, a window),
+    and P rounded once to bf16 lands further from the fp32 result than the
+    split does."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(2, 8, 2, 48, 48, 80, seed=11))
+    want = jflash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                              for t in (q, k, v)),
+                            causal=True, window=24, block_q=16, block_k=16,
+                            backend="pallas-interpret")
+    split = _mma_arithmetic(q, k, v, causal=True, window=24, split=True)
+    torch.testing.assert_close(
+        split.bfloat16().float(),
+        torch.from_numpy(np.array(want.astype(jnp.float32))),
+        **ATTN_BF16_TOL)
+    fp32 = attn_ref.attention_ref(q.float(), k.float(), v.float(),
+                                  causal=True, window=24)
+    once = _mma_arithmetic(q, k, v, causal=True, window=24, split=False)
+    err_split = float((split - fp32).abs().max())
+    err_once = float((once - fp32).abs().max())
+    assert err_split < 1e-5 and err_once > 10 * err_split
 
 
 def test_flash_attention_plain_version_zeroes_a_row_that_sees_no_key():
