@@ -15,14 +15,21 @@ Phases, one JSON line each:
                glm_score at w8a, real-sim and news widths with filler rows
                that must score link(0) exactly; glm_sgd at d = 3, 54, 300,
                1024 and 1025 (both variants), micro-batches 1 to 64 with
-               ragged tails, 1, 8 and 10 replicas; flash_attn at danube's
+               ragged tails, 1, 8 and 10 replicas; glm_sgd_sparse's warp
+               variant at micro-batches 1, 10 and 64, K = 1, real-sim's
+               K = 307, rows of all padding, rows that collide on one
+               feature and repeat it, the live learner's shape, and the
+               shared-memory variant near the cap; flash_attn at danube's
                prefill (S=8192, window 4096), a full causal 2048 at
                minitron's heads, the tensor-core variant's edges (rep 3 with
                a ragged S, padded head dims, a query chunk over a longer
                cache, a window inside one key tile, acausal, exactly 16
-               rows, rows that see no key), decode rows over ragged cache
-               lengths and small fp32 cases; and that the sparse kernels
-               refuse an index outside [0, d);
+               rows, rows that see no key), the decode variant's (Sk = 1,
+               127, 128 and 4096, a cache prefix read in place, head dims
+               64, 72 and 128, B = 64 with no split, a window that leaves
+               chunks with no key, two row groups, the same output twice)
+               and small fp32 cases; and that the sparse kernels refuse an
+               index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -53,14 +60,17 @@ Phases, one JSON line each:
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
 8. ``timing``  each kernel and its plain version at the main path's shapes
-               (glm_sgd also at covtype R=8 B=1), with the variant each row
-               ran and its device time (profiler, or a CUDA event pair
-               around one call where the profiler saw no launch), and a
-               check of w8a's R=10 full-partition gradient.
+               (glm_sgd also at covtype R=8 B=1, glm_sgd_sparse also at w8a
+               R=10 B=1, flash_attn decode also over a full 4096-key
+               window), with the variant each row ran and its device time
+               (profiler, or a CUDA event pair around one call where the
+               profiler saw no launch), the decode wrapper's host us per
+               call, and a check of w8a's R=10 full-partition gradient.
 
 It then prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(launches on the main path, error, times, bound, variant: flash_attn has a
-row for each of its kernels) and, last,
+(launches on the main path, error, times, bound, variant: a row for each
+kernel the main path runs, named by its variant where a family has more
+than one) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a card, or without the repository beside it, it fails.
 """
@@ -114,10 +124,12 @@ KERNEL_SYMBOLS = {
                 "smem": ("glm_sgd_kernel",)},
     "glm_grad": {None: ("glm_grad_row_kernel", "glm_grad_col_kernel",
                         "glm_grad_reduce_kernel")},
-    "glm_sgd_sparse": {None: ("ell_sgd_kernel",)},
+    "glm_sgd_sparse": {"warp": ("ell_sgd_warp_kernel",),
+                       "smem": ("ell_sgd_kernel",)},
     "glm_sparse": {None: ("ell_grad_kernel",)},
     "glm_score": {None: ("glm_score_kernel",)},
     "flash_attn": {"mma": ("flash_attn_mma_kernel",),
+                   "decode": ("flash_attn_decode_kernel",),
                    "simt": ("flash_attn_kernel",)},
 }
 #: cycles the card spins before an event-timed call (about 1 ms at the
@@ -155,6 +167,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, rounds: int = 10, calls: int = 100) -> float:
+    """Host us per call of ``fn``: the host clock over ``rounds`` rounds of
+    ``calls`` calls, each round behind a spin kernel that keeps the card
+    busy (about 10 ms), so the calls only enqueue and nothing waits."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(rounds):
+        torch.cuda._sleep(10 * SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (rounds * calls) * 1e6
 
 
 def device_profile(fn, reps: int) -> dict[str, tuple[float, int]]:
@@ -311,7 +340,20 @@ ATTN_CASES = (
     ("acausal bf16", (2, 12, 4, 130, 200, 80), torch.bfloat16, False, None),
     ("16 rows: the smallest mma call", (1, 4, 1, 4, 40, 32), torch.bfloat16,
      True, None),
-    ("15 rows: simt", (1, 5, 1, 3, 40, 32), torch.bfloat16, True, None),
+    # the decode variant's edges (bf16, fewer than 16 rows)
+    ("15 rows: decode, two row groups", (1, 5, 1, 3, 40, 32), torch.bfloat16,
+     True, None),
+    ("decode Sk=128", (4, 32, 8, 1, 128, 80), torch.bfloat16, True, None),
+    ("decode hd 64", (4, 32, 8, 1, 1000, 64), torch.bfloat16, False, None),
+    ("decode hd 72", (2, 12, 4, 1, 300, 72), torch.bfloat16, True, None),
+    ("decode hd 128, rep 3", (4, 24, 8, 1, 2000, 128), torch.bfloat16, True,
+     None),
+    ("decode B=64: no split", (64, 32, 8, 1, 4096, 80), torch.bfloat16,
+     False, None),
+    ("decode window: chunks that see no key", (2, 32, 8, 1, 3000, 80),
+     torch.bfloat16, True, 100),
+    ("decode one kv head, 9 rows", (2, 9, 1, 1, 700, 16), torch.bfloat16,
+     True, None),
 )
 
 
@@ -476,6 +518,37 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                        K.glm_sgd_epoch("lr", W, Xr, yr, step=0.05,
                                        micro_batch=mb),
                        glm_sgd_epoch_ref("lr", W, Xr, yr, 0.05, mb), EPOCH_TOL)
+    # glm_sgd_sparse at both variants' edges (the data is Zipfian, so the
+    # rows of a batch collide on the popular features)
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    for label, n, d, avg, k, mb, reps in (
+            ("w8a MB=64, ragged", 1037, 300, 11.65, 69, 64, 1),
+            ("K=1", 1003, 300, 1.0, 1, 10, 1),
+            ("live shape: real-sim R=8 per=32", 256, 20_958, 51.30, 307, 1, 8),
+            ("d near the cap", 2003, 58_000, 11.65, 69, 10, 1),
+            ("rows of all padding", 4100, 300, 11.65, 69, 10, 10),
+            ("one feature in every row, three times", 4100, 300, 11.65, 69,
+             10, 10),
+            ("one feature in every row, three times", 4100, 300, 11.65, 69,
+             1, 10)):
+        v, i, y, w = _ell_inputs(rng, n, d, avg, k, dev, seed=n + k)
+        if label == "rows of all padding":
+            v, i = v.clone(), i.clone()
+            v[::7], i[::7] = 0.0, 0
+        elif label.startswith("one feature"):
+            v, i = v.clone(), i.clone()
+            v[:, -3:], i[:, -3:] = 1.0, 5   # feature 5 thrice in each row
+        per = n // reps
+        vr, ir = v[:reps * per].reshape(reps, per, k), i[:reps * per].reshape(
+            reps, per, k)
+        yr = y[:reps * per].reshape(reps, per)
+        W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
+        for task in ("lr", "svm"):
+            record("glm_sgd_sparse", f"{task} {label} n={n} d={d} K={k} "
+                   f"mb={mb} R={reps} {sparse_ops.variant(d, k, mb)}",
+                   K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05,
+                                   micro_batch=mb),
+                   ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, mb), EPOCH_TOL)
     # flash_attn: distinct kv heads throughout (each drawn on its own), so
     # a kernel that read kv head h % Hkv rather than h // rep would show
     from repro_torch.kernels.flash_attn import ops as attn_ops
@@ -502,12 +575,19 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         cases.append({"kernel": "flash_attn",
                       "case": f"the 60 rows before key 0 are 0 ({kind})",
                       "ok": bool((out[:, :, :60] == 0).all())})
-    # decode's call: the first 77 rows of a 128-row cache, read in place
+    # decode's call: the first 77 rows of a 128-row cache, read in place;
+    # and the decode kernel's merge of chunks, in chunk order, gives the
+    # same bits on every call
     q, kc, vc = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev, 99)
     record("flash_attn", "decode over a cache prefix, 77 of 128 rows",
            K.flash_attention(q, kc[:, :, :77], vc[:, :, :77], causal=False),
            attention_ref(q, kc[:, :, :77], vc[:, :, :77], causal=False),
            ATTN_BF16_TOL)
+    q, k, v = _attn_inputs((4, 32, 8, 1, 4096, 80), torch.bfloat16, dev, 97)
+    outs = [K.flash_attention(q, k, v, causal=False) for _ in range(5)]
+    cases.append({"kernel": "flash_attn",
+                  "case": "decode Sk=4096: five calls give the same bits",
+                  "ok": all(torch.equal(outs[0], o) for o in outs[1:])})
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
@@ -572,6 +652,7 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
     the runs' results."""
     from repro_torch.core import convergence, sgd
     from repro_torch.kernels import common
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
 
     runs, results = [], []
     common.reset_launches()
@@ -585,8 +666,12 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
                      "falling": falling(res.losses)})
     launches = dict(common.LAUNCHES)
-    ok = all(r["falling"] for r in runs) and all(launches[k] > 0
-                                                 for k in TRAIN_KERNELS)
+    # the one sparse epoch shape of the path (w8a, AsyncLocalSGD r10 b10)
+    # runs glm_sgd_sparse's warp variant, so its launches are that kernel's
+    ell = w8a[0]
+    sparse_variant = sparse_ops.variant(ell.d, ell.values.shape[1], 10)
+    ok = all(r["falling"] for r in runs) and all(
+        launches[k] > 0 for k in TRAIN_KERNELS) and sparse_variant == "warp"
     # the paper's statistical and end-to-end axes: epochs and time to 1% of
     # the lowest loss any strategy reached on the same dataset
     for data in {r["data"] for r in runs}:
@@ -617,7 +702,8 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
             short_name(key): ms for key, (ms, _) in
             sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]}
     return {"phase": "train", "epochs": epochs, "runs": runs,
-            "launches": launches, "ok": ok}, launches, results
+            "launches": launches, "glm_sgd_sparse_variant": sparse_variant,
+            "ok": ok}, launches, results
 
 
 def phase_parity(covtype, w8a, n: int, epochs: int) -> dict:
@@ -1165,7 +1251,7 @@ def phase_lm(dev) -> tuple[dict, int, int]:
     its logits against the plain versions step by step, a profiled stretch
     of ticks, and one prefill forward against the plain versions.  Returns
     the phase line, the serving run's flash_attn launches (decode: the
-    ``simt`` kernel) and the prefill forward's (the ``mma`` kernel)."""
+    ``decode`` kernel) and the prefill forward's (the ``mma`` kernel)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import serve
@@ -1282,7 +1368,7 @@ def phase_lm(dev) -> tuple[dict, int, int]:
     ok = bool(run["device"].startswith("cuda") and run["done"] == len(reqs)
               and all(r.done for r in reqs) and run["tokens_in_range"]
               and launches == run["expected_launches"] > 0
-              and run["flash_attn_variant"] == "simt"
+              and run["flash_attn_variant"] == "decode"
               and run["vs_plain"]["ok"] and prefill["ok"])
     return {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
@@ -1294,9 +1380,12 @@ def phase_lm(dev) -> tuple[dict, int, int]:
 def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     """Each kernel and its plain version at the main path's shapes: one
     timed row per kernel and variant (glm_score: a serving batch and all of
-    w8a; glm_sgd: SyncSGD(batch=16) and the R=8 B=1 replica epochs; the
-    kernels line takes the rows marked ``line``), and a check of w8a's R=10
-    full-partition gradient, the one shape those rows leave out."""
+    w8a; glm_sgd: SyncSGD(batch=16) and the R=8 B=1 replica epochs;
+    glm_sgd_sparse: the R=10 replica epochs at B=10 and B=1; flash_attn:
+    decode over the serving run's 128 keys and a full 4096-key window, and
+    prefill; the kernels line takes the rows marked ``line``), the decode
+    wrapper's host us per call, and a check of w8a's R=10 full-partition
+    gradient, the one shape those rows leave out."""
     import repro_torch.kernels as K
     from repro_torch.core import sgd
     from repro_torch.kernels.flash_attn import ops as attn_ops
@@ -1304,6 +1393,7 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     from repro_torch.kernels.glm_score.ref import glm_score_ref
     from repro_torch.kernels.glm_sgd import ops as sgd_ops
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
 
@@ -1373,11 +1463,15 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     parts = torch.from_numpy(sgd.partition_indices(ns, 10)).to(X.device).long()
     vp, ip, yp = m.values[parts], m.indices[parts], ys[parts]
     W = ws[None].repeat(10, 1)
-    row("glm_sgd_sparse", f"w8a N={ns} K={k} d={m.d} R=10 MB=10",
-        lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2, micro_batch=10),
-        lambda: ell_sgd_epoch_ref("lr", W, vp, ip, yp, 0.2, 10),
-        10, 1, ell_bytes(vp) + nbytes(yp, W, W), 4.0 * nnz + 8.0 * ns,
-        EPOCH_TOL, line="glm_sgd_sparse", updates=-(-vp.shape[1] // 10))
+    for mb, line in ((10, "glm_sgd_sparse_warp"), (1, None)):
+        row("glm_sgd_sparse", f"w8a N={ns} K={k} d={m.d} R=10 MB={mb}",
+            lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2,
+                                    micro_batch=mb),
+            lambda: ell_sgd_epoch_ref("lr", W, vp, ip, yp, 0.2, mb),
+            10 if mb > 1 else 3, 1, ell_bytes(vp) + nbytes(yp, W, W),
+            4.0 * nnz + 8.0 * ns, EPOCH_TOL, line=line,
+            variant=sparse_ops.variant(m.d, k, mb),
+            updates=-(-vp.shape[1] // mb))
     # SyncSGD() on w8a: the full-batch sparse sum gradient
     row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1",
         lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
@@ -1404,15 +1498,17 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             line=line)
 
     # the LM path: flash_attn at the decode shape of phase lm's serving run
-    # (4 slots over a full 128-entry cache: the simt kernel) and at its
-    # prefill (S=8192, window 4096: the mma kernel), each in the kernels
-    # line.  The yardstick is one scaled_dot_product_attention with
-    # enable_gqa and the end-aligned mask
+    # (4 slots over a full 128-entry cache, causal=False as decode calls it:
+    # the decode kernel) and over a full 4096-key window, and at its
+    # prefill (S=8192, window 4096: the mma kernel); the serving shape and
+    # the prefill are in the kernels line.  The yardstick is one
+    # scaled_dot_product_attention with enable_gqa and the end-aligned mask
     from repro_torch.kernels.flash_attn.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for label, shape, causal, window, reps, plain_reps, line in (
-            ("decode", (4, 32, 8, 1, 128, 80), True, None, 200, 50,
-             "flash_attn"),
+            ("decode", (4, 32, 8, 1, 128, 80), False, None, 200, 50,
+             "flash_attn_decode"),
+            ("decode", (4, 32, 8, 1, 4096, 80), False, None, 200, 10, None),
             ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
              20, 2, "flash_attn_mma")):
         qa, ka, va = _attn_inputs(shape, torch.bfloat16, X.device, seed=7)
@@ -1427,6 +1523,12 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             line=line, flops_per_s=BF16_FLOPS_PER_S,
             variant=attn_ops.variant(torch.bfloat16, shape[3],
                                      shape[1] // shape[2]))
+        if line == "flash_attn_decode":
+            # the wrapper's host time per call, and the library call's
+            rows[-1]["host_us_per_call"] = host_us(
+                lambda: K.flash_attention(qa, ka, va, causal=causal))
+            rows[-1]["library_host_us_per_call"] = host_us(
+                lambda: sdpa(qa, ka, va, enable_gqa=True))
 
     checks = []
 
@@ -1476,6 +1578,7 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         return 1
+    launches["glm_sgd_sparse_warp"] = launches.pop("glm_sgd_sparse")
     line = phase_parity(covtype, w8a, n=4100, epochs=3)
     emit(line)
     if not line["ok"]:
@@ -1496,7 +1599,8 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    line, launches["flash_attn"], launches["flash_attn_mma"] = phase_lm(dev)
+    line, launches["flash_attn_decode"], launches["flash_attn_mma"] = \
+        phase_lm(dev)
     emit(line)
     if not line["ok"]:
         return 1

@@ -26,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: typed C entry points by (library, name): typed once, not on every launch
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def sources() -> list[str]:
@@ -96,10 +98,14 @@ def load(name: str) -> ctypes.CDLL:
 
 def function(lib: str, name: str, *argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``name`` of ``csrc/<lib>.cu``, typed: pointers and
-    the stream as ``c_void_p``, returning the CUDA error code as ``int``."""
-    fn = getattr(load(lib), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    the stream as ``c_void_p``, returning the CUDA error code as ``int``.
+    Typed on the first call and cached: a launch pays one dict lookup."""
+    fn = _FUNCTIONS.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(lib, name)] = fn
     return fn
 
 

@@ -152,6 +152,26 @@ def check_smem(kernel: str, nbytes: int, what: str) -> None:
             f"sm_90; a global-memory variant is not ported yet")
 
 
+def ring_plan(nbytes: Callable[[int, int], int], micro_batch: int,
+              max_stages: int, stage_rows: int) -> tuple[int, int]:
+    """The ring of a fused epoch's warp kernel as ``(stages, group)``:
+    stages of ``group`` micro-batches, about ``stage_rows`` rows each
+    where at least four such stages fit in a block's shared memory (up to
+    ``max_stages``), else one micro-batch a stage; ``(0, 0)`` when two
+    single-batch stages do not fit.  ``nbytes(stages, group)`` is the
+    block's shared memory for such a ring."""
+    def fit(group):
+        for stages in range(max_stages, 1, -1):
+            if nbytes(stages, group) <= MAX_SMEM_BYTES:
+                return stages
+        return 0
+
+    for group in range(-(-stage_rows // micro_batch), 0, -1):
+        if fit(group) >= 4:
+            return fit(group), group
+    return (fit(1), 1) if fit(1) else (0, 0)
+
+
 def check_indices(kernel: str, indices: torch.Tensor, d: int) -> None:
     """Raise unless every ELL index lies in [0, d): the kernels index the
     model with them unchecked.  The check reads the operand and waits for
@@ -215,8 +235,21 @@ def task_code(task: str) -> int:
 
 
 def stream(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s card."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s card (the raw handle
+    PyTorch's own generated kernels launch on, without building a
+    ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context in which a launch goes to ``t``'s card: nothing to switch
+    when it is the current one already."""
+    if t.device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(t.device)
 
 
 def padded(size: int, multiple: int) -> int:

@@ -8,7 +8,7 @@
 //   sequential k axis of its grid, and skips key tiles no query of the tile
 //   can see.  Its QK^T takes the operands' dtype into fp32 (l.65); scores,
 //   m, l, the accumulator and P (fp32 into jnp.dot(p, v), l.81) are fp32;
-//   only the output is cast to the input's dtype.  Both kernels here compute
+//   only the output is cast to the input's dtype.  The kernels here compute
 //   the same function: query i (at position i + Sk - Sq) sees key j iff
 //   j <= i + Sk - Sq (causal) and i + Sk - Sq - j < window (when a window is
 //   set); scale 1/sqrt(hd); out = acc / l, or acc / 1 where l == 0 (a row
@@ -16,14 +16,14 @@
 //
 // Rows: a row is a (query position i, query head of the kv head's group)
 //   pair, the head fastest, so the rep = Hq / Hkv query heads that read one
-//   kv head share every K/V tile a block stages: query head h reads kv head
-//   h / rep (the reference's jnp.repeat), never materialised.  One block per
-//   (batch, kv head, tile of rows).  A block loads only the keys its rows
+//   kv head share every K/V row a block reads: query head h reads kv head
+//   h / rep (the reference's jnp.repeat), never materialised.  A block serves
+//   one (batch, kv head) and a tile of rows, and loads only the keys its rows
 //   can see, [k_begin, k_end) from the causal and window bounds of its first
 //   and last row (the Pallas kernel's tile skipping, at key granularity).
 //
-// Two kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep)
-// and passed in as `variant`:
+// Three kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep)
+// and passed in as `variant` (the decode kernel has its own entry point):
 //
 // flash_attn_mma_kernel (bf16 operands and Sq * rep >= 16 rows: prefill and
 //   any chunk of queries).  Bound on the H100 by bf16 operations: 4 * hd
@@ -59,11 +59,43 @@
 //   registers without a shared-memory layout for wgmma's B operand, and
 //   keeps the hi/lo split simple).
 //
+// flash_attn_decode_kernel (bf16 operands and Sq * rep < 16 rows: decode,
+//   Sq = 1 over a cache prefix read in place).  Bound by bytes: every K and
+//   V row once at 3.35 TB/s (danube, B=4, Sk=4096: 42 MB, 12.5 us), and at
+//   serving sizes by the launch and one or two memory round trips.  B * Hkv
+//   blocks (32 at B=4) cannot fill 132 SMs, so the keys are split:
+//   - the grid is (splits, B * Hkv, row groups); ops.py:decode_plan gives
+//     `splits` from B * Hkv alone (two blocks an SM, so the grid does not
+//     change as the cache grows) and chunks of `chunk` keys, a multiple of
+//     128; the blocks past the last key return at once;
+//   - a block's 4 warps take 32-key tiles of its chunk in turn, each warp
+//     with its own m, l and accumulator.  QK^T: lane j owns key j of the
+//     tile and reads its row with 16-byte loads of bf16 straight into
+//     registers; the rows' queries (up to 8, pre-scaled fp32) are read from
+//     shared memory as broadcasts.  Every K/V row is read once for all the
+//     rows of the group: GQA without a repeat;
+//   - a tile's K and V loads issue together, one memory round trip a tile
+//     (a version that streamed each warp's tiles through a two-stage
+//     cp.async ring in shared memory measured slower on the H100; PERF.md).
+//     P.V: lane (slot, c) owns the 8 columns c of every (32 / (hd / 8))-th
+//     key of the tile (3 keys at a time at hd 80, so 30 of 32 lanes work),
+//     takes P by shuffle and sums fp32;
+//   - the warps' states merge through shared memory (each row's weights
+//     and 1 / l once, then a thread per 8 output columns and one 16-byte
+//     store: the merge and the output were 40% of a decode call at
+//     Sk = 128 when every element took its own pass); with one chunk the
+//     block writes the output.  Otherwise it writes its unnormalised state
+//     (m, l, acc in fp32) to scratch, and the last block of its (batch, kv
+//     head, row group) to arrive -- a ticket from an atomic counter --
+//     merges every chunk's state in chunk order (so the result does not
+//     depend on the order the blocks ran) and resets the counter for the
+//     next call.  A chunk or a row that sees no key has m = -inf and l = 0,
+//     weighs 0 in the merge, and a row with l == 0 gives 0.
+//   Left for later: reading the cache length from the card (a CUDA graph
+//   over the decode step).
+//
 // flash_attn_kernel (fp32 operands, whose 1e-5 tolerance bf16 products
-//   cannot meet, and decode at Sq * rep < 16, where 4 rows would waste 12 of
-//   an MMA's 16).  fp32 on the CUDA cores.  Decode (Sq = 1) is bound
-//   by bytes, the K/V rows it reads at 3.35 TB/s, and by launch latency at
-//   serving sizes.  Design:
+//   cannot meet).  fp32 on the CUDA cores.  Design:
 //   - Four warps; each owns RPW rows.  The tile height follows the work:
 //     RPW = 1 when the block's rows fit one per warp (decode: Sq = 1 gives
 //     rep rows, so a block per (batch, kv head) with no idle row slots),
@@ -79,9 +111,6 @@
 //     registers across tiles.
 //   - Ragged key tiles are masked by their length, ragged row tiles by the
 //     row count; nothing is padded.
-//   Left for later: a split over keys for decode (a decode block walks all
-//   of its keys alone, and B * Hkv blocks do not fill 132 SMs), after CUDA
-//   graphs over the decode step.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -669,6 +698,371 @@ int mma_by_depth(const void* q, const void* k, const void* v, void* out, int B,
 #undef REPRO_MMA_CASE
 }
 
+// ---------------------------------------------------------------------------
+// flash_attn_decode_kernel: bf16 rows < 16, the keys split across blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kDecKeys = 32;         // keys a warp's tile holds: one a lane
+constexpr int kDecChunks = 16;       // 16-byte chunks of a row: hd <= 128
+constexpr int kDecMaxRows = 8;       // rows a block serves (a row group)
+constexpr int kDecMaxSplits = 264;   // ops.py:DECODE_TARGET_BLOCKS
+
+// Eight bf16 values (16 bytes) as fp32.
+__device__ __forceinline__ void bf16x8(const uint4& raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    f[2 * u] = __uint_as_float(w[u] << 16);
+    f[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
+  }
+}
+
+// a[0..8) * scale as eight bf16 values, one 16-byte store.
+__device__ __forceinline__ void store_bf16x8(bf16* dst, const float (&a)[8],
+                                             float scale) {
+  uint4 raw;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    w[u] = bits(__floats2bfloat162_rn(a[2 * u] * scale, a[2 * u + 1] * scale));
+  *reinterpret_cast<uint4*>(dst) = raw;
+}
+
+constexpr int kDecSlotFloats = 256;  // (32 / (hd / 8)) * hd <= 256
+
+// One decode tile's loads into registers: lane j the K row of key k0 + j
+// (NC 16-byte chunks), and lane (slot, c) chunk c of V rows k0 + slot,
+// k0 + slot + kpi, ... (iters of them); nothing past ke.
+__device__ __forceinline__ void decode_tile_loads(
+    uint4 (&kr)[kDecChunks], uint4 (&vr)[kDecChunks], const bf16* kh,
+    const bf16* vh, int k0, int ke, int hd, int NC, int lane, int slot,
+    int kpi, int iters, int cc, bool pv_lane) {
+  if (k0 + lane < ke) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(kh + static_cast<long long>(k0 + lane) * hd);
+#pragma unroll
+    for (int c = 0; c < kDecChunks; ++c)
+      if (c < NC) kr[c] = src[c];
+  }
+#pragma unroll
+  for (int it = 0; it < kDecChunks; ++it) {
+    const int jj = slot + kpi * it;
+    if (it < iters && pv_lane && jj < kDecKeys && k0 + jj < ke)
+      vr[it] = *reinterpret_cast<const uint4*>(
+          vh + static_cast<long long>(k0 + jj) * hd + 8 * cc);
+  }
+}
+
+// RM: rows a block serves, a power of two up to kDecMaxRows (the row group).
+// Scratch (splits > 1): part_ml [B * Hkv * G][splits][RM][2] (m, l) and
+// part_acc [B * Hkv * G][splits][RM][hd]; tickets [B * Hkv * G], zero
+// between calls.
+template <int RM>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_decode_kernel(const bf16* __restrict__ q,   // [B, Hq, Sq, hd]
+                         const bf16* __restrict__ k,   // [B, Hkv] heads of [Sk, hd]
+                         const bf16* __restrict__ v,   // same layout as k
+                         bf16* __restrict__ out,       // [B, Hq, Sq, hd]
+                         float* __restrict__ part_ml, float* __restrict__ part_acc,
+                         int* __restrict__ tickets, int Hq, int Hkv, int Sq,
+                         int Sk, int hd, long long kv_head_stride, int causal,
+                         int window, float scale_log2, int chunk) {
+  __shared__ __align__(16) float qs[RM * kDecChunks * 8];  // [RM][hd]
+  // [warp][slot][RM][hd] partial accumulators; reused by the final merge
+  // as its [split][RM] weights
+  __shared__ __align__(16) float accs[kWarps * kDecSlotFloats * RM];
+  __shared__ float ms[kWarps][RM], ls[kWarps][RM];
+  __shared__ float wts[kWarps][RM], inv[RM];  // merge weights, 1 / l
+  __shared__ int last;
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int used = (Sk + chunk - 1) / chunk;  // chunks that hold a key
+  if (split >= used) return;
+  const int bkv = blockIdx.y, grp = blockIdx.z;
+  const int b = bkv / Hkv, hkv = bkv - b * Hkv;
+  const int rep = Hq / Hkv, total = Sq * rep, off = Sk - Sq;
+  const int r0 = grp * RM, rows = min(RM, total - r0);
+  const int NC = hd / 8;  // 16-byte chunks a row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the chunk's keys that some row of the group can see
+  const int i_lo = r0 / rep, i_hi = (r0 + rows - 1) / rep;
+  const int vis_end = causal ? min(Sk, i_hi + off + 1) : Sk;
+  const int vis_begin = window > 0 ? max(0, i_lo + off - window + 1) : 0;
+  const int kb = max(split * chunk, vis_begin);
+  const int ke = min(min(split * chunk + chunk, Sk), vis_end);
+  const int ntiles = ke > kb ? (ke - kb + kDecKeys - 1) / kDecKeys : 0;
+  const bf16* kh = k + bkv * kv_head_stride;
+  const bf16* vh = v + bkv * kv_head_stride;
+
+  int qpos[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) qpos[r] = (r0 + r) / rep + off;
+
+  // P.V's lane layout: lane (slot, c) owns columns 8c .. 8c + 7 of keys
+  // slot, slot + kpi, ... of a tile
+  const int kpi = kDecKeys / NC, slot = lane / NC, cc = lane - slot * NC;
+  const bool pv_lane = slot < kpi;
+  const int iters = (kDecKeys + kpi - 1) / kpi;
+
+  // a tile's K rows (lane j: key j, all of its row) and V pieces (lane
+  // (slot, c): columns 8c.. of its keys), both in flight at once; the warp's
+  // first tile loads while the queries are staged
+  uint4 kr[kDecChunks], vr[kDecChunks];
+  if (warp < ntiles)
+    decode_tile_loads(kr, vr, kh, vh, kb + warp * kDecKeys, ke, hd, NC, lane,
+                      slot, kpi, iters, cc, pv_lane);
+
+  // the group's query rows as fp32, scaled by scale * log2(e); zeros past
+  // its last row
+  for (int e = tid; e < RM * NC; e += kThreads) {
+    const int r = e / NC, c = e - r * NC;
+    float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (r < rows) {
+      const int R = r0 + r, i = R / rep, h = hkv * rep + R % rep;
+      bf16x8(*reinterpret_cast<const uint4*>(
+                 q + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd + 8 * c),
+             f);
+    }
+    float4* dst = reinterpret_cast<float4*>(qs + r * hd + 8 * c);
+    dst[0] = make_float4(f[0] * scale_log2, f[1] * scale_log2,
+                         f[2] * scale_log2, f[3] * scale_log2);
+    dst[1] = make_float4(f[4] * scale_log2, f[5] * scale_log2,
+                         f[6] * scale_log2, f[7] * scale_log2);
+  }
+  __syncthreads();
+
+  float m[RM], l[RM], acc[RM][8];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
+  }
+
+  for (int t = warp; t < ntiles; t += kWarps) {
+    if (t != warp)
+      decode_tile_loads(kr, vr, kh, vh, kb + t * kDecKeys, ke, hd, NC, lane,
+                        slot, kpi, iters, cc, pv_lane);
+    const int k0 = kb + t * kDecKeys, j = k0 + lane;
+    const bool in = j < ke;
+
+    // scores of key j against the group's rows (base 2)
+    float s[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) s[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kDecChunks; ++c) {
+      if (c >= NC || !in) break;
+      float kf[8];
+      bf16x8(kr[c], kf);
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(qs + r * hd + 8 * c);
+        const float4 bq =
+            *reinterpret_cast<const float4*>(qs + r * hd + 8 * c + 4);
+        float x = s[r];
+        x = fmaf(a.x, kf[0], x);
+        x = fmaf(a.y, kf[1], x);
+        x = fmaf(a.z, kf[2], x);
+        x = fmaf(a.w, kf[3], x);
+        x = fmaf(bq.x, kf[4], x);
+        x = fmaf(bq.y, kf[5], x);
+        x = fmaf(bq.z, kf[6], x);
+        x = fmaf(bq.w, kf[7], x);
+        s[r] = x;
+      }
+    }
+
+    // online softmax over the tile; m is the same on every lane
+    float p[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const bool vis = in && r < rows && (!causal || j <= qpos[r]) &&
+                       (window <= 0 || qpos[r] - j < window);
+      const float sc = vis ? s[r] : -INFINITY;
+      const float mn = fmaxf(m[r], warp_max(sc));
+      // before the row's first visible key m stays -inf, and p and the
+      // correction are 0 (no -inf - -inf)
+      const float mu = mn == -INFINITY ? 0.0f : mn;
+      const float corr = exp2f(m[r] - mu);
+      p[r] = exp2f(sc - mu);
+      l[r] = l[r] * corr + p[r];
+      m[r] = mn;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] *= corr;
+    }
+
+    // P.V: P of key jj from lane jj
+#pragma unroll
+    for (int it = 0; it < kDecChunks; ++it) {
+      if (it >= iters) break;  // the same on every lane
+      const int jj = slot + kpi * it;
+      const bool ok = pv_lane && jj < kDecKeys && k0 + jj < ke;
+      float pj[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        pj[r] = __shfl_sync(repro::kFullMask, p[r], ok ? jj : 0);
+      if (ok) {
+        float vf[8];
+        bf16x8(vr[it], vf);
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pj[r], vf[e], acc[r][e]);
+      }
+    }
+  }
+
+  // the warps' states into shared memory, then the block's state
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const float lt = repro::warp_sum(l[r]);
+    if (lane == 0) {
+      ms[warp][r] = m[r];
+      ls[warp][r] = lt;
+    }
+  }
+  if (pv_lane) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      float4* dst = reinterpret_cast<float4*>(
+          accs + ((warp * kpi + slot) * RM + r) * hd + 8 * cc);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+  __syncthreads();
+
+  // each row's merge weights over the warps, 2^(m_w - M) (0 where M =
+  // -inf), its l and its 1 / l (1 where l = 0: the row gives 0)
+  if (tid < rows) {
+    const int r = tid;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, ms[w][r]);
+    float L = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = M == -INFINITY ? 0.0f : exp2f(ms[w][r] - M);
+      wts[w][r] = wt;
+      L = fmaf(wt, ls[w][r], L);
+    }
+    ms[0][r] = M;
+    ls[0][r] = L;
+    inv[r] = 1.0f / (L == 0.0f ? 1.0f : L);
+  }
+  __syncthreads();
+
+  // the block's state, a thread per (row, 8 columns): the output itself
+  // with one chunk, else the chunk's state in the scratch
+  const long long rec = (static_cast<long long>(bkv) * gridDim.z + grp) * splits;
+  for (int e = tid; e < rows * NC; e += kThreads) {
+    const int r = e / NC, c = e - r * NC;
+    float A[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = wts[w][r];
+      for (int sl = 0; sl < kpi; ++sl) {
+        const float4* src = reinterpret_cast<const float4*>(
+            accs + ((w * kpi + sl) * RM + r) * hd + 8 * c);
+        const float4 x = src[0], y = src[1];
+        A[0] = fmaf(wt, x.x, A[0]);
+        A[1] = fmaf(wt, x.y, A[1]);
+        A[2] = fmaf(wt, x.z, A[2]);
+        A[3] = fmaf(wt, x.w, A[3]);
+        A[4] = fmaf(wt, y.x, A[4]);
+        A[5] = fmaf(wt, y.y, A[5]);
+        A[6] = fmaf(wt, y.z, A[6]);
+        A[7] = fmaf(wt, y.w, A[7]);
+      }
+    }
+    if (used == 1) {
+      const int R = r0 + r, i = R / rep, h = hkv * rep + R % rep;
+      store_bf16x8(out + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd +
+                       8 * c,
+                   A, inv[r]);
+    } else {
+      float4* dst = reinterpret_cast<float4*>(
+          part_acc + ((rec + split) * RM + r) * hd + 8 * c);
+      dst[0] = make_float4(A[0], A[1], A[2], A[3]);
+      dst[1] = make_float4(A[4], A[5], A[6], A[7]);
+      if (c == 0) {
+        part_ml[((rec + split) * RM + r) * 2] = ms[0][r];
+        part_ml[((rec + split) * RM + r) * 2 + 1] = ls[0][r];
+      }
+    }
+  }
+  if (used == 1) return;
+
+  // the last block of the (batch, kv head, row group) to arrive merges
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(&tickets[bkv * gridDim.z + grp], 1) == used - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // every chunk's (m, l) at once, then each row's weights and 1 / l, then
+  // a thread per output element, the chunks summed in chunk order (so the
+  // result does not depend on which block came last)
+  float* wsplit = accs;                           // [used][RM]: m, then weights
+  float* lsplit = accs + kDecMaxSplits * RM;      // [used][RM]: l
+  for (int e = tid; e < used * rows; e += kThreads) {
+    const int sp = e / rows, r = e - sp * rows;
+    const float* ml = part_ml + ((rec + sp) * RM + r) * 2;
+    wsplit[sp * RM + r] = __ldcg(ml);
+    lsplit[sp * RM + r] = __ldcg(ml + 1);
+  }
+  __syncthreads();
+  if (tid < rows) {
+    const int r = tid;
+    float M = -INFINITY;
+    for (int sp = 0; sp < used; ++sp) M = fmaxf(M, wsplit[sp * RM + r]);
+    float L = 0.0f;
+    for (int sp = 0; sp < used; ++sp) {
+      const float wt = M == -INFINITY ? 0.0f : exp2f(wsplit[sp * RM + r] - M);
+      wsplit[sp * RM + r] = wt;
+      L = fmaf(wt, lsplit[sp * RM + r], L);
+    }
+    inv[r] = 1.0f / (L == 0.0f ? 1.0f : L);
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * hd; e += kThreads) {
+    const int r = e / hd, col = e - r * hd;
+    float A = 0.0f;
+    for (int sp = 0; sp < used; ++sp)
+      A = fmaf(wsplit[sp * RM + r],
+               __ldcg(part_acc + ((rec + sp) * RM + r) * hd + col), A);
+    const int R = r0 + r, i = R / rep, h = hkv * rep + R % rep;
+    out[((static_cast<long long>(b) * Hq + h) * Sq + i) * hd + col] =
+        __float2bfloat16(A * inv[r]);
+  }
+  if (tid == 0) tickets[bkv * gridDim.z + grp] = 0;  // for the next call
+}
+
+template <int RM>
+int launch_decode(const void* q, const void* k, const void* v, void* out,
+                  float* part, int* tickets, int B, int Hq, int Hkv, int Sq,
+                  int Sk, int hd, long long kv_head_stride, int causal,
+                  int window, float scale, int splits, int chunk, int groups,
+                  cudaStream_t stream) {
+  // part_ml, then part_acc from the next 16-byte boundary
+  float* part_ml = part;
+  float* part_acc =
+      part + ((static_cast<size_t>(B) * Hkv * groups * splits * RM * 2 + 3) &
+              ~static_cast<size_t>(3));
+  const dim3 grid(splits, B * Hkv, groups);
+  flash_attn_decode_kernel<RM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), part_ml, part_acc,
+      tickets, Hq, Hkv, Sq, Sk, hd, kv_head_stride, causal, window,
+      scale * kLog2e, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, out: contiguous [B, Hq, Sq, hd]; k, v: B * Hkv heads of Sk contiguous
@@ -677,7 +1071,8 @@ int mma_by_depth(const void* q, const void* k, const void* v, void* out, int B,
 // head 16-byte aligned, Hq a multiple of Hkv: the wrapper checks, and takes
 // 1 <= Sq <= Sk (with Sq > Sk the first queries sit before key 0 and see
 // nothing: 0).  window <= 0 means none.  bf16 != 0: bf16 operands, else
-// fp32.  variant: 0 flash_attn_kernel, 1 flash_attn_mma_kernel (bf16 only).
+// fp32.  variant: 0 flash_attn_kernel (fp32 only), 1 flash_attn_mma_kernel
+// (bf16 only); bf16 decode has its own entry point, flash_attn_decode.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, int B, int Hq, int Hkv, int Sq, int Sk,
                           int hd, long long kv_head_stride, int causal,
@@ -689,10 +1084,40 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
     return mma_by_depth(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
                         causal, window, scale, s);
   }
-  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (bf16)
-    return by_rows<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
-                                  kv_head_stride, causal, window, scale, s);
+  if (variant != 0 || bf16) return static_cast<int>(cudaErrorInvalidValue);
   return by_rows<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
                         causal, window, scale, s);
+}
+
+// The decode variant (bf16, Sq * Hq / Hkv < 16 rows; the wrapper checks):
+// q, k, v, out and kv_head_stride as flash_attn takes them; splits and chunk
+// from ops.py:decode_plan (splits <= 264, chunk a multiple of 128 with
+// splits * chunk >= Sk).  With splits > 1, `part` is 16-byte aligned fp32
+// scratch of B * Hkv * G * splits * RM * (hd + 2) + 4 floats and `tickets`
+// B * Hkv * G ints that are zero, and are left zero (RM: rows rounded up to
+// a power of two, at most 8; G: row groups of RM).
+extern "C" int flash_attn_decode(const void* q, const void* k, const void* v,
+                                 void* out, void* part, void* tickets, int B,
+                                 int Hq, int Hkv, int Sq, int Sk, int hd,
+                                 long long kv_head_stride, int causal,
+                                 int window, float scale, int splits,
+                                 int chunk, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int rows = Sq * (Hq / Hkv);
+  if (rows >= 16 || hd % 8 || hd > 8 * kDecChunks || splits < 1 ||
+      splits > kDecMaxSplits || chunk % kDecKeys ||
+      static_cast<long long>(splits) * chunk < Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* pf = static_cast<float*>(part);
+  auto* tk = static_cast<int*>(tickets);
+  const int groups = (rows + kDecMaxRows - 1) / kDecMaxRows;
+#define REPRO_DECODE_CASE(n)                                                 \
+  return launch_decode<n>(q, k, v, out, pf, tk, B, Hq, Hkv, Sq, Sk, hd,      \
+                          kv_head_stride, causal, window, scale, splits,     \
+                          chunk, groups, s);
+  if (rows <= 1) REPRO_DECODE_CASE(1)
+  if (rows <= 2) REPRO_DECODE_CASE(2)
+  if (rows <= 4) REPRO_DECODE_CASE(4)
+  REPRO_DECODE_CASE(8)
+#undef REPRO_DECODE_CASE
 }

@@ -40,8 +40,8 @@
 //     DRAM, and once per stage, not per micro-batch.
 //   What it leaves for later: TMA bulk copies (a stage's rows start at
 //   d * 4-byte offsets, not 16-byte aligned in general: covtype's 216);
-//   overlapping the next batch's pull with this batch's update; the same
-//   design for glm_sgd_sparse's chain.
+//   overlapping the next batch's pull with this batch's update.  The ring
+//   (ring.cuh) is shared with glm_sgd_sparse's warp kernel.
 //
 // glm_sgd_kernel (any other d the wrapper accepts): one block of 256
 //   threads per replica, the model in dynamic shared memory; per micro-batch
@@ -56,9 +56,11 @@
 //   computed by the caller).
 #include <cstdint>
 
-#include "common.cuh"
+#include "ring.cuh"
 
 namespace {
+
+using namespace repro;
 
 __global__ void glm_sgd_kernel(const float* __restrict__ X,  // [R, n, d]
                                const float* __restrict__ y,  // [R, n]
@@ -114,63 +116,6 @@ __global__ void glm_sgd_kernel(const float* __restrict__ X,  // [R, n, d]
 constexpr int kWarpThreads = 128;  // the chain warp + 3 copy warps
 constexpr int kCopyWarps = kWarpThreads / 32 - 1;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// The mbarrier's arrival once this thread's earlier cp.async copies land
-// (.noinc: the arrival is one of the count the barrier was made with).
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// Floats past the last 16-byte boundary at p: a tile is staged at the same
-// offset, so its 16-byte runs line up with shared memory's.
-__device__ __forceinline__ int misalign(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-__host__ __device__ constexpr int pad4(int x) { return (x + 3) & ~3; }
-
 // One stage of the ring holds `rows` = group * mb consecutive rows of X as
 // they lie in memory (after up to 3 floats of alignment), 32 C floats of
 // slack that a lane past d may read on the last row, then the rows' labels.
@@ -185,10 +130,6 @@ __host__ __device__ constexpr int stage_floats(int C, int d, int rows) {
 size_t warp_smem_bytes(int C, int d, int mb, int stages, int group) {
   return 16 * static_cast<size_t>(stages) + 4 * static_cast<size_t>(pad4(mb)) +
          4 * static_cast<size_t>(stages) * stage_floats(C, d, group * mb);
-}
-
-__host__ __device__ constexpr int log2i(int x) {
-  return x <= 1 ? 0 : 1 + log2i(x / 2);
 }
 
 // Margins of rows r0 .. r0 + RB - 1 of a staged batch (row i of it at
@@ -290,16 +231,8 @@ glm_sgd_warp_kernel(const float* __restrict__ X,  // [R, n, d]
       if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
       const int start = f * srows, rows = min(srows, n - start);
       const float* src = Xr + static_cast<size_t>(start) * d;
-      float* dst = ring + s * sf + misalign(src);
-      const int count = rows * d;
-      const int head = min((4 - misalign(src)) & 3, count);
-      const int runs = (count - head) >> 2;  // 16-byte runs
-      const int tail = count - head - 4 * runs;
-      for (int e = t; e < head; e += 32) copy4(dst + e, src + e);
-      for (int e = t; e < runs; e += 32)
-        copy16(dst + head + 4 * e, src + head + 4 * e);
-      for (int e = t; e < tail; e += 32)
-        copy4(dst + head + 4 * runs + e, src + head + 4 * runs + e);
+      copy_words(reinterpret_cast<uint32_t*>(ring + s * sf + misalign(src)),
+                 reinterpret_cast<const uint32_t*>(src), rows * d, t);
       float* ys = ring + s * sf + xf;
       for (int e = t; e < rows; e += 32) copy4(ys + e, yr + start + e);
       mbar_arrive_on_copies(&full[s]);

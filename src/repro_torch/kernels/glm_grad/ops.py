@@ -42,7 +42,7 @@ def _glm_grad_cuda(task, w, X, y, *, layout):
     reduce = _lib("glm_grad_reduce", _P, _P, _I, _I, _P)
     partial = torch.empty((nparts, d), dtype=torch.float32, device=X.device)
     g = torch.empty(d, dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
+    with common.on_device(X):
         s = common.stream(X)
         _build.check("glm_grad", launch(X.data_ptr(), y.data_ptr(), w.data_ptr(),
                                         partial.data_ptr(), n, d,

@@ -26,7 +26,7 @@ def _glm_score_cuda(task, w, values, indices):
     out = torch.empty(n, dtype=torch.float32, device=values.device)
     fn = _build.function("glm_score", "glm_score", _P, _P, _P, _P, _I, _I,
                          _I, _P)
-    with torch.cuda.device(values.device):
+    with common.on_device(values):
         code = fn(values.data_ptr(), indices.data_ptr(), w.data_ptr(),
                   out.data_ptr(), n, k, common.task_code(task),
                   common.stream(values))

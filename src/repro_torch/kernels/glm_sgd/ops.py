@@ -66,21 +66,12 @@ def warp_smem_bytes(d: int, micro_batch: int, stages: int, group: int) -> int:
 
 
 def warp_plan(d: int, micro_batch: int) -> tuple[int, int]:
-    """The warp kernel's ring as ``(stages, group)``: stages of ``group``
-    micro-batches, about WARP_STAGE_ROWS rows each where at least four such
-    stages fit (up to WARP_MAX_STAGES), else one micro-batch a stage;
-    ``(0, 0)`` when two single-batch stages do not fit."""
-    def fit(group):
-        for stages in range(WARP_MAX_STAGES, 1, -1):
-            if warp_smem_bytes(d, micro_batch, stages, group) \
-                    <= common.MAX_SMEM_BYTES:
-                return stages
-        return 0
-
-    for group in range(-(-WARP_STAGE_ROWS // micro_batch), 0, -1):
-        if fit(group) >= 4:
-            return fit(group), group
-    return (fit(1), 1) if fit(1) else (0, 0)
+    """The warp kernel's ring as ``(stages, group)`` (``common.ring_plan``:
+    stages of about WARP_STAGE_ROWS rows, up to WARP_MAX_STAGES; ``(0, 0)``
+    where two single-batch stages do not fit)."""
+    return common.ring_plan(
+        lambda stages, group: warp_smem_bytes(d, micro_batch, stages, group),
+        micro_batch, WARP_MAX_STAGES, WARP_STAGE_ROWS)
 
 
 def variant(d: int, micro_batch: int) -> str:
@@ -104,7 +95,7 @@ def _glm_sgd_cuda(task, W, X, y, *, step, micro_batch):
     tail = n % micro_batch
     fn = _build.function("glm_sgd", "glm_sgd_epoch", _P, _P, _P, _I, _I, _I,
                          _I, _I, _F, _F, _I, _I, _P)
-    with torch.cuda.device(X.device):
+    with common.on_device(X):
         code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(), n_rep, n, d,
                   micro_batch, common.task_code(task), step / micro_batch,
                   step / tail if tail else 0.0, stages, group,

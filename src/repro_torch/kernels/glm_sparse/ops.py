@@ -26,7 +26,7 @@ def _glm_sparse_cuda(task, W, values, indices, y):
     G = torch.zeros((n_rep, d), dtype=torch.float32, device=values.device)
     fn = _build.function("glm_sparse", "ell_glm_grad", _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P)
-    with torch.cuda.device(values.device):
+    with common.on_device(values):
         code = fn(values.data_ptr(), indices.data_ptr(), y.data_ptr(),
                   W.data_ptr(), G.data_ptr(), n_rep, n, k, d,
                   common.task_code(task), common.stream(values))

@@ -8,6 +8,8 @@ conformance suite's: gradients ``rtol=1e-4, atol=2e-3``, epochs
 ``rtol=1e-4, atol=1e-4``.  The CUDA kernels themselves are held against the
 same plain versions on the card by ``chip_smoke.py``.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -212,6 +214,74 @@ def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
                                      micro_batch=8)
     rcv1_d = jsynthetic.PAPER_DATASETS["rcv1"][1]
     assert sgd_sparse_ops.smem_bytes(rcv1_d, 10) <= common.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("d,k,mb,want", [
+    (300, 69, 10, "warp"),                    # w8a, AsyncLocalSGD r10 b10
+    (300, 69, 1, "warp"),                     # w8a, local_batch=1
+    (300, 69, 64, "warp"),
+    (300, 1, 1, "warp"),                      # K = 1
+    (20_958, 307, 1, "warp"),                 # real-sim: LiveLearner
+    (47_236, 1_224, 10, "smem"),              # rcv1: rows past WARP_MAX_K
+    (58_000, 69, 1, "smem"),                  # no ring fits beside the model
+])
+def test_glm_sgd_sparse_variant_is_chosen_from_the_shape(d, k, mb, want):
+    assert sgd_sparse_ops.variant(d, k, mb) == want
+    stages, group = sgd_sparse_ops.warp_plan(d, k, mb)
+    if want == "warp":
+        assert stages >= 2 and group >= 1
+        assert sgd_sparse_ops.warp_smem_bytes(d, k, mb, stages, group) \
+            <= common.MAX_SMEM_BYTES
+        assert 32 * sgd_sparse_ops.warp_columns(k) >= k
+
+
+def test_glm_sgd_sparse_warp_ring_plans():
+    """w8a's batches group into stages of about 32 rows (4 batches of 10,
+    32 of 1), up to 16 stages; real-sim's 84 KB model leaves room for four
+    stages of 15 rows; where two stages no longer fit the old kernel runs,
+    and past the shared-memory cap the wrapper raises, naming it."""
+    assert sgd_sparse_ops.warp_plan(300, 69, 10) == (10, 4)
+    assert sgd_sparse_ops.warp_plan(300, 69, 1) == (12, 32)
+    assert sgd_sparse_ops.warp_plan(20_958, 307, 1) == (4, 15)
+    assert sgd_sparse_ops.warp_plan(58_000, 69, 1) == (0, 0)
+    assert [sgd_sparse_ops.warp_columns(k) for k in (1, 32, 33, 69, 100, 307,
+                                                      512)] \
+        == [1, 1, 2, 3, 4, 12, 16]
+    assert sgd_sparse_ops.variant(58_111, 69, 1) == "smem"
+    with pytest.raises(ValueError, match="232448"):
+        sgd_sparse_ops.variant(58_112, 69, 1)
+    with pytest.raises(ValueError, match="d=58112 and micro_batch=1"):
+        sgd_sparse_ops.variant(58_112, 1, 1)
+
+
+def _ell_shared(n, d, k, seed):
+    """ELL rows that share their features: every row draws its nonzeros
+    from the first 8 features, so the rows of a batch collide on them (the
+    warp kernel's atomics), with row lengths 1..k and value-0 padding at
+    index 0."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(1, k + 1, n)
+    live = np.arange(k)[None] < nnz[:, None]
+    values = (rng.normal(0, 1, (n, k)) * live).astype(np.float32)
+    indices = (rng.integers(0, min(8, d), (n, k)) * live).astype(np.int32)
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    w = rng.normal(0, 0.1, d).astype(np.float32)
+    return values, indices, y, w
+
+
+@pytest.mark.parametrize("mb", [1, 10])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_sparse_shared_features_ragged_tail_match_jax(task, mb):
+    """The warp variant's shapes (w8a's K = 69, micro-batches 1 and 10, a
+    ragged tail of 3 rows at 10) with features shared across the rows of a
+    batch, against the JAX kernel."""
+    values, indices, y, w = _ell_shared(43, 300, 69, seed=mb)
+    assert sgd_sparse_ops.variant(300, 69, mb) == "warp"
+    ref = jell_sgd_epoch(task, *_j(w, values, indices, y), step=0.05,
+                         micro_batch=mb, backend="reference")
+    out = tk.ell_sgd_epoch(task, *_t(w, values, indices, y), step=0.05,
+                           micro_batch=mb)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -450,20 +520,178 @@ def test_flash_attention_bf16_rounds_only_the_output():
 
 
 @pytest.mark.parametrize("dtype,sq,rep,want", [
-    (torch.bfloat16, 15, 1, "simt"),     # 15 rows: short of an MMA's 16
+    (torch.bfloat16, 15, 1, "decode"),   # 15 rows: short of an MMA's 16
     (torch.bfloat16, 16, 1, "mma"),
     (torch.bfloat16, 4, 4, "mma"),       # danube's rep: 4 positions fill 16
-    (torch.bfloat16, 5, 3, "simt"),      # rep 3 (minitron): 15 rows
+    (torch.bfloat16, 5, 3, "decode"),    # rep 3 (minitron): 15 rows
     (torch.bfloat16, 8192, 4, "mma"),    # danube's prefill
-    (torch.bfloat16, 1, 4, "simt"),      # decode
+    (torch.bfloat16, 1, 4, "decode"),    # decode
     (torch.bfloat16, 1, 16, "mma"),      # decode with 16 heads a kv head
     (torch.float32, 8192, 4, "simt"),    # fp32: its tolerance needs fp32
+    (torch.float32, 1, 4, "simt"),       # fp32 decode stays on the fp32 kernel
 ])
 def test_flash_attention_variant_is_chosen_from_dtype_and_rows(dtype, sq,
                                                                 rep, want):
     assert attn_ops.variant(dtype, sq, rep) == want
     # the C entry point's code: 0 flash_attn_kernel, 1 flash_attn_mma_kernel
-    assert attn_ops.VARIANTS.index(want) == {"simt": 0, "mma": 1}[want]
+    # (the decode kernel has an entry point of its own)
+    assert attn_ops.VARIANTS.index(want) == {"simt": 0, "mma": 1,
+                                             "decode": 2}[want]
+
+
+@pytest.mark.parametrize("b,hkv,sk", [
+    (4, 8, 1), (4, 8, 77), (4, 8, 127), (4, 8, 128), (4, 8, 129),
+    (4, 8, 4096), (1, 8, 4096), (1, 1, 4096), (1, 1, 100_000), (64, 8, 4096),
+    (33, 8, 4096), (300, 8, 5),
+])
+def test_decode_plan_puts_every_key_in_exactly_one_chunk(b, hkv, sk):
+    """Chunk i holds keys [i * chunk, (i + 1) * chunk): every key in one
+    chunk and none past Sk; the grid holds up to DECODE_TARGET_BLOCKS
+    blocks, no more chunks than 128-key pieces of the cache, and at least
+    132 blocks hold keys unless every chunk is already the smallest (128
+    keys) or there is one a pair."""
+    splits, chunk = attn_ops.decode_plan(b, hkv, sk)
+    assert chunk % attn_ops.DECODE_CHUNK_MULTIPLE == 0 and chunk > 0
+    owner = np.arange(sk) // chunk
+    assert owner.max() < splits and splits * chunk >= sk
+    counts = np.bincount(owner, minlength=splits)
+    assert counts.sum() == sk and (counts[:owner.max()] == chunk).all()
+    heads = b * hkv
+    assert splits == max(1, min(attn_ops.DECODE_TARGET_BLOCKS // heads,
+                                -(-sk // attn_ops.DECODE_CHUNK_MULTIPLE)))
+    assert heads * splits <= max(heads, attn_ops.DECODE_TARGET_BLOCKS)
+    busy = heads * -(-sk // chunk)
+    assert busy >= 132 or chunk == attn_ops.DECODE_CHUNK_MULTIPLE \
+        or splits == 1
+
+
+def test_decode_plan_keeps_the_grid_as_the_cache_grows():
+    """danube's decode at B=4: one chunk of 128 keys up to the serving
+    run's 128, a chunk more for each 128 keys after, and eight chunks a kv
+    head from 1,024 keys on, whatever Sk is (the grid a CUDA graph over
+    the step would keep); eight of 512 at a full window."""
+    plans = {sk: attn_ops.decode_plan(4, 8, sk)
+             for sk in (1, 77, 128, 129, 1024, 1025, 4096)}
+    assert plans[1] == plans[77] == plans[128] == (1, 128)
+    assert plans[129] == (2, 128)
+    assert plans[1024] == (8, 128) and plans[1025] == (8, 256)
+    assert plans[4096] == (8, 512)
+    assert attn_ops.decode_plan(64, 8, 4096) == (1, 4096)  # B=64: no split
+
+
+@pytest.mark.parametrize("rows,want", [
+    (1, (1, 1)), (2, (2, 1)), (3, (4, 1)), (4, (4, 1)), (5, (8, 1)),
+    (8, (8, 1)), (9, (8, 2)), (15, (8, 2)),
+])
+def test_decode_rows_groups_at_most_eight_rows_a_block(rows, want):
+    assert attn_ops.decode_rows(rows) == want
+
+
+def test_decode_workspace_is_kept_and_grown_with_zero_tickets():
+    ws = attn_ops._Workspace()
+    part, tickets = ws.get(CPU, 100, 8)
+    assert part.dtype == torch.float32 and tickets.dtype == torch.int32
+    assert not tickets.any()
+    assert ws.get(CPU, 50, 4) == (part, tickets)        # kept
+    part2, tickets2 = ws.get(CPU, 200, 16)              # grown
+    assert part2.numel() == 200 and tickets2.numel() == 16
+    assert not tickets2.any()
+
+
+def _chunk_states(q, k, v, *, causal, window, chunk):
+    """The decode kernel's per-chunk softmax states in fp32, base 2: for
+    each chunk of ``chunk`` keys the max visible score m (-inf where the
+    chunk shows a row no key), l = sum 2^(s - m) and the unnormalised
+    acc = sum 2^(s - m) v, rows [B, Hq, Sq]."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    sq, sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * (hd ** -0.5 * np.log2(np.e)),
+                     kf)
+    qi = torch.arange(sq)[:, None] + (sk - sq)
+    kj = torch.arange(sk)[None]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= qi - kj < window
+    s = s.masked_fill(~mask, float("-inf"))
+    states = []
+    for lo in range(0, sk, chunk):
+        sc = s[..., lo:lo + chunk]
+        m = sc.amax(-1)
+        p = torch.exp2(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        states.append((m, p.sum(-1), torch.einsum("bhqk,bhkd->bhqd", p,
+                                                  vf[:, :, lo:lo + chunk])))
+    return states
+
+
+def _merge_chunks(states):
+    """The kernel's merge, in chunk order: M = max m, each chunk weighed
+    2^(m - M) (0 where M = -inf), out = sum acc / sum l, 0 where l = 0."""
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        wt = torch.where(torch.isfinite(M), torch.exp2(m - M), 0.0)
+        wt = torch.nan_to_num(wt)
+        L = L + wt * l
+        A = A + wt[..., None] * acc
+    return A / torch.where(L == 0, 1.0, L)[..., None]
+
+
+@pytest.mark.parametrize("sk,window,chunk", [
+    (288, None, 128),    # three chunks, the last ragged
+    (288, 40, 128),      # a window: the first two chunks see no key
+    (144, None, 128),    # a last chunk of 16 keys
+    (80, None, 128),     # one chunk
+])
+def test_decode_chunk_merge_matches_jax_kernel(sk, window, chunk):
+    """The decode kernel's split-and-merge arithmetic at decode shapes
+    (danube's rep 4 and hd 80, Sq = 1) against the JAX Pallas kernel in
+    interpret mode, at the suite's fp32 tolerance."""
+    q, k, v = _qkv(2, 8, 2, 1, sk, 80, seed=sk)
+    want = jflash_attention(*_j(q, k, v), causal=True, window=window,
+                            block_q=1, block_k=16, backend="pallas-interpret")
+    states = _chunk_states(*_t(q, k, v), causal=True, window=window,
+                           chunk=chunk)
+    if window is not None:
+        assert not torch.isfinite(states[0][0]).any()   # a chunk with no key
+    got = _merge_chunks(states)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_decode_chunk_merge_zeroes_a_row_that_sees_no_key():
+    """More queries than keys: the first rows sit before key 0, every chunk
+    gives them m = -inf and l = 0, and the merge gives 0, not NaN."""
+    q, k, v = _t(*_qkv(1, 4, 1, 6, 3, 16, seed=4))
+    got = _merge_chunks(_chunk_states(q, k, v, causal=True, window=None,
+                                      chunk=2))
+    assert torch.isfinite(got).all() and not got[:, :, :3].any()
+    torch.testing.assert_close(got, attn_ref.attention_ref(q, k, v,
+                                                           causal=True),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("valid", [1, 77, 128])
+def test_flash_attention_decode_over_a_cache_prefix_matches_jax_kernel(valid):
+    """The LM's decode call at the decode variant's shape (bf16 operands,
+    Sq = 1, danube's rep 4 and hd 80, causal=False) over the first ``valid``
+    rows of a 128-row cache, read in place, against the JAX kernel in
+    interpret mode on the same bf16 values."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(2, 8, 2, 1, 128, 80, seed=valid))
+    assert attn_ops.variant(q.dtype, 1, 4) == "decode"
+    kp, vp = k[:, :, :valid], v[:, :, :valid]
+    got = tk.flash_attention(q, kp, vp, causal=False)
+    want = jflash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                              for t in (q, kp.contiguous(), vp.contiguous())),
+                            causal=False, block_q=1, block_k=valid,
+                            backend="pallas-interpret")
+    torch.testing.assert_close(
+        got.float(), torch.from_numpy(np.array(want.astype(jnp.float32))),
+        **ATTN_BF16_TOL)
 
 
 def _mma_arithmetic(q, k, v, *, causal, window, split):
@@ -582,6 +810,26 @@ def test_build_compiles_each_source_for_sm90a(monkeypatch):
     lib = _build.library_path("glm_sgd")
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+
+
+def test_build_types_each_entry_point_once(monkeypatch):
+    """A launch looks its typed C entry point up: the first call loads the
+    library and sets argtypes, later calls return the same object and
+    load nothing."""
+    loads = []
+
+    def load(lib):
+        loads.append(lib)
+        return ctypes.CDLL(None)   # this process: libc's abs stands in
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_FUNCTIONS", {})
+    fn = _build.function("glm_sgd", "abs", ctypes.c_int)
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert fn(-3) == 3
+    for _ in range(3):
+        assert _build.function("glm_sgd", "abs", ctypes.c_int) is fn
+    assert loads == ["glm_sgd"]
 
 
 def test_build_without_nvcc_raises(monkeypatch):
