@@ -7,7 +7,7 @@ learner and LM serving) on one NVIDIA card.
 Phases, one JSON line each:
 
 1. ``env``     card name and power limit, torch, CUDA, nvcc, triton;
-2. ``build``   compiles the six kernels from src/repro_torch/kernels/csrc
+2. ``build``   compiles the six sources from src/repro_torch/kernels/csrc
                (one nvcc per source, all at once) and reports ptxas usage;
 3. ``kernels`` holds each kernel against its plain PyTorch version on the
                card: both tasks, both glm_grad layouts, covtype and w8a
@@ -28,21 +28,40 @@ Phases, one JSON line each:
                127, 128 and 4096, a cache prefix read in place, head dims
                64, 72 and 128, B = 64 with no split, a window that leaves
                chunks with no key, two row groups, the same output twice)
-               and small fp32 cases; and that the sparse kernels refuse an
-               index outside [0, d);
+               and small fp32 cases; glm_grad's ring variant at d = 3, 54
+               and 300 with a ragged last tile; glm_sparse's smem variant
+               at w8a (R = 1 and 10 x 6,470), real-sim's width and every
+               glm_sgd_sparse edge case above (rows of all padding, a
+               feature three times in every row), and its atomic variant
+               near the cap; the global-memory variants (glm_sgd at d =
+               58,112 and 100,000, glm_grad's row layout at 60,000,
+               glm_sgd_sparse at news' width with K = 2,729, micro-batches
+               1 and 10, several replicas); five calls of glm_grad and
+               glm_sparse giving the same bits; and that the sparse
+               kernels refuse an index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
-               just before and read just after; then the same strategies at
+               just before and read just after, and the variants the path's
+               shapes pick are checked (glm_grad's ring, glm_sparse's smem,
+               glm_sgd_sparse's warp); then the same strategies at
                N=4,100 through the kernels and through the plain versions on
                the card, loss for loss;
-5. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
+5. ``news``    the paper's news at full size (19,996 x 1,355,191, K =
+               2,729: a 437 MB padded ELL drawn on the card,
+               ``news_dataset``) through ``sgd.run`` under Table 7's
+               ``AsyncLocalSGD(replicas=8 and 64, local_batch=1)`` for 3
+               epochs, launch counts zeroed just before and read just
+               after (glm_sgd_sparse's global variant); ms per epoch and
+               us per update; then both on the first 1,600 rows through
+               the kernels and through the plain versions, loss for loss;
+6. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
                requests under the model phase ``train``'s SyncSGD run ended
                with (max_batch 128, with a swap_model halfway, and 32), and
                8,192 real-sim-width requests; launch counts zeroed just
                before and read just after; every response held against the
                plain version under the snapshot version it carries;
-6. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
+7. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
                stream publishing into an engine that a second thread
                serves, exact and int8-compressed, with replicas killed and
                revived; each configuration also run in lockstep through the
@@ -50,7 +69,7 @@ Phases, one JSON line each:
                merge (int8: also with the plain learner resynced after each
                merge, and its codes compared); short glm_sparse and dense
                runs;
-7. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
+8. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
                weights from a seeded generator on the card): the serving
                run of ``repro_torch.launch.serve`` (8 requests, 4 slots,
                max_new 16, max_len 128) with launch counts zeroed just
@@ -59,13 +78,17 @@ Phases, one JSON line each:
                versions, with the same weights in fp32 as the yardstick
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
-8. ``timing``  each kernel and its plain version at the main path's shapes
-               (glm_sgd also at covtype R=8 B=1, glm_sgd_sparse also at w8a
-               R=10 B=1, flash_attn decode also over a full 4096-key
-               window), with the variant each row ran and its device time
+9. ``timing``  each kernel and its plain version at the main path's shapes
+               (glm_sgd also at covtype R=8 B=1 and on its global variant,
+               glm_sgd_sparse also at w8a R=10 B=1 and news R=8 B=1,
+               glm_grad and glm_sparse each beside the kernel their
+               redesign replaced, glm_sparse also at R=10, flash_attn
+               decode also over a full 4096-key window, and an fp32 call),
+               with the variant each row ran and its device time
                (profiler, or a CUDA event pair around one call where the
                profiler saw no launch), the decode wrapper's host us per
-               call, and a check of w8a's R=10 full-partition gradient.
+               call, a check of w8a's R=10 full-partition gradient, and
+               the device time of a launch that does nothing.
 
 It then prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (launches on the main path, error, times, bound, variant: a row for each
@@ -76,6 +99,7 @@ line.  Without a card, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -121,12 +145,16 @@ REPLACES = {
 #: variant its ops.variant() picks (None: the family has one)
 KERNEL_SYMBOLS = {
     "glm_sgd": {"warp": ("glm_sgd_warp_kernel",),
-                "smem": ("glm_sgd_kernel",)},
-    "glm_grad": {None: ("glm_grad_row_kernel", "glm_grad_col_kernel",
-                        "glm_grad_reduce_kernel")},
+                "smem": ("glm_sgd_kernel",),
+                "global": ("glm_sgd_global_kernel",)},
+    "glm_grad": {"ring": ("glm_grad_ring_kernel", "glm_grad_reduce_kernel"),
+                 "row": ("glm_grad_row_kernel", "glm_grad_reduce_kernel"),
+                 "col": ("glm_grad_col_kernel", "glm_grad_reduce_kernel")},
     "glm_sgd_sparse": {"warp": ("ell_sgd_warp_kernel",),
-                       "smem": ("ell_sgd_kernel",)},
-    "glm_sparse": {None: ("ell_grad_kernel",)},
+                       "smem": ("ell_sgd_kernel",),
+                       "global": ("ell_sgd_global_kernel",)},
+    "glm_sparse": {"smem": ("ell_grad_smem_kernel", "ell_grad_reduce_kernel"),
+                   "atomic": ("ell_grad_kernel",)},
     "glm_score": {None: ("glm_score_kernel",)},
     "flash_attn": {"mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
@@ -362,6 +390,24 @@ ATTN_CASES = (
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def forced_variant(ops, kind: str):
+    """Make a family's wrapper run the variant ``kind`` for a while: how a
+    redesigned kernel's predecessor is timed beside it, in the same call."""
+    saved = ops.variant
+    ops.variant = lambda *shape: kind
+    try:
+        yield
+    finally:
+        ops.variant = saved
+
+
+def same_bits(fn, calls: int = 5) -> bool:
+    """Whether ``calls`` calls of ``fn`` give the same bits."""
+    outs = [fn() for _ in range(calls)]
+    return all(torch.equal(outs[0], o) for o in outs[1:])
+
+
 def phase_env(smi: str) -> dict:
     from repro_torch.kernels import _build
 
@@ -423,6 +469,38 @@ def _wide_ell_inputs(n, d, k, dev, seed):
     return v, i, w
 
 
+#: the paper's news (Table 3) at full size; K is paper_dataset's pad width
+NEWS = dict(n=19_996, d=1_355_191, avg_nnz=454.99, k=2_729)
+
+
+def news_dataset(dev, seed: int = 0):
+    """news at full size as a padded-ELL ``(ELLMatrix, y)`` drawn on the
+    card with ``synthetic.make_sparse``'s profile: log-normal row lengths
+    around 455 nonzeros clipped to [1, 2,729], Zipfian feature popularity
+    (an inverse-CDF draw over 1/rank), N(0, 1) values, value-0 padding at
+    index 0, and labels planted by w* ~ N(0, 1/rank) with 5% flipped.
+    ``make_sparse`` draws row by row on the host, which takes hours at
+    this width; here a feature may repeat within a row."""
+    from repro_torch.core import sparse
+
+    n, d, k = NEWS["n"], NEWS["d"], NEWS["k"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nnz = torch.exp(np.log(NEWS["avg_nnz"]) + 0.8 * torch.randn(
+        n, 1, device=dev, generator=g)).clamp(1, k).long()
+    live = torch.arange(k, device=dev)[None] < nnz
+    ranks = torch.arange(1, d + 1, device=dev, dtype=torch.float64)
+    cdf = torch.cumsum(1.0 / ranks, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(n, k, device=dev, generator=g, dtype=torch.float64)
+    idx = torch.searchsorted(cdf, u).clamp_(max=d - 1).to(torch.int32) * live
+    del u
+    vals = torch.randn(n, k, device=dev, generator=g) * live
+    w_star = torch.randn(d, device=dev, generator=g) / ranks.sqrt().float()
+    y = torch.where((vals * w_star[idx.long()]).sum(1) >= 0, 1.0, -1.0)
+    y[torch.rand(n, device=dev, generator=g) < 0.05] *= -1.0
+    return sparse.ELLMatrix(vals, idx, d), y
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Every kernel against its plain version on the card, small shapes."""
     import repro_torch.kernels as K
@@ -431,6 +509,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
+
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
 
     rng = np.random.default_rng(0)
     cases, worst = [], {}
@@ -441,11 +521,15 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                       "tol": tol, "ok": ok})
         worst[kernel] = max(worst.get(kernel, 0.0), err)
 
+    from repro_torch.kernels.glm_grad import ops as grad_ops
     for task in ("lr", "svm"):
-        for n, d in ((4096, 54), (4099, 54), (3000, 300)):
+        # the ring variant's edges: a ragged last tile (4,099 rows), d = 3
+        # (128-row tiles of 1.5 KB), 54 and 300 (27-row tiles)
+        for n, d in ((4096, 54), (4099, 54), (3000, 300), (4099, 3)):
             X, y, w = _dense_inputs(rng, n, d, dev)
             for layout in ("row", "col"):
-                record("glm_grad", f"{task} n={n} d={d} {layout}",
+                record("glm_grad", f"{task} n={n} d={d} "
+                       f"{grad_ops.variant(d, layout)}",
                        K.glm_grad(task, w, X, y, layout=layout),
                        glm_grad_ref(task, w, X, y), GRAD_TOL)
             for mb in (1, 16):
@@ -477,6 +561,16 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         vr, ir, yr = v.reshape(10, 410, 69), i.reshape(10, 410, 69), y.reshape(10, 410)
         W = w[None] * torch.arange(1, 11, device=dev, dtype=torch.float32)[:, None]
         record("glm_sparse", f"{task} w8a R=10 per=410",
+               K.ell_glm_grad(task, W, vr, ir, yr),
+               ell_glm_grad_ref(task, W, vr, ir, yr), GRAD_TOL)
+        # glm_sparse at the full w8a stand-in's shape under R=10 replicas
+        # (AsyncLocalSGD(replicas=10, local_batch=6470))
+        v, i, y, w = _ell_inputs(rng, 64_700, 300, 11.65, 69, dev, seed=8)
+        vr, ir, yr = v.reshape(10, 6470, 69), i.reshape(10, 6470, 69), \
+            y.reshape(10, 6470)
+        W = w[None] * torch.linspace(-1.0, 1.0, 10, device=dev)[:, None]
+        record("glm_sparse", f"{task} w8a R=10 per=6470 "
+               f"{sparse_grad_ops.variant(300, 69, 10)}",
                K.ell_glm_grad(task, W, vr, ir, yr),
                ell_glm_grad_ref(task, W, vr, ir, yr), GRAD_TOL)
         record("glm_sgd_sparse", f"{task} w8a R=10 per=410 mb=10",
@@ -549,6 +643,65 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                    K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05,
                                    micro_batch=mb),
                    ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, mb), EPOCH_TOL)
+            # the same edge cases through glm_sparse's variants
+            record("glm_sparse", f"{task} {label} n={n} d={d} K={k} "
+                   f"R={reps} {sparse_grad_ops.variant(d, k, reps)}",
+                   K.ell_glm_grad(task, W, vr, ir, yr),
+                   ell_glm_grad_ref(task, W, vr, ir, yr), GRAD_TOL)
+    # the global-memory variants, for models past a block's shared memory:
+    # glm_sgd at 58,112 (the first width past it at micro-batch 1) and
+    # 100,000 features; glm_grad's row layout at 60,000; glm_sgd_sparse at
+    # news' width with its 2,729-entry rows, several replicas.  The dense
+    # steps scale as 1/d, as the main path's full-batch steps scale as 1/N:
+    # at unit-normal features a fixed step grows the margins with d
+    for d, mb, n, reps in ((58_112, 1, 200, 2), (58_112, 10, 203, 2),
+                           (100_000, 16, 150, 3)):
+        X, y, w = _dense_inputs(rng, n * reps, d, dev)
+        Xr, yr = X.reshape(reps, n, d), y.reshape(reps, n)
+        W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
+        for task in ("lr", "svm"):
+            record("glm_sgd", f"{task} d={d} mb={mb} R={reps} per={n} "
+                   f"{sgd_ops.variant(d, mb)}",
+                   K.glm_sgd_epoch(task, W, Xr, yr, step=1.0 / d,
+                                   micro_batch=mb),
+                   glm_sgd_epoch_ref(task, W, Xr, yr, 1.0 / d, mb), EPOCH_TOL)
+    X, y, w = _dense_inputs(rng, 2003, 60_000, dev)
+    for task in ("lr", "svm"):
+        record("glm_grad", f"{task} n=2003 d=60000 "
+               f"{grad_ops.variant(60_000, 'row')}",
+               K.glm_grad(task, w, X, y), glm_grad_ref(task, w, X, y),
+               GRAD_TOL)
+    d, k = NEWS["d"], NEWS["k"]
+    for mb, n, reps in ((1, 120, 4), (10, 203, 3)):
+        v, i, w = _wide_ell_inputs(n * reps, d, k, dev, seed=mb)
+        y = torch.where(torch.arange(n * reps, device=dev) % 3 == 0, -1.0, 1.0)
+        vr, ir, yr = (v.reshape(reps, n, k), i.reshape(reps, n, k),
+                      y.reshape(reps, n))
+        W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
+        for task in ("lr", "svm"):
+            record("glm_sgd_sparse", f"{task} news width n={n} d={d} K={k} "
+                   f"mb={mb} R={reps} {sparse_ops.variant(d, k, mb)}",
+                   K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05,
+                                   micro_batch=mb),
+                   ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, mb), EPOCH_TOL)
+    # the redesigned reductions sum in a fixed order: the same bits on
+    # every call (glm_grad at covtype's width, glm_sparse at w8a's, with a
+    # replica axis)
+    X, y, w = _dense_inputs(rng, 100_003, 54, dev)
+    v, i, ys, ws = _ell_inputs(rng, 64_700, 300, 11.65, 69, dev, seed=9)
+    vr, ir, yr = v.reshape(10, 6470, 69), i.reshape(10, 6470, 69), \
+        ys.reshape(10, 6470)
+    for name, label, fn in (
+            ("glm_grad", "N=100003 d=54 ring",
+             lambda: K.glm_grad("lr", w, X, y)),
+            ("glm_sparse", "w8a R=1 smem",
+             lambda: K.ell_glm_grad("lr", ws, v, i, ys)),
+            ("glm_sparse", "w8a R=10 per=6470 smem",
+             lambda: K.ell_glm_grad("lr", ws[None].repeat(10, 1), vr, ir,
+                                    yr))):
+        cases.append({"kernel": name,
+                      "case": f"{label}: five calls give the same bits",
+                      "ok": same_bits(fn)})
     # flash_attn: distinct kv heads throughout (each drawn on its own), so
     # a kernel that read kv head h % Hkv rather than h // rep would show
     from repro_torch.kernels.flash_attn import ops as attn_ops
@@ -584,10 +737,10 @@ def phase_kernels(dev) -> tuple[dict, dict]:
            attention_ref(q, kc[:, :, :77], vc[:, :, :77], causal=False),
            ATTN_BF16_TOL)
     q, k, v = _attn_inputs((4, 32, 8, 1, 4096, 80), torch.bfloat16, dev, 97)
-    outs = [K.flash_attention(q, k, v, causal=False) for _ in range(5)]
     cases.append({"kernel": "flash_attn",
                   "case": "decode Sk=4096: five calls give the same bits",
-                  "ok": all(torch.equal(outs[0], o) for o in outs[1:])})
+                  "ok": same_bits(lambda: K.flash_attention(q, k, v,
+                                                            causal=False))})
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
@@ -652,7 +805,9 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
     the runs' results."""
     from repro_torch.core import convergence, sgd
     from repro_torch.kernels import common
+    from repro_torch.kernels.glm_grad import ops as grad_ops
     from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
 
     runs, results = [], []
     common.reset_launches()
@@ -667,11 +822,19 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
                      "falling": falling(res.losses)})
     launches = dict(common.LAUNCHES)
     # the one sparse epoch shape of the path (w8a, AsyncLocalSGD r10 b10)
-    # runs glm_sgd_sparse's warp variant, so its launches are that kernel's
+    # runs glm_sgd_sparse's warp variant, its gradients (w8a at R = 1 and
+    # 10) glm_sparse's smem variant, and covtype's gradient glm_grad's ring
+    # variant, so each family's launches are that kernel's
     ell = w8a[0]
-    sparse_variant = sparse_ops.variant(ell.d, ell.values.shape[1], 10)
+    k = ell.values.shape[1]
+    variants = {
+        "glm_sgd_sparse": sparse_ops.variant(ell.d, k, 10),
+        "glm_sparse": {sparse_grad_ops.variant(ell.d, k, r) for r in (1, 10)},
+        "glm_grad": grad_ops.variant(covtype[0].shape[1], "row")}
     ok = all(r["falling"] for r in runs) and all(
-        launches[k] > 0 for k in TRAIN_KERNELS) and sparse_variant == "warp"
+        launches[k] > 0 for k in TRAIN_KERNELS) and variants == {
+            "glm_sgd_sparse": "warp", "glm_sparse": {"smem"},
+            "glm_grad": "ring"}
     # the paper's statistical and end-to-end axes: epochs and time to 1% of
     # the lowest loss any strategy reached on the same dataset
     for data in {r["data"] for r in runs}:
@@ -702,7 +865,9 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
             short_name(key): ms for key, (ms, _) in
             sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]}
     return {"phase": "train", "epochs": epochs, "runs": runs,
-            "launches": launches, "glm_sgd_sparse_variant": sparse_variant,
+            "launches": launches,
+            "variants": {f: sorted(v) if isinstance(v, set) else v
+                         for f, v in variants.items()},
             "ok": ok}, launches, results
 
 
@@ -724,6 +889,73 @@ def phase_parity(covtype, w8a, n: int, epochs: int) -> dict:
                      "max_abs_err": err, "ok": ok and falling(kern.losses)})
     return {"phase": "parity", "n": n, "tol": LOSS_TOL, "runs": runs,
             "ok": all(r["ok"] for r in runs)}
+
+
+#: Table 7's news runs (benchmarks/table7_async.py): AsyncLocalSGD at
+#: local_batch 1 with 8 replicas (cpu-par) and 64 (gpu-norep)
+NEWS_REPLICAS = (8, 64)
+#: the step of the news runs, and the rows the plain versions rerun them on
+NEWS_STEP = 0.01
+NEWS_CUT = 1_600
+
+
+def phase_news(news, epochs: int) -> tuple[dict, int]:
+    """news at full size through ``sgd.run`` under Table 7's two async
+    configurations (glm_sgd_sparse's global variant: the model is 5.4 MB a
+    replica), launch counts zeroed just before and read just after; then
+    both runs on the first NEWS_CUT rows through the kernels and through
+    the plain versions on the card, loss for loss.  Returns the phase line
+    and glm_sgd_sparse's launches."""
+    from repro_torch.core import sgd, sparse
+    from repro_torch.kernels import common
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+
+    m, y = news
+    n, k = m.values.shape
+
+    def strategy(replicas):
+        return sgd.AsyncLocalSGD(replicas=replicas, local_batch=1)
+
+    runs = []
+    common.reset_launches()
+    for replicas in NEWS_REPLICAS:
+        t0 = time.perf_counter()
+        res = sgd.run(("lr", m, y, NEWS_STEP), strategy(replicas), epochs,
+                      sparse_data=True)
+        updates = n // replicas  # each replica's chain of updates an epoch
+        runs.append({"strategy": res.strategy, "replicas": replicas,
+                     "updates_per_epoch": updates,
+                     "ms_per_epoch": res.time_per_epoch * 1e3,
+                     "epoch_ms": (res.epoch_times * 1e3).tolist(),
+                     "us_per_update": res.time_per_epoch * 1e6 / updates,
+                     "losses": res.losses.tolist(),
+                     "falling": falling(res.losses),
+                     "wall_s": time.perf_counter() - t0})
+    launches = dict(common.LAUNCHES)
+    variant = sparse_ops.variant(m.d, k, 1)
+    cut = (sparse.ELLMatrix(m.values[:NEWS_CUT], m.indices[:NEWS_CUT], m.d),
+           y[:NEWS_CUT])
+    parity = []
+    for replicas in NEWS_REPLICAS:
+        problem = ("lr", *cut, NEWS_STEP)
+        kern = sgd.run(problem, strategy(replicas), epochs, sparse_data=True)
+        with common.plain_versions():
+            plain = sgd.run(problem, strategy(replicas), epochs,
+                            sparse_data=True)
+        err, ok = close(torch.from_numpy(kern.losses),
+                        torch.from_numpy(plain.losses), LOSS_TOL)
+        parity.append({"strategy": kern.strategy, "rows": NEWS_CUT,
+                       "kernel_losses": kern.losses.tolist(),
+                       "plain_losses": plain.losses.tolist(),
+                       "max_abs_err": err, "ok": ok})
+    ok = (all(r["falling"] for r in runs) and all(p["ok"] for p in parity)
+          and variant == "global"
+          and launches["glm_sgd_sparse"] == len(NEWS_REPLICAS) * epochs)
+    return {"phase": "news", "shape": [n, m.d, k],
+            "ell_mb": nbytes(m.values, m.indices) / 1e6, "epochs": epochs,
+            "step": NEWS_STEP, "runs": runs, "launches": launches,
+            "glm_sgd_sparse_variant": variant, "parity_cut": NEWS_CUT,
+            "parity": parity, "ok": ok}, launches["glm_sgd_sparse"]
 
 
 # ---------------------------------------------------------------------------
@@ -1377,24 +1609,32 @@ def phase_lm(dev) -> tuple[dict, int, int]:
         prefill_launches
 
 
-def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
+def phase_timing(covtype, w8a, news, worst: dict
+                 ) -> tuple[list[dict], list[dict], dict]:
     """Each kernel and its plain version at the main path's shapes: one
-    timed row per kernel and variant (glm_score: a serving batch and all of
-    w8a; glm_sgd: SyncSGD(batch=16) and the R=8 B=1 replica epochs;
-    glm_sgd_sparse: the R=10 replica epochs at B=10 and B=1; flash_attn:
-    decode over the serving run's 128 keys and a full 4096-key window, and
-    prefill; the kernels line takes the rows marked ``line``), the decode
-    wrapper's host us per call, and a check of w8a's R=10 full-partition
-    gradient, the one shape those rows leave out."""
+    timed row per kernel and variant (glm_grad: covtype on the ring kernel
+    and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
+    a serving batch and all of w8a; glm_sgd: SyncSGD(batch=16), the R=8 B=1
+    replica epochs and the global variant at d = 58,112; glm_sgd_sparse:
+    the R=10 replica epochs at B=10 and B=1, and news' R=8 B=1 epoch on
+    the global variant; glm_sparse: w8a at R=1 and R=10 x 6,470 on the
+    smem kernel and on the atomic kernel it replaced; flash_attn: decode
+    over the serving run's 128 keys and a full 4096-key window, prefill,
+    and an fp32 call; the kernels line takes the rows marked ``line``), the
+    decode wrapper's host us per call, a check of w8a's R=10
+    full-partition gradient, and the device time of a launch that does
+    nothing (``torch.cuda._sleep(0)``)."""
     import repro_torch.kernels as K
     from repro_torch.core import sgd
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.glm_grad import ops as grad_ops
     from repro_torch.kernels.glm_grad.ref import glm_grad_ref
     from repro_torch.kernels.glm_score.ref import glm_score_ref
     from repro_torch.kernels.glm_sgd import ops as sgd_ops
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
     from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
 
     X, yd = covtype
@@ -1436,11 +1676,33 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      **lib})
 
-    # SyncSGD() on covtype: the full-batch sum gradient
-    row("glm_grad", f"covtype N={n} d={d} row",
-        lambda: K.glm_grad("lr", w, X, yd), lambda: glm_grad_ref("lr", w, X, yd),
-        20, 20, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
-        line="glm_grad")
+    # SyncSGD() on covtype: the full-batch sum gradient, on the ring kernel
+    # and on the two-pass row kernel it replaced
+    for kind, line in (("ring", "glm_grad_ring"), ("row", None)):
+        with forced_variant(grad_ops, kind):
+            row("glm_grad", f"covtype N={n} d={d} {kind}",
+                lambda: K.glm_grad("lr", w, X, yd),
+                lambda: glm_grad_ref("lr", w, X, yd), 20, 20,
+                nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
+                line=line, variant=kind)
+    # the row layout past the ring kernel and past w in shared memory
+    Xw, yw, ww = _dense_inputs(rng, 2003, 60_000, X.device)
+    row("glm_grad", "N=2003 d=60000 row", lambda: K.glm_grad("lr", ww, Xw, yw),
+        lambda: glm_grad_ref("lr", ww, Xw, yw), 20, 20,
+        nbytes(Xw, yw, ww, ww), 4.0 * Xw.numel() + 8.0 * 2003, GRAD_TOL,
+        variant=grad_ops.variant(60_000, "row"))
+    # glm_sgd's global variant: d = 58,112 at micro-batch 10, 201 updates
+    Xg, wg = Xw[:, :58_112].contiguous(), ww[:58_112].contiguous()
+    del Xw
+    row("glm_sgd", "N=2003 d=58112 MB=10 R=1",
+        lambda: K.glm_sgd_epoch("lr", wg, Xg, yw, step=1.0 / 58_112,
+                                micro_batch=10),
+        lambda: glm_sgd_epoch_ref("lr", wg[None], Xg[None], yw[None],
+                                  1.0 / 58_112, 10)[0],
+        3, 1, nbytes(Xg, yw, wg, wg), 4.0 * Xg.numel() + 8.0 * 2003,
+        EPOCH_TOL, variant=sgd_ops.variant(58_112, 10),
+        updates=-(-2003 // 10))
+    del Xg
     # SyncSGD(batch=16) on covtype: one fused epoch, 36,314 updates
     row("glm_sgd", f"covtype N={n} d={d} MB=16 R=1",
         lambda: K.glm_sgd_epoch("lr", w, X, yd, step=0.01, micro_batch=16),
@@ -1472,13 +1734,39 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
             4.0 * nnz + 8.0 * ns, EPOCH_TOL, line=line,
             variant=sparse_ops.variant(m.d, k, mb),
             updates=-(-vp.shape[1] // mb))
-    # SyncSGD() on w8a: the full-batch sparse sum gradient
-    row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1",
-        lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
-        lambda: ell_glm_grad_ref("lr", ws[None], m.values[None], m.indices[None],
-                                 ys[None])[0],
-        20, 20, ell_bytes(m.values) + nbytes(ys, ws, ws), 4.0 * nnz + 8.0 * ns,
-        GRAD_TOL, line="glm_sparse")
+    # SyncSGD() on w8a: the full-batch sparse sum gradient, and
+    # AsyncLocalSGD(replicas=10, local_batch=6470)'s replica gradients, on
+    # the smem kernel and on the atomic kernel it replaced
+    for kind, line in (("smem", "glm_sparse_smem"), ("atomic", None)):
+        with forced_variant(sparse_grad_ops, kind):
+            row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1 {kind}",
+                lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
+                lambda: ell_glm_grad_ref("lr", ws[None], m.values[None],
+                                         m.indices[None], ys[None])[0],
+                20, 20, ell_bytes(m.values) + nbytes(ys, ws, ws),
+                4.0 * nnz + 8.0 * ns, GRAD_TOL, line=line, variant=kind)
+            row("glm_sparse", f"w8a R=10 per={vp.shape[1]} K={k} d={m.d} "
+                f"{kind}", lambda: K.ell_glm_grad("lr", W, vp, ip, yp),
+                lambda: ell_glm_grad_ref("lr", W, vp, ip, yp), 20, 20,
+                ell_bytes(vp) + nbytes(yp, W, W), 4.0 * nnz + 8.0 * ns,
+                GRAD_TOL, variant=kind)
+    # news' AsyncLocalSGD(replicas=8, local_batch=1) replica epoch: 2,499
+    # dependent updates a replica with the model in global memory
+    mn, yn = news
+    kn = mn.values.shape[1]
+    parts = torch.from_numpy(sgd.partition_indices(mn.shape[0], 8)).to(
+        X.device).long()
+    vn, i_n, yn8 = mn.values[parts], mn.indices[parts], yn[parts]
+    Wn = torch.zeros(8, mn.d, device=X.device)
+    row("glm_sgd_sparse", f"news N={mn.shape[0]} K={kn} d={mn.d} R=8 MB=1",
+        lambda: K.ell_sgd_epoch("lr", Wn, vn, i_n, yn8, step=NEWS_STEP,
+                                micro_batch=1),
+        lambda: ell_sgd_epoch_ref("lr", Wn, vn, i_n, yn8, NEWS_STEP, 1),
+        3, 1, ell_bytes(vn) + nbytes(yn8, Wn, Wn),
+        4.0 * int((vn != 0).sum()) + 8.0 * yn8.numel(), EPOCH_TOL,
+        line="glm_sgd_sparse_global",
+        variant=sparse_ops.variant(mn.d, kn, 1), updates=vn.shape[1])
+    del vn, i_n
 
     # the serving path: glm_score on one 128-row batch, which is what a
     # flush launches (the kernels line's row), and on all of w8a.  The
@@ -1529,6 +1817,18 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
                 lambda: K.flash_attention(qa, ka, va, causal=causal))
             rows[-1]["library_host_us_per_call"] = host_us(
                 lambda: sdpa(qa, ka, va, enable_gqa=True))
+    # the fp32 variant (no main path runs it): a causal 1024 x 1024 call at
+    # danube's heads, bound by fp32 operations outside the tensor cores
+    shape = (1, 32, 8, 1024, 1024, 80)
+    qa, ka, va = _attn_inputs(shape, torch.float32, X.device, seed=8)
+    mask = end_aligned_mask(1024, 1024, True, None, X.device)
+    attn_bytes, attn_flops = attn_work(qa, ka, True, None)
+    row("flash_attn", f"fp32 B,Hq,Hkv,Sq,Sk,hd={list(shape)} causal=True",
+        lambda: K.flash_attention(qa, ka, va, causal=True),
+        lambda: attention_ref(qa, ka, va, causal=True), 20, 5, attn_bytes,
+        attn_flops, ATTN_TOL,
+        library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
+        variant=attn_ops.variant(torch.float32, 1024, 4))
 
     checks = []
 
@@ -1542,7 +1842,10 @@ def phase_timing(covtype, w8a, worst: dict) -> tuple[list[dict], list[dict]]:
     check("glm_sparse", f"w8a R=10 per={vp.shape[1]} K={k} d={m.d}",
           K.ell_glm_grad("lr", W, vp, ip, yp),
           ell_glm_grad_ref("lr", W, vp, ip, yp), GRAD_TOL)
-    return rows, checks
+    # the floor under any launch: the device time of one that does nothing
+    empty = kernel_device_time(lambda: torch.cuda._sleep(0), 200,
+                               ("spin_kernel",))
+    return rows, checks, empty
 
 
 def main() -> int:
@@ -1578,8 +1881,21 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    launches["glm_sgd_sparse_warp"] = launches.pop("glm_sgd_sparse")
+    launches = {"glm_grad_ring": launches["glm_grad"],
+                "glm_sgd": launches["glm_sgd"],
+                "glm_sgd_sparse_warp": launches["glm_sgd_sparse"],
+                "glm_sparse_smem": launches["glm_sparse"]}
     line = phase_parity(covtype, w8a, n=4100, epochs=3)
+    emit(line)
+    if not line["ok"]:
+        return 1
+
+    t0 = time.perf_counter()
+    news = news_dataset(dev)
+    torch.cuda.synchronize()
+    news_seconds = time.perf_counter() - t0
+    line, launches["glm_sgd_sparse_global"] = phase_news(news, epochs=3)
+    line["data_seconds"] = news_seconds
     emit(line)
     if not line["ok"]:
         return 1
@@ -1605,7 +1921,7 @@ def main() -> int:
     if not line["ok"]:
         return 1
 
-    rows, full_checks = phase_timing(covtype, w8a, worst)
+    rows, full_checks, empty = phase_timing(covtype, w8a, news, worst)
     checks += full_checks
     # a kernels-line row's error: the worst of its kernel's rows and checks
     for r in rows:
@@ -1615,7 +1931,7 @@ def main() -> int:
              if (o["name"], o["variant"]) == (r["name"], r["variant"])]
             + [c["max_abs_err"] for c in checks if c["kernel"] == r["name"]])
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
-          "full_shape_checks": full_checks,
+          "full_shape_checks": full_checks, "empty_launch": empty,
           "seconds_total": time.perf_counter() - t_start})
     if not all(r["ok"] for r in rows + full_checks):
         return 1

@@ -32,6 +32,7 @@ from repro_torch.kernels.glm_grad import glm_grad
 from repro_torch.kernels.glm_sgd import glm_sgd_epoch
 from repro_torch.kernels.glm_sgd_sparse import ell_sgd_epoch
 from repro_torch.kernels.glm_sparse import ell_glm_grad
+from repro_torch.obs import trace
 
 AccessPath = Literal["round_robin", "chunk"]
 MergeScheme = Literal["mean", "weighted"]
@@ -277,29 +278,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(problem, strategy, epochs: int, *, sparse_data: bool = False) -> RunResult:
+def run(problem, strategy, epochs: int, *, sparse_data: bool = False,
+        record_time: bool = True) -> RunResult:
     """Run SGD for ``epochs`` passes, recording loss + wall time per pass.
 
-    Epoch 1 is timed as set-up (it builds the kernels on first use); its
-    time is replaced by the median of the others, as the reference does
-    with its compile epoch.
+    Epoch 1 is timed as set-up (it builds the kernels on first use), inside
+    an ``engine.compile`` span; its time is replaced by the median of the
+    others, as the reference does with its compile epoch.  Each later epoch
+    runs inside an ``engine.epoch`` span.  The span names and attributes
+    are the reference's.  ``record_time`` is the reference's keyword: like
+    the reference, the engine times every epoch either way.
     """
-    init, epoch_fn, loss_fn, _ = make_epoch_fn(
+    del record_time  # accepted for the reference's signature
+    init, epoch_fn, loss_fn, merges = make_epoch_fn(
         problem, strategy, sparse_data=sparse_data)
     task = problem[0]
     dev = init.device
 
     state = init
     losses = [float(loss_fn(state))]
-    state = epoch_fn(state)
-    _sync(dev)
-    losses.append(float(loss_fn(state)))
-    times = [float("nan")]
-    for _ in range(epochs - 1):
-        t0 = time.perf_counter()
+    with trace.span("engine.compile", strategy=strategy.name, task=task):
         state = epoch_fn(state)
         _sync(dev)
-        times.append(time.perf_counter() - t0)
+    losses.append(float(loss_fn(state)))
+    times = [float("nan")]
+    for e in range(epochs - 1):
+        with trace.span("engine.epoch", epoch=e + 1, strategy=strategy.name,
+                        merges=merges):
+            t0 = time.perf_counter()
+            state = epoch_fn(state)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
         losses.append(float(loss_fn(state)))
     times[0] = float(np.nanmedian(times[1:])) if len(times) > 1 else 0.0
     return RunResult(

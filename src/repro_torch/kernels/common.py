@@ -27,6 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.obs import trace
+
 CUDA = "cuda"
 TORCH_REFERENCE = "torch-reference"
 
@@ -114,9 +116,14 @@ def resolve_backend(kernel: str, dev: torch.device,
 
 def dispatch(kernel: str, dev: torch.device, *args,
              backend: str | None = None, **kwargs):
-    """Resolve the flavor for ``dev`` and call it."""
+    """Resolve the flavor for ``dev`` and call it, inside a
+    ``kernel.dispatch`` span (``kernel``, ``backend``) when tracing is on:
+    the host time of the call, as the reference's dispatch records it."""
     b = resolve_backend(kernel, dev, backend)
-    return _REGISTRY[kernel][b](*args, **kwargs)
+    if not trace.enabled():
+        return _REGISTRY[kernel][b](*args, **kwargs)
+    with trace.span("kernel.dispatch", kernel=kernel, backend=b):
+        return _REGISTRY[kernel][b](*args, **kwargs)
 
 
 @contextlib.contextmanager
@@ -143,13 +150,16 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def check_smem(kernel: str, nbytes: int, what: str) -> None:
-    """Raise when a block would need more shared memory than Hopper has."""
-    if nbytes > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{kernel} needs {nbytes} bytes of shared memory for {what}, "
-            f"beyond the {MAX_SMEM_BYTES}-byte (227 KB) per-block limit of "
-            f"sm_90; a global-memory variant is not ported yet")
+_SMS: dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """SMs of the card ``dev`` (read once a card): what a kernel with
+    persistent blocks sizes its grid by."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
 
 
 def ring_plan(nbytes: Callable[[int, int], int], micro_batch: int,

@@ -11,9 +11,10 @@
 //   at MB=16: 36,314 steps on one SM; the bytes alone, 125.5 MB of X, would
 //   take about 38 us at 3.35 TB/s).  The time per update is the target.
 //
-// Two kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch); the
-// wrapper passes the warp kernel's ring as `stages` and `group`
-// (ops.py:warp_plan), and stages = 0 for the shared-memory kernel:
+// Three kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch);
+// the wrapper passes the warp kernel's ring as `stages` and `group`
+// (ops.py:warp_plan), and stages = 0 for the shared-memory kernel; the
+// global-memory kernel has its own entry point (glm_sgd_epoch_global):
 //
 // glm_sgd_warp_kernel (d <= WARP_MAX_D = 1024, and a ring of at least two
 //   stages fits in shared memory).  The chain is one warp's alone:
@@ -43,11 +44,22 @@
 //   overlapping the next batch's pull with this batch's update.  The ring
 //   (ring.cuh) is shared with glm_sgd_sparse's warp kernel.
 //
-// glm_sgd_kernel (any other d the wrapper accepts): one block of 256
-//   threads per replica, the model in dynamic shared memory; per micro-batch
-//   a warp per row computes the margin with a shuffle sum and writes the
-//   pull into shared memory; after a barrier each thread updates its
-//   features with the tile's X^T pull.
+// glm_sgd_kernel (d + micro_batch floats within a block's shared memory,
+//   d up to about 58,000): one block of 256 threads per replica, the model
+//   in dynamic shared memory; per micro-batch a warp per row computes the
+//   margin with a shuffle sum and writes the pull into shared memory; after
+//   a barrier each thread updates its features with the tile's X^T pull.
+//
+// glm_sgd_global_kernel (any wider d): glm_sgd_kernel's loop with the
+//   replica's model left in the output tensor in global memory.  A row's
+//   margin is split over the whole block (a thread per feature), summed
+//   with shuffles and then across the warps in warp order; the batch's
+//   pulls go to a global scratch the wrapper allocates (a batch may hold
+//   more rows than shared memory).  Each feature's update belongs to one
+//   thread, so no atomics.  The block reads back in its next margin pass
+//   what other threads of it wrote, so the model is read and written with
+//   L1-bypassing __ldcg / __stcg (L1 is not coherent), and __syncthreads
+//   orders the passes.
 //
 // Both: one block per replica (blockIdx.x; R = 1 for SyncSGD), fp32
 //   throughout, no fast math (the LR pull's expf over 36k updates); a ragged
@@ -107,6 +119,58 @@ __global__ void glm_sgd_kernel(const float* __restrict__ X,  // [R, n, d]
   }
 
   for (int j = tid; j < d; j += blockDim.x) Wr[j] = w[j];
+}
+
+constexpr int kGlobalThreads = 1024;
+constexpr int kGlobalWarps = kGlobalThreads / 32;
+// rows whose margins one pass of the global kernels sums at a time
+constexpr int kMarginRows = 32;
+
+__global__ void __launch_bounds__(kGlobalThreads)
+glm_sgd_global_kernel(const float* __restrict__ X,  // [R, n, d]
+                      const float* __restrict__ y,  // [R, n]
+                      float* __restrict__ W,        // [R, d] in/out
+                      float* __restrict__ P,        // [R, mb] scratch
+                      int n, int d, int mb, int task, float scale,
+                      float tail_scale) {
+  __shared__ float red[kMarginRows][kGlobalWarps];
+  const int r = blockIdx.x;
+  const float* Xr = X + static_cast<size_t>(r) * n * d;
+  const float* yr = y + static_cast<size_t>(r) * n;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  float* pl = P + static_cast<size_t>(r) * mb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int start = 0; start < n; start += mb) {
+    const int rows = min(mb, n - start);
+    const float s = rows == mb ? scale : tail_scale;
+    const float* Xb = Xr + static_cast<size_t>(start) * d;
+    for (int i0 = 0; i0 < rows; i0 += kMarginRows) {
+      const int cr = min(kMarginRows, rows - i0);
+      for (int i = 0; i < cr; ++i) {
+        const float* xi = Xb + static_cast<size_t>(i0 + i) * d;
+        float acc = 0.0f;
+        for (int j = tid; j < d; j += kGlobalThreads)
+          acc += xi[j] * __ldcg(&Wr[j]);
+        acc = repro::warp_sum(acc);
+        if (lane == 0) red[i][warp] = acc;
+      }
+      __syncthreads();
+      if (tid < cr) {
+        float m = 0.0f;
+        for (int q = 0; q < kGlobalWarps; ++q) m += red[tid][q];
+        const float yi = yr[start + i0 + tid];
+        pl[i0 + tid] = repro::pull(task, yi * m, yi);
+      }
+      __syncthreads();  // red is free again, the pulls are visible
+    }
+    for (int j = tid; j < d; j += kGlobalThreads) {
+      float g = 0.0f;
+      for (int i = 0; i < rows; ++i) g += Xb[static_cast<size_t>(i) * d + j] * pl[i];
+      __stcg(&Wr[j], __ldcg(&Wr[j]) - s * g);
+    }
+    __syncthreads();  // the next batch reads the updated model
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -358,6 +422,20 @@ int warp_path(const float* X, const float* y, float* W, int R, int n, int d,
 }
 
 }  // namespace
+
+// glm_sgd_global_kernel: X, y contiguous fp32 [R, n, d] and [R, n]; W [R, d]
+// updated in place; P an fp32 scratch of R * mb floats.
+extern "C" int glm_sgd_epoch_global(const void* X, const void* y, void* W,
+                                    void* P, int R, int n, int d, int mb,
+                                    int task, float scale, float tail_scale,
+                                    void* stream) {
+  glm_sgd_global_kernel<<<R, kGlobalThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(X), static_cast<const float*>(y),
+      static_cast<float*>(W), static_cast<float*>(P), n, d, mb, task, scale,
+      tail_scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // stages > 1: glm_sgd_warp_kernel with a ring of that many stages of
 // `group` micro-batches each (the wrapper checks d <= 1024 and that the ring

@@ -18,10 +18,11 @@
 //   would otherwise pile atomics onto w[0].  A ragged tail is one final
 //   smaller batch at alpha/|tail|; the step arrives as a runtime float.
 //   Indices are not range-checked here: the wrapper has checked the operand
-//   once before its first launch.  Two kernels, chosen by
+//   once before its first launch.  Three kernels, chosen by
 //   kernels/glm_sgd_sparse/ops.py:variant(d, K, micro_batch); the wrapper
 //   passes the warp kernel's ring as `stages` and `group`
-//   (ops.py:warp_plan), and stages = 0 for the shared-memory kernel:
+//   (ops.py:warp_plan), and stages = 0 for the shared-memory kernel; the
+//   global-memory kernel has its own entry point (ell_sgd_epoch_global):
 //
 // ell_sgd_warp_kernel (K <= 512, and a ring of at least two stages fits next
 //   to the model).  glm_sgd_warp_kernel's design, for ELL rows:
@@ -63,11 +64,24 @@
 //   scatter that resolves a batch's shared features without
 //   compare-and-swap.
 //
-// ell_sgd_kernel (any other shape the wrapper takes: the model must fit in
-//   shared memory next to the pulls, d up to about 58,000; news' 1,355,191
-//   does not, and the caller raises before launch).  One block of 256
-//   threads; per micro-batch a warp per row gathers w[idx] and sums the
-//   margin with shuffles, a barrier, the block scatters, a barrier.
+// ell_sgd_kernel (the model fits in shared memory next to the pulls, d up
+//   to about 58,000, where the warp kernel does not take the shape).  One
+//   block of 256 threads; per micro-batch a warp per row gathers w[idx] and
+//   sums the margin with shuffles, a barrier, the block scatters, a
+//   barrier.
+//
+// ell_sgd_global_kernel (any wider model: news' d = 1,355,191).
+//   ell_sgd_kernel's loop with the replica's model left in the output
+//   tensor in global memory (5.4 MB a replica at news' width, in L2):
+//   - a row's margin is split over the whole block (news' rows hold up to
+//     2,729 entries), summed with shuffles and then across the warps in warp
+//     order; the batch's pulls go to a global scratch the wrapper allocates;
+//   - the scatter is a global atomicAdd, which sm_90 performs in L2 as a
+//     native float reduction (RED.ADD.F32), not the compare-and-swap loop
+//     of a shared-memory float atomic;
+//   - the block reads back, in its next margin pass, what its own atomics
+//     wrote to L2, so the model is gathered with L1-bypassing __ldcg (L1 is
+//     not coherent with L2 atomics) and __syncthreads orders the passes.
 #include <cstdint>
 
 #include "ring.cuh"
@@ -128,6 +142,66 @@ __global__ void ell_sgd_kernel(const float* __restrict__ vals,  // [R, n, K]
   }
 
   for (int j = tid; j < d; j += blockDim.x) Wr[j] = w[j];
+}
+
+constexpr int kGlobalThreads = 1024;
+constexpr int kGlobalWarps = kGlobalThreads / 32;
+// rows whose margins one pass of the global kernel sums at a time
+constexpr int kMarginRows = 32;
+
+__global__ void __launch_bounds__(kGlobalThreads)
+ell_sgd_global_kernel(const float* __restrict__ vals,  // [R, n, K]
+                      const int* __restrict__ idx,     // [R, n, K]
+                      const float* __restrict__ y,     // [R, n]
+                      float* __restrict__ W,           // [R, d] in/out
+                      float* __restrict__ P,           // [R, mb] scratch
+                      int n, int K, int d, int mb, int task, float scale,
+                      float tail_scale) {
+  __shared__ float red[kMarginRows][kGlobalWarps];
+  const int r = blockIdx.x;
+  const size_t base = static_cast<size_t>(r) * n * K;
+  const float* vr = vals + base;
+  const int* ir = idx + base;
+  const float* yr = y + static_cast<size_t>(r) * n;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  float* pl = P + static_cast<size_t>(r) * mb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int start = 0; start < n; start += mb) {
+    const int rows = min(mb, n - start);
+    const float s = rows == mb ? scale : tail_scale;
+    const float* vb = vr + static_cast<size_t>(start) * K;
+    const int* ib = ir + static_cast<size_t>(start) * K;
+    for (int i0 = 0; i0 < rows; i0 += kMarginRows) {
+      const int cr = min(kMarginRows, rows - i0);
+      for (int i = 0; i < cr; ++i) {
+        const size_t row = static_cast<size_t>(i0 + i) * K;
+        float acc = 0.0f;
+        for (int k = tid; k < K; k += kGlobalThreads) {
+          const float v = vb[row + k];
+          if (v != 0.0f) acc += v * __ldcg(&Wr[ib[row + k]]);
+        }
+        acc = repro::warp_sum(acc);
+        if (lane == 0) red[i][warp] = acc;
+      }
+      __syncthreads();
+      if (tid < cr) {
+        float m = 0.0f;
+        for (int q = 0; q < kGlobalWarps; ++q) m += red[tid][q];
+        const float yi = yr[start + i0 + tid];
+        pl[i0 + tid] = repro::pull(task, yi * m, yi);
+      }
+      __syncthreads();  // red is free again, the pulls are visible
+    }
+    const size_t entries = static_cast<size_t>(rows) * K;
+    for (size_t e = tid; e < entries; e += kGlobalThreads) {
+      const float v = vb[e];
+      if (v == 0.0f) continue;
+      const float g = pl[e / K];
+      if (g != 0.0f) atomicAdd(&Wr[ib[e]], -s * v * g);
+    }
+    __syncthreads();  // the scatter lands before the next batch's gathers
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -460,6 +534,22 @@ int warp_path(const float* vals, const int* idx, const float* y, float* W,
 }
 
 }  // namespace
+
+// ell_sgd_global_kernel: vals, idx, y contiguous [R, n, K] fp32, [R, n, K]
+// int32 and [R, n] fp32; W [R, d] updated in place; P an fp32 scratch of
+// R * mb floats.
+extern "C" int ell_sgd_epoch_global(const void* vals, const void* idx,
+                                    const void* y, void* W, void* P, int R,
+                                    int n, int K, int d, int mb, int task,
+                                    float scale, float tail_scale,
+                                    void* stream) {
+  ell_sgd_global_kernel<<<R, kGlobalThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(idx),
+      static_cast<const float*>(y), static_cast<float*>(W),
+      static_cast<float*>(P), n, K, d, mb, task, scale, tail_scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // stages > 1: ell_sgd_warp_kernel with a ring of that many stages of `group`
 // micro-batches each (the wrapper checks K <= 512 and that the ring fits:

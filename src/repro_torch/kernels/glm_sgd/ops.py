@@ -8,9 +8,12 @@ replica.  :func:`variant` picks the kernel from ``(d, micro_batch)`` alone:
   memory: one warp carries the chain of dependent updates with the model in
   its registers, while the block's other warps prefetch the tiles.  The
   chain is the algorithm's, so this kernel shortens each update;
-* ``"smem"`` (``glm_sgd_kernel``, the first port) for every other shape the
-  wrapper takes: the model in shared memory, ``d + micro_batch`` floats up to
-  227 KB; a wider model raises ``ValueError`` naming the limit.
+* ``"smem"`` (``glm_sgd_kernel``, the first port) where ``d + micro_batch``
+  floats fit a block's 227 KB of shared memory: the model there;
+* ``"global"`` (``glm_sgd_global_kernel``) for every wider model: the model
+  stays in the output tensor in global memory, a row's margin is summed by
+  the whole block, the batch's pulls go to a global scratch, and each
+  feature's update belongs to one thread.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -76,30 +79,40 @@ def warp_plan(d: int, micro_batch: int) -> tuple[int, int]:
 
 def variant(d: int, micro_batch: int) -> str:
     """The kernel that runs ``(d, micro_batch)``: ``"warp"`` up to
-    WARP_MAX_D where a two-stage ring fits, else ``"smem"``; raises
-    ``ValueError`` where neither fits a block's shared memory."""
+    WARP_MAX_D where a two-stage ring fits, else ``"smem"`` where the model
+    and the batch's pulls fit a block's shared memory, else ``"global"``."""
     if d <= WARP_MAX_D and warp_plan(d, micro_batch)[0]:
         return "warp"
-    common.check_smem("glm_sgd", smem_bytes(d, micro_batch),
-                      f"d={d} and micro_batch={micro_batch}")
-    return "smem"
+    if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
+        return "smem"
+    return "global"
 
 
 @common.register_kernel("glm_sgd", common.CUDA)
 def _glm_sgd_cuda(task, W, X, y, *, step, micro_batch):
     n_rep, n, d = X.shape
-    stages, group = warp_plan(d, micro_batch) \
-        if variant(d, micro_batch) == "warp" else (0, 0)
+    kind = variant(d, micro_batch)
     X, y = common.cuda_operand(X), common.cuda_operand(y)
     out = common.cuda_operand(W).clone()
     tail = n % micro_batch
-    fn = _build.function("glm_sgd", "glm_sgd_epoch", _P, _P, _P, _I, _I, _I,
-                         _I, _I, _F, _F, _I, _I, _P)
+    scales = (step / micro_batch, step / tail if tail else 0.0)
     with common.on_device(X):
-        code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(), n_rep, n, d,
-                  micro_batch, common.task_code(task), step / micro_batch,
-                  step / tail if tail else 0.0, stages, group,
-                  common.stream(X))
+        if kind == "global":
+            pulls = torch.empty((n_rep, micro_batch), dtype=torch.float32,
+                                device=X.device)
+            fn = _build.function("glm_sgd", "glm_sgd_epoch_global", _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)
+            code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(),
+                      pulls.data_ptr(), n_rep, n, d, micro_batch,
+                      common.task_code(task), *scales, common.stream(X))
+        else:
+            stages, group = warp_plan(d, micro_batch) \
+                if kind == "warp" else (0, 0)
+            fn = _build.function("glm_sgd", "glm_sgd_epoch", _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _F, _F, _I, _I, _P)
+            code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(), n_rep, n,
+                      d, micro_batch, common.task_code(task), *scales,
+                      stages, group, common.stream(X))
     _build.check("glm_sgd", code)
     common.count_launch("glm_sgd")
     return out

@@ -1,7 +1,8 @@
 """Public wrapper for the fused sparse (ELL) mini-batch SGD epoch.
 
 ``cuda`` runs ``csrc/glm_sgd_sparse.cu``: one launch per epoch, one block
-per replica, the model in shared memory, scatter by shared-memory atomics.
+per replica, the model in shared memory where it fits (scatter by
+shared-memory atomics), else in global memory (global atomics).
 :func:`variant` picks the kernel from ``(d, K, micro_batch)`` alone:
 
 * ``"warp"`` (``ell_sgd_warp_kernel``) for rows of up to :data:`WARP_MAX_K`
@@ -10,9 +11,12 @@ per replica, the model in shared memory, scatter by shared-memory atomics.
   of more than one row), holding a batch's values and indices in registers
   from the margin to the scatter, while the block's other warps prefetch
   the batches into the ring;
-* ``"smem"`` (``ell_sgd_kernel``, the first port) for every other shape the
-  wrapper takes: ``d + micro_batch`` floats up to 227 KB; a wider model
-  raises ``ValueError`` naming the limit.
+* ``"smem"`` (``ell_sgd_kernel``, the first port) where ``d + micro_batch``
+  floats fit a block's 227 KB of shared memory: the model there;
+* ``"global"`` (``ell_sgd_global_kernel``) for every wider model (news, d =
+  1,355,191): the model stays in the output tensor in global memory, a
+  row's margin is gathered and summed by the whole block, the batch's pulls
+  go to a global scratch, and the scatter is a global ``atomicAdd``.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -40,6 +44,7 @@ WARP_STAGE_ROWS = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P)
+_GLOBAL_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)
 
 
 def smem_bytes(d: int, micro_batch: int) -> int:
@@ -79,32 +84,42 @@ def warp_plan(d: int, k: int, micro_batch: int) -> tuple[int, int]:
 
 def variant(d: int, k: int, micro_batch: int) -> str:
     """The kernel that runs ``(d, K, micro_batch)``: ``"warp"`` for K up to
-    WARP_MAX_K where a two-stage ring fits, else ``"smem"``; raises
-    ``ValueError`` where neither fits a block's shared memory."""
+    WARP_MAX_K where a two-stage ring fits, else ``"smem"`` where the model
+    and the batch's pulls fit a block's shared memory, else ``"global"``."""
     if k <= WARP_MAX_K and warp_plan(d, k, micro_batch)[0]:
         return "warp"
-    common.check_smem("glm_sgd_sparse", smem_bytes(d, micro_batch),
-                      f"a model of d={d} and micro_batch={micro_batch}")
-    return "smem"
+    if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
+        return "smem"
+    return "global"
 
 
 @common.register_kernel("glm_sgd_sparse", common.CUDA)
 def _ell_sgd_cuda(task, W, values, indices, y, *, step, micro_batch):
     n_rep, n, k = values.shape
     d = W.shape[1]
-    stages, group = warp_plan(d, k, micro_batch) \
-        if variant(d, k, micro_batch) == "warp" else (0, 0)
+    kind = variant(d, k, micro_batch)
     values, y = common.cuda_operand(values), common.cuda_operand(y)
     indices = common.cuda_operand(indices, torch.int32)
     out = common.cuda_operand(W).clone()
     tail = n % micro_batch
-    fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch", *_ARGS)
+    scales = (step / micro_batch, step / tail if tail else 0.0)
+    ptrs = (values.data_ptr(), indices.data_ptr(), y.data_ptr(),
+            out.data_ptr())
     with common.on_device(values):
-        code = fn(values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-                  out.data_ptr(), n_rep, n, k, d, micro_batch,
-                  common.task_code(task), step / micro_batch,
-                  step / tail if tail else 0.0, stages, group,
-                  common.stream(values))
+        if kind == "global":
+            pulls = torch.empty((n_rep, micro_batch), dtype=torch.float32,
+                                device=values.device)
+            fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch_global",
+                                 *_GLOBAL_ARGS)
+            code = fn(*ptrs, pulls.data_ptr(), n_rep, n, k, d, micro_batch,
+                      common.task_code(task), *scales, common.stream(values))
+        else:
+            stages, group = warp_plan(d, k, micro_batch) \
+                if kind == "warp" else (0, 0)
+            fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch", *_ARGS)
+            code = fn(*ptrs, n_rep, n, k, d, micro_batch,
+                      common.task_code(task), *scales, stages, group,
+                      common.stream(values))
     _build.check("glm_sgd_sparse", code)
     common.count_launch("glm_sgd_sparse")
     return out

@@ -10,6 +10,7 @@ epoch at a time, because its hinge pull flips for a margin within
 round-off of 1.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro.core import glm as jglm
 from repro.core import sgd as jsgd
 from repro.core import sparse as jsparse
 from repro.data import synthetic as jsyn
+from repro.obs import trace as jtrace
 
 from repro_torch import convert
 from repro_torch.core import convergence as tconv
@@ -30,6 +32,7 @@ from repro_torch.core import sgd as tsgd
 from repro_torch.core import sparse as tsparse
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels import common
+from repro_torch.obs import trace as ttrace
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CPU = "cpu"
@@ -182,6 +185,98 @@ def test_sync_minibatch_takes_a_ragged_n(dense):
     ref = jsgd.run(jp, jsgd.SyncSGD(batch=16, kernel_backend="reference"), 3)
     out = tsgd.run(tp, tsgd.SyncSGD(batch=16), 3)
     np.testing.assert_allclose(out.losses, ref.losses, **TOL)
+
+
+#: news' width (Table 3): past a block's shared memory for every kernel
+NEWS_D = 1_355_191
+
+
+def _news_rows(n, k, seed):
+    """ELL rows at news' width: 1..k nonzeros a row (value-0 padding at
+    index 0 after them), indices anywhere in [0, NEWS_D), labels +-1."""
+    rng = np.random.default_rng(seed)
+    live = np.arange(k)[None] < rng.integers(1, k + 1, n)[:, None]
+    values = (rng.normal(0, 1, (n, k)) * live).astype(np.float32)
+    indices = (rng.integers(0, NEWS_D, (n, k)) * live).astype(np.int32)
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    return values, indices, y
+
+
+@pytest.mark.parametrize("task", ["lr", "svm"])
+def test_run_sparse_at_news_width_matches_jax(task):
+    """Table 7's news runs (AsyncLocalSGD at local_batch 1) on 36 rows at
+    d = 1,355,191: the shape whose glm_sgd_sparse kernel keeps the model in
+    global memory (the first port raised there), against the JAX engine."""
+    values, indices, y = _news_rows(36, 24, seed=11)
+    strat = jsgd.AsyncLocalSGD(replicas=2, local_batch=1)
+    jp = (task, jsparse.ELLMatrix(jnp.asarray(values), jnp.asarray(indices),
+                                  NEWS_D), jnp.asarray(y), 0.5)
+    tp = (task, convert.ell_from_reference(values, indices, NEWS_D, CPU),
+          torch.from_numpy(y), 0.5)
+    epochs = 3 if task == "lr" else 1
+    ref = jsgd.run(jp, dataclasses.replace(strat, kernel_backend="reference"),
+                   epochs, sparse_data=True)
+    out = tsgd.run(tp, _port_strategy(strat), epochs, sparse_data=True)
+    assert out.losses[-1] < out.losses[0]
+    assert out.model.shape == (2, NEWS_D)
+    np.testing.assert_allclose(out.losses, ref.losses, **TOL)
+
+
+def test_run_takes_record_time_like_the_reference(dense):
+    """``record_time=False`` is accepted, and the run is the same run."""
+    _, tp = _problems("lr", dense, False, 0.05)
+    strat = tsgd.SyncSGD(batch=16)
+    out = tsgd.run(tp, strat, 3, record_time=False)
+    base = tsgd.run(tp, strat, 3)
+    np.testing.assert_array_equal(out.losses, base.losses)
+    assert out.epoch_times.shape == (3,)
+
+
+def _spans(path):
+    lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+    return [(ln["name"], tuple(sorted(ln.get("args", {}))))
+            for ln in lines if ln["kind"] == "span"]
+
+
+@pytest.mark.parametrize("sparse_data", [False, True])
+def test_traced_run_records_the_references_engine_spans(
+        sparse_data, dense, ell, tmp_path, monkeypatch):
+    """A traced run writes ``engine.compile`` around the first epoch and
+    ``engine.epoch`` around each timed one with the reference's attribute
+    keys, and a ``kernel.dispatch`` (kernel, backend) inside each epoch."""
+    data = ell if sparse_data else dense
+    jp, tp = _problems("lr", data, sparse_data, 0.05)
+    jstrat = jsgd.AsyncLocalSGD(replicas=4, local_batch=4,
+                                kernel_backend="reference")
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setenv("REPRO_TRACE_DIR", str(tmp_path))
+    monkeypatch.setenv("REPRO_TRACE_TAG", "engine")
+    jtrace.refresh()
+    ttrace.refresh()
+    try:
+        jsgd.run(jp, jstrat, 3, sparse_data=sparse_data)
+        tsgd.run(tp, _port_strategy(jstrat), 3, sparse_data=sparse_data)
+    finally:
+        monkeypatch.delenv("REPRO_TRACE")
+        jtrace.refresh()
+        ttrace.refresh()
+    port_file, = tmp_path.glob("trace-engine-torch-*.jsonl")
+    ref_file, = [p for p in tmp_path.glob("trace-engine-*.jsonl")
+                 if p != port_file]
+    engine = [sp for sp in _spans(port_file) if sp[0].startswith("engine.")]
+    assert engine == [sp for sp in _spans(ref_file)
+                      if sp[0].startswith("engine.")]
+    assert engine == [("engine.compile", ("strategy", "task"))] + [
+        ("engine.epoch", ("epoch", "merges", "strategy"))] * 2
+    dispatch = [sp for sp in _spans(port_file) if sp[0] == "kernel.dispatch"]
+    assert dispatch == [("kernel.dispatch", ("backend", "kernel"))] * 3
+    assert ("kernel.dispatch", ("backend", "kernel")) in _spans(ref_file)
+    lines = [json.loads(ln) for ln in port_file.read_text().splitlines()]
+    kernel = "glm_sgd_sparse" if sparse_data else "glm_sgd"
+    assert {ln["args"]["kernel"] for ln in lines
+            if ln.get("name") == "kernel.dispatch"} == {kernel}
+    assert {ln["args"]["backend"] for ln in lines
+            if ln.get("name") == "kernel.dispatch"} == {common.TORCH_REFERENCE}
 
 
 def test_merge_every_above_one_merges_every_epoch_like_the_reference(dense):

@@ -28,8 +28,10 @@ import repro_torch.kernels as tk
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.flash_attn import ops as attn_ops
 from repro_torch.kernels.flash_attn import ref as attn_ref
+from repro_torch.kernels.glm_grad import ops as grad_ops
 from repro_torch.kernels.glm_sgd import ops as sgd_ops
 from repro_torch.kernels.glm_sgd_sparse import ops as sgd_sparse_ops
+from repro_torch.kernels.glm_sparse import ops as sparse_ops
 
 TASKS = ("lr", "svm")
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)
@@ -95,6 +97,92 @@ def test_glm_grad_rejects_bad_layout_and_shapes():
         tk.glm_grad("lr", w, X, y, layout="diag")
     with pytest.raises(ValueError, match="shapes"):
         tk.glm_grad("lr", w[:3], X, y)
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_grad_row_past_shared_memory_matches_jax(task):
+    """d = 60,000: past the ring kernel and past w in shared memory (the
+    first port refused it), against the JAX reference."""
+    assert grad_ops.variant(60_000, "row") == "row"
+    X, y, w = _dense(19, 60_000, seed=4)
+    ref = jglm_grad(task, *_j(w, X, y), backend="reference")
+    out = tk.glm_grad(task, *_t(w, X, y))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d,layout,want", [
+    (3, "row", "ring"),                        # skin
+    (54, "row", "ring"),                       # covtype
+    (300, "row", "ring"),
+    (grad_ops.RING_MAX_D, "row", "ring"),
+    (grad_ops.RING_MAX_D + 1, "row", "row"),
+    (60_000, "row", "row"),
+    (54, "col", "col"),
+    (60_000, "col", "col"),
+])
+def test_glm_grad_variant_is_chosen_from_the_shape(d, layout, want):
+    assert grad_ops.variant(d, layout) == want
+
+
+@pytest.mark.parametrize("d,n", [(3, 4_099), (54, 581_012), (54, 4_099),
+                                 (300, 3_001), (1_024, 777), (54, 1)])
+def test_glm_grad_ring_plan_covers_every_row_once(d, n):
+    """Tiles of about 32 KB (at most 128 rows), a power-of-two lane count
+    with T * L up to the 256 consumer threads, blocks of consecutive tiles,
+    about three a SM, and a ring that leaves room for three blocks a SM."""
+    tile, lanes, per_block, blocks = grad_ops.ring_plan(d, n, 132)
+    assert 1 <= tile <= grad_ops.RING_MAX_TILE
+    assert tile * d * 4 <= grad_ops.RING_STAGE_BYTES or tile == 1
+    assert lanes & (lanes - 1) == 0 and lanes <= 32
+    assert tile * lanes <= grad_ops.RING_CONSUMERS < 2 * tile * lanes \
+        or lanes == 32
+    tiles = -(-n // tile)
+    assert (blocks - 1) * per_block < tiles <= blocks * per_block
+    assert blocks <= grad_ops.RING_BLOCKS_PER_SM * 132
+    assert grad_ops.RING_BLOCKS_PER_SM * (
+        grad_ops.ring_smem_bytes(d, tile) + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("n,tile", [(581_012, 256), (67_584, 256),
+                                    (67_583, 248), (2_003, 8), (1, 8)])
+def test_glm_grad_row_tile_fills_the_card(n, tile):
+    """The row kernel's blocks keep 256 rows at covtype's N; a smaller N
+    takes fewer rows a block (multiples of 8) so that at least two blocks
+    a SM run where N allows."""
+    assert grad_ops.row_tile(n, 132) == tile
+    assert tile == 8 or -(-n // tile) >= 2 * 132
+
+
+def _first_read_banks(d, lanes, skew):
+    banks = [0] * 32
+    for r in range(32 // lanes):
+        for lane in range(lanes):
+            banks[(r * (d + lanes * skew) + lane) % 32] += 1
+    return max(banks)
+
+
+@pytest.mark.parametrize("d", [3, 7, 54, 100, 300, 1_024])
+def test_glm_grad_ring_skew_spreads_a_warps_rows_over_the_banks(d):
+    """The margin pass's first reads of a warp's rows hit as few banks at
+    once as any skew allows: one each at covtype's d = 54 (rows 54 words
+    apart, two lanes a row) with no skew, where a skew of one (rows 56
+    words apart) put four reads on a bank."""
+    lanes = grad_ops.ring_plan(d, 100_000, 132)[1]
+    skew = grad_ops.ring_skew(d, lanes)
+    best = min(_first_read_banks(d, lanes, a) for a in range(32))
+    assert _first_read_banks(d, lanes, skew) == best
+    if d == 54:
+        assert (lanes, skew, best) == (2, 0, 1)
+        assert _first_read_banks(54, 2, 1) == 4
+
+
+def test_glm_grad_ring_plan_at_covtype():
+    """covtype: 128-row tiles of 27,648 bytes, two lanes a row, 4,540 tiles
+    in 379 blocks of 12 (379 partial rows where the first port wrote
+    2,270); d = 300 runs 27-row tiles at 8 lanes a row."""
+    assert grad_ops.ring_plan(54, 581_012, 132) == (128, 2, 12, 379)
+    assert grad_ops.ring_plan(300, 64_700, 132)[:2] == (27, 8)
+    assert grad_ops.ring_plan(1_024, 1_000, 132)[:2] == (8, 32)
 
 
 # ---------------------------------------------------------------------------
@@ -164,18 +252,30 @@ def test_glm_sgd_warp_ring_holds_about_32_rows_a_stage():
 
 def test_glm_sgd_accepted_shapes_did_not_shrink():
     """Every (d, micro_batch) the shared-memory kernel takes is still taken
-    (by one variant or the other), and the shared-memory limit raises at
-    the same shapes, naming it."""
+    by a shared-memory variant, and the shapes past the shared-memory limit,
+    which raised before the global-memory variant, now route to it."""
     for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111):
         for mb in (1, 2, 10, 16, 27, 28, 64, 111, 112):
             if sgd_ops.smem_bytes(d, mb) <= common.MAX_SMEM_BYTES:
                 assert sgd_ops.variant(d, mb) in ("warp", "smem")
             else:
-                with pytest.raises(ValueError, match="232448"):
-                    sgd_ops.variant(d, mb)
+                assert sgd_ops.variant(d, mb) == "global"
     assert sgd_ops.variant(58_111, 1) == "smem"
-    with pytest.raises(ValueError, match="d=58112 and micro_batch=1"):
-        sgd_ops.variant(58_112, 1)
+    assert sgd_ops.variant(58_112, 1) == "global"
+    assert sgd_ops.variant(100_000, 16) == "global"
+    assert sgd_ops.variant(54, 60_000) == "global"   # a batch past the cap
+
+
+@pytest.mark.parametrize("d,mb", [(58_112, 1), (58_112, 10), (100_000, 16)])
+def test_glm_sgd_past_shared_memory_matches_jax(d, mb):
+    """The global variant's shapes (a model too wide for a block's shared
+    memory, a ragged tail at micro-batch 10) against the JAX reference."""
+    assert sgd_ops.variant(d, mb) == "global"
+    X, y, w = _dense(23, d, seed=mb)
+    ref = jglm_sgd_epoch("lr", *_j(w, X, y), step=0.01, micro_batch=mb,
+                         backend="reference")
+    out = tk.glm_sgd_epoch("lr", *_t(w, X, y), step=0.01, micro_batch=mb)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +305,16 @@ def test_glm_sgd_sparse_ragged_tail_matches_jax_reference(task):
 
 
 def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
-    """news (d=1,355,191) cannot keep its model in a block's shared memory."""
+    """news (d=1,355,191) cannot keep its model in a block's shared memory:
+    it used to raise, naming the limit, and now routes to the global-memory
+    variant, whose cuda flavor refuses only a tensor off the card."""
     d = jsynthetic.PAPER_DATASETS["news"][1]
+    assert sgd_sparse_ops.smem_bytes(d, 8) > common.MAX_SMEM_BYTES
+    for k, mb in ((2_729, 1), (2_729, 10), (4, 8)):
+        assert sgd_sparse_ops.variant(d, k, mb) == "global"
     W, values, y = torch.zeros((1, d)), torch.ones((1, 8, 4)), torch.ones((1, 8))
     indices = torch.zeros((1, 8, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match=str(common.MAX_SMEM_BYTES)):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         sgd_sparse_ops._ell_sgd_cuda("lr", W, values, indices, y, step=0.1,
                                      micro_batch=8)
     rcv1_d = jsynthetic.PAPER_DATASETS["rcv1"][1]
@@ -239,7 +344,7 @@ def test_glm_sgd_sparse_warp_ring_plans():
     """w8a's batches group into stages of about 32 rows (4 batches of 10,
     32 of 1), up to 16 stages; real-sim's 84 KB model leaves room for four
     stages of 15 rows; where two stages no longer fit the old kernel runs,
-    and past the shared-memory cap the wrapper raises, naming it."""
+    and past the shared-memory cap the global-memory kernel does."""
     assert sgd_sparse_ops.warp_plan(300, 69, 10) == (10, 4)
     assert sgd_sparse_ops.warp_plan(300, 69, 1) == (12, 32)
     assert sgd_sparse_ops.warp_plan(20_958, 307, 1) == (4, 15)
@@ -248,10 +353,8 @@ def test_glm_sgd_sparse_warp_ring_plans():
                                                       512)] \
         == [1, 1, 2, 3, 4, 12, 16]
     assert sgd_sparse_ops.variant(58_111, 69, 1) == "smem"
-    with pytest.raises(ValueError, match="232448"):
-        sgd_sparse_ops.variant(58_112, 69, 1)
-    with pytest.raises(ValueError, match="d=58112 and micro_batch=1"):
-        sgd_sparse_ops.variant(58_112, 1, 1)
+    assert sgd_sparse_ops.variant(58_112, 69, 1) == "global"
+    assert sgd_sparse_ops.variant(58_112, 1, 1) == "global"
 
 
 def _ell_shared(n, d, k, seed):
@@ -310,6 +413,72 @@ def test_glm_sparse_ragged_rows_and_replica_axis(task):
                             backend="pallas-interpret", block_rows=8,
                             d_block=128)
         np.testing.assert_allclose(out[r].numpy(), np.asarray(ref), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sparse_repeated_and_shared_features_match_jax(task):
+    """The smem variant's shape (w8a's width and K = 69) with rows that
+    share their features and repeat them (the warp's grouped adds), plus
+    one feature three times in every row, and rows of all padding."""
+    values, indices, y, w = _ell_shared(43, 300, 69, seed=5)
+    values[:, -3:], indices[:, -3:] = 1.0, 5
+    values[::7], indices[::7] = 0.0, 0
+    assert sparse_ops.variant(300, 69, 1) == "smem"
+    ref = jell_glm_grad(task, *_j(w, values, indices, y), backend="reference")
+    out = tk.ell_glm_grad(task, *_t(w, values, indices, y))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d,k,n_rep,want", [
+    (300, 69, 1, "smem"),                     # w8a, SyncSGD()
+    (300, 69, 10, "smem"),                    # w8a, async r10 b6470
+    (20_958, 307, 8, "smem"),                 # real-sim: the live learner
+    (29_024, 1, 1, "smem"),                   # two warps' copies, just
+    (29_025, 1, 1, "atomic"),
+    (47_236, 1_224, 1, "atomic"),             # rcv1
+    (1_355_191, 2_729, 1, "atomic"),          # news
+])
+def test_glm_sparse_variant_is_chosen_from_the_shape(d, k, n_rep, want):
+    assert sparse_ops.variant(d, k, n_rep) == want
+    if want == "smem":
+        assert sparse_ops.smem_warps(d) >= sparse_ops.SMEM_MIN_WARPS
+        assert sparse_ops.smem_bytes(d, sparse_ops.smem_warps(d)) \
+            <= common.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("k,lanes", [(1, 4), (4, 4), (5, 8), (8, 8), (12, 4),
+                                     (16, 16), (32, 32), (33, 4), (69, 8),
+                                     (307, 4), (2_729, 4)])
+def test_glm_sparse_lanes_leave_the_fewest_padded_slots(k, lanes):
+    """w8a's K = 69 runs 9 passes of 8 lanes (72 slots), not 3 of 32 (96,
+    the last pass with 5 live lanes); a tie goes to the wider group."""
+    assert sparse_ops.smem_lanes(k) == lanes
+    slots = lanes * -(-k // lanes)
+    assert all(slots <= g * -(-k // g) for g in sparse_ops.SMEM_LANES)
+
+
+@pytest.mark.parametrize("d,k,n_rep,n", [(300, 69, 1, 64_700),
+                                         (300, 69, 10, 6_470),
+                                         (20_958, 307, 8, 32),
+                                         (300, 69, 1, 1), (300, 1, 3, 1_003)])
+def test_glm_sparse_smem_plan_covers_every_row_once(d, k, n_rep, n):
+    lanes, warps, per_block, blocks = sparse_ops.smem_plan(d, k, n_rep, n,
+                                                           132)
+    assert lanes == sparse_ops.smem_lanes(k)
+    assert warps == sparse_ops.smem_warps(d)
+    assert (blocks - 1) * per_block < n <= blocks * per_block
+    assert blocks * n_rep <= sparse_ops.SMEM_BLOCKS_PER_SM * 132 \
+        or blocks == 1
+    assert blocks <= -(-n // (warps * 32 // lanes))  # a step a warp, at least
+
+
+def test_glm_sparse_smem_plan_at_w8a():
+    """w8a: 8 warps of 8-lane rows, 4 blocks a SM: 527 blocks of 123 rows
+    for SyncSGD(), 52 a replica of 125 rows for 10 replicas; real-sim's
+    84 KB copies leave two warps a block, one block a SM."""
+    assert sparse_ops.smem_plan(300, 69, 1, 64_700, 132) == (8, 8, 123, 527)
+    assert sparse_ops.smem_plan(300, 69, 10, 6_470, 132) == (8, 8, 125, 52)
+    assert sparse_ops.smem_plan(20_958, 307, 1, 72_309, 132)[:2] == (4, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's decode attention and sparse SGD epoch of
-one checkout, for comparisons between two checkouts on one card.
+"""Time the PyTorch/CUDA port's decode attention, sparse SGD epoch and
+full-batch gradients of one checkout, for comparisons between two
+checkouts on one card.
 
     python3 tools/port_ab.py [--root DIR] [--label NAME]
 
@@ -25,9 +26,15 @@ B, A) inside one chip call.  Needs one card.  Prints one JSON line:
   K=69, seed 0) split into 10 replicas as ``AsyncLocalSGD(replicas=10)``
   splits it, at micro-batches 10 and 1: ms per epoch by CUDA events over 3
   calls, device ms from the profiler, us per update;
-* ``train``: ``sgd.run`` of ``AsyncLocalSGD(replicas=10, local_batch=10)``
-  on that data for 4 epochs (``chip_smoke.py``'s phase ``train`` row):
-  ms per epoch.
+* ``grad``: the full-batch gradients of ``SyncSGD()``: ``glm_grad`` on the
+  covtype stand-in (581,012 x 54, seed 0) and ``ell_glm_grad`` on w8a at
+  R = 1 and at R = 10 x 6,470 (``AsyncLocalSGD(replicas=10,
+  local_batch=6470)``): ms a call by CUDA events over 20 calls, device ms
+  from the profiler by kernel, and the byte bound;
+* ``train``: ``sgd.run`` for 4 epochs (``chip_smoke.py``'s phase ``train``
+  rows) of ``AsyncLocalSGD(replicas=10, local_batch=10)`` on w8a, and of
+  ``SyncSGD()`` on covtype and w8a and ``AsyncLocalSGD(replicas=10,
+  local_batch=6470)`` on w8a, the gradient kernels' epochs: ms per epoch.
 """
 from __future__ import annotations
 
@@ -151,6 +158,55 @@ def sparse_rows(K, synthetic, sgd) -> tuple[list[dict], dict]:
     return rows, train
 
 
+def ell_bytes(values) -> int:
+    """Values read once, the 4-byte index of each nonzero once."""
+    return values.numel() * 4 + 4 * int((values != 0).sum())
+
+
+def grad_rows(K, synthetic, sgd) -> tuple[list[dict], list[dict]]:
+    from repro_torch.core import glm
+
+    cov = synthetic.paper_dataset("covtype", seed=0, device="cuda")
+    w8 = synthetic.paper_dataset("w8a", seed=0, device="cuda")
+    X, yd = cov.X, cov.y
+    m, ys = w8.ell, w8.y
+    n, d = X.shape
+    ns = m.values.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    w = torch.randn(d, device="cuda", generator=g) * 0.1
+    ws = torch.randn(m.d, device="cuda", generator=g) * 0.1
+    parts = torch.from_numpy(sgd.partition_indices(ns, 10)).cuda().long()
+    vp, ip, yp = m.values[parts], m.indices[parts], ys[parts]
+    W = ws[None].repeat(10, 1)
+    cases = (
+        ("glm_grad covtype", lambda: K.glm_grad("lr", w, X, yd),
+         X.numel() * 4 + n * 4 + 8 * d),
+        ("glm_sparse w8a R=1",
+         lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
+         ell_bytes(m.values) + ns * 4 + 8 * m.d),
+        ("glm_sparse w8a R=10 per=6470",
+         lambda: K.ell_glm_grad("lr", W, vp, ip, yp),
+         ell_bytes(vp) + ns * 4 + 80 * m.d))
+    rows = []
+    for label, fn, nbytes in cases:
+        rows.append({"case": label, "ms": events_ms(fn, 20),
+                     **profiler_ms(fn, 20),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    train = []
+    for label, problem, strat, sparse_data in (
+            ("covtype", glm.GLMProblem("lr", X, yd, 1.0 / n), sgd.SyncSGD(),
+             False),
+            ("w8a", ("lr", m, ys, 2.0 / ns), sgd.SyncSGD(), True),
+            ("w8a", ("lr", m, ys, 2.0),
+             sgd.AsyncLocalSGD(replicas=10, local_batch=ns // 10), True)):
+        res = sgd.run(problem, strat, 4, sparse_data=sparse_data)
+        train.append({"data": label, "strategy": res.strategy,
+                      "ms_per_epoch": res.time_per_epoch * 1e3,
+                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
+                      "losses": res.losses.tolist()})
+    return rows, train
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -167,17 +223,19 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attn import ops
 
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn", "glm_sgd_sparse"])
+    _build.build_all(["flash_attn", "glm_grad", "glm_sgd_sparse",
+                      "glm_sparse"])
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     decode = decode_rows(K, ops)
     sparse, train = sparse_rows(K, synthetic, sgd)
+    grad, grad_train = grad_rows(K, synthetic, sgd)
     print(json.dumps({"label": args.label, "root": args.root,
                       "nvidia_smi": smi, "build_s": build_s,
-                      "decode": decode, "sgd_sparse": sparse,
-                      "train": train}), flush=True)
+                      "decode": decode, "sgd_sparse": sparse, "grad": grad,
+                      "train": [train] + grad_train}), flush=True)
     return 0
 
 
