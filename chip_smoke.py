@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port (SGD study engine, scoring service, live
-learner and LM serving) on one NVIDIA card.
+"""Run the PyTorch/CUDA port (SGD study engine and the paper's study layer,
+scoring service, live learner and LM serving) on one NVIDIA card.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
@@ -55,13 +55,28 @@ Phases, one JSON line each:
                after (glm_sgd_sparse's global variant); ms per epoch and
                us per update; then both on the first 1,600 rows through
                the kernels and through the plain versions, loss for loss;
-6. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
+6. ``study``   the paper's study layer (``repro_torch.study`` and the
+               drivers in ``repro_torch.benchmarks``): (a) the Table 7,
+               Table 4 and Fig. 22 drivers on the ci profile (covtype, w8a,
+               real-sim at 2,048 rows, LR and SVM, 12 epochs, grid 1e-3,
+               1e-2, 1e-1) on a fresh runner through the kernels and again
+               through the plain versions, every trial's losses held
+               loss for loss and every row's best step and epochs to 1%
+               equal, with the claim checks' verdicts; (b) covtype, w8a and
+               real-sim at their full Table 3 sizes through
+               ``tuner.tune_many`` under Table 7's four configurations and
+               ``SyncSGD()`` (LR, the same grid and epochs), launch counts
+               zeroed just before and read just after, each row with ms per
+               iteration, epochs and seconds to 1%, best step, final loss
+               and launches by family, and Table 4's execution paths and
+               ``speedup_sync_vs_seq`` on each dataset;
+7. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
                requests under the model phase ``train``'s SyncSGD run ended
                with (max_batch 128, with a swap_model halfway, and 32), and
                8,192 real-sim-width requests; launch counts zeroed just
                before and read just after; every response held against the
                plain version under the snapshot version it carries;
-7. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
+8. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
                stream publishing into an engine that a second thread
                serves, exact and int8-compressed, with replicas killed and
                revived; each configuration also run in lockstep through the
@@ -69,7 +84,7 @@ Phases, one JSON line each:
                merge (int8: also with the plain learner resynced after each
                merge, and its codes compared); short glm_sparse and dense
                runs;
-8. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
+9. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
                weights from a seeded generator on the card): the serving
                run of ``repro_torch.launch.serve`` (8 requests, 4 slots,
                max_new 16, max_len 128) with launch counts zeroed just
@@ -78,8 +93,10 @@ Phases, one JSON line each:
                versions, with the same weights in fp32 as the yardstick
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
-9. ``timing``  each kernel and its plain version at the main path's shapes
-               (glm_sgd also at covtype R=8 B=1 and on its global variant,
+10. ``timing`` each kernel and its plain version at the main path's shapes
+               (glm_sgd also at covtype R=8 B=1, on its global variant, on
+               its shared-memory variant at covtype B=16 and at phase
+               study's real-sim seq epoch, glm_grad also in the col layout,
                glm_sgd_sparse also at w8a R=10 B=1 and news R=8 B=1,
                glm_grad and glm_sparse each beside the kernel their
                redesign replaced, glm_sparse also at R=10, flash_attn
@@ -91,9 +108,9 @@ Phases, one JSON line each:
                the device time of a launch that does nothing.
 
 It then prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(launches on the main path, error, times, bound, variant: a row for each
-kernel the main path runs, named by its variant where a family has more
-than one) and, last,
+(launches on the main paths and on phase study's full-size run, error,
+times, bound, variant: a row for each kernel the main paths run, named by
+its variant where a family has more than one) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a card, or without the repository beside it, it fails.
 """
@@ -102,6 +119,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -959,6 +977,221 @@ def phase_news(news, epochs: int) -> tuple[dict, int]:
 
 
 # ---------------------------------------------------------------------------
+# The paper's study layer: step-size search, trials, the Table 4/7 drivers
+# ---------------------------------------------------------------------------
+
+#: the drivers (a) runs on the ci profile: table7_async, table4_sync, fig22
+STUDY_DRIVERS = ("table7_async", "table4_sync", "fig22_sync_vs_async")
+#: (b): the ci profile's datasets at their full Table 3 size, LR, the ci
+#: grid and epochs
+STUDY_DATASETS = ("covtype", "w8a", "real-sim")
+STUDY_STEPS = (1e-3, 1e-2, 1e-1)
+STUDY_EPOCHS = 12
+
+
+def _study_drivers(dev, plain: bool) -> tuple[dict, dict, float]:
+    """The ci profile's drivers on a fresh runner (no trial cache) with a
+    store that records every trial; returns the rows by driver, the
+    store's trials and the wall seconds."""
+    from repro_torch.benchmarks import common as bcommon
+    from repro_torch.kernels import common
+    from repro_torch.study.runner import Runner
+    from repro_torch.study.store import StudyStore
+
+    store = StudyStore()            # never written: held in memory
+    bcommon.RUNNER = Runner(cache_dir=None, store=store, device=dev)
+    t0 = time.perf_counter()
+    with common.plain_versions() if plain else contextlib.nullcontext():
+        rows = {name: importlib.import_module(
+            f"repro_torch.benchmarks.{name}").run("ci")
+            for name in STUDY_DRIVERS}
+    torch.cuda.synchronize()
+    return rows, store.trials, time.perf_counter() - t0
+
+
+def _fell(losses) -> bool:
+    """Finite, and lower at the end than at the start."""
+    losses = np.asarray(losses)
+    return bool(np.isfinite(losses).all() and losses[-1] < losses[0])
+
+
+def _study_variants(ds) -> dict[str, str]:
+    """The variant each family runs on ``ds``'s shapes in (b): the trials'
+    replica epochs (micro-batch 1) and full gradients, and Table 4's seq
+    epoch on the densified operand (d columns)."""
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
+
+    out = {"glm_sgd_seq": sgd_ops.variant(ds.d, 1)}
+    if ds.dense:
+        out.update(glm_sgd=sgd_ops.variant(ds.d, 1),
+                   glm_grad=grad_ops.variant(ds.d, "row"))
+    else:
+        k = ds.ell.max_nnz
+        out.update(glm_sgd_sparse=sparse_ops.variant(ds.d, k, 1),
+                   glm_sparse=sparse_grad_ops.variant(ds.d, k, 1))
+    return out
+
+
+#: kernel-line name of each (family, variant) phase study runs
+STUDY_LINE = {("glm_grad", "ring"): "glm_grad_ring",
+              ("glm_sgd", "warp"): "glm_sgd",
+              ("glm_sgd", "smem"): "glm_sgd_smem",
+              ("glm_sgd_sparse", "warp"): "glm_sgd_sparse_warp",
+              ("glm_sparse", "smem"): "glm_sparse_smem"}
+
+
+def phase_study(dev) -> tuple[dict, dict]:
+    """The paper's study layer on the card.  (a) The port's Table 7, Table 4
+    and Fig. 22 drivers on the ci profile through the kernels, then again
+    through the plain versions: every trial's losses within LOSS_TOL, and
+    the same best step and epochs to 1% on every row; the claim checks on
+    both.  (b) covtype, w8a and real-sim at their full Table 3 sizes
+    through ``tuner.tune_many``: Table 7's four configurations and
+    ``SyncSGD()`` (LR, the ci grid, 12 epochs), each row with its
+    launches by family; Table 4's execution paths on each dataset.
+    Launch counts are zeroed just before (b) and read just after.  Returns
+    the phase line and (b)'s launches by kernel-line name."""
+    from repro_torch.benchmarks import table4_sync, table7_async
+    from repro_torch.core import convergence, glm, sgd
+    from repro_torch.kernels import common
+    from repro_torch.study import claims, tuner
+    from repro_torch.study.runner import Runner
+    from repro_torch.study.spec import DatasetSpec, TrialSpec
+
+    # (a) the reference's configuration, held against the plain versions
+    common.reset_launches()
+    kern_rows, kern_trials, kern_s = _study_drivers(dev, plain=False)
+    ci_launches = {k: common.LAUNCHES[k] for k in TRAIN_KERNELS}
+    plain_rows, plain_trials, plain_s = _study_drivers(dev, plain=True)
+    worst, held = 0.0, True
+    for key, rec in kern_trials.items():
+        err, ok = close(torch.tensor(rec["losses"]),
+                        torch.tensor(plain_trials[key]["losses"]), LOSS_TOL)
+        worst, held = max(worst, err), held and ok
+    mismatched = [
+        {"driver": name, **{k: r[k] for k in ("dataset", "task")},
+         "config": r.get("config"), "kernels": [r[k] for k in (
+             "best_step", "iters_to_1pct")], "plain": [p[k] for k in (
+             "best_step", "iters_to_1pct")]}
+        for name in ("table7_async", "table4_sync")
+        for r, p in zip(kern_rows[name], plain_rows[name])
+        if (r["best_step"], r["iters_to_1pct"])
+        != (p["best_step"], p["iters_to_1pct"])]
+    verdicts = {"kernels": claims.validate(kern_rows),
+                "plain": claims.validate(plain_rows)}
+    ci = {"profile": "ci", "drivers": list(STUDY_DRIVERS),
+          "trials": len(kern_trials),
+          "same_trials": sorted(kern_trials) == sorted(plain_trials),
+          "tol": LOSS_TOL, "max_abs_err": worst, "losses_held": held,
+          "rows_mismatched": mismatched, "claims": verdicts,
+          "launches": ci_launches, "kernels_s": kern_s, "plain_s": plain_s,
+          "rows": kern_rows}
+    ci["ok"] = bool(held and ci["same_trials"] and not mismatched
+                    and not verdicts["kernels"] and not verdicts["plain"]
+                    and all(ci_launches[k] > 0 for k in TRAIN_KERNELS))
+
+    # (b) the paper's sizes
+    runner = Runner(cache_dir=None, device=dev)
+    data = {}
+    for name in STUDY_DATASETS:
+        t0 = time.perf_counter()
+        ds = runner.dataset(DatasetSpec(name))
+        torch.cuda.synchronize()
+        data[name] = {"n": ds.n, "d": ds.d,
+                      "k": None if ds.dense else ds.ell.max_nnz,
+                      "seconds": time.perf_counter() - t0}
+    configs = {**table7_async.CONFIGS, "sync": sgd.SyncSGD()}
+    rows, table4, study_launches = [], [], {}
+    common.reset_launches()
+    t_start = time.perf_counter()
+    for name in STUDY_DATASETS:
+        dspec = DatasetSpec(name)
+        ds = runner.dataset(dspec)
+        variants = _study_variants(ds)
+        tuned = {}
+        for label, strat in configs.items():
+            before = dict(common.LAUNCHES)
+            t0 = time.perf_counter()
+            tuned[label] = (tuner.tune_many(
+                runner, [TrialSpec(dspec, "lr", strat, STUDY_STEPS[0],
+                                   STUDY_EPOCHS)], steps=STUDY_STEPS)[0],
+                {k: common.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS},
+                time.perf_counter() - t0)
+        # Table 7's common target: within 1% of the best loss seen anywhere
+        target = convergence.thresholds(convergence.optimal_loss(
+            r for t, _, _ in tuned.values() for r in t.results.values()),
+            (0.01,))[0.01]
+        for label, (t, launches, wall) in tuned.items():
+            res = t.best_result
+            rows.append({
+                "dataset": name, "task": "lr", "config": label,
+                "strategy": res.strategy, "t_iter_ms": res.time_per_epoch * 1e3,
+                "iters_to_1pct": res.epochs_to(target),
+                "time_to_1pct_s": res.time_to(target),
+                "best_step": t.best_step, "final_loss": res.final_loss,
+                "losses": res.losses.tolist(), "fell": _fell(res.losses),
+                "finite": all(bool(np.isfinite(r.losses).all())
+                              for r in t.results.values()),
+                "launches": launches, "wall_s": wall})
+            for fam, count in launches.items():
+                if count:
+                    line = STUDY_LINE[(fam, variants[fam])]
+                    study_launches[line] = study_launches.get(line, 0) + count
+        # Table 4's execution paths at this size (seq: the glm_sgd kernel
+        # at micro-batch 1 on one replica)
+        before = common.LAUNCHES["glm_sgd"]
+        t = table4_sync._sync_paths(ds, "lr", 1e-3)
+        seq = common.LAUNCHES["glm_sgd"] - before
+        # whether the composition path's 3 steps stayed finite: its
+        # exp(-margin) / (1 + exp(-margin)) is inf / inf once a margin
+        # passes -88, which the driver's step reaches at full size
+        X, y = table4_sync.dense_operands(ds)
+        wc = torch.zeros(X.shape[1], device=X.device)
+        for _ in range(3):
+            wc = wc - 1e-3 * glm.grad_primitive_composition("lr", wc, X, y)
+        del X, y
+        line = STUDY_LINE[("glm_sgd", variants["glm_sgd_seq"])]
+        study_launches[line] = study_launches.get(line, 0) + seq
+        table4.append({
+            "dataset": name, "task": "lr", "n": ds.n,
+            "rows_timed": (ds.n if ds.dense
+                           or ds.n * ds.d <= table4_sync.DENSE_CAP
+                           else table4_sync.DENSE_CAP_ROWS),
+            "t_iter_sync_ms": t["sync"] * 1e3,
+            "t_iter_comp_ms": t["sync-comp"] * 1e3,
+            "t_iter_seq_ms": t["seq"] * 1e3,
+            "speedup_fused_vs_comp": t["sync-comp"] / t["sync"],
+            "speedup_sync_vs_seq": t["seq"] / t["sync"],
+            "paths_statistically_identical": t["_path_equiv"],
+            "composition_finite": bool(torch.isfinite(wc).all()),
+            "seq_variant": variants["glm_sgd_seq"], "seq_launches": seq})
+    launches = dict(common.LAUNCHES)
+    full = {"datasets": data, "steps": list(STUDY_STEPS),
+            "epochs": STUDY_EPOCHS, "rows": rows, "table4": table4,
+            "claims": claims.validate({"table4_sync": table4}),
+            "launches": launches, "study_launches": study_launches,
+            "seconds": time.perf_counter() - t_start}
+    # every family of the path launched; every run finite; Table 7's
+    # configurations fell (SyncSGD()'s full-batch step multiplies the sum
+    # gradient, so at these sizes the ci grid's steps may all overshoot);
+    # Table 4's claim: batch faster than sequential, and the two sync paths
+    # identical wherever the composition stayed finite
+    full["ok"] = bool(
+        all(launches[k] > 0 for k in TRAIN_KERNELS)
+        and set(study_launches) == set(STUDY_LINE.values())
+        and all(r["finite"] for r in rows)
+        and all(r["fell"] for r in rows if r["config"] != "sync")
+        and all(r["speedup_sync_vs_seq"] >= 1.0 and (
+            r["paths_statistically_identical"] or not r["composition_finite"])
+            for r in table4))
+    return {"phase": "study", "ci": ci, "full": full,
+            "ok": ci["ok"] and full["ok"]}, study_launches
+
+
+# ---------------------------------------------------------------------------
 # The serving path and train-while-serving
 # ---------------------------------------------------------------------------
 
@@ -1646,16 +1879,20 @@ def phase_timing(covtype, w8a, news, worst: dict
     ws = torch.from_numpy(rng.normal(0, 0.1, m.d).astype(np.float32)).to(X.device)
     nnz = int((m.values != 0).sum())
     rows = []
+    plain_runs = {}
 
     def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol,
             library=None, line=None, flops_per_s=FP32_FLOPS_PER_S,
             variant=None, updates=None):
         """``line``: the row's name in the kernels line (None: not there);
-        ``updates``: the dependent updates of a fused epoch's chain."""
-        out, ref = kernel(), plain()
+        ``updates``: the dependent updates of a fused epoch's chain.  A
+        ``plain`` function two rows share is run and timed once."""
+        out = kernel()
+        if plain not in plain_runs:
+            plain_runs[plain] = (plain(), cuda_ms(plain, plain_reps))
+        ref, plain_ms = plain_runs[plain]
         err, ok = close(out, ref, tol)
         ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, plain_reps)
         b, by = bound_ms(in_bytes, flops, flops_per_s)
         lib = {"library_ms": None}
         if library is not None:
@@ -1685,6 +1922,13 @@ def phase_timing(covtype, w8a, news, worst: dict
                 lambda: glm_grad_ref("lr", w, X, yd), 20, 20,
                 nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
                 line=line, variant=kind)
+    # the col layout (Fig. 8's other access path) at covtype: the wrapper
+    # materialises the [d, N] transpose, a warp per 32 examples
+    row("glm_grad", f"covtype N={n} d={d} col",
+        lambda: K.glm_grad("lr", w, X, yd, layout="col"),
+        lambda: glm_grad_ref("lr", w, X, yd), 20, 20,
+        nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
+        variant=grad_ops.variant(d, "col"))
     # the row layout past the ring kernel and past w in shared memory
     Xw, yw, ww = _dense_inputs(rng, 2003, 60_000, X.device)
     row("glm_grad", "N=2003 d=60000 row", lambda: K.glm_grad("lr", ww, Xw, yw),
@@ -1703,12 +1947,30 @@ def phase_timing(covtype, w8a, news, worst: dict
         EPOCH_TOL, variant=sgd_ops.variant(58_112, 10),
         updates=-(-2003 // 10))
     del Xg
-    # SyncSGD(batch=16) on covtype: one fused epoch, 36,314 updates
-    row("glm_sgd", f"covtype N={n} d={d} MB=16 R=1",
-        lambda: K.glm_sgd_epoch("lr", w, X, yd, step=0.01, micro_batch=16),
-        lambda: glm_sgd_epoch_ref("lr", w[None], X[None], yd[None], 0.01, 16)[0],
-        3, 1, nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, EPOCH_TOL,
-        line="glm_sgd", variant=sgd_ops.variant(d, 16), updates=-(-n // 16))
+    # SyncSGD(batch=16) on covtype: one fused epoch, 36,314 updates, on the
+    # warp kernel and on the shared-memory kernel it replaced
+    def plain16():
+        return glm_sgd_epoch_ref("lr", w[None], X[None], yd[None], 0.01, 16)[0]
+
+    for kind, line in (("warp", "glm_sgd"), ("smem", None)):
+        with forced_variant(sgd_ops, kind):
+            row("glm_sgd", f"covtype N={n} d={d} MB=16 R=1 {kind}",
+                lambda: K.glm_sgd_epoch("lr", w, X, yd, step=0.01,
+                                        micro_batch=16), plain16, 3, 1,
+                nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, EPOCH_TOL,
+                line=line, variant=kind, updates=-(-n // 16))
+    # phase study's Table 4 seq epoch on real-sim: its first 1,024 rows
+    # densified at d = 20,958, micro-batch 1, on the shared-memory kernel
+    Xr, yr, wr = _dense_inputs(rng, 1024, 20_958, X.device)
+    row("glm_sgd", "real-sim seq N=1024 d=20958 MB=1 R=1",
+        lambda: K.glm_sgd_epoch("lr", wr, Xr, yr, step=1.0 / 20_958,
+                                micro_batch=1),
+        lambda: glm_sgd_epoch_ref("lr", wr[None], Xr[None], yr[None],
+                                  1.0 / 20_958, 1)[0],
+        5, 1, nbytes(Xr, yr, wr, wr), 4.0 * Xr.numel() + 8.0 * 1024,
+        EPOCH_TOL, line="glm_sgd_smem", variant=sgd_ops.variant(20_958, 1),
+        updates=1024)
+    del Xr
     # AsyncLocalSGD(replicas=8, local_batch=1) on covtype: 72,626 updates
     # per replica, replicas 125 MB apart
     parts8 = torch.from_numpy(sgd.partition_indices(n, 8)).to(X.device).long()
@@ -1900,6 +2162,15 @@ def main() -> int:
     if not line["ok"]:
         return 1
 
+    t0 = time.perf_counter()
+    line, study_launches = phase_study(dev)
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not line["ok"]:
+        return 1
+    # the study path is the only one that runs glm_sgd's smem variant
+    launches["glm_sgd_smem"] = study_launches["glm_sgd_smem"]
+
     # the serving path: w8a under the model SyncSGD ended with, swapped
     # halfway for the one AsyncLocalSGD(replicas=10, local_batch=10) merged
     realsim = synthetic.paper_dataset("real-sim", seed=0, max_n=8192,
@@ -1926,6 +2197,7 @@ def main() -> int:
     # a kernels-line row's error: the worst of its kernel's rows and checks
     for r in rows:
         r["launches"] = launches[r["line"]] if r["line"] else None
+        r["study_launches"] = study_launches.get(r["line"])
         r["max_abs_err"] = max(
             [o["max_abs_err"] for o in rows
              if (o["name"], o["variant"]) == (r["name"], r["variant"])]
@@ -1938,7 +2210,8 @@ def main() -> int:
 
     print(smi)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "variant")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "variant",
+            "study_launches")
     emit({"kernels": [{"name": r["line"], **{k: r[k] for k in keys}}
                       for r in rows if r["line"]]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -132,6 +132,25 @@ def from_csr_parts(
     return CSRMatrix(indptr, indices, values, d)
 
 
+def from_dense(X: np.ndarray, pad_to: int | None = None,
+               device=None) -> ELLMatrix:
+    """Build on ``device`` from a dense host ``[N, d]`` array (numpy).
+    ``pad_to`` defaults to the widest row; a narrower one keeps each row's
+    first nonzeros."""
+    N, d = X.shape
+    nnz_per_row = (X != 0).sum(axis=1)
+    K = int(nnz_per_row.max()) if pad_to is None else pad_to
+    K = max(K, 1)
+    values = np.zeros((N, K), dtype=X.dtype)
+    indices = np.zeros((N, K), dtype=np.int32)
+    for i in range(N):
+        (nz,) = np.nonzero(X[i])
+        nz = nz[:K]
+        values[i, : len(nz)] = X[i, nz]
+        indices[i, : len(nz)] = nz
+    return _ell(values, indices, d, device)
+
+
 def from_rows(
     rows_idx: list[np.ndarray], rows_val: list[np.ndarray], d: int,
     pad_to: int | None = None, device=None,

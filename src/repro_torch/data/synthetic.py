@@ -35,6 +35,7 @@ class Dataset:
     y: torch.Tensor                 # [N] in {-1, +1}
     d: int
     dense: bool
+    content_hash: str | None = None  # real data only (repro_torch.data.ingest)
 
     @property
     def n(self) -> int:

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
-imports JAX or the reference package ``repro``."""
+imports JAX, the reference package ``repro`` or the reference's drivers
+(the root ``benchmarks`` package, which imports ``repro``)."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -38,7 +39,19 @@ def test_port_has_the_expected_modules():
             "live/__init__.py", "live/stream.py", "live/learner.py",
             "live/publish.py", "configs/__init__.py", "nn/param.py",
             "nn/layers.py", "nn/attention.py", "nn/transformer.py",
-            "nn/decode.py", "serve/engine.py", "launch/serve.py"} <= names
+            "nn/decode.py", "serve/engine.py", "launch/serve.py",
+            "utils/timing.py", "configs/glm.py", "data/ingest/__init__.py",
+            "data/ingest/registry.py", "data/ingest/cache.py",
+            "data/ingest/fixtures.py", "study/__init__.py", "study/spec.py",
+            "study/store.py", "study/runner.py", "study/tuner.py",
+            "study/claims.py", "study/advisor.py"} <= names
+    assert {f"benchmarks/{m}.py" for m in (
+        "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
+        "fig11_model_replication", "fig14_data_replication",
+        "fig8_access_path", "table6_optimal", "fig24_scale", "run")} <= names
+    assert sorted(p.name for p in (PORT / "data" / "ingest" / "fixtures")
+                  .glob("*.libsvm")) == [f"{n}.libsvm" for n in (
+                      "covtype", "news", "real-sim", "skin", "w8a")]
     assert {f"configs/{m}.py" for m in (
         "minitron_4b", "command_r_35b", "h2o_danube_1_8b", "minitron_8b",
         "olmoe_1b_7b", "kimi_k2_1t_a32b", "musicgen_large", "zamba2_1_2b",
@@ -61,7 +74,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'benchmarks'))\n"
         "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
