@@ -14,8 +14,9 @@ Phases, one JSON line each:
                widths, a ragged N, a replica axis, real-sim's width, and
                glm_score at w8a, real-sim and news widths with filler rows
                that must score link(0) exactly; glm_sgd at d = 3, 54, 300,
-               1024 and 1025 (both variants), micro-batches 1 to 64 with
-               ragged tails, 1, 8 and 10 replicas; glm_sgd_sparse's warp
+               1024 and 1025 (warp, smem and cluster variants),
+               micro-batches 1 to 64 with ragged tails, 1, 8 and 10
+               replicas; glm_sgd_sparse's warp
                variant at micro-batches 1, 10 and 64, K = 1, real-sim's
                K = 307, rows of all padding, rows that collide on one
                feature and repeat it, the live learner's shape, and the
@@ -33,12 +34,15 @@ Phases, one JSON line each:
                at w8a (R = 1 and 10 x 6,470), real-sim's width and every
                glm_sgd_sparse edge case above (rows of all padding, a
                feature three times in every row), and its atomic variant
-               near the cap; the global-memory variants (glm_sgd at d =
-               58,112 and 100,000, glm_grad's row layout at 60,000,
-               glm_sgd_sparse at news' width with K = 2,729, micro-batches
-               1 and 10, several replicas); five calls of glm_grad and
-               glm_sparse giving the same bits; and that the sparse
-               kernels refuse an index outside [0, d);
+               near the cap; the wide models (glm_sgd's cluster variant at
+               d = 58,112 and 65,536, its global variant at 100,000,
+               glm_grad's row layout at 60,000, glm_sgd_sparse's stream
+               variant at news' width with K = 2,729, micro-batches 1 and
+               10, several replicas, also with the padding spread through
+               the rows, and its global variant past the stream's K); five
+               calls of glm_grad, glm_sparse and glm_sgd's cluster variant
+               giving the same bits; and that the sparse kernels refuse an
+               index outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -52,7 +56,7 @@ Phases, one JSON line each:
                ``news_dataset``) through ``sgd.run`` under Table 7's
                ``AsyncLocalSGD(replicas=8 and 64, local_batch=1)`` for 3
                epochs, launch counts zeroed just before and read just
-               after (glm_sgd_sparse's global variant); ms per epoch and
+               after (glm_sgd_sparse's stream variant); ms per epoch and
                us per update; then both on the first 1,600 rows through
                the kernels and through the plain versions, loss for loss;
 6. ``study``   the paper's study layer (``repro_torch.study`` and the
@@ -94,10 +98,13 @@ Phases, one JSON line each:
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
 10. ``timing`` each kernel and its plain version at the main path's shapes
-               (glm_sgd also at covtype R=8 B=1, on its global variant, on
-               its shared-memory variant at covtype B=16 and at phase
-               study's real-sim seq epoch, glm_grad also in the col layout,
-               glm_sgd_sparse also at w8a R=10 B=1 and news R=8 B=1,
+               (glm_sgd also at covtype R=8 B=1, on its shared-memory
+               variant at covtype B=16, on its cluster variant beside the
+               shared-memory one at phase study's real-sim seq epoch and
+               beside the global one at d = 58,112, glm_grad also in the
+               col layout, glm_sgd_sparse also at w8a R=10 B=1 and at news
+               R=8 and R=64 B=1 on its stream variant and on the global
+               variant,
                glm_grad and glm_sparse each beside the kernel their
                redesign replaced, glm_sparse also at R=10, flash_attn
                decode also over a full 4096-key window, and an fp32 call),
@@ -163,6 +170,7 @@ REPLACES = {
 #: variant its ops.variant() picks (None: the family has one)
 KERNEL_SYMBOLS = {
     "glm_sgd": {"warp": ("glm_sgd_warp_kernel",),
+                "cluster": ("glm_sgd_cluster_kernel",),
                 "smem": ("glm_sgd_kernel",),
                 "global": ("glm_sgd_global_kernel",)},
     "glm_grad": {"ring": ("glm_grad_ring_kernel", "glm_grad_reduce_kernel"),
@@ -170,6 +178,7 @@ KERNEL_SYMBOLS = {
                  "col": ("glm_grad_col_kernel", "glm_grad_reduce_kernel")},
     "glm_sgd_sparse": {"warp": ("ell_sgd_warp_kernel",),
                        "smem": ("ell_sgd_kernel",),
+                       "stream": ("ell_sgd_stream_kernel",),
                        "global": ("ell_sgd_global_kernel",)},
     "glm_sparse": {"smem": ("ell_grad_smem_kernel", "ell_grad_reduce_kernel"),
                    "atomic": ("ell_grad_kernel",)},
@@ -613,10 +622,12 @@ def phase_kernels(dev) -> tuple[dict, dict]:
             cases.append({"kernel": "glm_score",
                           "case": f"{task} {label} filler rows == {link0}",
                           "ok": bool((out[::5] == link0).all())})
-    # glm_sgd at both variants' edges: skin's and covtype's widths, 300,
-    # the warp kernel's widest and one past it (the shared-memory kernel);
-    # micro-batches 1 to 64 (one butterfly, or rows in chunks); n = 1037,
-    # 203 and 130 leave a ragged tail at every micro-batch above 1
+    # glm_sgd at the variants' edges: skin's and covtype's widths, 300,
+    # the warp kernel's widest (whose ring does not fit a micro-batch of
+    # 64: the shared-memory kernel) and one past it (the cluster kernel, a
+    # cluster of one block); micro-batches 1 to 64 (one butterfly, or rows
+    # in chunks); n = 1037, 203 and 130 leave a ragged tail at every
+    # micro-batch above 1
     from repro_torch.kernels.glm_sgd import ops as sgd_ops
     for d in (3, 54, 300, sgd_ops.WARP_MAX_D, sgd_ops.WARP_MAX_D + 1):
         for mb in (1, 10, 16, 64):
@@ -666,14 +677,15 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                    f"R={reps} {sparse_grad_ops.variant(d, k, reps)}",
                    K.ell_glm_grad(task, W, vr, ir, yr),
                    ell_glm_grad_ref(task, W, vr, ir, yr), GRAD_TOL)
-    # the global-memory variants, for models past a block's shared memory:
-    # glm_sgd at 58,112 (the first width past it at micro-batch 1) and
-    # 100,000 features; glm_grad's row layout at 60,000; glm_sgd_sparse at
-    # news' width with its 2,729-entry rows, several replicas.  The dense
-    # steps scale as 1/d, as the main path's full-batch steps scale as 1/N:
-    # at unit-normal features a fixed step grows the margins with d
+    # models past a block's shared memory: glm_sgd at 58,112 (the first
+    # width past it at micro-batch 1) and 65,536 features (the cluster
+    # kernel's widest; batches streamed twice at micro-batches 10 and 16)
+    # and at 100,000 (the global kernel); glm_grad's row layout at 60,000.
+    # The dense steps scale as 1/d, as the main path's full-batch steps
+    # scale as 1/N: at unit-normal features a fixed step grows the margins
+    # with d
     for d, mb, n, reps in ((58_112, 1, 200, 2), (58_112, 10, 203, 2),
-                           (100_000, 16, 150, 3)):
+                           (65_536, 16, 150, 2), (100_000, 16, 150, 3)):
         X, y, w = _dense_inputs(rng, n * reps, d, dev)
         Xr, yr = X.reshape(reps, n, d), y.reshape(reps, n)
         W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
@@ -689,22 +701,43 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                f"{grad_ops.variant(60_000, 'row')}",
                K.glm_grad(task, w, X, y), glm_grad_ref(task, w, X, y),
                GRAD_TOL)
-    d, k = NEWS["d"], NEWS["k"]
-    for mb, n, reps in ((1, 120, 4), (10, 203, 3)):
+    # news' width: the stream variant (also with each row's padding spread
+    # through it: the kernel must not take it to sit at the end), and the
+    # global variant past the stream's longest row
+    d = NEWS["d"]
+    for k, mb, n, reps, spread in ((NEWS["k"], 1, 120, 4, False),
+                                   (NEWS["k"], 10, 203, 3, False),
+                                   (NEWS["k"], 1, 120, 2, True),
+                                   (sparse_ops.STREAM_MAX_K + 8, 1, 50, 2,
+                                    False)):
         v, i, w = _wide_ell_inputs(n * reps, d, k, dev, seed=mb)
+        if spread:
+            cols = torch.randperm(k, device=dev,
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(k))
+            v, i = v[:, cols].contiguous(), i[:, cols].contiguous()
         y = torch.where(torch.arange(n * reps, device=dev) % 3 == 0, -1.0, 1.0)
         vr, ir, yr = (v.reshape(reps, n, k), i.reshape(reps, n, k),
                       y.reshape(reps, n))
         W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
         for task in ("lr", "svm"):
             record("glm_sgd_sparse", f"{task} news width n={n} d={d} K={k} "
-                   f"mb={mb} R={reps} {sparse_ops.variant(d, k, mb)}",
+                   f"mb={mb} R={reps}{' padding spread' if spread else ''} "
+                   f"{sparse_ops.variant(d, k, mb)}",
                    K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05,
                                    micro_batch=mb),
                    ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, mb), EPOCH_TOL)
     # the redesigned reductions sum in a fixed order: the same bits on
     # every call (glm_grad at covtype's width, glm_sparse at w8a's, with a
-    # replica axis)
+    # replica axis, glm_sgd's cluster variant at real-sim's seq epoch)
+    Xs, ysd, wsd = _dense_inputs(rng, 1024, 20_958, dev)
+    cases.append({"kernel": "glm_sgd",
+                  "case": "real-sim seq N=1024 d=20958 mb=1 "
+                          f"{sgd_ops.variant(20_958, 1)}: five calls give "
+                          "the same bits",
+                  "ok": same_bits(lambda: K.glm_sgd_epoch(
+                      "lr", wsd, Xs, ysd, step=1.0 / 20_958, micro_batch=1))})
+    del Xs
     X, y, w = _dense_inputs(rng, 100_003, 54, dev)
     v, i, ys, ws = _ell_inputs(rng, 64_700, 300, 11.65, 69, dev, seed=9)
     vr, ir, yr = v.reshape(10, 6470, 69), i.reshape(10, 6470, 69), \
@@ -919,7 +952,7 @@ NEWS_CUT = 1_600
 
 def phase_news(news, epochs: int) -> tuple[dict, int]:
     """news at full size through ``sgd.run`` under Table 7's two async
-    configurations (glm_sgd_sparse's global variant: the model is 5.4 MB a
+    configurations (glm_sgd_sparse's stream variant: the model is 5.4 MB a
     replica), launch counts zeroed just before and read just after; then
     both runs on the first NEWS_CUT rows through the kernels and through
     the plain versions on the card, loss for loss.  Returns the phase line
@@ -967,7 +1000,7 @@ def phase_news(news, epochs: int) -> tuple[dict, int]:
                        "plain_losses": plain.losses.tolist(),
                        "max_abs_err": err, "ok": ok})
     ok = (all(r["falling"] for r in runs) and all(p["ok"] for p in parity)
-          and variant == "global"
+          and variant == "stream"
           and launches["glm_sgd_sparse"] == len(NEWS_REPLICAS) * epochs)
     return {"phase": "news", "shape": [n, m.d, k],
             "ell_mb": nbytes(m.values, m.indices) / 1e6, "epochs": epochs,
@@ -1038,7 +1071,7 @@ def _study_variants(ds) -> dict[str, str]:
 #: kernel-line name of each (family, variant) phase study runs
 STUDY_LINE = {("glm_grad", "ring"): "glm_grad_ring",
               ("glm_sgd", "warp"): "glm_sgd",
-              ("glm_sgd", "smem"): "glm_sgd_smem",
+              ("glm_sgd", "cluster"): "glm_sgd_cluster",
               ("glm_sgd_sparse", "warp"): "glm_sgd_sparse_warp",
               ("glm_sparse", "smem"): "glm_sparse_smem"}
 
@@ -1847,10 +1880,13 @@ def phase_timing(covtype, w8a, news, worst: dict
     """Each kernel and its plain version at the main path's shapes: one
     timed row per kernel and variant (glm_grad: covtype on the ring kernel
     and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
-    a serving batch and all of w8a; glm_sgd: SyncSGD(batch=16), the R=8 B=1
-    replica epochs and the global variant at d = 58,112; glm_sgd_sparse:
-    the R=10 replica epochs at B=10 and B=1, and news' R=8 B=1 epoch on
-    the global variant; glm_sparse: w8a at R=1 and R=10 x 6,470 on the
+    a serving batch and all of w8a; glm_sgd: SyncSGD(batch=16) on the warp
+    kernel and on the smem kernel it replaced, the R=8 B=1 replica epochs,
+    and the cluster kernel beside the kernels it replaced: at Table 4's
+    real-sim seq epoch (smem) and at d = 58,112 (global); glm_sgd_sparse:
+    the R=10 replica epochs at B=10 and B=1, and news' R=8 and R=64 B=1
+    epochs on the stream kernel and on the global kernel it replaced;
+    glm_sparse: w8a at R=1 and R=10 x 6,470 on the
     smem kernel and on the atomic kernel it replaced; flash_attn: decode
     over the serving run's 128 keys and a full 4096-key window, prefill,
     and an fp32 call; the kernels line takes the rows marked ``line``), the
@@ -1935,17 +1971,23 @@ def phase_timing(covtype, w8a, news, worst: dict
         lambda: glm_grad_ref("lr", ww, Xw, yw), 20, 20,
         nbytes(Xw, yw, ww, ww), 4.0 * Xw.numel() + 8.0 * 2003, GRAD_TOL,
         variant=grad_ops.variant(60_000, "row"))
-    # glm_sgd's global variant: d = 58,112 at micro-batch 10, 201 updates
+    # d = 58,112 at micro-batch 10, 201 updates: the cluster kernel (16
+    # blocks, each batch streamed twice in fills of 7 rows) and the global
+    # kernel it replaced
     Xg, wg = Xw[:, :58_112].contiguous(), ww[:58_112].contiguous()
     del Xw
-    row("glm_sgd", "N=2003 d=58112 MB=10 R=1",
-        lambda: K.glm_sgd_epoch("lr", wg, Xg, yw, step=1.0 / 58_112,
-                                micro_batch=10),
-        lambda: glm_sgd_epoch_ref("lr", wg[None], Xg[None], yw[None],
-                                  1.0 / 58_112, 10)[0],
-        3, 1, nbytes(Xg, yw, wg, wg), 4.0 * Xg.numel() + 8.0 * 2003,
-        EPOCH_TOL, variant=sgd_ops.variant(58_112, 10),
-        updates=-(-2003 // 10))
+
+    def plain58():
+        return glm_sgd_epoch_ref("lr", wg[None], Xg[None], yw[None],
+                                 1.0 / 58_112, 10)[0]
+
+    for kind in (sgd_ops.variant(58_112, 10), "global"):
+        with forced_variant(sgd_ops, kind):
+            row("glm_sgd", f"N=2003 d=58112 MB=10 R=1 {kind}",
+                lambda: K.glm_sgd_epoch("lr", wg, Xg, yw, step=1.0 / 58_112,
+                                        micro_batch=10), plain58,
+                3, 1, nbytes(Xg, yw, wg, wg), 4.0 * Xg.numel() + 8.0 * 2003,
+                EPOCH_TOL, variant=kind, updates=-(-2003 // 10))
     del Xg
     # SyncSGD(batch=16) on covtype: one fused epoch, 36,314 updates, on the
     # warp kernel and on the shared-memory kernel it replaced
@@ -1960,16 +2002,22 @@ def phase_timing(covtype, w8a, news, worst: dict
                 nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, EPOCH_TOL,
                 line=line, variant=kind, updates=-(-n // 16))
     # phase study's Table 4 seq epoch on real-sim: its first 1,024 rows
-    # densified at d = 20,958, micro-batch 1, on the shared-memory kernel
+    # densified at d = 20,958, micro-batch 1, on the cluster kernel and on
+    # the shared-memory kernel it replaced
     Xr, yr, wr = _dense_inputs(rng, 1024, 20_958, X.device)
-    row("glm_sgd", "real-sim seq N=1024 d=20958 MB=1 R=1",
-        lambda: K.glm_sgd_epoch("lr", wr, Xr, yr, step=1.0 / 20_958,
-                                micro_batch=1),
-        lambda: glm_sgd_epoch_ref("lr", wr[None], Xr[None], yr[None],
-                                  1.0 / 20_958, 1)[0],
-        5, 1, nbytes(Xr, yr, wr, wr), 4.0 * Xr.numel() + 8.0 * 1024,
-        EPOCH_TOL, line="glm_sgd_smem", variant=sgd_ops.variant(20_958, 1),
-        updates=1024)
+
+    def plain_seq():
+        return glm_sgd_epoch_ref("lr", wr[None], Xr[None], yr[None],
+                                 1.0 / 20_958, 1)[0]
+
+    for kind, line in ((sgd_ops.variant(20_958, 1), "glm_sgd_cluster"),
+                       ("smem", None)):
+        with forced_variant(sgd_ops, kind):
+            row("glm_sgd", f"real-sim seq N=1024 d=20958 MB=1 R=1 {kind}",
+                lambda: K.glm_sgd_epoch("lr", wr, Xr, yr, step=1.0 / 20_958,
+                                        micro_batch=1), plain_seq,
+                5, 1, nbytes(Xr, yr, wr, wr), 4.0 * Xr.numel() + 8.0 * 1024,
+                EPOCH_TOL, line=line, variant=kind, updates=1024)
     del Xr
     # AsyncLocalSGD(replicas=8, local_batch=1) on covtype: 72,626 updates
     # per replica, replicas 125 MB apart
@@ -2012,23 +2060,34 @@ def phase_timing(covtype, w8a, news, worst: dict
                 lambda: ell_glm_grad_ref("lr", W, vp, ip, yp), 20, 20,
                 ell_bytes(vp) + nbytes(yp, W, W), 4.0 * nnz + 8.0 * ns,
                 GRAD_TOL, variant=kind)
-    # news' AsyncLocalSGD(replicas=8, local_batch=1) replica epoch: 2,499
-    # dependent updates a replica with the model in global memory
+    # news' AsyncLocalSGD(replicas=8 and 64, local_batch=1) replica
+    # epochs: 2,499 and 312 dependent updates a replica with the model in
+    # global memory, on the stream kernel and on the global kernel it
+    # replaced
     mn, yn = news
     kn = mn.values.shape[1]
-    parts = torch.from_numpy(sgd.partition_indices(mn.shape[0], 8)).to(
-        X.device).long()
-    vn, i_n, yn8 = mn.values[parts], mn.indices[parts], yn[parts]
-    Wn = torch.zeros(8, mn.d, device=X.device)
-    row("glm_sgd_sparse", f"news N={mn.shape[0]} K={kn} d={mn.d} R=8 MB=1",
-        lambda: K.ell_sgd_epoch("lr", Wn, vn, i_n, yn8, step=NEWS_STEP,
-                                micro_batch=1),
-        lambda: ell_sgd_epoch_ref("lr", Wn, vn, i_n, yn8, NEWS_STEP, 1),
-        3, 1, ell_bytes(vn) + nbytes(yn8, Wn, Wn),
-        4.0 * int((vn != 0).sum()) + 8.0 * yn8.numel(), EPOCH_TOL,
-        line="glm_sgd_sparse_global",
-        variant=sparse_ops.variant(mn.d, kn, 1), updates=vn.shape[1])
-    del vn, i_n
+    stream = sparse_ops.variant(mn.d, kn, 1)
+    for reps in NEWS_REPLICAS:
+        parts = torch.from_numpy(sgd.partition_indices(mn.shape[0], reps)).to(
+            X.device).long()
+        vn, i_n, ynr = mn.values[parts], mn.indices[parts], yn[parts]
+        Wn = torch.zeros(reps, mn.d, device=X.device)
+
+        def plain_news():
+            return ell_sgd_epoch_ref("lr", Wn, vn, i_n, ynr, NEWS_STEP, 1)
+
+        for kind, line in (
+                (stream, "glm_sgd_sparse_stream" if reps == 8 else None),
+                ("global", None)):
+            with forced_variant(sparse_ops, kind):
+                row("glm_sgd_sparse", f"news N={mn.shape[0]} K={kn} d={mn.d} "
+                    f"R={reps} MB=1 {kind}",
+                    lambda: K.ell_sgd_epoch("lr", Wn, vn, i_n, ynr,
+                                            step=NEWS_STEP, micro_batch=1),
+                    plain_news, 3, 1, ell_bytes(vn) + nbytes(ynr, Wn, Wn),
+                    4.0 * int((vn != 0).sum()) + 8.0 * ynr.numel(), EPOCH_TOL,
+                    line=line, variant=kind, updates=vn.shape[1])
+        del vn, i_n
 
     # the serving path: glm_score on one 128-row batch, which is what a
     # flush launches (the kernels line's row), and on all of w8a.  The
@@ -2156,7 +2215,7 @@ def main() -> int:
     news = news_dataset(dev)
     torch.cuda.synchronize()
     news_seconds = time.perf_counter() - t0
-    line, launches["glm_sgd_sparse_global"] = phase_news(news, epochs=3)
+    line, launches["glm_sgd_sparse_stream"] = phase_news(news, epochs=3)
     line["data_seconds"] = news_seconds
     emit(line)
     if not line["ok"]:
@@ -2168,8 +2227,8 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    # the study path is the only one that runs glm_sgd's smem variant
-    launches["glm_sgd_smem"] = study_launches["glm_sgd_smem"]
+    # the study path is the only one that runs glm_sgd's cluster variant
+    launches["glm_sgd_cluster"] = study_launches["glm_sgd_cluster"]
 
     # the serving path: w8a under the model SyncSGD ended with, swapped
     # halfway for the one AsyncLocalSGD(replicas=10, local_batch=10) merged

@@ -10,19 +10,22 @@
 //   MB=10: 647 per replica); the ELL bytes alone (35.7 MB) would take about
 //   11 us at 3.35 TB/s.  The time per update is the target.
 //
-// Both kernels: one block per replica (blockIdx.x), the model in dynamic
-//   shared memory (the gathers and scatters are data-dependent); all margins
+// All kernels: one block per replica (blockIdx.x); the warp and smem
+//   kernels keep the model in dynamic shared memory (the gathers and
+//   scatters are data-dependent), the stream and global kernels in global
+//   memory, in L2 (news: 5.4 MB a replica); all margins
 //   of a batch see the same w (the semantics of sparse.minibatch_epoch);
 //   -(alpha/|B|) * vals * pull is scattered with shared-memory atomicAdd;
 //   entries whose value is 0 are skipped: they are the index-0 padding, and
 //   would otherwise pile atomics onto w[0].  A ragged tail is one final
 //   smaller batch at alpha/|tail|; the step arrives as a runtime float.
 //   Indices are not range-checked here: the wrapper has checked the operand
-//   once before its first launch.  Three kernels, chosen by
+//   once before its first launch.  Four kernels, chosen by
 //   kernels/glm_sgd_sparse/ops.py:variant(d, K, micro_batch); the wrapper
 //   passes the warp kernel's ring as `stages` and `group`
 //   (ops.py:warp_plan), and stages = 0 for the shared-memory kernel; the
-//   global-memory kernel has its own entry point (ell_sgd_epoch_global):
+//   stream and global-memory kernels have their own entry points
+//   (ell_sgd_epoch_stream, ell_sgd_epoch_global):
 //
 // ell_sgd_warp_kernel (K <= 512, and a ring of at least two stages fits next
 //   to the model).  glm_sgd_warp_kernel's design, for ELL rows:
@@ -70,9 +73,36 @@
 //   sums the margin with shuffles, a barrier, the block scatters, a
 //   barrier.
 //
-// ell_sgd_global_kernel (any wider model: news' d = 1,355,191).
+// ell_sgd_stream_kernel (any wider model, rows of up to 8,192 entries:
+//   news' d = 1,355,191, K = 2,729, about 455 nonzeros a row;
+//   ops.py:stream_plan).  The global kernel's update paid, in series, the
+//   row's loads from HBM, a dependent gather, a 32-warp reduction over two
+//   __syncthreads, a pull through a global scratch, a second read of the
+//   row, and 1,024 threads walking every slot (4.07 us an update); here:
+//   - 4 copy warps keep a ring of the next rows in shared memory (values,
+//     indices and labels as they lie in memory, 16-byte cp.async, full and
+//     empty mbarriers: ring.cuh's pattern, no more copy warps than stages),
+//     so the chain never waits on HBM for a row; after each fill a copy
+//     warp asks L2 for the model lines of the fill's nonzero entries
+//     (prefetch.global.L2), which the chain gathers a few updates later;
+//   - 16 chain warps take entries t, t + 512, ... of a row (J <= 16 a
+//     thread), wherever its padding lies (a value-0 entry adds nothing to
+//     the margin or the scatter); each issues all of its gathers
+//     (__ldcg, L2) before using any, so a row costs one trip to L2;
+//   - each warp's partial margin goes to shared memory, and after one
+//     chain barrier (bar.sync over the chain warps only) every warp sums
+//     the 16 in warp order itself: every warp holds the same pull, in a
+//     register, with no global scratch and no barrier of its own;
+//   - the scatter is RED.ADD.F32 (global atomicAdd) from the values and
+//     indices still in registers; one chain barrier then orders it before
+//     the next row's gathers;
+//   - a batch longer than a fill is streamed twice, its margins and then
+//     its scatter (ring.cuh:Fill), its pulls kept in a global scratch
+//     between.
+//
+// ell_sgd_global_kernel (rows past the stream kernel's 8,192 entries).
 //   ell_sgd_kernel's loop with the replica's model left in the output
-//   tensor in global memory (5.4 MB a replica at news' width, in L2):
+//   tensor in global memory:
 //   - a row's margin is split over the whole block (news' rows hold up to
 //     2,729 entries), summed with shuffles and then across the warps in warp
 //     order; the batch's pulls go to a global scratch the wrapper allocates;
@@ -302,7 +332,6 @@ __device__ __forceinline__ float pulls(const float* vl, const int* il,
                                        float (&vr)[RB][C], int (&ir)[RB][C],
                                        int r0, int rows, int K, int lane,
                                        int task) {
-  constexpr int L = log2i(RB);
   float v[RB];
 #pragma unroll
   for (int i = 0; i < RB; ++i) {
@@ -317,31 +346,10 @@ __device__ __forceinline__ float pulls(const float* vl, const int* il,
       v[i] = fmaf(vr[i][c], w[ir[i][c]], v[i]);
     }
   }
-  // transposed butterfly (glm_sgd.cu): in round k (lane offset 16 >> k) a
-  // lane keeps the half of its rows its lane bit selects and receives that
-  // half's partials from its partner; after log2 RB rounds it holds one
-  // row, and the rounds left sum the lanes sharing it
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int off = 16 >> k;
-    if (k < L) {
-      const int h = RB >> (k + 1);
-      const bool upper = lane & off;
-#pragma unroll
-      for (int i = 0; i < (RB + 1) / 2; ++i) {
-        if (i < h) {
-          const float send = upper ? v[i] : v[i + h];
-          const float keep = upper ? v[i + h] : v[i];
-          v[i] = keep + __shfl_xor_sync(repro::kFullMask, send, off);
-        }
-      }
-    } else {
-      v[0] += __shfl_xor_sync(repro::kFullMask, v[0], off);
-    }
-  }
-  const int row = r0 + (lane >> (5 - L));
+  const float m = transposed_sum<RB>(v, lane);  // ring.cuh
+  const int row = r0 + (lane >> (5 - log2i(RB)));
   const float yi = ys[min(row, rows - 1)];
-  const float p = repro::pull(task, yi * v[0], yi);
+  const float p = repro::pull(task, yi * m, yi);
   return row < rows ? p : 0.0f;
 }
 
@@ -533,7 +541,265 @@ int warp_path(const float* vals, const int* idx, const float* y, float* W,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// The stream kernel: the model in global memory, rows through a ring
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamChainWarps = 16;
+constexpr int kStreamChain = 32 * kStreamChainWarps;
+constexpr int kStreamCopyWarps = 4;
+constexpr int kStreamThreads = kStreamChain + 32 * kStreamCopyWarps;
+constexpr int kStreamRows = 32;  // most rows a fill holds
+
+// The chain warps' barrier (the copy warps do not take part).
+__device__ __forceinline__ void stream_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kStreamChain) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(__cvta_generic_to_global(p)));
+}
+
+// A stage holds `crows` rows: their values, each at the offset from a
+// 16-byte boundary it has in memory (ell_floats(K, 1) a row), their indices
+// the same way, then their labels.  kernels/glm_sgd_sparse/ops.py:
+// stream_smem_bytes computes the same layout:
+// [2 * stages mbarriers][kStreamRows x kStreamChainWarps partials]
+// [stages x stage]
+__host__ __device__ constexpr int stream_stage_floats(int K, int crows) {
+  return 2 * crows * ell_floats(K, 1) + pad4(crows);
+}
+size_t stream_smem_bytes(int K, int stages, int crows) {
+  return 16 * static_cast<size_t>(stages) +
+         4 * static_cast<size_t>(kStreamRows * kStreamChainWarps) +
+         4 * static_cast<size_t>(stages) * stream_stage_floats(K, crows);
+}
+
+// J: a row's entries a chain thread holds (entry k on chain thread
+// k % 512, K <= 512 J)
+template <int J>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+ell_sgd_stream_kernel(const float* __restrict__ vals,  // [R, n, K]
+                      const int* __restrict__ idx,     // [R, n, K]
+                      const float* __restrict__ y,     // [R, n]
+                      float* __restrict__ W,           // [R, d] in/out
+                      float* __restrict__ P,           // [R, mb] scratch
+                      int n, int K, int d, int mb, int task, float scale,
+                      float tail_scale, int stages, int crows) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);      // [stages]
+  uint64_t* empty = full + stages;                         // [stages]
+  float* wpart = reinterpret_cast<float*>(empty + stages);  // [32][16]
+  float* ring = wpart + kStreamRows * kStreamChainWarps;
+  const int ef = ell_floats(K, 1), sf = stream_stage_floats(K, crows);
+
+  const int r = blockIdx.x;
+  const float* Vr = vals + static_cast<size_t>(r) * n * K;
+  const int* Ir = idx + static_cast<size_t>(r) * n * K;
+  const float* yr = y + static_cast<size_t>(r) * n;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  float* Pr = P + static_cast<size_t>(r) * mb;
+  const int fills = fill_count(n, mb, crows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 32);  // one copy warp fills a stage
+      mbar_init(&empty[s], kStreamChainWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kStreamChainWarps) {
+    // copy warp cw fills f = cw, cw + copiers, ... into stage f % stages
+    // once the chain has released the stage's previous fill (no more copy
+    // warps than stages); it then waits for its copies and asks L2 for the
+    // model lines of the fill's nonzero entries, which the chain gathers a
+    // few updates later
+    const int copiers = min(kStreamCopyWarps, stages);
+    const int cw = warp - kStreamChainWarps;
+    FillWalk walk(n, mb, crows);
+    for (int k = 0; k < cw; ++k) walk.next();
+    for (int f = cw; cw < copiers && f < fills; f += copiers) {
+      const int s = f % stages, use = f / stages;
+      if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+      const Fill& fl = walk.fl;
+      float* st = ring + s * sf;
+      for (int i = 0; i < fl.rows; ++i) {
+        const size_t at = static_cast<size_t>(fl.start + i) * K;
+        copy_words(reinterpret_cast<uint32_t*>(st + i * ef + misalign(Vr + at)),
+                   reinterpret_cast<const uint32_t*>(Vr + at), K, lane);
+        copy_words(reinterpret_cast<uint32_t*>(st + (crows + i) * ef +
+                                               misalign(Ir + at)),
+                   reinterpret_cast<const uint32_t*>(Ir + at), K, lane);
+      }
+      for (int e = lane; e < fl.rows; e += 32)
+        copy4(st + 2 * crows * ef + e, yr + fl.start + e);
+      mbar_arrive_on_copies(&full[s]);
+      if (fl.pass != 1) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        for (int i = 0; i < fl.rows; ++i) {
+          const size_t at = static_cast<size_t>(fl.start + i) * K;
+          const float* vs = st + i * ef + misalign(Vr + at);
+          const int* is = reinterpret_cast<const int*>(st + (crows + i) * ef +
+                                                       misalign(Ir + at));
+          // the stage may hold a later fill by now: the index is clamped,
+          // and a prefetch is only a hint
+          for (int k = lane; k < K; k += 32)
+            if (vs[k] != 0.0f) prefetch_l2(Wr + min(max(is[k], 0), d - 1));
+        }
+      }
+      for (int k = 0; k < copiers; ++k) walk.next();
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // a chain thread: entries t, t + 512, ... of each row
+  const int t = threadIdx.x;
+  int s = 0;            // stage of fill f
+  uint32_t parity = 0;  // of that fill: flips each lap of the ring
+  FillWalk walk(n, mb, crows);
+  for (int f = 0; f < fills; ++f, walk.next()) {
+    const Fill& fl = walk.fl;
+    mbar_wait(&full[s], parity);
+    const float* st = ring + s * sf;
+    const size_t at0 = static_cast<size_t>(fl.start) * K;
+    auto vrow = [&](int i) {
+      return st + i * ef + misalign(Vr + at0 + static_cast<size_t>(i) * K);
+    };
+    auto irow = [&](int i) {
+      return reinterpret_cast<const int*>(
+          st + (crows + i) * ef +
+          misalign(Ir + at0 + static_cast<size_t>(i) * K));
+    };
+    const float step = fl.batch_rows == mb ? scale : tail_scale;
+    // a one-row fill keeps its entries in registers from the gather to
+    // the scatter; a longer fill reads them again for the scatter
+    float v[J];
+    int j[J];
+    float g = 0.0f;  // lane i: -step * the pull of the fill's row i
+    if (fl.pass != 1) {
+      for (int i = 0; i < fl.rows; ++i) {
+        const float* vs = vrow(i);
+        const int* is = irow(i);
+        float wv[J];
+#pragma unroll
+        for (int c = 0; c < J; ++c) {
+          const int k = t + kStreamChain * c;
+          const int kk = min(k, K - 1);  // no read leaves the row
+          v[c] = k < K ? vs[kk] : 0.0f;
+          j[c] = k < K ? is[kk] : 0;
+        }
+        // every gather of the row issued before any is used: one trip to
+        // L2 a row (__ldcg: L1 does not see the scatter's L2 atomics)
+#pragma unroll
+        for (int c = 0; c < J; ++c)
+          wv[c] = v[c] != 0.0f ? __ldcg(Wr + j[c]) : 0.0f;
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < J; ++c) acc = fmaf(v[c], wv[c], acc);
+        acc = repro::warp_sum(acc);
+        if (lane == 0) wpart[i * kStreamChainWarps + warp] = acc;
+      }
+      stream_sync();
+      // every warp sums each row's partials in warp order (lane i, row i),
+      // so all hold the same pulls and none waits on another for them
+      if (lane < fl.rows) {
+        float m = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kStreamChainWarps; ++q)
+          m += wpart[lane * kStreamChainWarps + q];
+        const float yi = st[2 * crows * ef + lane];
+        g = -step * repro::pull(task, yi * m, yi);
+        if (fl.pass == 0 && warp == 0) __stcg(Pr + fl.chunk * crows + lane, g);
+      }
+    }
+    if (fl.pass != 0) {
+      // the scatter: RED.ADD.F32 in L2 for each nonzero entry
+      if (fl.pass == 2 && fl.rows == 1) {
+        const float g0 = __shfl_sync(repro::kFullMask, g, 0);
+#pragma unroll
+        for (int c = 0; c < J; ++c)
+          if (v[c] != 0.0f && g0 != 0.0f) atomicAdd(Wr + j[c], g0 * v[c]);
+      } else {
+        for (int i = 0; i < fl.rows; ++i) {
+          const float gi = fl.pass == 1
+                               ? __ldcg(Pr + fl.chunk * crows + i)
+                               : __shfl_sync(repro::kFullMask, g, i);
+          if (gi == 0.0f) continue;
+          const float* vs = vrow(i);
+          const int* is = irow(i);
+          for (int k = t; k < K; k += kStreamChain) {
+            const float vk = vs[k];
+            if (vk != 0.0f) atomicAdd(Wr + is[k], gi * vk);
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the stage
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+    stream_sync();  // the scatter lands before the next gathers
+  }
+}
+
+template <int J>
+int launch_stream(const float* vals, const int* idx, const float* y, float* W,
+                  float* P, int R, int n, int K, int d, int mb, int task,
+                  float scale, float tail_scale, int stages, int crows,
+                  cudaStream_t stream) {
+  auto kernel = ell_sgd_stream_kernel<J>;
+  const size_t smem = stream_smem_bytes(K, stages, crows);
+  const cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<R, kStreamThreads, smem, stream>>>(vals, idx, y, W, P, n, K, d, mb,
+                                              task, scale, tail_scale, stages,
+                                              crows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// ell_sgd_stream_kernel: a ring of `stages` fills of at most `crows` rows
+// (kernels/glm_sgd_sparse/ops.py:stream_plan checks that it fits, and that
+// K <= 8,192); the copy warps ask L2 for each fill's model lines.  vals,
+// idx, y contiguous [R, n, K] fp32, [R, n, K] int32 and
+// [R, n] fp32; W [R, d] updated in place; P an fp32 scratch of R * mb floats
+// (the pulls of a batch longer than a fill).
+extern "C" int ell_sgd_epoch_stream(const void* vals, const void* idx,
+                                    const void* y, void* W, void* P, int R,
+                                    int n, int K, int d, int mb, int task,
+                                    float scale, float tail_scale, int stages,
+                                    int crows, void* stream) {
+  if (stages < 2 || crows < 1 || crows > kStreamRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* vf = static_cast<const float*>(vals);
+  const auto* ix = static_cast<const int*>(idx);
+  const auto* yf = static_cast<const float*>(y);
+  auto* Wf = static_cast<float*>(W);
+  auto* Pf = static_cast<float*>(P);
+  const int cn = (K + kStreamChain - 1) / kStreamChain;
+#define REPRO_STREAM_CASE(c)                                                 \
+  if (cn <= c)                                                               \
+    return launch_stream<c>(vf, ix, yf, Wf, Pf, R, n, K, d, mb, task, scale, \
+                            tail_scale, stages, crows, s);
+  REPRO_STREAM_CASE(1)
+  REPRO_STREAM_CASE(2)
+  REPRO_STREAM_CASE(3)
+  REPRO_STREAM_CASE(4)
+  REPRO_STREAM_CASE(6)
+  REPRO_STREAM_CASE(8)
+  REPRO_STREAM_CASE(12)
+  REPRO_STREAM_CASE(16)
+#undef REPRO_STREAM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // ell_sgd_global_kernel: vals, idx, y contiguous [R, n, K] fp32, [R, n, K]
 // int32 and [R, n] fp32; W [R, d] updated in place; P an fp32 scratch of

@@ -1,6 +1,8 @@
-// The shared-memory ring of the fused SGD epochs' warp kernels (glm_sgd.cu,
-// glm_sgd_sparse.cu): mbarriers, cp.async copies completing on them, and a
-// copy of a run of 4-byte words as it lies in memory.
+// The shared-memory ring of the fused SGD epochs' streaming kernels (glm_sgd.cu,
+// glm_sgd_sparse.cu): mbarriers, cp.async copies completing on them, a copy
+// of a run of 4-byte words as it lies in memory, the order in which a ring
+// streams an epoch's micro-batches in chunks, and a warp sum of several rows'
+// partials at once.
 #pragma once
 
 #include <cstdint>
@@ -85,5 +87,95 @@ __device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
 __host__ __device__ constexpr int log2i(int x) {
   return x <= 1 ? 0 : 1 + log2i(x / 2);
 }
+
+// Sum RB rows' per-lane partials over the warp at once, by a transposed
+// butterfly: in round k (lane offset 16 >> k) a lane keeps the half of its
+// rows its lane bit selects and receives that half's partials from its
+// partner; after log2 RB rounds it holds one row, and the rounds left sum the
+// lanes sharing it (RB - 1 + 5 - log2 RB shuffles for RB rows instead of
+// 5 RB).  Lane l returns the total of row l >> (5 - log2 RB), the same bits
+// on every lane of that row.  Every loop bound is a constant, so the rounds
+// unroll and v stays in registers.
+template <int RB>
+__device__ __forceinline__ float transposed_sum(float (&v)[RB], int lane) {
+  constexpr int L = log2i(RB);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int off = 16 >> k;
+    if (k < L) {
+      const int h = RB >> (k + 1);
+      const bool upper = lane & off;
+#pragma unroll
+      for (int i = 0; i < (RB + 1) / 2; ++i) {
+        if (i < h) {
+          const float send = upper ? v[i] : v[i + h];
+          const float keep = upper ? v[i + h] : v[i];
+          v[i] = keep + __shfl_xor_sync(kFullMask, send, off);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(kFullMask, v[0], off);
+    }
+  }
+  return v[0];
+}
+
+// The fills of a ring that streams an epoch's micro-batches (batch b holds
+// rows [b * mb, min(n, (b + 1) * mb))) in chunks of at most `crows` rows.  A
+// batch of one chunk is one fill, which serves both its margins and its
+// update (pass 2); a longer batch is its chunks twice, first for the
+// margins against the batch's model (pass 0), then for the update (pass 1),
+// its pulls kept in between.
+struct Fill {
+  int start;       // the fill's first row
+  int rows;        // rows it holds
+  int batch_rows;  // rows of its batch: mb, or the ragged tail's
+  int chunk;       // its chunk of the batch
+  int pass;        // 0 margins, 1 update, 2 both
+};
+
+__host__ __device__ constexpr int fills_of(int rows, int crows) {
+  return rows <= crows ? 1 : 2 * ((rows + crows - 1) / crows);
+}
+
+__host__ __device__ inline int fill_count(int n, int mb, int crows) {
+  const int batches = (n + mb - 1) / mb;
+  return (batches - 1) * fills_of(mb, crows) +
+         fills_of(n - (batches - 1) * mb, crows);
+}
+
+// The fills in order, with no division a fill: a chain takes them one by
+// one, a copy warp every `copiers`-th (next() that many times).
+struct FillWalk {
+  int n, mb, crows;
+  int chunks;  // of the current batch
+  int local;   // the fill's place among its batch's fills
+  Fill fl;
+
+  __device__ __forceinline__ FillWalk(int n_, int mb_, int crows_)
+      : n(n_), mb(mb_), crows(crows_), local(0) {
+    batch(0);
+  }
+  __device__ __forceinline__ void batch(int start) {
+    fl.batch_rows = min(mb, n - start);
+    chunks = (fl.batch_rows + crows - 1) / crows;
+    local = 0;
+    fl.start = start;
+    fl.chunk = 0;
+    fl.pass = chunks == 1 ? 2 : 0;
+    fl.rows = min(crows, fl.batch_rows);
+  }
+  __device__ __forceinline__ void next() {
+    const int first = fl.start - fl.chunk * crows;  // the batch's first row
+    if (++local == (chunks == 1 ? 1 : 2 * chunks)) {
+      batch(first + fl.batch_rows);
+      return;
+    }
+    fl.pass = local < chunks ? 0 : 1;
+    fl.chunk = local < chunks ? local : local - chunks;
+    fl.start = first + fl.chunk * crows;
+    fl.rows = min(crows, fl.batch_rows - fl.chunk * crows);
+  }
+};
 
 }  // namespace repro

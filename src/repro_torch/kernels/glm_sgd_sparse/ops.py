@@ -13,10 +13,16 @@ shared-memory atomics), else in global memory (global atomics).
   the batches into the ring;
 * ``"smem"`` (``ell_sgd_kernel``, the first port) where ``d + micro_batch``
   floats fit a block's 227 KB of shared memory: the model there;
-* ``"global"`` (``ell_sgd_global_kernel``) for every wider model (news, d =
-  1,355,191): the model stays in the output tensor in global memory, a
-  row's margin is gathered and summed by the whole block, the batch's pulls
-  go to a global scratch, and the scatter is a global ``atomicAdd``.
+* ``"stream"`` (``ell_sgd_stream_kernel``) for every wider model (news, d =
+  1,355,191) whose rows :func:`stream_plan` can ring: the model stays in the
+  output tensor in global memory, copy warps stream the next rows through a
+  shared-memory ring (and ask L2 for their model lines), 16 chain warps
+  gather a row's model values with one trip to L2, sum the margin over the
+  block (every warp the same pull, in a register), and scatter with global
+  ``atomicAdd`` from the values in registers;
+* ``"global"`` (``ell_sgd_global_kernel``) for what is left (rows past
+  :data:`STREAM_MAX_K` entries): the model in global memory, each row read
+  from it twice, the batch's pulls through a global scratch.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -42,9 +48,19 @@ WARP_MAX_STAGES = 16
 #: rows a stage aims to hold: the chain waits and releases once a stage
 WARP_STAGE_ROWS = 32
 
+#: chain warps of a stream kernel block (4 more warps copy)
+STREAM_CHAIN_WARPS = 16
+#: longest ELL row the stream kernel holds (16 entries a chain thread)
+STREAM_MAX_K = 16 * 32 * STREAM_CHAIN_WARPS
+#: most stages the stream kernel's ring holds ahead of the chain
+STREAM_MAX_STAGES = 8
+#: most rows a fill of its ring holds
+STREAM_ROWS = 32
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P)
 _GLOBAL_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)
+_STREAM_ARGS = _GLOBAL_ARGS[:-1] + (_I, _I, _P)
 
 
 def smem_bytes(d: int, micro_batch: int) -> int:
@@ -82,14 +98,49 @@ def warp_plan(d: int, k: int, micro_batch: int) -> tuple[int, int]:
         micro_batch, WARP_MAX_STAGES, WARP_STAGE_ROWS)
 
 
+def stream_smem_bytes(k: int, stages: int, rows: int) -> int:
+    """Shared memory of one ``"stream"`` block (csrc/glm_sgd_sparse.cu lays
+    it out the same way): two mbarriers a stage, the chain warps' partials
+    of STREAM_ROWS rows, and ``stages`` stages of ``rows`` rows: their
+    values and their indices, each row as it lies in memory (after up to 3
+    words of alignment), and their labels."""
+    row = common.padded(k + 3, 4)
+    return (16 * stages + 4 * STREAM_ROWS * STREAM_CHAIN_WARPS
+            + 4 * stages * (2 * rows * row + common.padded(rows, 4)))
+
+
+def stream_plan(k: int, micro_batch: int) -> tuple[int, int]:
+    """The stream kernel's ring as ``(stages, rows)``: fills of a whole
+    batch (up to STREAM_ROWS rows) where two such stages fit, else of as
+    many rows as two stages allow, a batch then streamed twice (its
+    margins, then its scatter); as many stages as fit, up to
+    STREAM_MAX_STAGES.  ``(0, 0)`` for rows past STREAM_MAX_K entries."""
+    if k > STREAM_MAX_K:
+        return 0, 0
+
+    def fit(rows):
+        for stages in range(STREAM_MAX_STAGES, 1, -1):
+            if stream_smem_bytes(k, stages, rows) <= common.MAX_SMEM_BYTES:
+                return stages
+        return 0
+
+    for rows in range(min(micro_batch, STREAM_ROWS), 0, -1):
+        if fit(rows):
+            return fit(rows), rows
+    return 0, 0
+
+
 def variant(d: int, k: int, micro_batch: int) -> str:
     """The kernel that runs ``(d, K, micro_batch)``: ``"warp"`` for K up to
     WARP_MAX_K where a two-stage ring fits, else ``"smem"`` where the model
-    and the batch's pulls fit a block's shared memory, else ``"global"``."""
+    and the batch's pulls fit a block's shared memory, else ``"stream"``
+    where :func:`stream_plan` fits, else ``"global"``."""
     if k <= WARP_MAX_K and warp_plan(d, k, micro_batch)[0]:
         return "warp"
     if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
         return "smem"
+    if stream_plan(k, micro_batch)[0]:
+        return "stream"
     return "global"
 
 
@@ -106,13 +157,20 @@ def _ell_sgd_cuda(task, W, values, indices, y, *, step, micro_batch):
     ptrs = (values.data_ptr(), indices.data_ptr(), y.data_ptr(),
             out.data_ptr())
     with common.on_device(values):
-        if kind == "global":
+        if kind in ("stream", "global"):
             pulls = torch.empty((n_rep, micro_batch), dtype=torch.float32,
                                 device=values.device)
-            fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch_global",
-                                 *_GLOBAL_ARGS)
-            code = fn(*ptrs, pulls.data_ptr(), n_rep, n, k, d, micro_batch,
-                      common.task_code(task), *scales, common.stream(values))
+            args = (*ptrs, pulls.data_ptr(), n_rep, n, k, d, micro_batch,
+                    common.task_code(task), *scales)
+            if kind == "stream":
+                fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch_stream",
+                                     *_STREAM_ARGS)
+                code = fn(*args, *stream_plan(k, micro_batch),
+                          common.stream(values))
+            else:
+                fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch_global",
+                                     *_GLOBAL_ARGS)
+                code = fn(*args, common.stream(values))
         else:
             stages, group = warp_plan(d, k, micro_batch) \
                 if kind == "warp" else (0, 0)

@@ -229,8 +229,15 @@ def test_glm_sgd_replica_axis_matches_per_replica_jax():
     (sgd_ops.WARP_MAX_D, 1, "warp"),
     (sgd_ops.WARP_MAX_D, 27, "warp"),         # the widest two-stage ring
     (sgd_ops.WARP_MAX_D, 28, "smem"),         # two stages no longer fit
-    (sgd_ops.WARP_MAX_D + 1, 1, "smem"),
-    (20_000, 64, "smem"),
+    # these two ids name the kernel that took the shapes before the cluster
+    # kernel did; kept so that the cases keep their names
+    pytest.param(sgd_ops.WARP_MAX_D + 1, 1, "cluster", id="1025-1-smem"),
+    pytest.param(20_000, 64, "cluster", id="20000-64-smem"),  # in chunks
+    (20_958, 1, "cluster"),                   # real-sim: Table 4's seq
+    (58_112, 10, "cluster"),                  # past a block's shared memory
+    (100_000, 16, "global"),
+    (16 * 4_096, 1, "cluster"),               # the cluster's widest
+    (16 * 4_096 + 1, 1, "global"),            # past the cluster's cap
 ])
 def test_glm_sgd_variant_is_chosen_from_the_shape(d, mb, want):
     assert sgd_ops.variant(d, mb) == want
@@ -239,6 +246,59 @@ def test_glm_sgd_variant_is_chosen_from_the_shape(d, mb, want):
         assert stages >= 2 and group >= 1
         assert sgd_ops.warp_smem_bytes(d, mb, stages, group) \
             <= common.MAX_SMEM_BYTES
+    assert bool(sgd_ops.cluster_plan(d, mb)[0]) == (d <= 16 * 4_096)
+
+
+@pytest.mark.parametrize("d,mb", [(1_025, 1), (1_025, 10), (1_025, 64),
+                                  (4_096, 16), (20_958, 1), (20_958, 10),
+                                  (32_768, 1), (32_769, 1),
+                                  (20_000, 64), (58_111, 1), (58_112, 10),
+                                  (65_536, 16), (16 * 4_096, 1),
+                                  (16 * 4_096, 111)])
+def test_glm_sgd_cluster_plan_gives_every_feature_one_block(d, mb):
+    """Block b of a replica's cluster owns features [b * slice, (b + 1) *
+    slice): every feature exactly one block, every block at least one, a
+    slice the chain's 256 threads hold in 8 registers each where 16 blocks
+    allow, else 16; the cluster is at most 16 blocks and the smallest such
+    that leaves two stages of a whole batch (up to 32 rows), else the
+    largest with fewer rows a fill; each block's shared memory within the
+    card's 227 KB."""
+    cluster, slice_, stages, rows = sgd_ops.cluster_plan(d, mb)
+    owners = np.zeros(d, dtype=np.int64)
+    for b in range(cluster):
+        lo, hi = b * slice_, min(d, (b + 1) * slice_)
+        assert hi > lo
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert 1 <= cluster <= sgd_ops.CLUSTER_MAX
+    values = 8 if d <= 16 * 2_048 else 16
+    assert slice_ <= 256 * values
+    assert 2 <= stages <= sgd_ops.CLUSTER_MAX_STAGES
+    assert sgd_ops.cluster_smem_bytes(cluster, slice_, stages, rows) \
+        <= common.MAX_SMEM_BYTES
+    want = min(mb, sgd_ops.CLUSTER_CHUNK_ROWS)
+    assert 1 <= rows <= want
+    if rows == want:
+        # no smaller cluster holds two stages of the batch
+        for c in range(1, cluster):
+            s = -(-d // c)
+            assert s > 256 * values or sgd_ops.cluster_smem_bytes(
+                c, s, 2, rows) > common.MAX_SMEM_BYTES
+    else:
+        assert cluster == sgd_ops.CLUSTER_MAX
+        assert sgd_ops.cluster_smem_bytes(cluster, slice_, 2, rows + 1) \
+            > common.MAX_SMEM_BYTES
+
+
+def test_glm_sgd_cluster_plan_at_the_main_paths_widths():
+    """real-sim's seq epoch (d = 20,958, one row a batch) takes 11 blocks
+    of 1,906 features (7.4 a chain thread) and an 8-stage ring; d = 58,112
+    at micro-batch 1 takes 15 of 3,875 (past 16 x 2,048, up to 16 a
+    thread), and at 10 the cap's 16, its batches in fills of 7 rows."""
+    assert sgd_ops.cluster_plan(20_958, 1) == (11, 1_906, 8, 1)
+    assert sgd_ops.cluster_plan(58_112, 1)[:2] == (15, 3_875)
+    assert sgd_ops.cluster_plan(58_112, 10)[::3] == (16, 7)
+    assert sgd_ops.cluster_plan(16 * 4_096 + 1, 1) == (0, 0, 0, 0)
 
 
 def test_glm_sgd_warp_ring_holds_about_32_rows_a_stage():
@@ -251,26 +311,38 @@ def test_glm_sgd_warp_ring_holds_about_32_rows_a_stage():
 
 
 def test_glm_sgd_accepted_shapes_did_not_shrink():
-    """Every (d, micro_batch) the shared-memory kernel takes is still taken
-    by a shared-memory variant, and the shapes past the shared-memory limit,
-    which raised before the global-memory variant, now route to it."""
-    for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111):
+    """Every (d, micro_batch) some variant took still runs: the shared-memory
+    kernel's shapes up to WARP_MAX_D stay on the warp or shared-memory
+    kernels and every wider one goes to the cluster kernel, as do the
+    global kernel's up to the cluster's cap; the global kernel keeps the
+    rest."""
+    for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111,
+              58_112, 65_536, 65_537, 100_000, 200_000):
         for mb in (1, 2, 10, 16, 27, 28, 64, 111, 112):
-            if sgd_ops.smem_bytes(d, mb) <= common.MAX_SMEM_BYTES:
-                assert sgd_ops.variant(d, mb) in ("warp", "smem")
+            kind = sgd_ops.variant(d, mb)
+            if d <= sgd_ops.WARP_MAX_D and \
+                    sgd_ops.smem_bytes(d, mb) <= common.MAX_SMEM_BYTES:
+                assert kind in ("warp", "smem")
+            elif d <= 16 * 4_096:
+                assert kind == "cluster"
             else:
-                assert sgd_ops.variant(d, mb) == "global"
-    assert sgd_ops.variant(58_111, 1) == "smem"
-    assert sgd_ops.variant(58_112, 1) == "global"
+                assert kind == "global"
+    assert sgd_ops.variant(58_111, 1) == "cluster"
+    assert sgd_ops.variant(58_112, 1) == "cluster"
+    assert sgd_ops.variant(65_536, 16) == "cluster"
     assert sgd_ops.variant(100_000, 16) == "global"
+    assert sgd_ops.variant(1_025, 57_087) == "cluster"  # smem's longest batch
     assert sgd_ops.variant(54, 60_000) == "global"   # a batch past the cap
 
 
-@pytest.mark.parametrize("d,mb", [(58_112, 1), (58_112, 10), (100_000, 16)])
+@pytest.mark.parametrize("d,mb", [(58_112, 1), (58_112, 10), (100_000, 16),
+                                  (140_000, 3)])
 def test_glm_sgd_past_shared_memory_matches_jax(d, mb):
-    """The global variant's shapes (a model too wide for a block's shared
-    memory, a ragged tail at micro-batch 10) against the JAX reference."""
-    assert sgd_ops.variant(d, mb) == "global"
+    """Models too wide for a block's shared memory (the cluster kernel's
+    shapes up to its cap, the global kernel's past it; a ragged tail at
+    micro-batches 10, 16 and 3) against the JAX reference."""
+    assert sgd_ops.variant(d, mb) == ("cluster" if d <= 16 * 4_096
+                                      else "global")
     X, y, w = _dense(23, d, seed=mb)
     ref = jglm_sgd_epoch("lr", *_j(w, X, y), step=0.01, micro_batch=mb,
                          backend="reference")
@@ -311,7 +383,9 @@ def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
     d = jsynthetic.PAPER_DATASETS["news"][1]
     assert sgd_sparse_ops.smem_bytes(d, 8) > common.MAX_SMEM_BYTES
     for k, mb in ((2_729, 1), (2_729, 10), (4, 8)):
-        assert sgd_sparse_ops.variant(d, k, mb) == "global"
+        assert sgd_sparse_ops.variant(d, k, mb) == "stream"
+    assert sgd_sparse_ops.variant(d, sgd_sparse_ops.STREAM_MAX_K + 1, 1) \
+        == "global"
     W, values, y = torch.zeros((1, d)), torch.ones((1, 8, 4)), torch.ones((1, 8))
     indices = torch.zeros((1, 8, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
@@ -329,6 +403,9 @@ def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
     (20_958, 307, 1, "warp"),                 # real-sim: LiveLearner
     (47_236, 1_224, 10, "smem"),              # rcv1: rows past WARP_MAX_K
     (58_000, 69, 1, "smem"),                  # no ring fits beside the model
+    (1_355_191, 2_729, 1, "stream"),          # news: Table 7's async b1
+    (1_355_191, 2_729, 10, "stream"),         # batches streamed in chunks
+    (1_355_191, 8_193, 1, "global"),          # rows past the stream's
 ])
 def test_glm_sgd_sparse_variant_is_chosen_from_the_shape(d, k, mb, want):
     assert sgd_sparse_ops.variant(d, k, mb) == want
@@ -353,8 +430,44 @@ def test_glm_sgd_sparse_warp_ring_plans():
                                                       512)] \
         == [1, 1, 2, 3, 4, 12, 16]
     assert sgd_sparse_ops.variant(58_111, 69, 1) == "smem"
-    assert sgd_sparse_ops.variant(58_112, 69, 1) == "global"
-    assert sgd_sparse_ops.variant(58_112, 1, 1) == "global"
+    assert sgd_sparse_ops.variant(58_112, 69, 1) == "stream"
+    assert sgd_sparse_ops.variant(58_112, 1, 1) == "stream"
+
+
+@pytest.mark.parametrize("k,mb", [(1, 1), (69, 10), (2_729, 1), (2_729, 10),
+                                  (2_729, 64), (5_000, 3), (8_192, 1)])
+def test_glm_sgd_sparse_stream_plan_gives_every_entry_one_owner(k, mb):
+    """Entry k of a staged row belongs to chain thread k % 512 (its k // 512
+    th register): every entry exactly one owner, at most 16 a thread; a
+    fill holds the whole batch (up to 32 rows) where two such stages fit,
+    else as many rows as two stages allow; each block's shared memory
+    within the card's 227 KB."""
+    stages, rows = sgd_sparse_ops.stream_plan(k, mb)
+    threads = 32 * sgd_sparse_ops.STREAM_CHAIN_WARPS
+    owners = np.zeros(k, dtype=np.int64)
+    per = -(-k // threads)
+    for t in range(threads):
+        for c in range(per):
+            if t + threads * c < k:
+                owners[t + threads * c] += 1
+    assert (owners == 1).all() and per <= 16
+    assert 2 <= stages <= sgd_sparse_ops.STREAM_MAX_STAGES
+    assert sgd_sparse_ops.stream_smem_bytes(k, stages, rows) \
+        <= common.MAX_SMEM_BYTES
+    want = min(mb, sgd_sparse_ops.STREAM_ROWS)
+    assert 1 <= rows <= want
+    if rows < want:
+        assert sgd_sparse_ops.stream_smem_bytes(k, 2, rows + 1) \
+            > common.MAX_SMEM_BYTES
+
+
+def test_glm_sgd_sparse_stream_plan_at_news():
+    """news' 2,729-entry rows: one row a fill and eight stages at
+    micro-batch 1 (21.9 KB a row); at 10, two stages of five rows."""
+    assert sgd_sparse_ops.stream_plan(2_729, 1) == (8, 1)
+    assert sgd_sparse_ops.stream_plan(2_729, 10) == (2, 5)
+    assert sgd_sparse_ops.stream_plan(sgd_sparse_ops.STREAM_MAX_K + 1, 1) \
+        == (0, 0)
 
 
 def _ell_shared(n, d, k, seed):
