@@ -12,7 +12,9 @@ Phases, one JSON line each:
 3. ``kernels`` holds each kernel against its plain PyTorch version on the
                card: both tasks, both glm_grad layouts, covtype and w8a
                widths, a ragged N, a replica axis, real-sim's width, and
-               glm_score at w8a, real-sim and news widths with filler rows
+               both glm_score kernels (flat and group) at w8a, real-sim and
+               news widths, rows of 3 words in a batch of 5, and values at
+               another 16-byte offset than their indices, with filler rows
                that must score link(0) exactly; glm_sgd at d = 3, 54, 300,
                1024 and 1025 (warp, smem and cluster variants),
                micro-batches 1 to 64 with ragged tails, 1, 8 and 10
@@ -40,9 +42,10 @@ Phases, one JSON line each:
                variant at news' width with K = 2,729, micro-batches 1 and
                10, several replicas, also with the padding spread through
                the rows, and its global variant past the stream's K); five
-               calls of glm_grad, glm_sparse and glm_sgd's cluster variant
-               giving the same bits; and that the sparse kernels refuse an
-               index outside [0, d);
+               calls of glm_grad, glm_sparse, glm_sgd's cluster variant and
+               both glm_score kernels at the serving flushes' shapes giving
+               the same bits; and that the sparse kernels refuse an index
+               outside [0, d);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -78,8 +81,10 @@ Phases, one JSON line each:
                requests under the model phase ``train``'s SyncSGD run ended
                with (max_batch 128, with a swap_model halfway, and 32), and
                8,192 real-sim-width requests; launch counts zeroed just
-               before and read just after; every response held against the
-               plain version under the snapshot version it carries;
+               before and read just after (one glm_score launch a flush, on
+               the variant each run's line names); every response held
+               against the plain version under the snapshot version it
+               carries;
 8. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
                stream publishing into an engine that a second thread
                serves, exact and int8-compressed, with replicas killed and
@@ -106,7 +111,9 @@ Phases, one JSON line each:
                R=8 and R=64 B=1 on its stream variant and on the global
                variant,
                glm_grad and glm_sparse each beside the kernel their
-               redesign replaced, glm_sparse also at R=10, flash_attn
+               redesign replaced, glm_sparse also at R=10, glm_score's flat
+               kernel beside the group kernel at w8a N = 128 and 32,
+               real-sim N = 128, all of w8a and news N = 512, flash_attn
                decode also over a full 4096-key window, and an fp32 call),
                with the variant each row ran and its device time
                (profiler, or a CUDA event pair around one call where the
@@ -182,7 +189,8 @@ KERNEL_SYMBOLS = {
                        "global": ("ell_sgd_global_kernel",)},
     "glm_sparse": {"smem": ("ell_grad_smem_kernel", "ell_grad_reduce_kernel"),
                    "atomic": ("ell_grad_kernel",)},
-    "glm_score": {None: ("glm_score_kernel",)},
+    "glm_score": {"flat": ("glm_score_flat_kernel",),
+                  "group": ("glm_score_kernel",)},
     "flash_attn": {"mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
                    "simt": ("flash_attn_kernel",)},
@@ -537,6 +545,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
     from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
 
+    from repro_torch.kernels.glm_score import ops as score_ops
     from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
 
     rng = np.random.default_rng(0)
@@ -603,25 +612,38 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         record("glm_sgd_sparse", f"{task} w8a R=10 per=410 mb=10",
                K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05, micro_batch=10),
                ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, 10), EPOCH_TOL)
-        # glm_score: every fifth row an all-zero filler row, which must
-        # score link(0) exactly (0.5 for LR, 0.0 for SVM)
+        # glm_score, both kernels: every fifth row an all-zero filler row,
+        # which must score link(0) exactly (0.5 for LR, 0.0 for SVM); rows
+        # of 3 words (fewer than a 16-byte chunk) in a batch of 5; and the
+        # values at another offset from a 16-byte boundary than the
+        # indices (read word by word)
         link0 = 0.5 if task == "lr" else 0.0
         for n, d, avg, k, label in ((4096, 300, 11.65, 69, "w8a"),
                                     (37, 300, 11.65, 69, "w8a ragged"),
                                     (2000, 20_958, 51.30, 307, "real-sim"),
-                                    (512, 1_355_191, 454.99, 2_729, "news")):
+                                    (512, 1_355_191, 454.99, 2_729, "news"),
+                                    (5, 50, 2.0, 3, "K=3"),
+                                    (129, 300, 11.65, 69, "w8a offsets")):
             if label == "news":
                 v, i, w = _wide_ell_inputs(n, d, k, dev, seed=n)
             else:
                 v, i, _, w = _ell_inputs(rng, n, d, avg, k, dev, seed=n + 1)
                 v, i = v.clone(), i.clone()
             v[::5], i[::5] = 0.0, 0
-            out = K.glm_score(task, w, v, i)
-            record("glm_score", f"{task} {label} n={n} d={d} K={k}", out,
-                   glm_score_ref(task, w, v, i), GRAD_TOL)
-            cases.append({"kernel": "glm_score",
-                          "case": f"{task} {label} filler rows == {link0}",
-                          "ok": bool((out[::5] == link0).all())})
+            if label == "w8a offsets":
+                v, i = v[1:], i[1:].contiguous()
+            ref = glm_score_ref(task, w, v, i)
+            for kind in ("flat", "group"):
+                with forced_variant(score_ops, kind):
+                    out = K.glm_score(task, w, v, i)
+                record("glm_score", f"{task} {label} n={v.shape[0]} d={d} "
+                       f"K={k} {kind}", out, ref, GRAD_TOL)
+                filler = slice(4, None, 5) if label == "w8a offsets" \
+                    else slice(None, None, 5)
+                cases.append({"kernel": "glm_score",
+                              "case": f"{task} {label} {kind} filler rows "
+                                      f"== {link0}",
+                              "ok": bool((out[filler] == link0).all())})
     # glm_sgd at the variants' edges: skin's and covtype's widths, 300,
     # the warp kernel's widest (whose ring does not fit a micro-batch of
     # 64: the shared-memory kernel) and one past it (the cluster kernel, a
@@ -742,6 +764,20 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     v, i, ys, ws = _ell_inputs(rng, 64_700, 300, 11.65, 69, dev, seed=9)
     vr, ir, yr = v.reshape(10, 6470, 69), i.reshape(10, 6470, 69), \
         ys.reshape(10, 6470)
+    # glm_score at the serving flushes' shapes (w8a at max_batch 128 and
+    # 32, real-sim at 128), both kernels
+    for n, d, avg, k, label in ((128, 300, 11.65, 69, "w8a"),
+                                (32, 300, 11.65, 69, "w8a"),
+                                (128, 20_958, 51.30, 307, "real-sim")):
+        vs, i_s, _, wsc = _ell_inputs(rng, n, d, avg, k, dev, seed=n + k)
+        for kind in ("flat", "group"):
+            with forced_variant(score_ops, kind):
+                cases.append({
+                    "kernel": "glm_score",
+                    "case": f"{label} N={n} K={k} {kind}: five calls give "
+                            "the same bits",
+                    "ok": same_bits(lambda: K.glm_score("lr", wsc, vs,
+                                                        i_s))})
     for name, label, fn in (
             ("glm_grad", "N=100003 d=54 ring",
              lambda: K.glm_grad("lr", w, X, y)),
@@ -1307,6 +1343,7 @@ def phase_serve(dev, w8, realsim, w_sync, w_swap) -> tuple[dict, int]:
     """The scoring engine at full width; returns the phase line and the
     glm_score launches of its runs."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.glm_score import ops as score_ops
     from repro_torch.serve.glm import GLMScoreEngine
 
     rng = np.random.default_rng(2)
@@ -1341,6 +1378,7 @@ def phase_serve(dev, w8, realsim, w_sync, w_swap) -> tuple[dict, int]:
         check_s = time.perf_counter() - t0
         run = {"data": data, "n": len(reqs), "d": ds.d, "K": ds.ell.max_nnz,
                "max_batch": mb, "device": str(engine.device),
+               "variant": score_ops.variant(mb, ds.ell.max_nnz, ds.d),
                "requests_per_s": len(reqs) / wall, "wall_s": wall,
                **_quantiles([r.latency_s for r in responses]),
                "flushes": flushes, "glm_score_launches": launches,
@@ -1875,12 +1913,15 @@ def phase_lm(dev) -> tuple[dict, int, int]:
         prefill_launches
 
 
-def phase_timing(covtype, w8a, news, worst: dict
+def phase_timing(covtype, w8a, news, realsim, worst: dict
                  ) -> tuple[list[dict], list[dict], dict]:
     """Each kernel and its plain version at the main path's shapes: one
     timed row per kernel and variant (glm_grad: covtype on the ring kernel
     and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
-    a serving batch and all of w8a; glm_sgd: SyncSGD(batch=16) on the warp
+    the serving flushes' shapes (w8a at max_batch 128 and 32, real-sim at
+    128), all of w8a and news' first 512 rows, on the flat kernel and on the
+    group kernel it replaced, their device times taken twice in turns;
+    glm_sgd: SyncSGD(batch=16) on the warp
     kernel and on the smem kernel it replaced, the R=8 B=1 replica epochs,
     and the cluster kernel beside the kernels it replaced: at Table 4's
     real-sim seq epoch (smem) and at d = 58,112 (global); glm_sgd_sparse:
@@ -1898,6 +1939,7 @@ def phase_timing(covtype, w8a, news, worst: dict
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.glm_grad import ops as grad_ops
     from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_score import ops as score_ops
     from repro_torch.kernels.glm_score.ref import glm_score_ref
     from repro_torch.kernels.glm_sgd import ops as sgd_ops
     from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
@@ -2089,22 +2131,52 @@ def phase_timing(covtype, w8a, news, worst: dict
                     line=line, variant=kind, updates=vn.shape[1])
         del vn, i_n
 
-    # the serving path: glm_score on one 128-row batch, which is what a
-    # flush launches (the kernels line's row), and on all of w8a.  The
-    # yardstick is one embedding_bag with per-sample weights, which is the
-    # SVM score; the LR score adds a sigmoid, timed with it
-    idx64 = m.indices.long()
-    for rows_n, reps, line in ((128, 200, "glm_score"), (ns, 20, None)):
-        v, i, i64 = m.values[:rows_n], m.indices[:rows_n], idx64[:rows_n]
+    # the serving path: glm_score at the flushes' shapes (w8a at max_batch
+    # 128, the kernels line's row, and 32; real-sim at 128), on all of w8a
+    # and on news' first 512 rows, on the kernel variant() picks and on the
+    # other.  The yardstick is one embedding_bag with per-sample weights,
+    # which is the SVM score; the LR score adds a sigmoid, timed with it
+    mr = realsim.ell
+    wr = torch.from_numpy(rng.normal(0, 0.1, mr.d).astype(np.float32)).to(
+        X.device)
+    wn = torch.from_numpy(rng.normal(0, 0.1, mn.d).astype(np.float32)).to(
+        X.device)
+    for data, ell, wsc, rows_n, reps, line in (
+            ("w8a", m, ws, 128, 200, "glm_score"),
+            ("w8a", m, ws, 32, 200, None),
+            ("real-sim", mr, wr, 128, 200, None),
+            ("w8a", m, ws, ns, 20, None), ("news", mn, wn, 512, 50, None)):
+        v, i = ell.values[:rows_n], ell.indices[:rows_n]
+        i64, ks = i.long(), ell.values.shape[1]
         touched = int(torch.unique(i[v != 0]).numel())
-        row("glm_score", f"w8a N={rows_n} K={k} d={m.d} lr",
-            lambda: K.glm_score("lr", ws, v, i),
-            lambda: glm_score_ref("lr", ws, v, i), reps, reps,
-            ell_bytes(v) + 4 * rows_n + 4 * touched,
-            2.0 * int((v != 0).sum()) + 4.0 * rows_n, GRAD_TOL,
-            library=lambda: torch.sigmoid(torch.nn.functional.embedding_bag(
-                i64, ws.view(-1, 1), per_sample_weights=v, mode="sum"))[:, 0],
-            line=line)
+        chosen = score_ops.variant(rows_n, ks, ell.d)
+
+        def plain_score():
+            return glm_score_ref("lr", wsc, v, i)
+
+        kinds = (chosen, "group" if chosen == "flat" else "flat")
+        for kind in kinds:
+            with forced_variant(score_ops, kind):
+                row("glm_score", f"{data} N={rows_n} K={ks} d={ell.d} lr "
+                    f"{kind}", lambda: K.glm_score("lr", wsc, v, i),
+                    plain_score, reps, reps,
+                    ell_bytes(v) + 4 * rows_n + 4 * touched,
+                    2.0 * int((v != 0).sum()) + 4.0 * rows_n, GRAD_TOL,
+                    library=lambda: torch.sigmoid(
+                        torch.nn.functional.embedding_bag(
+                            i64, wsc.view(-1, 1), per_sample_weights=v,
+                            mode="sum"))[:, 0],
+                    line=line if kind == chosen else None, variant=kind)
+        # both device times again in the other order (A, B, B, A): a row's
+        # device time is the mean of its two, so neither kernel gains from
+        # running second
+        for kind, timed in zip(kinds[::-1], rows[-1:-3:-1]):
+            with forced_variant(score_ops, kind):
+                again = kernel_device_time(
+                    lambda: K.glm_score("lr", wsc, v, i), reps,
+                    KERNEL_SYMBOLS["glm_score"][kind])["device_ms"]
+            timed["device_ms_runs"] = [timed["device_ms"], again]
+            timed["device_ms"] = (timed["device_ms"] + again) / 2
 
     # the LM path: flash_attn at the decode shape of phase lm's serving run
     # (4 slots over a full 128-entry cache, causal=False as decode calls it:
@@ -2251,7 +2323,8 @@ def main() -> int:
     if not line["ok"]:
         return 1
 
-    rows, full_checks, empty = phase_timing(covtype, w8a, news, worst)
+    rows, full_checks, empty = phase_timing(covtype, w8a, news, realsim,
+                                            worst)
     checks += full_checks
     # a kernels-line row's error: the worst of its kernel's rows and checks
     for r in rows:

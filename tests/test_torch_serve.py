@@ -32,6 +32,7 @@ from repro.serve.glm import ScoreRequest as JRequest
 
 import repro_torch.kernels as tk
 from repro_torch.kernels import common
+from repro_torch.kernels.glm_score import ops as score_ops
 from repro_torch.kernels.glm_score import ref as score_ref
 from repro_torch.live import LiveConfig, LiveLearner, SyntheticStream
 from repro_torch.obs import metrics as tmetrics
@@ -64,8 +65,10 @@ def _both(task, w, values, indices):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(64, 40, 6), (37, 300, 12)],
-                         ids=["n64", "ragged-n37"])
+@pytest.mark.parametrize("shape", [(64, 40, 6), (37, 300, 12),
+                                   (7, 300, 69), (5, 50, 3), (3, 20, 1)],
+                         ids=["n64", "ragged-n37", "n7-odd-k69", "n5-k3",
+                              "n3-k1"])
 @pytest.mark.parametrize("task", TASKS)
 def test_glm_score_matches_jax_kernel(task, shape):
     values, indices, w = _ell(*shape)
@@ -84,6 +87,75 @@ def test_glm_score_filler_rows_score_link_of_zero_exactly(task):
     assert (out.numpy()[[3, 10, 23]] == want).all()
     assert (ref[[3, 10, 23]] == want).all()
     np.testing.assert_allclose(out.numpy(), ref, **SCORE_TOL)
+
+
+@pytest.mark.parametrize("n,k,d,want", [
+    (128, 69, 300, "flat"),                    # w8a, a flush of max_batch 128
+    (32, 69, 300, "flat"),                     # w8a, max_batch 32
+    (128, 307, 20_958, "flat"),                # real-sim
+    (64_700, 69, 300, "flat"),                 # all of w8a
+    (512, 2_729, 1_355_191, "flat"),           # news
+    (1, score_ops.FLAT_MAX_K, 10, "flat"),     # the flat kernel's longest row
+    (1, score_ops.FLAT_MAX_K + 1, 10, "group"),
+    (3, 8_189, 1_000, "group"),
+])
+def test_glm_score_variant_is_chosen_from_the_shape(n, k, d, want):
+    assert score_ops.variant(n, k, d) == want
+
+
+def _runs(n, rows):
+    return [(r0, min(n, r0 + rows)) for r0 in range(0, n, rows)]
+
+
+@pytest.mark.parametrize("n", [1, 7, 37, 200, 1_001])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 69, 307, 2_729])
+def test_glm_score_plan_gives_every_row_one_block(k, n):
+    """Block b owns rows [b * rows, min(n, (b + 1) * rows)): every row is in
+    exactly one block's run.  Thread t takes chunks t, t + threads, ... (as
+    many as ``vectors``) of 4 words each, counted from the 16-byte boundary
+    at or before the run's first word: every word of a run, for each of the
+    4 offsets the operand can start at from a boundary, is in exactly one
+    thread's share, head and tail included.  Shared memory stays within
+    the card's 227 KB."""
+    rows, threads, vectors, lanes, gated = score_ops.score_plan(n, k, 132)
+    runs = _runs(n, rows)
+    owners = np.zeros(n, dtype=np.int64)
+    for r0, r1 in runs:
+        assert r1 > r0
+        owners[r0:r1] += 1
+    assert (owners == 1).all()
+    assert threads % 32 == 0 and 32 <= threads <= score_ops.FLAT_THREADS
+    assert vectors in score_ops.FLAT_VECTORS
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert gated == (len(runs) > 132)
+    assert score_ops.flat_smem_bytes(threads, vectors) \
+        <= common.MAX_SMEM_BYTES
+    chunk = (np.arange(threads)[:, None]
+             + threads * np.arange(vectors)[None, :]).ravel()
+    for r0, r1 in {runs[0], runs[-1]}:         # every run but the last is
+        s, e = r0 * k, r1 * k                  # the first one's shape
+        for head in range(4):
+            words = (s - head + 4 * chunk[:, None]
+                     + np.arange(4)[None, :]).ravel()
+            inside = words[(words >= s) & (words < e)]
+            assert np.array_equal(np.sort(inside), np.arange(s, e))
+
+
+def test_glm_score_plan_at_the_serving_shapes():
+    """A w8a flush (K = 69) is a row a block of one warp (128 blocks for
+    max_batch 128, 32 for 32); real-sim's rows (K = 307) one a block of 96
+    threads; all of w8a runs of 59 rows, 1,097 blocks of 256 threads with 4
+    chunks each and 4 lanes a row, gated; news' 512 rows one a block of 192
+    threads, gated.  Each spreads over a wave of 132 SMs where its rows
+    allow."""
+    plan = score_ops.score_plan
+    assert plan(128, 69, 132) == (1, 32, 1, 32, False)
+    assert plan(32, 69, 132) == (1, 32, 1, 32, False)
+    assert plan(128, 307, 132) == (1, 96, 1, 32, False)
+    assert plan(64_700, 69, 132) == (59, 256, 4, 4, True)
+    assert plan(512, 2_729, 132) == (1, 192, 4, 32, True)
+    for n, k in ((128, 69), (32, 69), (128, 307), (64_700, 69), (512, 2_729)):
+        assert len(_runs(n, plan(n, k, 132)[0])) >= min(n, 132)
 
 
 @pytest.mark.parametrize("bad", [-1, 64])
