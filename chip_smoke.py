@@ -102,12 +102,33 @@ Phases, one JSON line each:
                versions, with the same weights in fp32 as the yardstick
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
-10. ``timing`` each kernel and its plain version at the main path's shapes
+10. ``bench``  the port's benchmark producers and the tuner, in a temporary
+               results and tune directory: (a) ``bench_kernels.run("paper")``
+               (every row checked on the card and true, roofline shares at
+               most 1.05, the gate clean, a warm re-run byte-identical;
+               launch counts zeroed just before and read just after); (b)
+               every candidate of every tunable held against the plain
+               version at the bench's shape and at the main paths' shapes
+               (covtype's gradient, w8a's at R = 1 and 10, w8a and real-sim
+               flushes of 128 rows, danube decode over 128 and 4,096 keys,
+               covtype's B=16 epoch on its first 4,100 rows and w8a's
+               r10 b10 epochs), the tuner's sweep there and its winner's
+               device time beside the plan's pick; (c)
+               ``bench_serve.run("ci")`` with 1 and 2 consumers and
+               ``bench_live.run("ci")``, gates clean, and a monitored drive
+               of each, clean (no breach) and with its fault (a
+               ``latency_p99`` breach under a flush stall, a ``staleness``
+               breach under a publisher stall); (d) the host us of the
+               decode wrapper and of ``glm_score`` with the tuned argument
+               pinned, with an empty cache and with a cached record, and
+               of a ``GLMScoreEngine.flush``;
+11. ``timing`` each kernel and its plain version at the main path's shapes
                (glm_sgd also at covtype R=8 B=1, on its shared-memory
                variant at covtype B=16, on its cluster variant beside the
                shared-memory one at phase study's real-sim seq epoch and
                beside the global one at d = 58,112, glm_grad also in the
-               col layout, glm_sgd_sparse also at w8a R=10 B=1 and at news
+               col layout, glm_sgd_sparse also on its shared-memory variant
+               at w8a R=10 B=10, at w8a R=10 B=1 and at news
                R=8 and R=64 B=1 on its stream variant and on the global
                variant,
                glm_grad and glm_sparse each beside the kernel their
@@ -133,11 +154,16 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib
+import io
 import json
+import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -147,11 +173,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-#: bf16 on the tensor cores, dense (the attention bound counts bf16 work)
-BF16_FLOPS_PER_S = 989e12
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside the tensor
+#: cores, bf16 on them (the attention bound counts bf16 work); the visible
+#: (query, key) pairs of an attention call
+from repro_torch.roofline.kernels import (  # noqa: E402
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, visible_pairs)
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)    # the JAX conformance suite's
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -333,16 +359,6 @@ def ell_bytes(values: torch.Tensor) -> int:
     padding sits at the end of each row, so a kernel that skips value-0
     entries never needs their indices."""
     return nbytes(values) + 4 * int((values != 0).sum())
-
-
-def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs attention computes: query i sits at i + sk - sq
-    and sees key j iff j <= its position (causal) and it is less than
-    ``window`` behind."""
-    pos = np.arange(sq) + (sk - sq)
-    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def attn_work(q, k, causal, window) -> tuple[int, float]:
@@ -1913,6 +1929,442 @@ def phase_lm(dev) -> tuple[dict, int, int]:
         prefill_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase bench: the kernel bench, the tuner's candidates, the services'
+# benches with the health monitor, and the host cost of the tuner's consult
+# ---------------------------------------------------------------------------
+
+#: the roofline share a bench row may reach before its bound is suspect
+#: (wall times on the host's clock hold a launch's overhead, so a share
+#: near 1 would mean the bound counts work the kernel does not do)
+BENCH_MAX_FRACTION = 1.05
+#: the flush stall injected into the monitored serving drive, past the
+#: default latency SLO's 0.5 s p99
+BENCH_FAULT_STALL_S = 0.6
+
+
+def _breach_counts() -> dict[str, int]:
+    from repro_torch.obs import metrics
+    from repro_torch.obs.monitor import BREACH_PREFIX
+
+    return {k[len(BREACH_PREFIX):]: v
+            for k, v in metrics.snapshot()["counters"].items()
+            if k.startswith(BREACH_PREFIX)}
+
+
+def _quiet(fn):
+    """``fn()`` with its prints (a producer's table) kept off stdout."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _bench_kernels(results: Path) -> dict:
+    """``bench_kernels.run("paper")`` cold, then warm: every row checked on
+    the card and true, every roofline share at most BENCH_MAX_FRACTION,
+    both gates clean, the warm file byte-identical; launch counts zeroed
+    just before the cold run and read just after."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels import common
+    from repro_torch.study import claims
+
+    out = results / "BENCH_kernels.json"
+    common.reset_launches()
+    t0 = time.perf_counter()
+    rows = _quiet(lambda: bench_kernels.run("paper", out_json=out))
+    seconds = time.perf_counter() - t0
+    launches = {k: common.LAUNCHES[k] for k in bench_kernels.SHAPES}
+    cold = out.read_bytes()
+    warm = _quiet(lambda: bench_kernels.run("paper", out_json=out))
+    gate = claims.check_bench_kernels(rows) + claims.check_bench_kernels(warm)
+    byte_identical = out.read_bytes() == cold
+    bad = [r["label"] for r in rows
+           if r["pallas_match"] is not True
+           or r["checked_backends"] != [common.CUDA]
+           or r["roofline"]["roofline_fraction"] > BENCH_MAX_FRACTION]
+    return {
+        "ok": not bad and not gate and byte_identical
+        and all(launches.values()),
+        "seconds": seconds, "launches": launches, "bad_rows": bad,
+        "violations": gate, "warm_byte_identical": byte_identical,
+        "rows": [{"label": r["label"], "config": r["config"],
+                  "wall_s": r["wall_s"], "pallas_match": r["pallas_match"],
+                  "bound_s": r["roofline"]["bound_s"],
+                  "bound": r["roofline"]["bound"],
+                  "roofline_fraction": r["roofline"]["roofline_fraction"]}
+                 for r in rows]}
+
+
+def _tuner_cases(dev, covtype, w8a, realsim) -> list[tuple]:
+    """(family, shape label, info, run(**cfg), tol, device-time reps) for
+    each family at the bench's shape and at the main paths' shapes."""
+    import repro_torch.kernels as K
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.core import sgd
+
+    cases = []
+    for kernel, shapes in bench_kernels.SHAPES.items():
+        fam = bench_kernels._make_family(kernel, shapes["paper"], "float32",
+                                         dev)
+        tol = {"glm_sgd": EPOCH_TOL, "glm_sgd_sparse": EPOCH_TOL,
+               "flash_attn": ATTN_TOL}.get(kernel, GRAD_TOL)
+        cases.append((kernel, f"bench paper {shapes['paper']}", fam.info,
+                      fam.call, tol, 20))
+    rng = np.random.default_rng(3)
+    # the serving bench's widest cell (bench_serve.PROFILES["ci"]: d=512,
+    # batch 32, K=16): glm_score has no bench_kernels shape
+    vb, ib, _, wb = _ell_inputs(rng, 32, 512, 16 * 0.6, 16, dev, seed=5)
+    cases.append(("glm_score", "bench serve ci N=32 K=16 d=512",
+                  {"dtype": "float32", "sparse": True, "n": 32, "d": 512,
+                   "k": 16},
+                  lambda **c: K.glm_score("lr", wb, vb, ib, **c), GRAD_TOL,
+                  200))
+
+    X, yd = covtype
+    n, d = X.shape
+    w = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32)).to(dev)
+    cases.append(("glm_grad", f"covtype N={n} d={d} row",
+                  {"dtype": "float32", "n": n, "d": d},
+                  lambda **c: K.glm_grad("lr", w, X, yd, **c), GRAD_TOL, 20))
+    m, ys = w8a
+    ns, k = m.values.shape
+    ws = torch.from_numpy(rng.normal(0, 0.1, m.d).astype(np.float32)).to(dev)
+    parts = torch.from_numpy(sgd.partition_indices(ns, 10)).to(dev).long()
+    vp, ip, yp = m.values[parts], m.indices[parts], ys[parts]
+    W10 = ws[None].repeat(10, 1)
+    cases.append(("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1",
+                  {"dtype": "float32", "sparse": True, "n": ns, "d": m.d,
+                   "k": k, "replicas": 1},
+                  lambda **c: K.ell_glm_grad("lr", ws, m.values, m.indices,
+                                             ys, **c), GRAD_TOL, 20))
+    cases.append(("glm_sparse", f"w8a R=10 per={vp.shape[1]} K={k} d={m.d}",
+                  {"dtype": "float32", "sparse": True, "n": vp.shape[1],
+                   "d": m.d, "k": k, "replicas": 10},
+                  lambda **c: K.ell_glm_grad("lr", W10, vp, ip, yp, **c),
+                  GRAD_TOL, 20))
+    mr = realsim.ell
+    wr = torch.from_numpy(rng.normal(0, 0.1, mr.d).astype(np.float32)).to(dev)
+    for data, ell, wsc in (("w8a", m, ws), ("real-sim", mr, wr)):
+        v, i = ell.values[:128], ell.indices[:128]
+        cases.append(("glm_score", f"{data} N=128 K={v.shape[1]} d={ell.d}",
+                      {"dtype": "float32", "sparse": True, "n": 128,
+                       "d": ell.d, "k": v.shape[1]},
+                      lambda v=v, i=i, wsc=wsc, **c: K.glm_score(
+                          "lr", wsc, v, i, **c), GRAD_TOL, 200))
+    for sk in (128, 4096):
+        shape = (4, 32, 8, 1, sk, 80)
+        qa, ka, va = _attn_inputs(shape, torch.bfloat16, dev, seed=7)
+        cases.append(("flash_attn", f"danube decode B,Hq,Hkv,Sq,Sk,hd="
+                      f"{list(shape)}",
+                      {"dtype": "bfloat16", "batch": 4, "heads_q": 32,
+                       "heads_kv": 8, "seq_q": 1, "seq_k": sk,
+                       "head_dim": 80},
+                      lambda qa=qa, ka=ka, va=va, **c: K.flash_attention(
+                          qa, ka, va, causal=False, **c), ATTN_BF16_TOL, 200))
+    cases.append(("glm_sgd", f"covtype N={n} d={d} B=16",
+                  {"dtype": "float32", "n": n, "d": d, "micro_batch": 16},
+                  lambda **c: K.glm_sgd_epoch("lr", w, X, yd, step=0.01,
+                                              **c), EPOCH_TOL, 2))
+    cases.append(("glm_sgd_sparse", f"w8a R=10 per={vp.shape[1]} K={k} "
+                  f"d={m.d} B=10",
+                  {"dtype": "float32", "sparse": True, "n": vp.shape[1],
+                   "d": m.d, "k": k, "replicas": 10, "micro_batch": 10},
+                  lambda **c: K.ell_sgd_epoch("lr", W10, vp, ip, yp,
+                                              step=0.2, **c), EPOCH_TOL, 5))
+    return cases
+
+
+def canonical(cfg: dict) -> str:
+    """A tuner config as a key (``{"splits": 8}`` -> ``'{"splits": 8}'``)."""
+    return json.dumps(cfg, sort_keys=True)
+
+
+#: rows a covtype epoch is held to its plain version on: the plain version's
+#: loop at covtype's 581,012 rows takes a minute at micro-batch 1 (phase
+#: parity holds the same prefix)
+TUNER_SGD_ROWS = 4_100
+
+
+def _tuner_candidates(dev, covtype, w8a, realsim, results: Path) -> list:
+    """Every candidate of every tunable, held against the plain version at
+    each case's shape (covtype's epochs on its first TUNER_SGD_ROWS rows),
+    then the tuner's sweep there and the device time of its winner beside
+    the plan's own pick."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels import common, tune
+
+    cache = tune.TuneCache(results / "tuner_cache")
+    X, yd = covtype
+    out = []
+    for kernel, label, info, run, tol, reps in _tuner_cases(
+            dev, covtype, w8a, realsim):
+        check = run
+        if label.startswith("covtype") and kernel == "glm_sgd":
+            Xc, yc = X[:TUNER_SGD_ROWS], yd[:TUNER_SGD_ROWS]
+            wc = torch.zeros(X.shape[1], device=dev)
+
+            def check(**c):
+                return K.glm_sgd_epoch("lr", wc, Xc, yc, step=0.01, **c)
+        tunable = tune.TUNABLES[kernel]
+        pick = tunable.pick(info)
+        plain, checked = {}, []
+        for cfg in tunable.candidates(info):
+            mb = cfg.get("micro_batch")
+            if mb not in plain:  # only a micro-batch changes the function
+                with common.plain_versions():
+                    plain[mb] = check(**cfg)
+            err, ok = close(check(**cfg), plain[mb], tol)
+            checked.append({"config": cfg, "max_abs_err": err, "ok": ok})
+        rec = tune.tune(kernel, common.CUDA, info, run, cache=cache)
+        names = tuple(s for syms in KERNEL_SYMBOLS[kernel].values()
+                      for s in syms)
+        # device times in turns (plan, winner, winner, plan), each the
+        # mean of its two, so neither gains from running second
+        times = {}
+        order = [pick] if rec["config"] == pick else \
+            [pick, rec["config"], rec["config"], pick]
+        for cfg in order:
+            times.setdefault(canonical(cfg), []).append(kernel_device_time(
+                lambda: run(**cfg), reps, names)["device_ms"])
+        times = {k: sum(v) / len(v) for k, v in times.items()}
+        out.append({"kernel": kernel, "shape": label, "plan": pick,
+                    "winner": rec["config"],
+                    "plan_device_ms": times[canonical(pick)],
+                    "winner_device_ms": times[canonical(rec["config"])],
+                    "sweep_wall_s": {canonical(r["config"]): r["wall_s"]
+                                     for r in rec["candidates"]},
+                    "checks": checked,
+                    "ok": bool(checked) and all(c["ok"] for c in checked)})
+    return out
+
+
+def _services(results: Path) -> dict:
+    """``bench_serve.run("ci")`` with 1 and 2 consumers and
+    ``bench_live.run("ci")``, their gates clean; then a monitored shadow
+    drive of each, clean and with its fault: the clean ones must report no
+    breach, ``--fault-stall`` a ``latency_p99`` breach and
+    ``publish-stall`` a ``staleness`` one."""
+    from repro_torch.benchmarks import bench_live, bench_serve
+    from repro_torch.kernels import common
+    from repro_torch.study import claims
+
+    common.reset_launches()
+    t0 = time.perf_counter()
+    serve1 = _quiet(lambda: bench_serve.run(
+        "ci", out_json=results / "BENCH_serve.json"))
+    serve2 = _quiet(lambda: bench_serve.run(
+        "ci", out_json=results / "BENCH_serve.json", consumers=2))
+    live = _quiet(lambda: bench_live.run(
+        "ci", out_json=results / "BENCH_live.json"))
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    seconds = time.perf_counter() - t0
+    gates = (claims.check_bench_serve(serve1 + serve2)
+             + claims.check_bench_live(live))
+    monitored = []
+    for name, fn, want in (
+            ("serve", lambda: bench_serve.run(
+                "ci", out_json=results / "mon_serve.json", monitor=True),
+             None),
+            ("serve --fault-stall", lambda: bench_serve.run(
+                "ci", out_json=results / "mon_serve.json", monitor=True,
+                fault_stall_s=BENCH_FAULT_STALL_S), "latency_p99"),
+            ("live", lambda: bench_live.run(
+                "ci", out_json=results / "mon_live.json", monitor=True),
+             None),
+            ("live --fault publish-stall", lambda: bench_live.run(
+                "ci", out_json=results / "mon_live.json", monitor=True,
+                fault="publish-stall"), "staleness")):
+        before = _breach_counts()
+        _quiet(fn)
+        after = _breach_counts()
+        delta = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v > before.get(k, 0)}
+        ok = delta.get(want, 0) > 0 if want else not delta
+        monitored.append({"run": name, "breaches": delta, "want": want,
+                          "ok": ok})
+    points = [{k: r.get(k) for k in ("label", "p50_s", "p99_s", "rps",
+                                     "pallas_match", "checked_backends",
+                                     "wall_s", "steps_per_s", "losses",
+                                     "max_staleness_steps",
+                                     "staleness_bound_steps")
+               if r.get(k) is not None}
+              for r in serve1 + serve2 + live]
+    checked = all(r["pallas_match"] is True
+                  and r["checked_backends"] == [common.CUDA]
+                  for r in serve1 + serve2)
+    return {"ok": not gates and checked and launches.get("glm_score", 0) > 0
+            and all(m["ok"] for m in monitored),
+            "seconds": seconds, "launches": launches, "violations": gates,
+            "points": points, "monitored": monitored}
+
+
+def paired_host_us(a, b, rounds: int = 20, blocks: int = 10,
+                   block: int = 10) -> tuple[float, float]:
+    """Host us per call of ``a`` and of ``b``, timed in alternating blocks
+    of ``block`` calls, ``blocks`` pairs a round, each round behind a spin
+    kernel that keeps the card busy (about 10 ms), so the calls only
+    enqueue: the two share every round's conditions, and their difference
+    is what ``b`` adds to ``a``."""
+    a(), b()
+    torch.cuda.synchronize()
+    ta = tb = 0.0
+    for _ in range(rounds):
+        torch.cuda._sleep(10 * SLEEP_CYCLES)
+        for _ in range(blocks):
+            t0 = time.perf_counter()
+            for _ in range(block):
+                a()
+            t1 = time.perf_counter()
+            for _ in range(block):
+                b()
+            tb += time.perf_counter() - t1
+            ta += t1 - t0
+        torch.cuda.synchronize()
+    n = rounds * blocks * block
+    return ta / n * 1e6, tb / n * 1e6
+
+
+def _consult_cost(dev, w8a) -> dict:
+    """The host cost of the tuner's memoised consult, with an empty cache
+    and with a cached record (the plan's own pick, so every launch is the
+    same):
+
+    * ``added_us``: the work an unpinned wrapper call adds once its call
+      was consulted — the call's key, the memo's answer (``tune.known``)
+      and ``dispatch``'s second resolution of the flavor the wrapper
+      resolved (the first one, with its read of the environment, was
+      ``dispatch``'s own before) — timed alone over 100,000 calls;
+    * ``wrapper_us``: host us per call of the decode wrapper (danube's
+      serving shape, 4 slots over 128 keys) and of ``glm_score`` at a w8a
+      flush (128 x 69), with the tuned argument pinned and unpinned, in
+      alternating blocks (``paired_host_us``);
+    * ``flush_us``: wall us of a ``GLMScoreEngine.flush`` of 128 w8a rows
+      (one unpinned ``glm_score`` call), in turns: empty, record, record,
+      empty.
+
+    Each time the record is written, the next consult reads it once (the
+    hit counter moves by one each time); the cache is left empty."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels import common, tune
+    from repro_torch.obs import metrics
+    from repro_torch.serve.glm import GLMScoreEngine
+
+    qa, ka, va = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev,
+                              seed=7)
+    m, _ = w8a
+    rng = np.random.default_rng(4)
+    ws = torch.from_numpy(rng.normal(0, 0.1, m.d).astype(np.float32)).to(dev)
+    v, i = m.values[:128], m.indices[:128]
+    calls = {
+        "flash_attn": ({"dtype": "bfloat16", "batch": 4, "heads_q": 32,
+                        "heads_kv": 8, "seq_q": 1, "seq_k": 128,
+                        "head_dim": 80},
+                       (qa.dtype, 4, 32, 8, 1, 128, 80), qa.device,
+                       lambda **c: K.flash_attention(qa, ka, va,
+                                                     causal=False, **c)),
+        "glm_score": ({"dtype": "float32", "sparse": True, "n": 128,
+                       "d": m.d, "k": v.shape[1]},
+                      (v.dtype, 128, v.shape[1], m.d), v.device,
+                      lambda **c: K.glm_score("lr", ws, v, i, **c)),
+    }
+    reqs = _requests(m.values[:128 * 100], m.indices[:128 * 100])
+    cache = tune.TuneCache()
+    empty_at_start = not any(cache.root.glob("*.json"))
+
+    def records(on: bool) -> None:
+        for path in cache.root.glob("*.json"):
+            path.unlink()
+        for kernel, (info, *_) in calls.items():
+            if on:
+                cache.put(cache.key(kernel, common.CUDA, info),
+                          {"schema": tune.SCHEMA, "kernel": kernel,
+                           "backend": common.CUDA,
+                           "device_kind": tune.device_kind(),
+                           "shape_class": tune.shape_class(info),
+                           "config": tune.TUNABLES[kernel].pick(info),
+                           "candidates": []})
+        tune.forget()
+
+    def added_us(kernel) -> float:
+        info, key, device, _ = calls[kernel]
+        param = tune.TUNABLES[kernel].params[0]
+        n = 100_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            backend = common.resolve_backend(kernel, device, common.CUDA)
+            cfg = tune.known(kernel, backend, (*key,))
+            if cfg is None:
+                cfg = tune.consult(kernel, backend, lambda: info, key=key)
+            cfg.get(param)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def flush_us() -> float:
+        engine = GLMScoreEngine("lr", ws, ell_width=m.values.shape[1],
+                                max_batch=128, queue_depth=len(reqs),
+                                device=dev)
+        for r in reqs:
+            engine.try_admit(r)
+        engine.flush()
+        t0 = time.perf_counter()
+        while engine.flush():
+            pass
+        return (time.perf_counter() - t0) / (len(reqs) // 128 - 1) * 1e6
+
+    hits = {k: metrics.counter(f"kernel.tune_cache.hit.{k}").value
+            for k in calls}
+    out = {"added_us": {}, "wrapper_us": {}}
+    flush = {"empty_cache": [], "cached_record": []}
+    for state in ("empty_cache", "cached_record"):
+        records(state == "cached_record")
+        for kernel, (info, _, _, call) in calls.items():
+            pick = tune.TUNABLES[kernel].pick(info)
+            pinned, unpinned = paired_host_us(lambda: call(**pick), call)
+            out["wrapper_us"].setdefault(kernel, {})[state] = {
+                "pinned": pinned, "unpinned": unpinned,
+                "added": unpinned - pinned}
+            out["added_us"].setdefault(kernel, {})[state] = added_us(kernel)
+    for state in ("empty_cache", "cached_record", "cached_record",
+                  "empty_cache"):
+        records(state == "cached_record")
+        flush[state].append(flush_us())
+    record_reads = {k: metrics.counter(f"kernel.tune_cache.hit.{k}").value
+                    - hits[k] for k in calls}
+    records(False)
+    return {"ok": empty_at_start and all(record_reads.values()),
+            "record_reads": record_reads, **out,
+            "flush_us": {s: statistics.mean(x) for s, x in flush.items()},
+            "flush_us_runs": flush}
+
+
+def phase_bench(dev, covtype, w8a, realsim, results: Path) -> dict:
+    """The kernel bench, every tuner candidate against the plain version,
+    the serving and live benches with the health monitor, and the host cost
+    of the tuner's consult; everything the benches write goes to
+    ``results``, and the cache the wrappers consult (the script's own
+    temporary ``REPRO_TORCH_TUNE_DIR``) is left empty."""
+    from repro_torch.benchmarks import common as bcommon
+
+    saved, bcommon.RESULTS_DIR = bcommon.RESULTS_DIR, results
+    try:
+        t0 = time.perf_counter()
+        kernels = _bench_kernels(results)
+        t1 = time.perf_counter()
+        tuner = _tuner_candidates(dev, covtype, w8a, realsim, results)
+        t2 = time.perf_counter()
+        services = _services(results)
+        t3 = time.perf_counter()
+        consult = _consult_cost(dev, w8a)
+        t4 = time.perf_counter()
+    finally:
+        bcommon.RESULTS_DIR = saved
+    return {"phase": "bench",
+            "ok": kernels["ok"] and all(t["ok"] for t in tuner)
+            and services["ok"] and consult["ok"],
+            "seconds": {"kernels": t1 - t0, "tuner": t2 - t1,
+                        "services": t3 - t2, "consult": t4 - t3},
+            "kernels": kernels, "tuner": tuner, "services": services,
+            "consult": consult}
+
+
 def phase_timing(covtype, w8a, news, realsim, worst: dict
                  ) -> tuple[list[dict], list[dict], dict]:
     """Each kernel and its plain version at the main path's shapes: one
@@ -1925,7 +2377,8 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
     kernel and on the smem kernel it replaced, the R=8 B=1 replica epochs,
     and the cluster kernel beside the kernels it replaced: at Table 4's
     real-sim seq epoch (smem) and at d = 58,112 (global); glm_sgd_sparse:
-    the R=10 replica epochs at B=10 and B=1, and news' R=8 and R=64 B=1
+    the R=10 replica epochs at B=10 (also on the shared-memory kernel the
+    warp kernel replaced) and B=1, and news' R=8 and R=64 B=1
     epochs on the stream kernel and on the global kernel it replaced;
     glm_sparse: w8a at R=1 and R=10 x 6,470 on the
     smem kernel and on the atomic kernel it replaced; flash_attn: decode
@@ -2077,15 +2530,21 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
     parts = torch.from_numpy(sgd.partition_indices(ns, 10)).to(X.device).long()
     vp, ip, yp = m.values[parts], m.indices[parts], ys[parts]
     W = ws[None].repeat(10, 1)
-    for mb, line in ((10, "glm_sgd_sparse_warp"), (1, None)):
-        row("glm_sgd_sparse", f"w8a N={ns} K={k} d={m.d} R=10 MB={mb}",
-            lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2,
-                                    micro_batch=mb),
-            lambda: ell_sgd_epoch_ref("lr", W, vp, ip, yp, 0.2, mb),
-            10 if mb > 1 else 3, 1, ell_bytes(vp) + nbytes(yp, W, W),
-            4.0 * nnz + 8.0 * ns, EPOCH_TOL, line=line,
-            variant=sparse_ops.variant(m.d, k, mb),
-            updates=-(-vp.shape[1] // mb))
+    plain_w8a = {mb: functools.partial(ell_sgd_epoch_ref, "lr", W, vp, ip, yp,
+                                       0.2, mb) for mb in (10, 1)}
+    # MB=10 on the warp kernel, on the shared-memory kernel it replaced,
+    # and MB=1
+    for mb, kind, line in ((10, sparse_ops.variant(m.d, k, 10),
+                            "glm_sgd_sparse_warp"), (10, "smem", None),
+                           (1, sparse_ops.variant(m.d, k, 1), None)):
+        with forced_variant(sparse_ops, kind):
+            row("glm_sgd_sparse",
+                f"w8a N={ns} K={k} d={m.d} R=10 MB={mb} {kind}",
+                lambda: K.ell_sgd_epoch("lr", W, vp, ip, yp, step=0.2,
+                                        micro_batch=mb), plain_w8a[mb],
+                10 if mb > 1 else 3, 1, ell_bytes(vp) + nbytes(yp, W, W),
+                4.0 * nnz + 8.0 * ns, EPOCH_TOL, line=line, variant=kind,
+                updates=-(-vp.shape[1] // mb))
     # SyncSGD() on w8a: the full-batch sparse sum gradient, and
     # AsyncLocalSGD(replicas=10, local_batch=6470)'s replica gradients, on
     # the smem kernel and on the atomic kernel it replaced
@@ -2246,6 +2705,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    # the tuner's cache and switch: an empty cache of the run's own, so a
+    # record in the home directory cannot change what the run measures, and
+    # no sweep at unpinned call sites; phase bench writes under ``scratch``
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as scratch:
+        os.environ["REPRO_TORCH_TUNE_DIR"] = str(Path(scratch) / "tune")
+        os.environ.pop("REPRO_TORCH_KERNEL_AUTOTUNE", None)
+        return run(Path(scratch))
+
+
+def run(scratch: Path) -> int:
     from repro_torch.data import synthetic
     from repro_torch.kernels import common
 
@@ -2319,6 +2788,11 @@ def main() -> int:
         return 1
     line, launches["flash_attn_decode"], launches["flash_attn_mma"] = \
         phase_lm(dev)
+    emit(line)
+    if not line["ok"]:
+        return 1
+
+    line = phase_bench(dev, covtype, w8a, realsim, scratch / "bench")
     emit(line)
     if not line["ok"]:
         return 1

@@ -55,6 +55,9 @@ _LAUNCH_LOCK = threading.Lock()
 #: inside ``plain_versions()``: CUDA tensors go to the plain versions
 _plain_on_card = False
 
+#: whether each device seen is a card
+_ON_CARD: dict[torch.device, bool] = {}
+
 
 def device(dev: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller says."""
@@ -98,8 +101,10 @@ def resolve_backend(kernel: str, dev: torch.device,
     if not impls:
         raise KeyError(f"no kernel registered under {kernel!r}; "
                        f"known: {registered_kernels()}")
-    natural = CUDA if dev.type == "cuda" and not _plain_on_card \
-        else TORCH_REFERENCE
+    on_card = _ON_CARD.get(dev)
+    if on_card is None:  # ``dev.type`` builds a string: read it once a device
+        on_card = _ON_CARD[dev] = dev.type == "cuda"
+    natural = CUDA if on_card and not _plain_on_card else TORCH_REFERENCE
     forced = backend or os.environ.get(ENV_BACKEND) or None
     if forced is None:
         return natural
@@ -260,6 +265,11 @@ def on_device(t: torch.Tensor):
     if t.device.index == torch.cuda.current_device():
         return _SAME_DEVICE
     return torch.cuda.device(t.device)
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """``t``'s dtype as the tuner's call info names it (``"float32"``)."""
+    return str(t.dtype).removeprefix("torch.")
 
 
 def padded(size: int, multiple: int) -> int:

@@ -20,8 +20,9 @@ the dtype and the rows a kv head serves (``Sq * Hq / Hkv``) alone:
 * ``"simt"`` (``flash_attn_kernel``, the first port, fp32 on the CUDA
   cores) for fp32 operands, whose 1e-5 tolerance bf16 products cannot meet.
 
-``torch-reference`` runs ref.py.  The flavor follows the tensors' device;
-there are no block-size arguments (the tiles are constants of the kernels).
+``torch-reference`` runs ref.py.  The flavor follows the tensors' device.
+Prefill's tiles are constants of the kernels; decode's key splits are a
+launch argument the tuner may set (``splits``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.flash_attn import ref as R
 
 #: head dims the kernel takes: multiples of HEAD_DIM_MULTIPLE up to MAX_HEAD_DIM
@@ -76,11 +77,12 @@ def decode_rows(rows: int) -> tuple[int, int]:
     return rm, -(-rows // rm)
 
 
-def decode_plan(b: int, hkv: int, sk: int, groups: int = 1
-                ) -> tuple[int, int]:
+def decode_plan(b: int, hkv: int, sk: int, groups: int = 1,
+                splits: int | None = None) -> tuple[int, int]:
     """How a decode call splits its keys: ``(splits, chunk)``.
 
-    ``splits`` blocks per (batch, kv head, row group): DECODE_TARGET_BLOCKS
+    ``splits`` blocks per (batch, kv head, row group), where the caller
+    does not set them: DECODE_TARGET_BLOCKS
     in all where there are fewer pairs than that, but no more than the
     chunks of DECODE_CHUNK_MULTIPLE keys the cache fills, so the grid stops
     growing with the cache once it holds ``splits`` such chunks (1,024 keys
@@ -89,8 +91,9 @@ def decode_plan(b: int, hkv: int, sk: int, groups: int = 1
     that chunk ``i`` holds keys ``[i * chunk, (i + 1) * chunk)`` and every
     key lies in exactly one.  A chunk past the last key holds none, and its
     block returns at once."""
-    splits = max(1, min(DECODE_TARGET_BLOCKS // (b * hkv * groups),
-                        -(-sk // DECODE_CHUNK_MULTIPLE)))
+    if splits is None:
+        splits = max(1, min(DECODE_TARGET_BLOCKS // (b * hkv * groups),
+                            -(-sk // DECODE_CHUNK_MULTIPLE)))
     return splits, common.padded(-(-sk // splits), DECODE_CHUNK_MULTIPLE)
 
 
@@ -130,7 +133,7 @@ _WORKSPACES: dict[tuple[int, int], _Workspace] = {}
 
 
 @common.register_kernel("flash_attn", common.CUDA)
-def _flash_attn_cuda(q, k, v, *, causal, window):
+def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if b * hkv > 65_535:
@@ -151,7 +154,7 @@ def _flash_attn_cuda(q, k, v, *, causal, window):
     with common.on_device(q):
         if kind == "decode":
             code = _decode(q, k, v, out, b, hq, hkv, sq, sk, hd, k_stride,
-                           causal, window, stream)
+                           causal, window, splits, stream)
         else:
             code = _build.function("flash_attn", "flash_attn", *_ARGS)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
@@ -164,10 +167,13 @@ def _flash_attn_cuda(q, k, v, *, causal, window):
 
 
 def _decode(q, k, v, out, b, hq, hkv, sq, sk, hd, k_stride, causal, window,
-            stream) -> int:
+            splits, stream) -> int:
     """Launch the decode kernel with its split plan and scratch."""
     rm, groups = decode_rows(sq * (hq // hkv))
-    splits, chunk = decode_plan(b, hkv, sk, groups)
+    if splits is not None and not 1 <= splits <= DECODE_TARGET_BLOCKS:
+        raise ValueError(f"flash_attn: decode splits must lie in [1, "
+                         f"{DECODE_TARGET_BLOCKS}], got {splits}")
+    splits, chunk = decode_plan(b, hkv, sk, groups, splits)
     part = tickets = 0
     if splits > 1:
         key = (q.device.index, stream)
@@ -184,7 +190,8 @@ def _decode(q, k, v, out, b, hq, hkv, sq, sk, hd, k_stride, causal, window,
 
 
 @common.register_kernel("flash_attn", common.TORCH_REFERENCE)
-def _flash_attn_reference(q, k, v, *, causal, window):
+def _flash_attn_reference(q, k, v, *, causal, window, splits=None):
+    del splits  # the kernel's tiling
     return R.attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -195,6 +202,7 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Attention of every query over the keys it sees; returns
     ``[B, Hq, Sq, hd]`` in ``q``'s dtype (fp32 inside).
@@ -204,6 +212,11 @@ def flash_attention(
     positions back.  Query head ``h`` reads kv head ``h // (Hq // Hkv)``.
     Forward only: the backward comes with the training path, so an input
     that requires grad under grad mode raises.
+
+    ``splits`` sets the blocks a decode call splits each kv head's keys
+    over; None runs the tuner's cached pick for this call
+    (:mod:`repro_torch.kernels.tune`), else :func:`decode_plan`'s.  The
+    tensor-core and fp32 kernels have no splits to set.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
@@ -234,5 +247,21 @@ def flash_attention(
                            "the training path): call it under "
                            "torch.no_grad() or on tensors that do not "
                            "require grad")
+    b = q.shape[0]
+    backend = None
+    if splits is None:
+        backend = common.resolve_backend("flash_attn", q.device)
+        key = (q.dtype, b, hq, hkv, sq, sk, hd)
+        cfg = tune.known("flash_attn", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "flash_attn", backend,
+                lambda: {"dtype": common.dtype_name(q), "batch": b,
+                         "heads_q": hq, "heads_kv": hkv, "seq_q": sq,
+                         "seq_k": sk, "head_dim": hd},
+                lambda **c: common.dispatch("flash_attn", q.device, q, k, v,
+                                            causal=causal, window=window,
+                                            backend=backend, **c), key=key)
+        splits = cfg.get("splits")
     return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
-                           window=window)
+                           window=window, splits=splits, backend=backend)

@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.glm_grad import ref as R
 
 LAYOUTS = ("row", "col")
@@ -55,17 +55,26 @@ def variant(d: int, layout: str) -> str:
     return "ring" if d <= RING_MAX_D else "row"
 
 
-@functools.lru_cache(maxsize=256)
-def ring_plan(d: int, n: int, sms: int) -> tuple[int, int, int, int]:
-    """The ring kernel's ``(T, L, per_block, blocks)`` for ``n`` rows of
-    ``d`` features on ``sms`` SMs: tiles of T rows (about RING_STAGE_BYTES
-    of X, at most RING_MAX_TILE), L lanes a row in the margin pass
-    (a power of two, T * L <= RING_CONSUMERS), and blocks of ``per_block``
-    consecutive tiles, about RING_BLOCKS_PER_SM blocks a SM."""
-    tile = max(1, min(RING_MAX_TILE, RING_STAGE_BYTES // (4 * d)))
+def ring_lanes(tile: int) -> int:
+    """Lanes a row of a T-row tile in the margin pass: the largest power
+    of two up to 32 with T * L <= RING_CONSUMERS."""
     lanes = 1
     while lanes < 32 and 2 * lanes * tile <= RING_CONSUMERS:
         lanes *= 2
+    return lanes
+
+
+@functools.lru_cache(maxsize=256)
+def ring_plan(d: int, n: int, sms: int, tile: int | None = None
+              ) -> tuple[int, int, int, int]:
+    """The ring kernel's ``(T, L, per_block, blocks)`` for ``n`` rows of
+    ``d`` features on ``sms`` SMs: tiles of T rows (``tile``, else about
+    RING_STAGE_BYTES of X, at most RING_MAX_TILE), L lanes a row in the
+    margin pass (:func:`ring_lanes`), and blocks of ``per_block``
+    consecutive tiles, about RING_BLOCKS_PER_SM blocks a SM."""
+    if tile is None:
+        tile = max(1, min(RING_MAX_TILE, RING_STAGE_BYTES // (4 * d)))
+    lanes = ring_lanes(tile)
     tiles = -(-n // tile)
     per_block = -(-tiles // (RING_BLOCKS_PER_SM * sms))
     return tile, lanes, per_block, -(-tiles // per_block)
@@ -117,14 +126,14 @@ def _lib(name, *argtypes):
 
 
 @common.register_kernel("glm_grad", common.CUDA)
-def _glm_grad_cuda(task, w, X, y, *, layout):
+def _glm_grad_cuda(task, w, X, y, *, layout, block_rows=None):
     n, d = X.shape
     X, y, w = (common.cuda_operand(t) for t in (X, y, w))
     kind = variant(d, layout)
     plan = ()  # the kernel's tiling, after the common arguments
     if kind == "ring":
         tile, lanes, per_block, nparts = ring_plan(
-            d, n, common.sm_count(X.device))
+            d, n, common.sm_count(X.device), block_rows)
         plan = (tile, lanes, ring_skew(d, lanes), RING_STAGES, per_block,
                 nparts)
         launch = _lib("glm_grad_ring", _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -135,7 +144,7 @@ def _glm_grad_cuda(task, w, X, y, *, layout):
         nparts = common.padded(n, _lib("glm_grad_col_rows")()) // 32
     else:
         launch = _lib("glm_grad_row", _P, _P, _P, _P, _I, _I, _I, _I, _P)
-        tile = row_tile(n, common.sm_count(X.device))
+        tile = block_rows or row_tile(n, common.sm_count(X.device))
         plan = (tile,)
         nparts = common.padded(n, tile) // tile
     reduce = _lib("glm_grad_reduce", _P, _P, _I, _I, _P)
@@ -154,8 +163,8 @@ def _glm_grad_cuda(task, w, X, y, *, layout):
 
 
 @common.register_kernel("glm_grad", common.TORCH_REFERENCE)
-def _glm_grad_reference(task, w, X, y, *, layout):
-    del layout  # the access path is a kernel-layout concept
+def _glm_grad_reference(task, w, X, y, *, layout, block_rows=None):
+    del layout, block_rows  # the access path and tiling are the kernel's
     return R.glm_grad_ref(task, w, X, y)
 
 
@@ -166,14 +175,33 @@ def glm_grad(
     y: torch.Tensor,   # [N]
     *,
     layout: str = "row",
+    block_rows: int | None = None,
     backend: str | None = None,
 ) -> torch.Tensor:
-    """Sum GLM gradient ``X^T pull(y * Xw)``.  Returns [d] fp32."""
+    """Sum GLM gradient ``X^T pull(y * Xw)``.  Returns [d] fp32.
+
+    ``block_rows`` sets the rows of the row layout's tiles (a ring stage
+    or a row block); None runs the tuner's cached pick for this call
+    (:mod:`repro_torch.kernels.tune`), else the plan's.  The col layout
+    has no tiles to set.
+    """
     n, d = X.shape
     if w.shape != (d,) or y.shape != (n,) or n < 1:
         raise ValueError(f"glm_grad shapes: w {tuple(w.shape)}, X "
                          f"{tuple(X.shape)}, y {tuple(y.shape)}")
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if block_rows is None and layout == "row":
+        backend = common.resolve_backend("glm_grad", X.device, backend)
+        key = (X.dtype, n, d)
+        cfg = tune.known("glm_grad", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "glm_grad", backend,
+                lambda: {"dtype": common.dtype_name(X), "n": n, "d": d},
+                lambda **c: common.dispatch("glm_grad", X.device, task, w, X,
+                                            y, layout=layout,
+                                            backend=backend, **c), key=key)
+        block_rows = cfg.get("block_rows")
     return common.dispatch("glm_grad", X.device, task, w, X, y, layout=layout,
-                           backend=backend)
+                           block_rows=block_rows, backend=backend)

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.glm_score import ref as R
 
 #: most threads a block of the flat kernel runs
@@ -70,16 +70,19 @@ def row_lanes(rows: int, k: int, threads: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def score_plan(n: int, k: int, sms: int) -> tuple[int, int, int, int, bool]:
+def score_plan(n: int, k: int, sms: int, rows: int | None = None
+               ) -> tuple[int, int, int, int, bool]:
     """The flat kernel's ``(rows, threads, vectors, lanes, gated)`` for
-    ``n`` rows of ``k`` words on ``sms`` SMs: runs of ``rows`` rows,
-    ``ceil(n / sms)`` so that a batch spreads over every SM (a row a block
-    up to 132 rows), at most RUN_WORDS words; :func:`flat_shape`'s threads
-    and chunks a thread; :func:`row_lanes`; and ``gated`` where the runs
-    outnumber the SMs: a chunk's indices are then read only where one of
-    its values is not 0 (one more round trip, hidden by the other
-    blocks)."""
-    rows = max(1, min(-(-n // sms), (RUN_WORDS - 3) // max(k, 1)))
+    ``n`` rows of ``k`` words on ``sms`` SMs: runs of ``rows`` rows (where
+    the caller does not set them, ``ceil(n / sms)`` so that a batch spreads
+    over every SM, a row a block up to 132 rows), at most RUN_WORDS words
+    with the up to 3 before the run's first 16-byte boundary;
+    :func:`flat_shape`'s threads and chunks a thread; :func:`row_lanes`;
+    and ``gated`` where the runs outnumber the SMs: a chunk's indices are
+    then read only where one of its values is not 0 (one more round trip,
+    hidden by the other blocks)."""
+    if rows is None:
+        rows = max(1, min(-(-n // sms), (RUN_WORDS - 3) // max(k, 1)))
     threads, vectors = flat_shape(rows, k)
     return (rows, threads, vectors, row_lanes(rows, k, threads),
             -(-n // rows) > sms)
@@ -94,7 +97,7 @@ def variant(n: int, k: int, d: int) -> str:
 
 
 @common.register_kernel("glm_score", common.CUDA)
-def _glm_score_cuda(task, w, values, indices):
+def _glm_score_cuda(task, w, values, indices, *, block_rows=None):
     n, k = values.shape
     values, w = common.cuda_operand(values), common.cuda_operand(w)
     indices = common.cuda_operand(indices, torch.int32)
@@ -104,9 +107,14 @@ def _glm_score_cuda(task, w, values, indices):
             out.data_ptr())
     with common.on_device(values):
         if variant(n, k, d) == "flat":
+            if block_rows is not None \
+                    and not 1 <= block_rows * k <= RUN_WORDS - 3:
+                raise ValueError(f"glm_score: a flat run of {block_rows} "
+                                 f"rows of {k} words exceeds {RUN_WORDS - 3}")
             fn = _build.function("glm_score", "glm_score_flat", *_FLAT_ARGS)
             code = fn(*ptrs, n, k, common.task_code(task),
-                      *score_plan(n, k, common.sm_count(values.device)),
+                      *score_plan(n, k, common.sm_count(values.device),
+                                  block_rows),
                       common.stream(values))
         else:
             fn = _build.function("glm_score", "glm_score", *_ARGS)
@@ -118,7 +126,8 @@ def _glm_score_cuda(task, w, values, indices):
 
 
 @common.register_kernel("glm_score", common.TORCH_REFERENCE)
-def _glm_score_reference(task, w, values, indices):
+def _glm_score_reference(task, w, values, indices, *, block_rows=None):
+    del block_rows  # the kernel's tiling
     return R.glm_score_ref(task, w, values, indices)
 
 
@@ -128,16 +137,36 @@ def glm_score(
     values: torch.Tensor,   # [N, K]  zero-padded ELL
     indices: torch.Tensor,  # [N, K]  int32
     *,
+    block_rows: int | None = None,
     backend: str | None = None,
 ) -> torch.Tensor:
     """Served scores of a padded-ELL batch; returns ``[N]`` fp32 — LR rows
-    sigmoid probabilities, SVM rows raw margins (``core.glm.LINKS``)."""
+    sigmoid probabilities, SVM rows raw margins (``core.glm.LINKS``).
+
+    ``block_rows`` sets the rows of a flat run; None runs the tuner's
+    cached pick for this call (:mod:`repro_torch.kernels.tune`), else the
+    plan's.  The group kernel has no runs to set."""
     if w.dim() != 1 or values.dim() != 2 or indices.shape != values.shape \
             or values.shape[0] < 1:
         raise ValueError(
             f"glm_score shapes: w {tuple(w.shape)}, values "
             f"{tuple(values.shape)}, indices {tuple(indices.shape)}")
     common.task_code(task)
-    common.check_indices("glm_score", indices, w.shape[0])
+    n, k = values.shape
+    d = w.shape[0]
+    common.check_indices("glm_score", indices, d)
+    if block_rows is None:
+        backend = common.resolve_backend("glm_score", values.device, backend)
+        key = (values.dtype, n, k, d)
+        cfg = tune.known("glm_score", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "glm_score", backend,
+                lambda: {"dtype": common.dtype_name(values), "sparse": True,
+                         "n": n, "d": d, "k": k},
+                lambda **c: common.dispatch("glm_score", values.device, task,
+                                            w, values, indices,
+                                            backend=backend, **c), key=key)
+        block_rows = cfg.get("block_rows")
     return common.dispatch("glm_score", values.device, task, w, values,
-                           indices, backend=backend)
+                           indices, block_rows=block_rows, backend=backend)

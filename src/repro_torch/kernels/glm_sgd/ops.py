@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.glm_sgd import ref as R
 
 #: micro-batch when the caller does not pin one
@@ -235,12 +235,14 @@ def glm_sgd_epoch(
     y: torch.Tensor,   # [N]     or [R, N]
     *,
     step: float,
-    micro_batch: int = DEFAULT_MICRO_BATCH,
+    micro_batch: int | None = None,
     backend: str | None = None,
 ) -> torch.Tensor:
     """One mini-batch SGD epoch; returns the updated model (fp32, w's shape).
 
     With a replica axis every replica walks its own ``X[r]`` from ``w[r]``.
+    ``micro_batch=None`` runs the tuner's cached pick for this call
+    (:mod:`repro_torch.kernels.tune`), else DEFAULT_MICRO_BATCH.
     """
     single = w.dim() == 1
     W, Xr, yr = (w[None], X[None], y[None]) if single else (w, X, y)
@@ -248,6 +250,19 @@ def glm_sgd_epoch(
     if W.shape != (n_rep, d) or yr.shape != (n_rep, n) or n < 1:
         raise ValueError(f"glm_sgd shapes: w {tuple(w.shape)}, X "
                          f"{tuple(X.shape)}, y {tuple(y.shape)}")
+    if micro_batch is None:
+        backend = common.resolve_backend("glm_sgd", Xr.device, backend)
+        key = (Xr.dtype, n_rep, n, d)
+        cfg = tune.known("glm_sgd", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "glm_sgd", backend,
+                lambda: {"dtype": common.dtype_name(Xr), "n": n, "d": d,
+                         "replicas": n_rep},
+                lambda **c: common.dispatch("glm_sgd", Xr.device, task, W, Xr,
+                                            yr, step=step, backend=backend,
+                                            **c), key=key)
+        micro_batch = cfg.get("micro_batch", DEFAULT_MICRO_BATCH)
     if micro_batch < 1:
         raise ValueError(f"micro_batch must be >= 1, got {micro_batch}")
     out = common.dispatch("glm_sgd", Xr.device, task, W, Xr, yr, step=step,

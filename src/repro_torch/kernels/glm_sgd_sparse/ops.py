@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.glm_sgd_sparse import ref as R
 
 #: micro-batch when the caller does not pin one
@@ -196,10 +196,13 @@ def ell_sgd_epoch(
     y: torch.Tensor,        # [N]     or [R, N]
     *,
     step: float,
-    micro_batch: int = DEFAULT_MICRO_BATCH,
+    micro_batch: int | None = None,
     backend: str | None = None,
 ) -> torch.Tensor:
-    """One mini-batch SGD epoch on ELL data; returns the model (fp32)."""
+    """One mini-batch SGD epoch on ELL data; returns the model (fp32).
+
+    ``micro_batch=None`` runs the tuner's cached pick for this call
+    (:mod:`repro_torch.kernels.tune`), else DEFAULT_MICRO_BATCH."""
     single = w.dim() == 1
     args = (w[None], values[None], indices[None], y[None]) if single \
         else (w, values, indices, y)
@@ -211,7 +214,21 @@ def ell_sgd_epoch(
             f"glm_sgd_sparse shapes: w {tuple(w.shape)}, values "
             f"{tuple(values.shape)}, indices {tuple(indices.shape)}, y "
             f"{tuple(y.shape)}")
-    common.check_indices("glm_sgd_sparse", indices, W.shape[1])
+    d, k = W.shape[1], v.shape[2]
+    common.check_indices("glm_sgd_sparse", indices, d)
+    if micro_batch is None:
+        backend = common.resolve_backend("glm_sgd_sparse", v.device, backend)
+        key = (v.dtype, n_rep, n, k, d)
+        cfg = tune.known("glm_sgd_sparse", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "glm_sgd_sparse", backend,
+                lambda: {"dtype": common.dtype_name(v), "sparse": True,
+                         "n": n, "d": d, "k": k, "replicas": n_rep},
+                lambda **c: common.dispatch("glm_sgd_sparse", v.device, task,
+                                            *args, step=step,
+                                            backend=backend, **c), key=key)
+        micro_batch = cfg.get("micro_batch", DEFAULT_MICRO_BATCH)
     if micro_batch < 1:
         raise ValueError(f"micro_batch must be >= 1, got {micro_batch}")
     out = common.dispatch("glm_sgd_sparse", v.device, task, *args, step=step,

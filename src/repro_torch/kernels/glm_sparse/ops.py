@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.glm_sparse import ref as R
 
 #: warps of a smem block at most (one copy of the gradient each)
@@ -71,16 +71,16 @@ def smem_lanes(k: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def smem_plan(d: int, k: int, n_rep: int, n: int, sms: int
-              ) -> tuple[int, int, int, int]:
+def smem_plan(d: int, k: int, n_rep: int, n: int, sms: int,
+              lanes: int | None = None) -> tuple[int, int, int, int]:
     """The smem kernel's ``(G, warps, per_block, blocks)`` for R = ``n_rep``
     replicas of ``n`` rows of K entries on ``sms`` SMs: G lanes a row
-    (:func:`smem_lanes`), ``warps`` warps a block, and a replica's rows in
-    ``blocks`` blocks of ``per_block`` consecutive rows; up to
-    SMEM_BLOCKS_PER_SM blocks a SM (fewer where shared memory or threads
-    run out) over all replicas, and no block with less than one step of
-    its warps' rows."""
-    lanes, warps = smem_lanes(k), smem_warps(d)
+    (``lanes``, else :func:`smem_lanes`), ``warps`` warps a block, and a
+    replica's rows in ``blocks`` blocks of ``per_block`` consecutive rows;
+    up to SMEM_BLOCKS_PER_SM blocks a SM (fewer where shared memory or
+    threads run out) over all replicas, and no block with less than one
+    step of its warps' rows."""
+    lanes, warps = lanes or smem_lanes(k), smem_warps(d)
     per_sm = min(SMEM_BLOCKS_PER_SM, _SM_THREADS // (32 * warps),
                  _SM_SMEM // (smem_bytes(d, warps) + _BLOCK_RESERVED))
     rows_a_step = warps * (32 // lanes)
@@ -90,7 +90,7 @@ def smem_plan(d: int, k: int, n_rep: int, n: int, sms: int
 
 
 @common.register_kernel("glm_sparse", common.CUDA)
-def _glm_sparse_cuda(task, W, values, indices, y):
+def _glm_sparse_cuda(task, W, values, indices, y, *, lanes=None):
     n_rep, n, k = values.shape
     d = W.shape[1]
     values, y, W = (common.cuda_operand(t) for t in (values, y, W))
@@ -98,8 +98,11 @@ def _glm_sparse_cuda(task, W, values, indices, y):
     ptrs = (values.data_ptr(), indices.data_ptr(), y.data_ptr(), W.data_ptr())
     with common.on_device(values):
         if variant(d, k, n_rep) == "smem":
+            if lanes is not None and lanes not in SMEM_LANES:
+                raise ValueError(f"glm_sparse: lanes must be one of "
+                                 f"{SMEM_LANES}, got {lanes}")
             plan = smem_plan(d, k, n_rep, n,
-                             common.sm_count(values.device))
+                             common.sm_count(values.device), lanes)
             # one allocation: the gradient, then the blocks' partial rows
             buf = torch.empty(n_rep * (1 + plan[3]) * d, dtype=torch.float32,
                               device=values.device)
@@ -123,7 +126,8 @@ def _glm_sparse_cuda(task, W, values, indices, y):
 
 
 @common.register_kernel("glm_sparse", common.TORCH_REFERENCE)
-def _glm_sparse_reference(task, W, values, indices, y):
+def _glm_sparse_reference(task, W, values, indices, y, *, lanes=None):
+    del lanes  # the kernel's tiling
     return R.ell_glm_grad_ref(task, W, values, indices, y)
 
 
@@ -134,9 +138,15 @@ def ell_glm_grad(
     indices: torch.Tensor,  # [N, K]  or [R, N, K]  int32
     y: torch.Tensor,        # [N]     or [R, N]
     *,
+    lanes: int | None = None,
     backend: str | None = None,
 ) -> torch.Tensor:
-    """ELL sparse sum gradient; returns fp32 in w's shape."""
+    """ELL sparse sum gradient; returns fp32 in w's shape.
+
+    ``lanes`` sets the lanes a row of the smem kernel (one of
+    SMEM_LANES); None runs the tuner's cached pick for this call
+    (:mod:`repro_torch.kernels.tune`), else the plan's.  The atomic kernel
+    has no lanes to set."""
     single = w.dim() == 1
     args = (w[None], values[None], indices[None], y[None]) if single \
         else (w, values, indices, y)
@@ -148,6 +158,21 @@ def ell_glm_grad(
             f"glm_sparse shapes: w {tuple(w.shape)}, values "
             f"{tuple(values.shape)}, indices {tuple(indices.shape)}, y "
             f"{tuple(y.shape)}")
-    common.check_indices("glm_sparse", indices, W.shape[1])
-    out = common.dispatch("glm_sparse", v.device, task, *args, backend=backend)
+    d, k = W.shape[1], v.shape[2]
+    common.check_indices("glm_sparse", indices, d)
+    if lanes is None:
+        backend = common.resolve_backend("glm_sparse", v.device, backend)
+        key = (v.dtype, n_rep, n, k, d)
+        cfg = tune.known("glm_sparse", backend, key)
+        if cfg is None:
+            cfg = tune.consult(
+                "glm_sparse", backend,
+                lambda: {"dtype": common.dtype_name(v), "sparse": True,
+                         "n": n, "d": d, "k": k, "replicas": n_rep},
+                lambda **c: common.dispatch("glm_sparse", v.device, task,
+                                            *args, backend=backend, **c),
+                key=key)
+        lanes = cfg.get("lanes")
+    out = common.dispatch("glm_sparse", v.device, task, *args, lanes=lanes,
+                          backend=backend)
     return out[0] if single else out

@@ -114,26 +114,36 @@ class GLMScoreEngine:
     clock:
         Injectable monotonic clock (tests pin deadlines without
         sleeping).
+    fault_stall_s:
+        Chaos hook: every flush sleeps this long before scoring — the
+        stall a monitored benchmark injects to force a latency-SLO
+        breach.  0 (the default) is a plain no-op.
 
-    A health monitor attaches by setting ``self.monitor`` to an object
+    A :class:`repro_torch.obs.monitor.HealthMonitor` attaches through its
+    ``attach_engine(engine)``, which sets ``self.monitor`` (any object
     with ``on_flush(n=, padded=, queue_depth=, latencies=)`` and
-    ``on_reject()``; with none attached the cost is one ``None`` check.
+    ``on_reject()`` will do); with none attached the cost is one ``None``
+    check.
     """
 
     def __init__(self, task: str, w, *, ell_width: int,
                  max_batch: int = 32, queue_depth: int = 256,
                  flush_deadline_s: float = 0.005, device=None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 fault_stall_s: float = 0.0):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1: {max_batch}")
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1: {queue_depth}")
         if ell_width < 1:
             raise ValueError(f"ell_width must be >= 1: {ell_width}")
+        if fault_stall_s < 0:
+            raise ValueError(f"fault_stall_s must be >= 0: {fault_stall_s}")
         self.ell_width = ell_width
         self.max_batch = max_batch
         self.queue_depth = queue_depth
         self.flush_deadline_s = flush_deadline_s
+        self.fault_stall_s = fault_stall_s
         self.device = common.device(device)
         self.monitor = None
         self._clock = clock
@@ -272,6 +282,8 @@ class GLMScoreEngine:
         buf[:, n:] = 0          # filler rows
         with trace.span("serve.batch", rows=n, padded=self.max_batch,
                         version=snap.version):
+            if self.fault_stall_s:
+                time.sleep(self.fault_stall_s)      # injected deadline stall
             with trace.span("serve.score", device=str(self.device)):
                 batch = stage.to(self.device, non_blocking=True)
                 indices = batch[1]

@@ -44,11 +44,14 @@ def test_port_has_the_expected_modules():
             "data/ingest/registry.py", "data/ingest/cache.py",
             "data/ingest/fixtures.py", "study/__init__.py", "study/spec.py",
             "study/store.py", "study/runner.py", "study/tuner.py",
-            "study/claims.py", "study/advisor.py"} <= names
+            "study/claims.py", "study/advisor.py", "roofline/__init__.py",
+            "roofline/kernels.py", "kernels/tune.py", "obs/digest.py",
+            "obs/monitor.py"} <= names
     assert {f"benchmarks/{m}.py" for m in (
         "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
         "fig11_model_replication", "fig14_data_replication",
-        "fig8_access_path", "table6_optimal", "fig24_scale", "run")} <= names
+        "fig8_access_path", "table6_optimal", "fig24_scale", "run",
+        "bench_kernels", "bench_serve", "bench_live")} <= names
     assert sorted(p.name for p in (PORT / "data" / "ingest" / "fixtures")
                   .glob("*.libsvm")) == [f"{n}.libsvm" for n in (
                       "covtype", "news", "real-sim", "skin", "w8a")]
