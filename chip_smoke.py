@@ -121,8 +121,27 @@ Phases, one JSON line each:
                breach under a publisher stall); (d) the host us of the
                decode wrapper and of ``glm_score`` with the tuned argument
                pinned, with an empty cache and with a cached record, and
-               of a ``GLMScoreEngine.flush``;
-11. ``timing`` each kernel and its plain version at the main path's shapes
+               of a ``GLMScoreEngine.flush``; (e) one traced
+               ``bench_serve`` and one traced ``bench_live`` drive, then
+               ``python -m repro_torch.obs.report --check`` over their
+               trace dir (exit 0, the kernel, serve and live layers);
+11. ``sweep``  the multi-worker sweep, traced, with the profiler capture
+               on (``REPRO_TRACE_XPROF=1``): the ci profile's Table 7 and
+               Fig. 22 trials in this process from no cache, then through
+               a ``Runner`` with a 2-worker ``LocalProcessExecutor`` on the
+               card from an empty cache, then through the two drivers on a
+               serial runner over the merged cache (no miss, the two
+               ``BENCH_study.json`` byte-identical, one ``sweep_shard``
+               event a worker and one ``sweep_merge``), every dispatched
+               trial's losses held against the in-process run; a worker
+               killed after its first stack group and requeued once; the
+               report CLI over the trace dir (``--check`` exit 0, every
+               lane and layer, every worker's ``kernel.dispatch`` on
+               ``cuda`` for the four study kernels) and one profiler
+               capture a worker attempt naming a port kernel; wall seconds
+               of the serial run and of the sweep, recorded (the workers
+               share the card);
+12. ``timing`` each kernel and its plain version at the main path's shapes
                (glm_sgd also at covtype R=8 B=1, on its shared-memory
                variant at covtype B=16, on its cluster variant beside the
                shared-memory one at phase study's real-sim seq epoch and
@@ -2354,15 +2373,299 @@ def phase_bench(dev, covtype, w8a, realsim, results: Path) -> dict:
         t3 = time.perf_counter()
         consult = _consult_cost(dev, w8a)
         t4 = time.perf_counter()
+        traced_services = _traced_services(results)
+        t5 = time.perf_counter()
     finally:
         bcommon.RESULTS_DIR = saved
     return {"phase": "bench",
             "ok": kernels["ok"] and all(t["ok"] for t in tuner)
-            and services["ok"] and consult["ok"],
+            and services["ok"] and consult["ok"] and traced_services["ok"],
             "seconds": {"kernels": t1 - t0, "tuner": t2 - t1,
-                        "services": t3 - t2, "consult": t4 - t3},
+                        "services": t3 - t2, "consult": t4 - t3,
+                        "traced": t5 - t4},
             "kernels": kernels, "tuner": tuner, "services": services,
-            "consult": consult}
+            "consult": consult, "traced": traced_services}
+
+
+# ---------------------------------------------------------------------------
+# Traced runs, the report CLI and the multi-worker sweep
+# ---------------------------------------------------------------------------
+
+#: phase sweep: worker processes sharing the card, the lanes and layers the
+#: report must show, and the study kernels every worker lane must dispatch
+SWEEP_WORKERS = 2
+SWEEP_LANES = ("main", "shard0a0", "shard1a0")
+SWEEP_LAYERS = ("engine", "kernel", "runner", "sweep")
+#: phase bench's traced serving and live drives
+SERVICE_LAYERS = ("kernel", "serve", "live")
+
+
+@contextlib.contextmanager
+def traced(root: Path, xprof: bool = False):
+    """Span tracing (``REPRO_TRACE=1``) into ``root`` for a while, with the
+    profiler capture (``REPRO_TRACE_XPROF=1``) if asked; the environment
+    and the tracer are restored after, so no later phase traces."""
+    from repro_torch.obs import trace
+
+    keys = (trace.ENV_TRACE, trace.ENV_TRACE_DIR, trace.ENV_TRACE_TAG,
+            trace.ENV_XPROF)
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({trace.ENV_TRACE: "1", trace.ENV_TRACE_DIR: str(root)})
+    os.environ.pop(trace.ENV_TRACE_TAG, None)
+    if xprof:
+        os.environ[trace.ENV_XPROF] = "1"
+    trace.refresh()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        trace.refresh()
+
+
+def report_cli(root: Path) -> dict:
+    """``python -m repro_torch.obs.report`` over ``root``, as a user runs
+    it: ``--check``'s exit code and last words, ``--json``'s layers and
+    lanes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.obs.report", str(root)]
+    check = subprocess.run(cmd + ["--check"], env=env, capture_output=True,
+                           text=True, timeout=300)
+    js = subprocess.run(cmd + ["--json"], env=env, capture_output=True,
+                        text=True, timeout=300)
+    doc = json.loads(js.stdout) if js.returncode == 0 else {}
+    return {"check_rc": check.returncode,
+            "check": (check.stdout + check.stderr).strip()[-600:],
+            "json_rc": js.returncode, "layers": doc.get("layers", []),
+            "lanes": sorted(f["tag"] for f in doc.get("files", [])),
+            "spans": sum(f["spans"] for f in doc.get("files", [])),
+            "metrics_files": len(doc.get("metrics_files", []))}
+
+
+def _traced_services(results: Path) -> dict:
+    """One traced ``bench_serve`` drive and one traced ``bench_live``
+    drive, then the report CLI over their trace dir: ``--check`` exits 0
+    and the kernel, serve and live layers are there.  The drives get a
+    results dir of their own: over the benches' warm caches they would
+    serve every cell from disk and drive nothing."""
+    from repro_torch.benchmarks import bench_live, bench_serve
+    from repro_torch.benchmarks import common as bcommon
+
+    results = results / "traced"
+    root = results / "trace"
+    t0 = time.perf_counter()
+    saved, bcommon.RESULTS_DIR = bcommon.RESULTS_DIR, results
+    try:
+        with traced(root):
+            _quiet(lambda: bench_serve.run(
+                "ci", out_json=results / "BENCH_serve.json"))
+            _quiet(lambda: bench_live.run(
+                "ci", out_json=results / "BENCH_live.json"))
+    finally:
+        bcommon.RESULTS_DIR = saved
+    rep = report_cli(root)
+    rep["seconds"] = time.perf_counter() - t0
+    rep["ok"] = (rep["check_rc"] == 0 and rep["json_rc"] == 0
+                 and set(SERVICE_LAYERS) <= set(rep["layers"]))
+    return rep
+
+
+def sweep_trials() -> list:
+    """The ci profile's trials of the Table 7 and Fig. 22 drivers, as their
+    ``common.tune`` calls make them: each dataset, task and Table 7
+    configuration (the drivers' replica guard kept) over the ci grid, and
+    Fig. 22's ``SyncSGD()`` over the grid and ``AsyncLocalSGD(replicas=8)``
+    over its two steps (the same keys as Table 7's cpu-par)."""
+    from repro_torch.benchmarks import common as bcommon
+    from repro_torch.benchmarks import table7_async
+    from repro_torch.core import sgd
+    from repro_torch.study.spec import TrialSpec
+
+    epochs = bcommon.PROFILES["ci"]["epochs"]
+    out = []
+    for name in bcommon.profile_datasets("ci"):
+        dspec = bcommon.dataset_spec(name, "ci")
+        n = dspec.profile().n
+        for task in bcommon.TASKS:
+            grids = [(s, STUDY_STEPS) for s in table7_async.CONFIGS.values()
+                     if n >= s.replicas * 2]
+            grids += [(sgd.SyncSGD(), STUDY_STEPS),
+                      (sgd.AsyncLocalSGD(replicas=8, local_batch=1),
+                       (1e-2, 1e-1))]
+            out += [TrialSpec(dspec, task, strat, step, epochs)
+                    for strat, steps in grids for step in steps]
+    return out
+
+
+def _events(path: Path, kind: str) -> list[dict]:
+    return [e for e in map(json.loads, path.read_text().splitlines())
+            if e.get("event") == kind]
+
+
+def _capture_kernels(path: Path) -> list[str]:
+    """The port's kernels a profiler capture's device events name."""
+    symbols = {s for fam in KERNEL_SYMBOLS.values() for v in fam.values()
+               for s in v}
+    doc = json.loads(path.read_text())
+    return sorted({s for ev in doc.get("traceEvents", [])
+                   if ev.get("cat") == "kernel"
+                   for s in symbols if s in ev.get("name", "")})
+
+
+def phase_sweep(dev, scratch: Path) -> dict:
+    """The multi-worker sweep on the card, traced, with the profiler
+    capture on (``REPRO_TRACE_XPROF=1``): the ci profile's Table 7 and
+    Fig. 22 trials (1) in this process from no cache, (2) through a
+    ``Runner`` with a 2-worker ``LocalProcessExecutor`` from an empty cache
+    into store A, (3) through the drivers themselves on a serial runner
+    over that cache into store B (no cache miss; A and B byte-identical;
+    one ``sweep_shard`` event for each worker and one ``sweep_merge``),
+    every dispatched trial's losses held against (1); (4) one worker told
+    to die after its first stack group (``--fault-after 1 --fault-flag``)
+    over one dataset's Table 7 grid: requeued once, the cache complete, its
+    losses held against (1); (5) the report CLI over the trace dir
+    (``--check`` exits 0; the driver's and every worker attempt's lanes;
+    the engine, kernel, runner and sweep layers), the lanes read through
+    the port's ``export`` (every ``sweep.shard`` on the card, every worker
+    ``kernel.dispatch`` on ``cuda``, the four study kernels among them);
+    (6) every profiler capture under ``xprof/`` naming a port kernel, one
+    for each worker attempt."""
+    from repro_torch.benchmarks import common as bcommon
+    from repro_torch.benchmarks import fig22_sync_vs_async, table7_async
+    from repro_torch.core import sgd
+    from repro_torch.kernels import common
+    from repro_torch.obs import export
+    from repro_torch.study.runner import Runner
+    from repro_torch.study.store import StudyStore
+    from repro_torch.sweep import LocalProcessExecutor
+    from repro_torch.sweep.worker import FAULT_EXIT
+
+    root = scratch / "sweep"
+    trace_dir, cache, jsonl = root / "trace", root / "cache", root / "runs.jsonl"
+    trials = sweep_trials()
+    modules = ["fig22_sync_vs_async", "table7_async"]
+    line = {"phase": "sweep", "trials": len(trials),
+            "unique_trials": len({t.key for t in trials}),
+            "workers": SWEEP_WORKERS}
+    with traced(trace_dir, xprof=True):
+        # (1) serial and cold, in this process
+        t0 = time.perf_counter()
+        cold = Runner(cache_dir=None, device=dev).run(trials)
+        torch.cuda.synchronize()
+        line["serial_cold_s"] = time.perf_counter() - t0
+        # (2) two worker processes on the card, from an empty cache
+        store_a = StudyStore(root / "a.json", jsonl_path=jsonl)
+        runner = Runner(cache_dir=cache, store=store_a, device=dev,
+                        executor=LocalProcessExecutor(
+                            SWEEP_WORKERS, work_dir=root / "work"))
+        t0 = time.perf_counter()
+        swept = runner.run(trials)
+        line["sweep_s"] = time.perf_counter() - t0
+        store_a.record_claims([], checked_modules=modules)
+        a = store_a.write().read_bytes()
+        # (3) the drivers, serial, over the merged cache
+        store_b = StudyStore(root / "b.json", jsonl_path=jsonl)
+        saved, bcommon.RESULTS_DIR = bcommon.RESULTS_DIR, root / "csv"
+        bcommon.RUNNER = warm = Runner(cache_dir=cache, store=store_b,
+                                       device=dev)
+        try:
+            _quiet(lambda: (table7_async.run("ci"),
+                            fig22_sync_vs_async.run("ci")))
+        finally:
+            bcommon.RESULTS_DIR = saved
+        store_b.record_claims([], checked_modules=modules)
+        b = store_b.write().read_bytes()
+        shards, merges = _events(jsonl, "sweep_shard"), _events(jsonl,
+                                                                "sweep_merge")
+        worst, held = 0.0, True
+        for c, s in zip(cold, swept):
+            err, ok = close(torch.tensor(s.losses), torch.tensor(c.losses),
+                            LOSS_TOL)
+            worst, held = max(worst, err), held and ok and not s.cached
+        by_key = {t.key: c for t, c in zip(trials, cold)}
+        # (4) a worker that dies after its first stack group
+        subset = list({t.key: t for t in trials
+                       if (t.dataset.name, t.task) == ("covtype", "lr")
+                       and isinstance(t.strategy, sgd.AsyncLocalSGD)
+                       }.values())
+        rq_jsonl = root / "requeue.jsonl"
+        store_c = StudyStore(root / "c.json", jsonl_path=rq_jsonl)
+        requeued = Runner(
+            cache_dir=root / "cache-requeue", store=store_c, device=dev,
+            executor=LocalProcessExecutor(1, work_dir=root / "work",
+                                          worker_args=(
+                                              "--fault-after", "1",
+                                              "--fault-flag",
+                                              str(root / "fault-flag"))))
+        rq = requeued.run(subset)
+        store_c.write()
+    rq_shards = _events(rq_jsonl, "sweep_shard")
+    [rq_merge] = _events(rq_jsonl, "sweep_merge") or [{}]
+    rq_err, rq_held = 0.0, True
+    for t, r in zip(subset, rq):
+        err, ok = close(torch.tensor(r.losses),
+                        torch.tensor(by_key[t.key].losses), LOSS_TOL)
+        rq_err, rq_held = max(rq_err, err), rq_held and ok
+    line["store"] = {
+        "byte_identical": a == b, "bytes": len(a),
+        "warm_misses": warm.cache.misses, "warm_hits": warm.cache.hits,
+        "shard_workers": sorted({e["worker"] for e in shards}),
+        "shard_returncodes": [e["returncode"] for e in shards],
+        "merge_events": len(merges),
+        "merged": merges[0]["merged"] if merges else None}
+    line["losses"] = {"tol": LOSS_TOL, "max_abs_err": worst, "held": held}
+    line["requeue"] = {
+        "trials": len(subset),
+        "attempts": [(e["worker"], e["attempt"], e["returncode"])
+                     for e in rq_shards],
+        "retries": rq_merge.get("retries"),
+        "complete": sorted(p.stem for p in (root / "cache-requeue")
+                           .glob("*.json")) == sorted(t.key for t in subset),
+        "max_abs_err": rq_err, "held": rq_held}
+    # (5) the report CLI, and the lanes through the port's export
+    rep = report_cli(trace_dir)
+    lanes = export.collect([trace_dir])
+    workers = [t for t in lanes if t.tag != "main"]
+    devices = sorted({str(s.get("args", {}).get("device"))
+                      for t in lanes for s in t.spans
+                      if s["name"] == "sweep.shard"})
+    dispatch = [s.get("args", {}) for t in workers for s in t.spans
+                if s["name"] == "kernel.dispatch"]
+    backends = sorted({d.get("backend") for d in dispatch})
+    kernels = sorted({d.get("kernel") for d in dispatch})
+    want_lanes = set(SWEEP_LANES) | {
+        f"shard{w}a{a}" for w, a, _ in line["requeue"]["attempts"]}
+    rep.update(devices=devices, worker_backends=backends,
+               worker_kernels=kernels, want_lanes=sorted(want_lanes))
+    line["report"] = rep
+    # (6) one profiler capture a worker attempt, each naming a port kernel
+    captures = {p.name: _capture_kernels(p)
+                for p in sorted((trace_dir / "xprof").glob("*.json"))}
+    worker_files = {f"{t.tag}-torch-{t.pid}.json" for t in workers}
+    line["xprof"] = {"captures": captures,
+                     "missing": sorted(worker_files - set(captures))}
+    line["nvidia_smi"] = nvidia_smi()
+    line["ok"] = bool(
+        line["store"]["byte_identical"] and warm.cache.misses == 0
+        and line["store"]["shard_workers"] == list(range(SWEEP_WORKERS))
+        and all(rc == 0 for rc in line["store"]["shard_returncodes"])
+        and len(merges) == 1 and held
+        and [a for _, a, _ in line["requeue"]["attempts"]] == [0, 1]
+        and [rc for _, _, rc in line["requeue"]["attempts"]]
+        == [FAULT_EXIT, 0]
+        and line["requeue"]["retries"] == 1 and line["requeue"]["complete"]
+        and rq_held
+        and rep["check_rc"] == 0 and set(SWEEP_LAYERS) <= set(rep["layers"])
+        and want_lanes <= set(rep["lanes"])
+        and devices and set(devices) <= {"cuda", "cuda:0"}
+        and backends == [common.CUDA]
+        and set(TRAIN_KERNELS) <= set(kernels)
+        and not line["xprof"]["missing"]
+        and all(captures.values()))
+    return line
 
 
 def phase_timing(covtype, w8a, news, realsim, worst: dict
@@ -2793,6 +3096,13 @@ def run(scratch: Path) -> int:
         return 1
 
     line = phase_bench(dev, covtype, w8a, realsim, scratch / "bench")
+    emit(line)
+    if not line["ok"]:
+        return 1
+
+    t0 = time.perf_counter()
+    line = phase_sweep(dev, scratch)
+    line["seconds"] = time.perf_counter() - t0
     emit(line)
     if not line["ok"]:
         return 1

@@ -18,7 +18,12 @@ load the bundled fixtures through ``repro_torch.data.ingest``.
 Every (dataset, task, strategy, step) cell is a ``TrialSpec`` run by the
 module-level ``RUNNER`` on its device (``cuda`` unless the driver says):
 step grids run stacked, results land in the trial cache under
-``bench_results/torch/study_cache``.  The trial keys equal the
+``bench_results/torch/study_cache``.  With ``--workers N``
+(``repro_torch.benchmarks.run``) the driver also attaches a
+``repro_torch.sweep`` executor to ``RUNNER``: a runner call whose cache
+misses span several stack groups then runs them in N worker subprocesses
+on the runner's device, whose private caches merge back into
+``study_cache`` (scratch under ``bench_results/torch/sweep_workers``).  The trial keys equal the
 reference's, so the port never shares the reference's
 ``bench_results/study_cache``: that would serve CPU timings as the
 card's.

@@ -1,7 +1,7 @@
 """Benchmark driver for the port: one module per paper table/figure.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--profile ci|paper]
-        [--only mod1,mod2] [--real] [--device cuda|cpu]
+        [--only mod1,mod2] [--real] [--device cuda|cpu] [--workers N]
         [--out-json bench_results/torch/BENCH_study.json]
 
 The port's twin of the reference's ``benchmarks/run.py``.  ``--only``
@@ -9,8 +9,15 @@ accepts unambiguous prefixes (``--only table4`` runs ``table4_sync``).
 ``--real`` sweeps the bundled real-data fixtures
 (``repro_torch.data.ingest``) instead of the synthetic Table-3 stand-ins.
 ``--device`` picks where the trials run (``cuda`` by default; ``cpu``
-runs every kernel family's plain version).  The reference's ``--workers``
-is absent until the port has a ``sweep`` package.
+runs every kernel family's plain version).  ``--workers N`` dispatches
+cache-miss trials across N local worker subprocesses
+(``repro_torch.sweep``), each on ``--device`` (on one card the workers
+share it): shards are stack-aware, dead workers are requeued, and the
+per-worker caches merge into the canonical trial cache — so the store
+output is byte-identical to a single-process run over the same cache.
+Dispatch happens per runner call: a call whose cache misses span at least
+two stack groups fans out across the workers, while single-grid calls
+(each ``common.tune``) run in-process as usual.
 
 Emits CSVs into bench_results/torch/ and prints a summary, then validates
 the paper's qualitative claims (``repro_torch.study.claims``) against the
@@ -35,6 +42,7 @@ from repro_torch.obs import trace
 from repro_torch.study import claims
 from repro_torch.study.runner import Runner
 from repro_torch.study.store import StudyStore
+from repro_torch.sweep import LocalProcessExecutor
 
 MODULES = {
     "table4_sync": table4_sync,
@@ -71,11 +79,16 @@ def main(argv=None):
                          "instead of the synthetic Table-3 stand-ins")
     ap.add_argument("--device", default="cuda",
                     help="where the trials run (cpu: the plain versions)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="dispatch cache-miss trials across N local worker "
+                         "subprocesses (repro_torch.sweep; 1 = in-process)")
     ap.add_argument("--out-json",
                     default=str(common.RESULTS_DIR / "BENCH_study.json"),
                     help="structured results path (repro_torch.study.store)")
     args = ap.parse_args(argv)
 
+    if args.workers < 1:
+        ap.error(f"--workers must be >= 1: {args.workers}")
     if args.real:
         common.set_source("real")
 
@@ -94,6 +107,10 @@ def main(argv=None):
                        jsonl_path=common.RESULTS_DIR / "study_runs.jsonl")
     common.RUNNER = Runner(cache_dir=common.RESULTS_DIR / "study_cache",
                            store=store, device=args.device)
+    if args.workers > 1:
+        common.RUNNER.executor = LocalProcessExecutor(
+            workers=args.workers,
+            work_dir=common.RESULTS_DIR / "sweep_workers")
 
     if trace.enabled():
         print(f"tracing -> {trace.current_path()}", flush=True)

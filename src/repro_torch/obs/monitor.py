@@ -55,10 +55,9 @@ import os
 import sys
 import threading
 import time
-from pathlib import Path
 from typing import Callable, Sequence
 
-from repro_torch.obs import metrics, trace
+from repro_torch.obs import export, metrics, trace
 from repro_torch.obs.digest import LATENCY_EDGES, QuantileDigest
 
 #: metric-name prefixes the monitor owns inside the metrics registry
@@ -492,21 +491,10 @@ def _fmt_lat(v) -> str:
 # ---------------------------------------------------------------------------
 
 
-#: the files the port's processes write (``metrics.sidecar_path``,
-#: ``trace.trace_path``)
-METRICS_GLOB = "metrics-*-torch-*.json"
-TRACE_GLOB = "trace-*-torch-*.jsonl"
-
-
-def _files(paths: Sequence[str], pattern: str) -> list[Path]:
-    return [f for p in map(Path, paths) if p.is_dir()
-            for f in sorted(p.glob(pattern))]
-
-
 def _read_sidecars(paths: Sequence[str]) -> list[dict]:
     """Per-sidecar health views: tag, breach counters, health gauges."""
     out = []
-    for p in _files(paths, METRICS_GLOB):
+    for p in export.metrics_sidecars(paths):
         try:
             snap = json.loads(p.read_text())
         except (OSError, json.JSONDecodeError) as e:
@@ -528,19 +516,14 @@ def _read_sidecars(paths: Sequence[str]) -> list[dict]:
 
 
 def _breach_instants(paths: Sequence[str]) -> int:
-    """slo.breach instant events across every trace file under paths (a
-    line a process was writing when it died is skipped)."""
-    n = 0
-    for p in _files(paths, TRACE_GLOB):
-        with open(p) as f:
-            for line in f:
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    continue
-                n += (rec.get("kind") == "instant"
-                      and rec.get("name") == "slo.breach")
-    return n
+    """slo.breach instant events across every trace file under paths (0
+    where a file is torn, has no meta line or a newer schema)."""
+    try:
+        traces = export.collect(paths)
+    except ValueError:
+        return 0
+    return sum(1 for t in traces for i in t.instants
+               if i.get("name") == "slo.breach")
 
 
 def main(argv=None) -> int:

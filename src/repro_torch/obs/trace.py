@@ -39,8 +39,10 @@ File format (``TRACE_SCHEMA``):
   a crashed process keeps every span that finished before the crash.
 * instant lines — ``{"kind": "instant", ...}`` with ``dur`` 0.
 
-The reference's ``xprof`` capture (``jax.profiler``) has no counterpart
-here yet.
+``REPRO_TRACE_XPROF=<pattern>`` additionally wraps the first trial whose
+label matches the pattern (``1`` matches any) in a ``torch.profiler``
+capture, written as a Chrome trace to
+``$REPRO_TRACE_DIR/xprof/<tag>-torch-<pid>.json`` — see :func:`xprof`.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import os
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 #: bump when the trace line format changes incompatibly
@@ -59,6 +62,7 @@ TRACE_SCHEMA = 1
 ENV_TRACE = "REPRO_TRACE"
 ENV_TRACE_DIR = "REPRO_TRACE_DIR"
 ENV_TRACE_TAG = "REPRO_TRACE_TAG"
+ENV_XPROF = "REPRO_TRACE_XPROF"
 
 DEFAULT_TRACE_DIR = "trace"
 DEFAULT_TAG = "main"
@@ -67,6 +71,11 @@ DEFAULT_TAG = "main"
 def trace_path(root: str | Path, tag: str, pid: int) -> Path:
     """The trace file a process with this (root, tag, pid) writes."""
     return Path(root) / f"trace-{tag}-torch-{pid}.jsonl"
+
+
+def xprof_path(root: str | Path, tag: str, pid: int) -> Path:
+    """The profiler capture a process with this (root, tag, pid) writes."""
+    return Path(root) / "xprof" / f"{tag}-torch-{pid}.json"
 
 
 class _NoopSpan:
@@ -248,3 +257,58 @@ def instant(name: str, **attrs) -> None:
     if t is None:
         return
     t.emit("instant", name, time.perf_counter_ns(), 0, t.depth(), attrs)
+
+
+# ---------------------------------------------------------------------------
+# Optional torch.profiler capture (REPRO_TRACE_XPROF)
+# ---------------------------------------------------------------------------
+
+_xprof_captured = False
+
+
+@contextmanager
+def xprof(label: str):
+    """Capture a ``torch.profiler`` trace around the first matching trial.
+
+    Active only when ``REPRO_TRACE_XPROF`` is set: the value ``1``
+    matches any label, anything else matches as a substring.  At most
+    one capture per process (profiler sessions do not nest), with the CPU
+    activity and, where the process has a card, the CUDA one; exported as
+    a Chrome trace to ``<trace dir>/xprof/<tag>-torch-<pid>.json``, one
+    file per process, so sweep workers never overwrite each other.
+    Profiler failures degrade to a plain pass-through — telemetry must
+    never take a trial down.
+    """
+    global _xprof_captured
+    pattern = os.environ.get(ENV_XPROF)
+    if (not pattern or _xprof_captured
+            or (pattern != "1" and pattern not in label)):
+        yield
+        return
+    _xprof_captured = True
+    root = current_dir() or Path(os.environ.get(ENV_TRACE_DIR)
+                                 or DEFAULT_TRACE_DIR)
+    out = xprof_path(root, os.environ.get(ENV_TRACE_TAG) or DEFAULT_TAG,
+                     os.getpid())
+    prof = None
+    try:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+    except Exception:
+        prof = None
+    try:
+        with span("obs.xprof", label=label):
+            yield
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                out.parent.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(out))
+            except Exception:
+                pass

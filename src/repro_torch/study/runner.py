@@ -19,11 +19,17 @@ The port's copy of the reference's ``study/runner.py``.  The runner turns
   its S trials (flagged ``stacked``);
 * **dataset memoization** — datasets (synthetic generations and real
   ingests alike) are materialized once per ``DatasetSpec`` per runner, on
-  the runner's device (``cuda`` unless given).
-
-The reference can also hand cache misses to a ``sweep`` executor; the
-port has no ``sweep`` package yet (ROADMAP Queue 1 item 6), so an
-executor is refused.
+  the runner's device (``cuda`` unless given);
+* **executor dispatch** — with an ``executor`` attached (see
+  ``repro_torch.sweep``), cache-miss trials spanning at least
+  ``dispatch_min_groups`` stack groups are not executed in-process:
+  they are handed to the executor, with the runner's device, which must
+  leave their payloads in the canonical cache (N workers, merged), and
+  the runner then reads the results back from the cache.  A single stack
+  group cannot parallelize, so it runs in-process even with an executor
+  attached.  Cache hits, store recording, and result ordering are
+  identical either way, which is what keeps ``BENCH_study.json`` a pure
+  function of the trial cache.
 """
 from __future__ import annotations
 
@@ -153,8 +159,10 @@ class Runner:
         self.store = store
         self.stack = stack
         self.executor = executor        # validated by the property setter
-        #: the reference's dispatch threshold, kept for its signature; it
-        #: matters once an executor can be attached
+        #: dispatch to the executor only when at least this many stack
+        #: groups miss the cache: a single group cannot parallelize, and
+        #: running it in-process skips the worker's cold start and keeps
+        #: the dataset memo warm
         self.dispatch_min_groups = dispatch_min_groups
         self.device = common.device(device)
         self._datasets: dict[DatasetSpec, object] = {}
@@ -165,10 +173,11 @@ class Runner:
 
     @executor.setter
     def executor(self, executor) -> None:
-        if executor is not None:
-            raise NotImplementedError(
-                "the port has no sweep executor yet (ROADMAP Queue 1 item 6: "
-                "sweep/ is not ported); run the trials in-process")
+        # a property so post-construction attachment (benchmarks.run
+        # --workers sets it on the shared runner) fails fast too
+        if executor is not None and self.cache.root is None:
+            raise ValueError("an executor needs a canonical cache_dir to "
+                             "merge worker results into")
         self._executor = executor
 
     def dataset(self, dspec: DatasetSpec):
@@ -192,24 +201,70 @@ class Runner:
             else:
                 pending.setdefault(t.stack_key, []).append(i)
 
-        for indices in pending.values():
-            group = [trials[i] for i in indices]
-            if self.stack and len(group) > 1 and _stackable(group[0]):
-                outs = self._run_stacked(group)
-            else:
-                outs = [self._run_single(t) for t in group]
-            for i, t, res in zip(indices, group, outs):
-                results[i] = res
-                self.cache.put(t.key, res.to_dict())
+        if pending and self.executor is not None \
+                and len(pending) >= self.dispatch_min_groups:
+            self._run_dispatched(trials, pending, results)
+        else:
+            for indices in pending.values():
+                group = [trials[i] for i in indices]
+                if self.stack and len(group) > 1 and _stackable(group[0]):
+                    outs = self._run_stacked(group)
+                else:
+                    outs = [self._run_single(t) for t in group]
+                for i, t, res in zip(indices, group, outs):
+                    results[i] = res
+                    self.cache.put(t.key, res.to_dict())
 
         for t, res in zip(trials, results):
             if self.store is not None:
                 self.store.record_trial(t, res)
         return results  # type: ignore[return-value]
 
+    def _run_dispatched(self, trials, pending, results) -> None:
+        """Hand cache misses to the executor, then read the merged cache.
+
+        The executor owns sharding, worker lifecycle, retries, and the
+        cache merge; its contract is that every requested key is in the
+        canonical cache afterwards, computed on the device it is given
+        (the runner's).  Results are re-read from the cache (not returned
+        in-band) so the dispatched path and the warm-cache path serve
+        byte-identical payloads.
+        """
+        todo = [trials[i] for idxs in pending.values() for i in idxs]
+        try:
+            report = self.executor.execute(todo, self.cache,
+                                           stack=self.stack,
+                                           device=self.device)
+        except Exception as exc:
+            # a failed sweep is when attribution matters most: executors
+            # attach their partial report to the failure (ShardFailure)
+            self._record_exec_events(getattr(exc, "report", None))
+            raise
+        self._record_exec_events(report)
+        for idxs in pending.values():
+            for i in idxs:
+                payload = self.cache.peek(trials[i].key)
+                if payload is None:
+                    raise RuntimeError(
+                        f"executor left no payload for {trials[i].label} "
+                        f"({trials[i].key})")
+                # computed this sweep (by a worker), not served from cache
+                results[i] = TrialResult.from_dict(payload, cached=False)
+
+    def _record_exec_events(self, report) -> None:
+        if report is None or self.store is None \
+                or not hasattr(self.store, "record_event"):
+            return
+        for run in report.shard_runs:
+            self.store.record_event("sweep_shard", **run.to_dict())
+        self.store.record_event(
+            "sweep_merge", executor=report.executor,
+            workers=report.workers, n_trials=report.n_trials,
+            retries=report.retries, **report.merge.to_dict())
+
     def _run_single(self, t: TrialSpec) -> TrialResult:
         with trace.span("runner.trial", key=t.key, label=t.label,
-                        strategy=t.strategy.name):
+                        strategy=t.strategy.name), trace.xprof(t.label):
             ds = self.dataset(t.dataset)
             problem, sparse_data = _problem(ds, t.task, t.step)
             r = sgd.run(problem, t.strategy, t.epochs,
@@ -232,7 +287,7 @@ class Runner:
         S = len(group)
         metrics.histogram("study.stack_size").observe(float(S))
         with trace.span("runner.stack", size=S, label=base.label,
-                        strategy=base.strategy.name):
+                        strategy=base.strategy.name), trace.xprof(base.label):
             ds = self.dataset(base.dataset)
             chains = []
             for t in group:

@@ -46,7 +46,9 @@ def test_port_has_the_expected_modules():
             "study/store.py", "study/runner.py", "study/tuner.py",
             "study/claims.py", "study/advisor.py", "roofline/__init__.py",
             "roofline/kernels.py", "kernels/tune.py", "obs/digest.py",
-            "obs/monitor.py"} <= names
+            "obs/monitor.py", "obs/export.py", "obs/report.py",
+            "sweep/__init__.py", "sweep/plan.py", "sweep/merge.py",
+            "sweep/worker.py", "sweep/executor.py"} <= names
     assert {f"benchmarks/{m}.py" for m in (
         "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
         "fig11_model_replication", "fig14_data_replication",

@@ -308,3 +308,40 @@ def test_cli_without_sidecars_fails_the_check(tmp_path, capsys):
     assert monitor.main([str(tmp_path), "--check"]) == 1
     assert "no metrics sidecars" in capsys.readouterr().err
     assert monitor.main([str(tmp_path)]) == 0
+
+
+def _breach_dir(root, pkg, defect):
+    """A sidecar and a trace file holding two ``slo.breach`` instants, named
+    for ``pkg``, with one defect in the trace file."""
+    root.mkdir(parents=True)
+    sfx = "-torch" if pkg == "torch" else ""
+    (root / f"metrics-main{sfx}-7.json").write_text(json.dumps(
+        {"schema": 1, "counters": {"slo.windows": 2,
+                                   "slo.breach.lat": 2}, "gauges": {}}))
+    meta = {"kind": "meta", "schema": 2 if defect == "newer schema" else 1,
+            "pid": 7, "tag": "main", "t0_unix_ns": 10, "t0_perf_ns": 5}
+    breach = {"kind": "instant", "name": "slo.breach", "ts": 9, "dur": 0,
+              "pid": 7, "tid": 1, "depth": 0, "args": {"slo": "lat"}}
+    lines = ([] if defect == "no meta line" else [json.dumps(meta)]) \
+        + [json.dumps(breach)] * 2
+    if defect == "torn line":
+        lines.append('{"kind": "instant", "name": "slo.br')
+    (root / f"trace-main{sfx}-7.jsonl").write_text("\n".join(lines) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("defect", ["none", "torn line", "newer schema",
+                                    "no meta line"])
+def test_cli_counts_trace_breaches_as_the_reference_does(tmp_path, capsys,
+                                                         defect):
+    """The breach instants are read through ``export.collect``: a trace dir
+    it rejects counts 0 events, as the reference's CLI reports."""
+    ours = _breach_dir(tmp_path / "torch", "torch", defect)
+    ref = _breach_dir(tmp_path / "jax", "jax", defect)
+    assert monitor.main([str(ours), "--json"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert jmonitor.main([str(ref), "--json"]) == 0
+    jdoc = json.loads(capsys.readouterr().out)
+    assert doc["trace_breach_events"] == jdoc["trace_breach_events"] \
+        == (2 if defect == "none" else 0)
+    assert doc["total_breaches"] == jdoc["total_breaches"] == 2

@@ -316,18 +316,23 @@ def test_runner_single_and_stacked_trials_match_the_references(
         np.testing.assert_array_equal(a.losses, b.losses)
 
 
-def test_runner_does_not_stack_forced_backends_and_refuses_an_executor():
+def test_runner_does_not_stack_forced_backends_and_refuses_an_executor(
+        tmp_path):
     td = tspec.DatasetSpec("covtype", max_n=64)
     strat = tsgd.SyncSGD(kernel_backend="torch-reference")
     trials = [tspec.TrialSpec(td, "lr", strat, s, 2) for s in (1e-2, 1e-1)]
     res = trunner.Runner(device=CPU).run(trials)
     assert [r.stacked for r in res] == [False, False]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trunner.Runner(executor=object())
+    # an executor needs a cache root to merge into, as the reference's
+    for mod in (trunner, jrunner):
+        with pytest.raises(ValueError, match="cache_dir"):
+            mod.Runner(executor=object())
     runner = trunner.Runner(device=CPU)
-    with pytest.raises(NotImplementedError, match="sweep"):
+    with pytest.raises(ValueError, match="cache_dir"):
         runner.executor = object()
     assert runner.executor is None and runner.dispatch_min_groups == 2
+    cached = trunner.Runner(tmp_path / "cache", executor=object(), device=CPU)
+    assert cached.executor is not None
 
 
 def test_runner_datasets_live_on_its_device_and_default_to_cuda():
