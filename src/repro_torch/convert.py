@@ -11,7 +11,6 @@ import torch
 
 from repro_torch.core import glm, sparse
 from repro_torch.kernels import common
-from repro_torch.nn import param as pm
 from repro_torch.nn import transformer
 
 
@@ -70,12 +69,14 @@ def lm_shapes(cfg: transformer.ArchConfig) -> dict[str, tuple]:
 
 
 def lm_params_from_reference(params: dict, cfg: transformer.ArchConfig,
-                             device=None) -> transformer.LM:
+                             device=None, *,
+                             trainable: bool = False) -> transformer.LM:
     """The reference's parameter tree (nested dicts of arrays: ``embed``,
     ``final_norm``, and ``layers`` stacked ``[L, ...]``) as the port's
     :class:`~repro_torch.nn.transformer.LM` on ``device``, in
-    ``cfg.param_dtype``.  Every path and shape is checked; the layer axis
-    is unstacked into one block per layer."""
+    ``cfg.param_dtype``, requiring grad when ``trainable``.  Every path and
+    shape is checked; the layer axis is unstacked into one block per
+    layer."""
     flat = _flatten(params)
     want = lm_shapes(cfg)
     if set(flat) != set(want):
@@ -86,16 +87,41 @@ def lm_params_from_reference(params: dict, cfg: transformer.ArchConfig,
            if flat[k].shape != s}
     if bad:
         raise ValueError(f"parameter shapes for {cfg.name} (got, want): {bad}")
-    t = {k: _tensor(a, np.float32, device).to(cfg.param_dtype)
-         for k, a in flat.items()}
+    tree = {}
+    for k, a in flat.items():
+        t = _tensor(a, np.float32, device).to(cfg.param_dtype)
+        if k.startswith("layers/"):
+            name = k[len("layers/"):].replace("/", ".")
+            tree.update({f"layers.{i}.{name}": t[i]
+                         for i in range(cfg.n_layers)})
+        else:
+            tree[k] = t
+    return transformer.LM.from_tree(tree).requires_grad_(trainable)
 
-    def layer(i: int, group: str) -> dict:
-        pre = f"layers/{group}/"
-        return {k[len(pre):]: v[i] for k, v in t.items() if k.startswith(pre)}
 
-    blocks = [transformer.AttnBlock(
-        pm.frozen_dict(**layer(i, "attn")), pm.frozen_dict(**layer(i, "ffn")),
-        pm.frozen(t["layers/norm1"][i]), pm.frozen(t["layers/norm2"][i]))
-        for i in range(cfg.n_layers)]
-    return transformer.LM(pm.frozen(t["embed"]), pm.frozen(t["final_norm"]),
-                          blocks)
+def lm_params_to_reference(params, cfg: transformer.ArchConfig) -> dict:
+    """The inverse: an :class:`~repro_torch.nn.transformer.LM` or its
+    parameter tree as the reference's tree of numpy arrays, layers stacked
+    ``[L, ...]``.  bf16 comes back as float32 (numpy has no bfloat16; every
+    value is exact)."""
+    tree = (params if isinstance(params, dict)
+            else dict(params.named_parameters()))
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out: dict = {}
+    for path in lm_shapes(cfg):
+        if path.startswith("layers/"):
+            name = path[len("layers/"):].replace("/", ".")
+            arr = np.stack([host(tree[f"layers.{i}.{name}"])
+                            for i in range(cfg.n_layers)])
+        else:
+            arr = host(tree[path])
+        *groups, leaf = path.split("/")
+        node = out
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = arr
+    return out

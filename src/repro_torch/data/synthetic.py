@@ -117,3 +117,16 @@ def paper_dataset(name: str, *, scale: float = 1.0, seed: int = 0,
     pad = min(max_nnz, max(int(avg_nnz * 6), 8))
     return make_sparse(name, n, d, avg_nnz, min(max_nnz, pad), seed=seed,
                        pad_to=pad, device=device)
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (for the architecture substrate)
+# ---------------------------------------------------------------------------
+
+
+def token_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
+    """Uniform random token ids + next-token labels (shape contract only),
+    as numpy int32 arrays."""
+    tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    return tokens, labels

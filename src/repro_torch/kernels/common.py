@@ -235,6 +235,20 @@ def plain_fp32(t: torch.Tensor) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
+@contextlib.contextmanager
+def fp32_products(t: torch.Tensor):
+    """:func:`plain_fp32` for the block only: the TF32 switches come back
+    as the caller set them (a plain version on a training path)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    plain_fp32(t)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def cuda_operand(t: torch.Tensor, dtype: torch.dtype = torch.float32
                  ) -> torch.Tensor:
     """A contiguous operand of ``dtype`` on the card, or raise."""

@@ -23,6 +23,13 @@ the dtype and the rows a kv head serves (``Sq * Hq / Hkv``) alone:
 ``torch-reference`` runs ref.py.  The flavor follows the tensors' device.
 Prefill's tiles are constants of the kernels; decode's key splits are a
 launch argument the tuner may set (``splits``).
+
+Inputs that require grad (under grad mode) go through :class:`_Attention`,
+an ``autograd.Function`` whose forward is the same dispatch (the kernel on
+``cuda``, ``ref.attention_ref`` on the CPU) and whose backward is
+``ref.attention_bwd_ref``: plain PyTorch that recomputes the scores a query
+chunk at a time.  The TPU kernel has no backward either; the reference
+differentiates its XLA ``chunked_attention``, one chunk at a time.
 """
 from __future__ import annotations
 
@@ -195,6 +202,26 @@ def _flash_attn_reference(q, k, v, *, causal, window, splits=None):
     return R.attention_ref(q, k, v, causal=causal, window=window)
 
 
+class _Attention(torch.autograd.Function):
+    """Attention with a gradient: the forward is the family's dispatch (on
+    ``cuda`` always the kernel), the backward ``ref.attention_bwd_ref`` on
+    the saved ``q``, ``k`` and ``v``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, splits):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
+                               window=window, splits=splits)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = R.attention_bwd_ref(q, k, v, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, Sq, hd]
     k: torch.Tensor,  # [B, Hkv, Sk, hd]
@@ -210,8 +237,9 @@ def flash_attention(
     Queries end-align with keys (query ``i`` at position ``i + Sk - Sq``);
     ``causal`` hides later keys, ``window`` keys ``window`` or more
     positions back.  Query head ``h`` reads kv head ``h // (Hq // Hkv)``.
-    Forward only: the backward comes with the training path, so an input
-    that requires grad under grad mode raises.
+    Differentiable: where an input requires grad under grad mode the call
+    goes through :class:`_Attention` (the same forward, the plain backward
+    of ``ref.attention_bwd_ref``), with no tuner consult.
 
     ``splits`` sets the blocks a decode call splits each kv head's keys
     over; None runs the tuner's cached pick for this call
@@ -243,10 +271,7 @@ def flash_attention(
         raise ValueError(f"flash_attn: window must be >= 1, got {window}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise RuntimeError("flash_attn has no backward yet (it comes with "
-                           "the training path): call it under "
-                           "torch.no_grad() or on tensors that do not "
-                           "require grad")
+        return _Attention.apply(q, k, v, causal, window, splits)
     b = q.shape[0]
     backend = None
     if splits is None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of blocked (flash) attention."""
+"""Plain PyTorch versions of blocked (flash) attention and its gradient."""
 from __future__ import annotations
 
 import torch
@@ -50,3 +50,73 @@ def attention_ref(
         o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
         out.append(o / torch.where(l == 0, 1.0, l))
     return torch.cat(out, dim=2).to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,   # [B, Hq, Sq, hd]
+    k: torch.Tensor,   # [B, Hkv, Sk, hd]
+    v: torch.Tensor,   # [B, Hkv, Sk, hd]
+    do: torch.Tensor,  # [B, Hq, Sq, hd]: the gradient of the output
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    chunk: int = QUERY_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`attention_ref`'s output against ``do``,
+    in the operands' dtype, recomputed ``chunk`` query rows at a time.
+
+    Each chunk reads only the keys its rows can see: under a window from
+    ``window - 1`` keys before its first row, under ``causal`` up to its
+    last row (at most ``window + chunk`` keys, as the reference's
+    ``chunked_attention`` slices them), so no ``[B, H, Sq, Sk]`` block is
+    ever made.  The ``rep`` query heads of a kv head are stacked as rows
+    of one product, so the products over them sum GQA's repeated heads
+    back onto their kv head.  Products run in the operands' dtype
+    (``torch.matmul``, fp32 accumulation, the result rounded to that
+    dtype: bf16 on the tensor cores), the softmax and its gradient (the
+    softmax VJP ``P * (dP - sum(P * dP))``) in fp32, and ``dk``/``dv`` sum
+    the chunks in fp32: the precision of the reference's differentiated
+    path.  Every row sees at least the key at its own position (the
+    wrapper's ``Sq <= Sk``, ``window >= 1``), so no softmax row is empty."""
+    with common.fp32_products(q):
+        b, hq, sq, hd = q.shape
+        hkv, sk = k.shape[1], k.shape[2]
+        rep = hq // hkv
+        scale = hd ** -0.5
+        offs = sk - sq
+        qg = q.reshape(b, hkv, rep, sq, hd)
+        dog = do.reshape(b, hkv, rep, sq, hd)
+        dq = torch.empty(b, hkv, rep, sq, hd, dtype=q.dtype, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for lo in range(0, sq, chunk):
+            hi = min(lo + chunk, sq)
+            rows = rep * (hi - lo)
+            start = 0 if window is None else max(0, offs + lo - window + 1)
+            end = offs + hi if causal else sk
+            ks, vs = k[:, :, start:end], v[:, :, start:end]
+            qc = qg[:, :, :, lo:hi].reshape(b, hkv, rows, hd)
+            doc = dog[:, :, :, lo:hi].reshape(b, hkv, rows, hd)
+            qi = torch.arange(lo + offs, hi + offs,
+                              device=q.device).repeat(rep)[:, None]
+            kj = torch.arange(start, end, device=q.device)
+            hidden = torch.zeros(rows, end - start, dtype=torch.bool,
+                                 device=q.device)
+            if causal:
+                hidden |= qi < kj
+            if window is not None:
+                hidden |= qi - kj >= window
+            s = torch.matmul(qc, ks.transpose(-1, -2)).float().mul_(scale)
+            p = torch.softmax(s.masked_fill_(hidden, float("-inf")), dim=-1)
+            del s
+            dp = torch.matmul(doc, vs.transpose(-1, -2)).float()
+            ds = torch._softmax_backward_data(dp, p, -1, torch.float32)
+            del dp
+            dv[:, :, start:end] += torch.matmul(
+                p.to(v.dtype).transpose(-1, -2), doc)
+            del p
+            ds = ds.mul_(scale).to(q.dtype)
+            dq[:, :, :, lo:hi] = torch.matmul(ds, ks).view(b, hkv, rep,
+                                                           hi - lo, hd)
+            dk[:, :, start:end] += torch.matmul(ds.transpose(-1, -2), qc)
+        return dq.view(q.shape), dk.to(k.dtype), dv.to(v.dtype)

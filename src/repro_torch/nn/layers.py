@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import param as pm
 
@@ -68,3 +69,35 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return emb[tokens]
+
+
+def _xent_sum(hx: torch.Tensor, emb: torch.Tensor,
+              lx: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: [B, c, V] fp32 logits inside."""
+    logits = (hx @ emb.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_softmax_xent(
+    h: torch.Tensor,       # [B, S, d]  final hidden states
+    emb: torch.Tensor,     # [V, d]     tied unembedding
+    labels: torch.Tensor,  # [B, S]     int
+    *,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy, computed in sequence chunks so the
+    [B, chunk, V] logits block is the peak — never the full [B, S, V].
+    Under grad mode each chunk is checkpointed, so the backward recomputes
+    its logits a chunk at a time and one block stays the peak there too."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hx, lx in zip(h.split(chunk, dim=1), labels.split(chunk, dim=1)):
+        total = total + (checkpoint(_xent_sum, hx, emb, lx,
+                                    use_reentrant=False)
+                         if remat else _xent_sum(hx, emb, lx))
+    return total / (b * s)

@@ -2,8 +2,10 @@
 
 Each ``init_*`` in the port returns modules whose leaves are
 ``nn.Parameter``s in the reference's layout (``[d_in, d_out]`` weights,
-applied as ``x @ w``).  This slice serves only, so every parameter is
-made with ``requires_grad=False``; the training slice turns gradients on.
+applied as ``x @ w``), made with ``requires_grad=False``, as serving
+wants them.  ``LM.requires_grad_()`` turns gradients on for a caller that
+differentiates the module itself; the trainer differentiates an
+``LM.from_tree`` over its parameter tree (:mod:`repro_torch.train.trainer`).
 There is no mesh yet, so no sharding specs either.
 """
 from __future__ import annotations

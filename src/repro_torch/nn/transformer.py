@@ -3,11 +3,17 @@
   dense    pre-norm GQA attention + FFN (gated-SiLU or squared-ReLU)
 
 The reference also assembles the moe, audio, hybrid, ssm and vlm
-families; they are not ported yet (ROADMAP Queue 1 item 11), and
+families; they are not ported yet (ROADMAP Queue 1 item 7(c)), and
 ``init_params`` and ``forward`` raise ``NotImplementedError`` for them.
 Layers are an ``nn.ModuleList`` of :class:`AttnBlock`s run in a Python
 loop (the reference's ``scan``); weights keep the reference's
-``[d_in, d_out]`` layout.
+``[d_in, d_out]`` layout.  ``forward`` and ``loss_fn`` take an
+:class:`LM`; ``LM.from_tree`` makes one over a parameter tree
+(``dict(lm.named_parameters())``, the tree the trainer and optimizers
+carry: :mod:`repro_torch.utils.tree`).  Training under grad mode
+rematerialises each block in the backward (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` with ``nothing_saveable``).  No mesh:
+the reference's ``shard`` callback and sharding specs stay out.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import attention, layers
 from repro_torch.nn import param as pm
@@ -61,7 +68,7 @@ def require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 11); the port runs {PORTED_FAMILIES}")
+            f"(ROADMAP Queue 1 item 7(c)); the port runs {PORTED_FAMILIES}")
 
 
 class AttnBlock(nn.Module):
@@ -84,6 +91,26 @@ class LM(nn.Module):
         super().__init__()
         self.embed, self.final_norm = embed, final_norm
         self.layers = nn.ModuleList(blocks)
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "LM":
+        """The LM over a parameter tree keyed by ``named_parameters()``'s
+        names: each parameter shares its tensor's storage and is a new leaf
+        that requires grad."""
+        def group(prefix: str) -> nn.ParameterDict:
+            return nn.ParameterDict({k[len(prefix):]: v
+                                     for k, v in tree.items()
+                                     if k.startswith(prefix)})
+
+        n = 1 + max((int(k.split(".")[1]) for k in tree
+                     if k.startswith("layers.")), default=-1)
+        return cls(nn.Parameter(tree["embed"]),
+                   nn.Parameter(tree["final_norm"]),
+                   [AttnBlock(group(f"layers.{i}.attn."),
+                              group(f"layers.{i}.ffn."),
+                              nn.Parameter(tree[f"layers.{i}.norm1"]),
+                              nn.Parameter(tree[f"layers.{i}.norm2"]))
+                    for i in range(n)])
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +164,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> LM:
 def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
     """inputs: {"tokens": [B, S] int tensor on the parameters' device}.
 
-    mode="train"   -> returns final hidden states [B, S, d]
+    mode="train"   -> returns final hidden states [B, S, d]; under grad
+                      mode each block is checkpointed (its activations
+                      recomputed in the backward, flash_attn included)
     mode="prefill" -> returns (hidden, cache) where cache matches
                       decode.init_cache's structure: {"k", "v"}
                       [L, B, Hkv, S, hd] post-rotary.
@@ -150,8 +179,16 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
+
+    def body(x, block):
+        return attn_block(x, block, cfg, positions)[0]
+
+    remat = not prefill and torch.is_grad_enabled()
     ks, vs = [], []
     for block in params.layers:
+        if remat:
+            x = checkpoint(body, x, block, use_reentrant=False)
+            continue
         x, (k, v) = attn_block(x, block, cfg, positions)
         if prefill:
             ks.append(k)
@@ -160,3 +197,16 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
     if prefill:
         return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return h
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy (tied embeddings; chunked logits).
+    batch: {"tokens", "labels"} [B, S] int tensors."""
+    h = forward(params, cfg, batch)
+    return layers.chunked_softmax_xent(h, params.embed, batch["labels"],
+                                       chunk=cfg.loss_chunk)

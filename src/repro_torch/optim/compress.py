@@ -1,17 +1,21 @@
-"""int8 block quantization for the live learner's compressed merges.
+"""int8 block quantization for compressed merges: the live learner's and
+the async-local trainer's.
 
-The port's copy of the reference's leaf functions: per-block symmetric
-int8 quantization with a per-block fp32 scale (the Buckwild low-precision
-idea applied at the merge boundary; the learner carries the quantization
-error forward per replica, so the merged model stays unbiased over time).
-``torch.round`` rounds half to even, as ``jnp.round`` does, so a value
-exactly halfway between two int8 steps lands where the reference puts it.
-The tree functions of the reference wait for the LM substrate's optimizer.
+The port's copy of the reference's functions: per-block symmetric int8
+quantization with a per-block fp32 scale (the Buckwild low-precision idea
+applied at the merge boundary), and the tree functions that carry the
+quantization error forward (error feedback), so the merged model stays
+unbiased over time.  ``torch.round`` rounds half to even, as ``jnp.round``
+does, so a value exactly halfway between two int8 steps lands where the
+reference puts it.  Trees are the port's (:mod:`repro_torch.utils.tree`);
+quantized trees are ``{"q": int8 tree, "s": fp32 scale tree}``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 BLOCK = 256
 
@@ -37,8 +41,38 @@ def dequantize_leaf(q: torch.Tensor, scale: torch.Tensor,
     return flat.reshape(like.shape).to(like.dtype)
 
 
-def compression_ratio(leaves) -> float:
-    """Bytes(original) / bytes(int8+scales) of a sequence of tensors."""
+def compress_tree(tree, error_feedback=None):
+    """Quantize every leaf with error feedback, one pass per leaf.
+
+    Returns ``({"q": ..., "s": ...}, new_error_feedback)``; error feedback
+    is an fp32 tree of the same structure (zeros on the first call)."""
+    if error_feedback is None:
+        error_feedback = tree_map(
+            lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                  device=x.device), tree)
+
+    def one(x, e):
+        xe = x.float() + e
+        q, s = quantize_leaf(xe)
+        return q, s, xe - dequantize_leaf(q, s, xe)
+
+    # one pass per leaf gives a (q, s, residual) triple at each of tree's
+    # leaves; picking by tree's structure splits them into three trees
+    triples = tree_map(one, tree, error_feedback)
+    qs, ss, ef = (tree_map(lambda _, t, i=i: t[i], tree, triples)
+                  for i in range(3))
+    return {"q": qs, "s": ss}, ef
+
+
+def decompress_tree(compressed, like_tree):
+    return tree_map(lambda like, q, s: dequantize_leaf(q, s, like),
+                    like_tree, compressed["q"], compressed["s"])
+
+
+def compression_ratio(tree) -> float:
+    """Bytes(original) / bytes(int8+scales) of a tree (a sequence of
+    tensors, or one tensor, is a tree too)."""
+    leaves = tree_leaves(tree)
     orig = sum(x.numel() * x.element_size() for x in leaves)
     comp = sum(x.numel() + 4 * (x.numel() // BLOCK + 1) for x in leaves)
     return orig / comp

@@ -48,7 +48,11 @@ def test_port_has_the_expected_modules():
             "roofline/kernels.py", "kernels/tune.py", "obs/digest.py",
             "obs/monitor.py", "obs/export.py", "obs/report.py",
             "sweep/__init__.py", "sweep/plan.py", "sweep/merge.py",
-            "sweep/worker.py", "sweep/executor.py"} <= names
+            "sweep/worker.py", "sweep/executor.py", "utils/tree.py",
+            "optim/sgd.py", "optim/adam.py", "optim/clip.py",
+            "optim/schedules.py", "data/pipeline.py", "train/trainer.py",
+            "checkpoint/__init__.py", "checkpoint/checkpoint.py",
+            "launch/train.py"} <= names
     assert {f"benchmarks/{m}.py" for m in (
         "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
         "fig11_model_replication", "fig14_data_replication",
