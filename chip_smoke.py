@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (SGD study engine and the paper's study layer,
-scoring service, live learner, LM serving and LM training) on one NVIDIA
-card.
+scoring service, live learner, LM serving and LM training in every
+family) on one NVIDIA card.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
     python3 chip_smoke.py --lm-train-probe
+    python3 chip_smoke.py --lm-families
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
 and batches beside a library bf16 attention, and fresh-batch runs at
 other rates, lengths and parameter dtypes beside each batch's loss at the
-initial weights.
+initial weights.  The third runs only env, build and phase
+``lm_families``.
 
 
 Phases, one JSON line each:
@@ -134,7 +136,29 @@ Phases, one JSON line each:
                ``scaled_dot_product_attention``'s forward + backward; (e) a
                restart at the reduced config through the launcher's
                ``main``;
-11. ``bench``  the port's benchmark producers and the tuner, in a temporary
+11. ``lm_families`` the moe, hybrid, ssm, audio and vlm families at full
+               width (bf16, seeded random weights, stub frontends), one
+               architecture at a time, each freed before the next: (a)
+               olmoe-1b-7b, zamba2-1.2b and xlstm-1.3b served through
+               ``repro_torch.launch.serve`` (8 requests, 4 slots, 16 new
+               tokens, max_len 128), musicgen-large and
+               llama-3.2-vision-11b through ``trainer.make_prefill_step``
+               at B=2, S=512 (1,600 patches) and 16 ``decode_step``s; (b)
+               ``launch.train --batch 1 --seq 1024 --steps 2`` (vlm 2,048,
+               past its 1,600 patches) with SGD, checkpoint writes off; each
+               with launch counts zeroed just before and read just after;
+               (c) each at a cut depth (moe and audio 2 layers, vlm 5,
+               hybrid and ssm 8) through the kernels, the plain versions
+               and fp32: prefill hidden states and caches and decode
+               logits by ``_held_bf16``, one step's gradient leaves by
+               ``_held_bf16_grad``; (d) the flash_attn shapes they bring
+               (head dims 64 and 128, one query head a kv head, the
+               non-causal cross call at Sq 2,048 > Sk 1,600 forward and
+               backward, decode over 1,600 keys) against the plain version
+               beside SDPA; (e) ``launch.train --smoke --ckpt-dir`` then
+               ``launch.serve --smoke --ckpt`` serving the same tokens as
+               an engine on the trainer's final weights;
+12. ``bench``  the port's benchmark producers and the tuner, in a temporary
                results and tune directory: (a) ``bench_kernels.run("paper")``
                (every row checked on the card and true, roofline shares at
                most 1.05, the gate clean, a warm re-run byte-identical;
@@ -157,7 +181,7 @@ Phases, one JSON line each:
                ``bench_serve`` and one traced ``bench_live`` drive, then
                ``python -m repro_torch.obs.report --check`` over their
                trace dir (exit 0, the kernel, serve and live layers);
-12. ``sweep``  the multi-worker sweep, traced, with the profiler capture
+13. ``sweep``  the multi-worker sweep, traced, with the profiler capture
                on (``REPRO_TRACE_XPROF=1``): the ci profile's Table 7 and
                Fig. 22 trials in this process from no cache, then through
                a ``Runner`` with a 2-worker ``LocalProcessExecutor`` on the
@@ -173,7 +197,7 @@ Phases, one JSON line each:
                capture a worker attempt naming a port kernel; wall seconds
                of the serial run and of the sweep, recorded (the workers
                share the card);
-13. ``timing`` each kernel and its plain version at the main path's shapes
+14. ``timing`` each kernel and its plain version at the main path's shapes
                (glm_sgd also at covtype R=8 B=1, on its shared-memory
                variant at covtype B=16, on its cluster variant beside the
                shared-memory one at phase study's real-sim seq epoch and
@@ -206,6 +230,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import importlib
 import io
 import json
@@ -2556,6 +2581,518 @@ def run_lm_train_probe(scratch: Path) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase lm_families: the moe, hybrid, ssm, audio and vlm families
+# ---------------------------------------------------------------------------
+
+#: the families' largest architectures one card holds, served through the
+#: launcher (tokens in) or through the prefill step and decode steps
+#: (audio's frames and vlm's patches in: the engine feeds tokens alone)
+FAMILY_SERVED = ("olmoe-1b-7b", "zamba2-1.2b", "xlstm-1.3b")
+FAMILY_PREFILLED = ("musicgen-large", "llama-3.2-vision-11b")
+FAMILY_ARGV = ["--requests", "8", "--slots", "4", "--max-new", "16",
+               "--max-len", "128", "--seed", "0"]
+#: the prefill step's batch and length, and the decode steps after it
+FAMILY_PREFILL = (2, 512)
+FAMILY_DECODE_STEPS = 16
+#: the training runs: sequence length per architecture (vlm past its 1,600
+#: patches, so its cross-attention runs Sq 2,048 > Sk 1,600), batch 1
+FAMILY_TRAIN_SEQ = {"olmoe-1b-7b": 1024, "zamba2-1.2b": 1024,
+                    "xlstm-1.3b": 1024, "musicgen-large": 1024,
+                    "llama-3.2-vision-11b": 2048}
+FAMILY_TRAIN_STEPS = 2
+#: SGD's rate: xlstm-1.3b's gradient at its initial weights is too large
+#: for any usual rate (global norm 7.6e9, its largest element 8.5e7 in the
+#: first mLSTM's gates: (b) records both), so its rate keeps the largest
+#: update near 0.01, as the reference's own test scales its rate by the
+#: gradient norm for this stiff model (tests/test_archs.py:46-48)
+FAMILY_TRAIN_LR = {"xlstm-1.3b": 1e-10}
+FAMILY_TRAIN_LR_DEFAULT = 0.01
+#: the depth (c) holds each family at: full width, the reduced configs'
+#: depths (a vlm superblock, a hybrid superblock and its tail of 2, an
+#: xLSTM superblock)
+FAMILY_CUT = {"moe": 2, "audio": 2, "vlm": 5, "hybrid": 8, "ssm": 8}
+#: (d): the shapes of flash_attn these families bring, (label, (B, Hq, Hkv,
+#: Sq, Sk, hd), causal)
+FAMILY_ATTN = (
+    ("hd 64, rep 1, causal (musicgen, zamba2)", (1, 32, 32, 1024, 1024, 64),
+     True),
+    ("hd 128, rep 1, causal (olmoe)", (1, 16, 16, 1024, 1024, 128), True),
+    ("hd 128, rep 4, causal (llama-vision self)", (1, 32, 8, 2048, 2048, 128),
+     True),
+    ("cross Sq 2048 > Sk 1600, hd 128, rep 4", (1, 32, 8, 2048, 1600, 128),
+     False),
+    ("cross at prefill, Sq 512 < Sk 1600", (2, 32, 8, 512, 1600, 128), False),
+    ("decode cross, Sq 1 over 1600", (2, 32, 8, 1, 1600, 128), False),
+    ("decode hd 64, rep 1", (4, 32, 32, 1, 128, 64), True),
+    ("decode hd 128, rep 1", (4, 16, 16, 1, 128, 128), True),
+)
+#: (e): the --ckpt round trip's architectures, reduced
+FAMILY_CKPT = ("minitron-4b", "olmoe-1b-7b")
+
+
+def _attention_layers(cfg) -> int:
+    """flash_attn calls one forward (or decode step) makes."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers,
+            "audio": cfg.n_layers, "vlm": cfg.n_layers,
+            "hybrid": cfg.n_layers // 6, "ssm": 0}[cfg.family]
+
+
+def _family_inputs(cfg, b: int, s: int, dev, seed: int) -> dict:
+    """A model's inputs on the card: tokens, or the stub frontends'
+    embeddings (audio's frames in place of tokens, vlm's 1,600 patches
+    beside them)."""
+    from repro_torch.data import modality_stubs
+
+    rng = np.random.default_rng(seed)
+    ins = {}
+    if cfg.emb_in():
+        ins["embeddings"] = modality_stubs.encodec_frames(
+            rng, b, s, cfg.d_model, cfg.param_dtype, device=dev)
+    else:
+        ins["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    if cfg.family == "vlm":
+        ins["memory"] = modality_stubs.vit_patches(
+            rng, b, cfg.n_memory, cfg.d_model, cfg.param_dtype, device=dev)
+    return ins
+
+
+def _family_serve(name: str, dev) -> tuple[object, dict, dict]:
+    """A tokens-in family through the launcher's setup and engine, launch
+    counts zeroed just before ``run`` and read just after."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--arch", name] + FAMILY_ARGV)
+    t0 = time.perf_counter()
+    cfg, engine, reqs = serve.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    common.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = common.LAUNCHES["flash_attn"]
+    tokens = sum(len(r.out) for r in done)
+    out = {"path": "launch.serve", "setup_s": setup_s,
+           "n_params": sum(p.numel() for p in engine.params.parameters()),
+           "requests": len(reqs), "done": len(done), "tokens": tokens,
+           "decode_steps": engine.steps, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ms_per_step": wall / engine.steps * 1e3,
+           "flash_attn_launches": launches,
+           "expected_launches": _attention_layers(cfg) * engine.steps,
+           "tokens_in_range": all(0 <= t < cfg.vocab
+                                  for r in done for t in r.out)}
+    out["ok"] = bool(out["done"] == len(reqs) and out["tokens_in_range"]
+                     and launches == out["expected_launches"])
+    # where a step's time goes: four more steps for the 4 slots, profiled
+    out["step_breakdown"] = _lm_profile(lambda: [
+        engine._step(engine.last_tok, args.max_len - 8 + i)
+        for i in range(4)], 4)
+    if cfg.family == "moe":
+        out["expert_bytes_per_step"] = _expert_bytes(cfg)
+    return cfg, out, {"decode": launches, "mma": 0, "backward": 0}
+
+
+def _expert_bytes(cfg) -> dict:
+    """A MoE decode step's bytes floor: the capacity buffer reaches every
+    expert, so every expert's three matrices are read (in the model's
+    dtype), and its time at the card's memory rate."""
+    nbytes = (cfg.n_layers * cfg.moe_experts * 3 * cfg.d_model * cfg.d_ff
+              * torch.finfo(cfg.param_dtype).bits // 8)
+    return {"bytes": nbytes, "ms_at_hbm_rate": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _family_prefill(name: str, dev) -> tuple[object, dict, dict]:
+    """An embeddings-in family through ``trainer.make_prefill_step`` at
+    FAMILY_PREFILL, then FAMILY_DECODE_STEPS ``decode_step``s from that
+    cache (audio's next frame from the stub, vlm's next token the
+    argmax), launch counts zeroed just before each and read just after."""
+    from repro_torch import configs
+    from repro_torch.data import modality_stubs
+    from repro_torch.kernels import common
+    from repro_torch.nn import decode, transformer
+    from repro_torch.train import trainer
+
+    cfg = configs.get(name)
+    b, s = FAMILY_PREFILL
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    ins = _family_inputs(cfg, b, s, dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill = trainer.make_prefill_step(cfg)
+    with torch.inference_mode():
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pre = prefill(params, ins)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = common.LAUNCHES["flash_attn"]
+        cache = decode.init_cache(cfg, b, s + FAMILY_DECODE_STEPS, dev)
+        for key, t in pre.items():
+            cache[key][..., :s, :].copy_(t)
+        rng = np.random.default_rng(1)
+        step_logits = []
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FAMILY_DECODE_STEPS):
+            if cfg.emb_in():
+                one = {"embeddings": modality_stubs.encodec_frames(
+                    rng, b, 1, cfg.d_model, cfg.param_dtype, device=dev)}
+            else:
+                one = {"tokens": logits.argmax(-1, keepdim=True).to(
+                    torch.int32), "memory": ins["memory"]}
+            logits, cache = decode.decode_step(params, cfg, cache, one, s + i)
+            step_logits.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_launches = common.LAUNCHES["flash_attn"]
+        step_breakdown = _lm_profile(lambda: [
+            decode.decode_step(params, cfg, cache, one, s + i)
+            for i in range(4)], 4)
+    finite = bool(all(torch.isfinite(lg).all() for lg in step_logits))
+    out = {"path": "trainer.make_prefill_step + decode.decode_step",
+           "setup_s": setup_s,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "B": b, "S": s, "memory": cfg.n_memory if cfg.family == "vlm"
+           else 0, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": b * s / prefill_s,
+           "prefill_flash_attn_launches": prefill_launches,
+           "decode_steps": FAMILY_DECODE_STEPS,
+           "ms_per_step": decode_s / FAMILY_DECODE_STEPS * 1e3,
+           "decode_flash_attn_launches": decode_launches,
+           "expected_launches": _attention_layers(cfg),
+           "logits_shape": list(logits.shape), "finite": finite,
+           "step_breakdown": step_breakdown}
+    out["ok"] = bool(finite and prefill_launches == _attention_layers(cfg)
+                     and decode_launches
+                     == _attention_layers(cfg) * FAMILY_DECODE_STEPS
+                     and list(logits.shape) == [b, cfg.vocab])
+    del params, cache, pre
+    return cfg, out, {"decode": decode_launches, "mma": prefill_launches,
+                      "backward": 0}
+
+
+def free_memory() -> None:
+    """Collect the garbage that reference cycles hold (a step's autograd
+    and checkpoint closures can keep a model's tensors alive past the
+    phase that made them: the next model's peak would count them), then
+    return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
+    """``launch.train --arch name --batch 1 --seq S --steps 2`` with SGD,
+    through the launcher's objects, launch counts zeroed just before
+    ``loop.run`` and read just after.  The loop's checkpoint writes are
+    switched off here (a full-width model's state is 13-37 GB of host
+    copy a save; phase lm_train and (e) cover the writes)."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import train
+
+    from repro_torch.train import trainer
+
+    seq = FAMILY_TRAIN_SEQ[name]
+    argv = ["--arch", name, "--batch", "1", "--seq", str(seq), "--steps",
+            str(FAMILY_TRAIN_STEPS), "--optimizer", "sgd", "--lr",
+            str(FAMILY_TRAIN_LR.get(name, FAMILY_TRAIN_LR_DEFAULT))]
+    args = train.parse_args(argv + ["--ckpt-dir", str(scratch / "families")])
+    free_memory()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, loop, batches = train.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    loop.ckpt.maybe_save = lambda step, tree: False
+    rec = _timed_loop(loop)
+    # each step's gradient: global norm, largest element and its leaf
+    grads_seen, value_and_grad = [], trainer.value_and_grad
+
+    def recorded(*a):
+        loss, grads = value_and_grad(*a)
+        tops = {k: float(g.abs().max()) for k, g in grads.items()}
+        top = max(tops, key=tops.get)
+        grads_seen.append({
+            "norm": float(sum(g.float().pow(2).sum()
+                              for g in grads.values()) ** 0.5),
+            "max": tops[top], "max_leaf": top,
+            "finite": all(np.isfinite(v) for v in tops.values())})
+        return loss, grads
+
+    # the plain attention backward's calls (row 6d of PERF.md's table)
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    bwd_calls, attention_bwd = [0], attn_ref.attention_bwd_ref
+
+    def counted(*a, **kw):
+        bwd_calls[0] += 1
+        return attention_bwd(*a, **kw)
+
+    trainer.value_and_grad, attn_ref.attention_bwd_ref = recorded, counted
+    common.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state, history = loop.run(batches, args.steps)
+        torch.cuda.synchronize()
+    finally:
+        trainer.value_and_grad = value_and_grad
+        attn_ref.attention_bwd_ref = attention_bwd
+    wall = time.perf_counter() - t0
+    launches = common.LAUNCHES["flash_attn"]
+    losses = train.losses_of(history)
+    out = {"argv": argv, "setup_s": setup_s, "wall_s": wall,
+           "losses": losses, "grads": grads_seen, "step_ms": rec["step_ms"],
+           "tokens_per_s": seq / (rec["step_ms"][-1] / 1e3),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "start_memory_gb": start_gb,
+           "flash_attn_launches": launches,
+           "expected_launches": 2 * _attention_layers(cfg) * len(losses),
+           "attention_backward_calls": bwd_calls[0]}
+    out["ok"] = bool(len(losses) == FAMILY_TRAIN_STEPS
+                     and bwd_calls[0] == _attention_layers(cfg) * len(losses)
+                     and all(np.isfinite(losses))
+                     and all(g["finite"] for g in grads_seen)
+                     and launches == out["expected_launches"])
+    del state, loop, batches
+    return out, {"decode": 0, "mma": launches, "backward": bwd_calls[0]}
+
+
+def _family_held(name: str, dev) -> dict:
+    """(c): the family at full width and FAMILY_CUT depth, in bf16 through
+    the kernels and through the plain versions, and in fp32 through the
+    plain versions (the yardstick): the prefill's hidden states and
+    caches and four decode steps' logits by ``_held_bf16``, and every
+    gradient leaf of one training step by ``_held_bf16_grad``.  The loss
+    is recorded the same way but not held: one scalar's ratio spreads
+    from 0.14 to 7.7 over seeds on either bf16 path (PR 22's probe,
+    PERF.md §6)."""
+    from repro_torch import configs
+    from repro_torch.kernels import common
+    from repro_torch.nn import decode, transformer
+    from repro_torch.train import trainer
+
+    full = configs.get(name)
+    cfg = dataclasses.replace(full, n_layers=FAMILY_CUT[full.family])
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    lm = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    p32 = {k: v.float() for k, v in params.items()}
+    del lm
+    seq = FAMILY_TRAIN_SEQ[name]
+    ins = _family_inputs(cfg, 1, seq, dev, seed=2)
+    ins32 = {k: (v.float() if v.is_floating_point() else v)
+             for k, v in ins.items()}
+    paths = (("kernel", cfg, params, ins, False),
+             ("plain", cfg, params, ins, True),
+             ("fp32", cfg32, p32, ins32, True))
+
+    def plain_if(flag):
+        return common.plain_versions() if flag else contextlib.nullcontext()
+
+    outs = {}
+    with torch.inference_mode():
+        for label, c, p, x, plain in paths:
+            lm = transformer.LM.from_tree(p).requires_grad_(False)
+            with plain_if(plain):
+                h, cache = transformer.forward(lm, c, x, mode="prefill")
+                dc = decode.init_cache(c, 1, 8, dev)
+                logits = []
+                for i in range(4):
+                    one = {k: (v if k == "memory" else v[:, i:i + 1])
+                           for k, v in x.items()}
+                    logits.append(decode.decode_step(lm, c, dc, one, i)[0])
+            outs[label] = {"hidden": h, **{f"cache_{k}": v
+                                           for k, v in cache.items()},
+                           "decode_logits": torch.stack(logits)}
+            del lm
+    held = {k: _held_bf16(outs["kernel"][k], outs["plain"][k],
+                          outs["fp32"][k]) for k in outs["kernel"]}
+    del outs
+    labels = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, seq)).astype(np.int32)).to(dev)
+    grads = {}
+    for label, c, p, x, plain in paths:
+        with plain_if(plain):
+            grads[label] = trainer.value_and_grad(c, p, {**x, "labels": labels})
+    loss = _held_bf16(*(grads[k][0] for k in ("kernel", "plain", "fp32")))
+    leaves = {k: _held_bf16_grad(grads["kernel"][1][k], grads["plain"][1][k],
+                                 grads["fp32"][1][k])
+              for k in grads["kernel"][1]}
+    del grads, params, p32
+    worst = max(leaves, key=lambda k: leaves[k]["max_ratio"])
+    return {"n_layers": cfg.n_layers, "seq": seq,
+            "cut": f"{full.n_layers} -> {cfg.n_layers} layers, full width",
+            "forward": held, "loss": loss, "leaves": len(leaves),
+            "leaves_ok": sum(h["ok"] for h in leaves.values()),
+            "failing": sorted(k for k, h in leaves.items() if not h["ok"])[:8],
+            "worst_leaf": {"name": worst, **leaves[worst]},
+            "max_rms_ratio": max(h["rms_ratio"] for h in leaves.values()),
+            "seconds": time.perf_counter() - t0,
+            "ok": bool(all(h["ok"] for h in held.values())
+                       and all(h["ok"] for h in leaves.values()))}
+
+
+def _family_attention(dev) -> dict:
+    """(d): each new flash_attn shape through the kernel against the
+    plain version, the cross call's backward too (autograd through the
+    kernel's forward and the plain backward, against autograd through the
+    plain forward in fp32), with the kernel's device ms beside
+    ``scaled_dot_product_attention``'s."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    cases = []
+    for n, (label, shape, causal) in enumerate(FAMILY_ATTN):
+        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=300 + n)
+        err, ok = close(K.flash_attention(q, k, v, causal=causal),
+                        attention_ref(q, k, v, causal=causal), ATTN_BF16_TOL)
+        mask = end_aligned_mask(shape[3], shape[4], causal, None, dev)
+        in_bytes, flops = attn_work(q, k, causal, None)
+        bound, by = bound_ms(in_bytes, flops, BF16_FLOPS_PER_S)
+        cases.append({
+            "case": label, "shape": list(shape), "causal": causal,
+            "variant": attn_ops.variant(torch.bfloat16, shape[3],
+                                        shape[1] // shape[2]),
+            "max_abs_err": err, "tol": ATTN_BF16_TOL, "ok": ok,
+            "ms": cuda_ms(lambda: K.flash_attention(q, k, v, causal=causal),
+                          10),
+            "sdpa_ms": cuda_ms(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, attn_mask=mask,
+                                   enable_gqa=True), 10),
+            "bound_ms": bound, "bound_by": by})
+    # the cross call's backward at the vlm training shape
+    shape = FAMILY_ATTN[3][1]
+    q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=399)
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(12)).to(torch.bfloat16)
+
+    def grads_of(fn, dtype):
+        leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, do.to(dtype))
+
+    ref32 = grads_of(lambda *x: attention_ref(*x, causal=False),
+                     torch.float32)
+    mine = grads_of(lambda *x: K.flash_attention(*x, causal=False),
+                    torch.bfloat16)
+    rel = [float((a.float() - b).abs().max() / b.abs().max())
+           for a, b in zip(mine, ref32)]
+    mine32 = grads_of(lambda *x: K.flash_attention(*x, causal=False),
+                      torch.float32)
+    fp32 = [close(a, b, ATTN_TOL) for a, b in zip(mine32, ref32)]
+    cases.append({"case": "cross backward Sq 2048 > Sk 1600, bf16 and fp32",
+                  "shape": list(shape), "bf16_rel_err": rel,
+                  "bf16_rel_limit": BWD_BF16_REL,
+                  "fp32_max_abs_err": [e for e, _ in fp32],
+                  "ok": bool(max(rel) <= BWD_BF16_REL
+                             and all(ok for _, ok in fp32))})
+    return {"cases": cases, "ok": all(c["ok"] for c in cases)}
+
+
+def _family_ckpt(dev, scratch: Path) -> dict:
+    """(e): ``launch.train --smoke --ckpt-dir D`` (a checkpoint every
+    step, so the last holds the final weights), then ``launch.serve
+    --smoke --ckpt D``: its engine serves the same tokens as an engine on
+    the trainer's final parameters."""
+    from repro_torch.launch import serve, train
+    from repro_torch.nn import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    out = []
+    for name in FAMILY_CKPT:
+        d = scratch / f"ckpt-{name}"
+        args = train.parse_args(["--arch", name, "--smoke", "--steps", "4",
+                                 "--ckpt-every", "1", "--ckpt-dir", str(d),
+                                 "--device", str(dev)])
+        cfg, loop, batches = train.setup(args)
+        (final, _), history = loop.run(batches, args.steps)
+        losses = train.losses_of(history)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, restored, reqs = serve.setup(serve.parse_args(
+                ["--arch", name, "--smoke", "--ckpt", str(d), "--device",
+                 str(dev)]))
+        twin = ServeEngine(cfg, transformer.LM.from_tree(final)
+                           .requires_grad_(False), slots=4, max_len=128,
+                           device=dev)
+        a = [r.out for r in restored.run(reqs, max_ticks=4000)]
+        b = [r.out for r in twin.run([Request(r.rid, r.prompt, r.max_new)
+                                      for r in reqs], max_ticks=4000)]
+        out.append({"arch": cfg.name, "losses": losses,
+                    "printed": buf.getvalue().strip(),
+                    "requests": len(reqs), "same_tokens": a == b,
+                    "ok": bool(a == b and len(a) == len(reqs) and
+                               f"restored checkpoint step {args.steps - 1}"
+                               in buf.getvalue())})
+        shutil.rmtree(d)
+    return {"runs": out, "ok": all(r["ok"] for r in out)}
+
+
+def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
+    """The five families past dense at full width, one architecture at a
+    time, each model freed before the next: (a) serving, (b) training,
+    (c) held against the plain versions and fp32 at a cut depth; then (d)
+    the new flash_attn shapes and (e) ``launch.serve --ckpt``.  Returns
+    the phase line and the main paths' flash_attn launches by variant."""
+    t_phase = time.perf_counter()
+    runs, launches = {}, {"decode": 0, "mma": 0, "backward": 0}
+    for name in FAMILY_SERVED + FAMILY_PREFILLED:
+        free_memory()
+        t0 = time.perf_counter()
+        serve_fn = _family_serve if name in FAMILY_SERVED else _family_prefill
+        cfg, served, counts = serve_fn(name, dev)
+        trained, train_counts = _family_train(name, scratch=scratch, dev=dev)
+        free_memory()
+        held = _family_held(name, dev)
+        for key in launches:
+            launches[key] += counts[key] + train_counts[key]
+        runs[name] = {"family": cfg.family, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model,
+                      "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
+                      "dtype": str(cfg.param_dtype), "serve": served,
+                      "train": trained, "held": held,
+                      "seconds": time.perf_counter() - t0,
+                      "ok": bool(served["ok"] and trained["ok"]
+                                 and held["ok"])}
+    free_memory()
+    attn = _family_attention(dev)
+    free_memory()
+    ckpt = _family_ckpt(dev, scratch)
+    return {"phase": "lm_families", "runs": runs, "flash_attn": attn,
+            "ckpt": ckpt, "launches": launches,
+            "seconds": time.perf_counter() - t_phase,
+            "ok": bool(all(r["ok"] for r in runs.values()) and attn["ok"]
+                       and ckpt["ok"])}, launches
+
+
+def run_lm_families(scratch: Path) -> int:
+    """``python3 chip_smoke.py --lm-families``: the env and build phases,
+    then phase ``lm_families`` alone, the card's name and power limit
+    last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    line, _ = phase_lm_families(dev, scratch)
+    emit(line)
+    print(smi, flush=True)
+    return 0 if line["ok"] else 1
+
+
+# ---------------------------------------------------------------------------
 # Phase bench: the kernel bench, the tuner's candidates, the services'
 # benches with the health monitor, and the host cost of the tuner's consult
 # ---------------------------------------------------------------------------
@@ -3611,9 +4148,9 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--lm-train-probe"]):
-        print("usage: python3 chip_smoke.py [--lm-train-probe]",
-              file=sys.stderr)
+    if argv not in ([], ["--lm-train-probe"], ["--lm-families"]):
+        print("usage: python3 chip_smoke.py [--lm-train-probe | "
+              "--lm-families]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3625,6 +4162,8 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as scratch:
         os.environ["REPRO_TORCH_TUNE_DIR"] = str(Path(scratch) / "tune")
         os.environ.pop("REPRO_TORCH_KERNEL_AUTOTUNE", None)
+        if argv == ["--lm-families"]:
+            return run_lm_families(Path(scratch))
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
@@ -3715,6 +4254,17 @@ def run(scratch: Path) -> int:
         return 1
     # the mma kernel's main paths: phase lm's prefill and the training run
     launches["flash_attn_mma"] += train_launches
+    del line
+    free_memory()
+    line, family_launches = phase_lm_families(dev, scratch)
+    emit(line)
+    if not line["ok"]:
+        return 1
+    # the families' serving and decode steps, and their prefills and
+    # training steps
+    launches["flash_attn_decode"] += family_launches["decode"]
+    launches["flash_attn_mma"] += family_launches["mma"]
+    torch.cuda.empty_cache()
 
     line = phase_bench(dev, covtype, w8a, realsim, scratch / "bench")
     emit(line)

@@ -1,8 +1,7 @@
 """Architecture registry + input-shape suite + reduced smoke configs.
 
-The reference's ten architecture files, as data.  Only the dense family
-runs in this port so far (``nn.transformer.init_params`` and
-``nn.decode.init_cache`` raise ``NotImplementedError`` for the others).
+The reference's ten architecture files, as data; the port runs all six
+families (``nn.transformer``, ``nn.decode``).
 """
 from __future__ import annotations
 

@@ -51,32 +51,104 @@ def _flatten(tree, prefix="") -> dict:
     return out
 
 
-def lm_shapes(cfg: transformer.ArchConfig) -> dict[str, tuple]:
-    """The reference's dense parameter tree, as path -> shape, with the
-    layer axis stacked first (its ``scan`` layout)."""
-    transformer.require_ported(cfg)
-    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+#: leaves the reference keeps in fp32 whatever ``param_dtype`` is: the MoE
+#: router, Mamba2's dt_bias, a_log and d_skip, mLSTM's gates, sLSTM's bias
+FP32_LEAVES = ("router", "dt_bias", "a_log", "d_skip", "w_gates",
+               "gate_bias", "bias")
+
+
+def _block_shapes(cfg: transformer.ArchConfig, *, with_moe: bool = False
+                  ) -> dict[str, tuple]:
+    """One attention block's leaves (path below the block -> shape)."""
+    d, f = cfg.d_model, cfg.d_ff
     qd, kd = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
-    shapes = {
-        "embed": (cfg.vocab, d), "final_norm": (d,),
-        "layers/attn/wq": (L, d, qd), "layers/attn/wk": (L, d, kd),
-        "layers/attn/wv": (L, d, kd), "layers/attn/wo": (L, qd, d),
-        "layers/norm1": (L, d), "layers/norm2": (L, d),
-        "layers/ffn/w_up": (L, d, f), "layers/ffn/w_down": (L, f, d)}
-    if cfg.ffn_gated:
-        shapes["layers/ffn/w_gate"] = (L, d, f)
+    shapes = {"attn/wq": (d, qd), "attn/wk": (d, kd), "attn/wv": (d, kd),
+              "attn/wo": (qd, d), "norm1": (d,), "norm2": (d,)}
+    if with_moe:
+        e = cfg.moe_experts
+        shapes.update({"moe/router": (d, e), "moe/w_up": (e, d, f),
+                       "moe/w_gate": (e, d, f), "moe/w_down": (e, f, d)})
+    else:
+        shapes.update({"ffn/w_up": (d, f), "ffn/w_down": (f, d)})
+        if cfg.ffn_gated:
+            shapes["ffn/w_gate"] = (d, f)
     return shapes
+
+
+def _stacks(cfg: transformer.ArchConfig) -> dict[str, tuple[tuple, dict]]:
+    """Each stack of the reference's tree: name -> (its stacked leading
+    axes, its layer's leaves)."""
+    d, fam = cfg.d_model, cfg.family
+    if fam in ("dense", "audio", "moe"):
+        return {"layers": ((cfg.n_layers,),
+                           _block_shapes(cfg, with_moe=fam == "moe"))}
+    if fam == "vlm":
+        n_super, ce = transformer.vlm_shape(cfg)
+        return {"self_layers": ((n_super, ce - 1), _block_shapes(cfg)),
+                "cross_layers": ((n_super,), _block_shapes(cfg))}
+    if fam == "hybrid":
+        m = transformer._mamba_meta(cfg)
+        di, ds, nh = m["d_inner"], m["d_state"], m["n_heads"]
+        layer = {"mamba/w_in": (d, 2 * di + 2 * ds + nh),
+                 "mamba/conv": (m["conv_width"], di + 2 * ds),
+                 "mamba/dt_bias": (nh,), "mamba/a_log": (nh,),
+                 "mamba/d_skip": (nh,), "mamba/w_out": (di, d), "norm": (d,)}
+        n_sb, per, rest = transformer.hybrid_shape(cfg)
+        out = {"mamba_blocks": ((n_sb, per), layer)}
+        if rest:
+            out["mamba_tail"] = ((rest,), layer)
+        out["shared_attn"] = ((), _block_shapes(cfg))
+        return out
+    if fam == "ssm":
+        m = transformer._mlstm_meta(cfg)
+        di, nh = m["d_inner"], m["n_heads"]
+        hd = transformer._slstm_meta(cfg)["head_dim"]
+        n_sb, per = transformer.ssm_shape(cfg)
+        return {"mlstm_blocks": ((n_sb, per - 1), {
+                    "mix/w_up": (d, 2 * di), "mix/w_qkv": (di, 3 * di),
+                    "mix/w_gates": (di, 2 * nh), "mix/gate_bias": (2 * nh,),
+                    "mix/w_down": (di, d), "norm": (d,)}),
+                "slstm_blocks": ((n_sb,), {
+                    "mix/w_x": (d, 4 * d), "mix/r_h": (nh, hd, 4 * hd),
+                    "mix/bias": (4 * d,), "mix/w_out": (d, d), "norm": (d,)})}
+    raise ValueError(f"unknown family {fam!r}")
+
+
+def lm_shapes(cfg: transformer.ArchConfig) -> dict[str, tuple]:
+    """The reference's parameter tree, as path -> shape, with each stack's
+    layer axes first (its ``scan`` layout: ``[L, ...]``, ``[n_super,
+    ce-1, ...]``, ``[n_sb, per, ...]``; hybrid's shared block unstacked)."""
+    io = ({"head": (cfg.d_model, cfg.vocab)} if cfg.emb_in()
+          else {"embed": (cfg.vocab, cfg.d_model)})
+    shapes = {**io, "final_norm": (cfg.d_model,)}
+    for stack, (lead, leaves) in _stacks(cfg).items():
+        shapes.update({f"{stack}/{k}": (*lead, *s) for k, s in leaves.items()})
+    return shapes
+
+
+def _port_names(cfg: transformer.ArchConfig, path: str
+                ) -> tuple[tuple, list[str]]:
+    """A reference path's stacked axes and the port's parameter name for
+    each of its layers, in C order (``mamba_blocks/norm`` ->
+    ``mamba_blocks.0.0.norm``, ...)."""
+    stack, _, rest = path.partition("/")
+    if not rest:
+        return (), [path]
+    lead = _stacks(cfg)[stack][0]
+    leaf = rest.replace("/", ".")
+    return lead, [".".join((stack, *map(str, i), leaf))
+                  for i in np.ndindex(*lead)]
 
 
 def lm_params_from_reference(params: dict, cfg: transformer.ArchConfig,
                              device=None, *,
                              trainable: bool = False) -> transformer.LM:
-    """The reference's parameter tree (nested dicts of arrays: ``embed``,
-    ``final_norm``, and ``layers`` stacked ``[L, ...]``) as the port's
+    """The reference's parameter tree (nested dicts of arrays, stacks
+    stacked on their layer axes: :func:`lm_shapes`) as the port's
     :class:`~repro_torch.nn.transformer.LM` on ``device``, in
-    ``cfg.param_dtype``, requiring grad when ``trainable``.  Every path and
-    shape is checked; the layer axis is unstacked into one block per
-    layer."""
+    ``cfg.param_dtype`` (``FP32_LEAVES`` in fp32), requiring grad when
+    ``trainable``.  Every path and shape is checked; the layer axes are
+    unstacked into one block per layer."""
     flat = _flatten(params)
     want = lm_shapes(cfg)
     if set(flat) != set(want):
@@ -89,21 +161,20 @@ def lm_params_from_reference(params: dict, cfg: transformer.ArchConfig,
         raise ValueError(f"parameter shapes for {cfg.name} (got, want): {bad}")
     tree = {}
     for k, a in flat.items():
-        t = _tensor(a, np.float32, device).to(cfg.param_dtype)
-        if k.startswith("layers/"):
-            name = k[len("layers/"):].replace("/", ".")
-            tree.update({f"layers.{i}.{name}": t[i]
-                         for i in range(cfg.n_layers)})
-        else:
-            tree[k] = t
+        dtype = (torch.float32 if k.rsplit("/", 1)[-1] in FP32_LEAVES
+                 else cfg.param_dtype)
+        t = _tensor(a, np.float32, device).to(dtype)
+        lead, names = _port_names(cfg, k)
+        t = t.reshape(-1, *t.shape[len(lead):]) if lead else t[None]
+        tree.update(zip(names, t))
     return transformer.LM.from_tree(tree).requires_grad_(trainable)
 
 
 def lm_params_to_reference(params, cfg: transformer.ArchConfig) -> dict:
     """The inverse: an :class:`~repro_torch.nn.transformer.LM` or its
-    parameter tree as the reference's tree of numpy arrays, layers stacked
-    ``[L, ...]``.  bf16 comes back as float32 (numpy has no bfloat16; every
-    value is exact)."""
+    parameter tree as the reference's tree of numpy arrays, stacks stacked
+    on their layer axes.  bf16 comes back as float32 (numpy has no
+    bfloat16; every value is exact)."""
     tree = (params if isinstance(params, dict)
             else dict(params.named_parameters()))
 
@@ -112,13 +183,9 @@ def lm_params_to_reference(params, cfg: transformer.ArchConfig) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     out: dict = {}
-    for path in lm_shapes(cfg):
-        if path.startswith("layers/"):
-            name = path[len("layers/"):].replace("/", ".")
-            arr = np.stack([host(tree[f"layers.{i}.{name}"])
-                            for i in range(cfg.n_layers)])
-        else:
-            arr = host(tree[path])
+    for path, shape in lm_shapes(cfg).items():
+        _, names = _port_names(cfg, path)
+        arr = np.stack([host(tree[n]) for n in names]).reshape(shape)
         *groups, leaf = path.split("/")
         node = out
         for g in groups:

@@ -1069,8 +1069,10 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
 // rows of hd, kv_head_stride elements apart (a prefix of a longer cache
 // passes its own stride).  hd a multiple of 8 up to 128, every pointer and
 // head 16-byte aligned, Hq a multiple of Hkv: the wrapper checks, and takes
-// 1 <= Sq <= Sk (with Sq > Sk the first queries sit before key 0 and see
-// nothing: 0).  window <= 0 means none.  bf16 != 0: bf16 operands, else
+// 1 <= Sq <= Sk, or any Sq when causal == 0 and window <= 0 (every query
+// sees every key: cross-attention; under a mask with Sq > Sk the first
+// queries would sit before key 0 and see nothing: 0).  window <= 0 means
+// none.  bf16 != 0: bf16 operands, else
 // fp32.  variant: 0 flash_attn_kernel (fp32 only), 1 flash_attn_mma_kernel
 // (bf16 only); bf16 decode has its own entry point, flash_attn_decode.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,

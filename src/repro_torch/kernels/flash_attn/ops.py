@@ -3,7 +3,9 @@
 ``cuda`` runs ``csrc/flash_attn.cu``: one launch per call, the kv head's
 query heads sharing every K/V row a block reads, keys no row of a block can
 see never loaded.  It takes any ``1 <= Sq <= Sk`` (decode calls it at
-``Sq = 1`` over a cache prefix, read in place), bf16 or fp32, head dims
+``Sq = 1`` over a cache prefix, read in place), and any ``Sq`` past ``Sk``
+for a call with no mask (cross-attention: ``causal=False``, no window,
+where every query sees every key), bf16 or fp32, head dims
 that are multiples of 8 up to 128.  :func:`variant` picks the kernel from
 the dtype and the rows a kv head serves (``Sq * Hq / Hkv``) alone:
 
@@ -255,9 +257,10 @@ def flash_attention(
     hkv, sk = k.shape[1], k.shape[2]
     if hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attn: Hq={hq} is not a multiple of Hkv={hkv}")
-    if not 1 <= sq <= sk:
-        raise ValueError(f"flash_attn: needs 1 <= Sq <= Sk, got Sq={sq}, "
-                         f"Sk={sk}")
+    if sq < 1 or sk < 1 or (sq > sk and (causal or window is not None)):
+        raise ValueError(f"flash_attn: needs 1 <= Sq <= Sk (any Sq >= 1 "
+                         f"when causal=False without a window), got Sq={sq}, "
+                         f"Sk={sk}, causal={causal}, window={window}")
     if hd % HEAD_DIM_MULTIPLE or not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attn: head dim {hd} is not a multiple of "
                          f"{HEAD_DIM_MULTIPLE} up to {MAX_HEAD_DIM}")

@@ -76,8 +76,9 @@ def attention_bwd_ref(
     dtype: bf16 on the tensor cores), the softmax and its gradient (the
     softmax VJP ``P * (dP - sum(P * dP))``) in fp32, and ``dk``/``dv`` sum
     the chunks in fp32: the precision of the reference's differentiated
-    path.  Every row sees at least the key at its own position (the
-    wrapper's ``Sq <= Sk``, ``window >= 1``), so no softmax row is empty."""
+    path.  Every row sees at least one key (the wrapper's ``Sq <= Sk`` and
+    ``window >= 1`` under a mask, every key without one: cross-attention
+    takes ``Sq > Sk``), so no softmax row is empty."""
     with common.fp32_products(q):
         b, hq, sq, hd = q.shape
         hkv, sk = k.shape[1], k.shape[2]

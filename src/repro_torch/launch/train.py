@@ -30,11 +30,13 @@ from repro_torch.train import fault, trainer
 
 
 def make_batch_fn(cfg, gb, seq, seed=0, fixed: bool = False, device=None):
-    """Token and label batches [gb, seq] (int32, on ``device``) drawn as the
-    reference draws them.  ``fixed=True`` repeats one batch — smoke runs
-    overfit it, which is the honest convergence check on synthetic data
-    (fresh random tokens have no learnable structure beyond the
-    marginal)."""
+    """Batches on ``device`` drawn as the reference draws them, in its
+    order: "embeddings" [gb, seq, d] (audio) or "tokens" [gb, seq], then
+    for vlm "memory" [gb, n_memory, d] (both N(0, 1) in the model's
+    dtype), then "labels" [gb, seq] (int32).  ``fixed=True`` repeats one
+    batch — smoke runs overfit it, which is the honest convergence check
+    on synthetic data (fresh random tokens have no learnable structure
+    beyond the marginal)."""
     rng = np.random.default_rng(seed)
     dev = common.device(device)
 
@@ -42,9 +44,17 @@ def make_batch_fn(cfg, gb, seq, seed=0, fixed: bool = False, device=None):
         return torch.from_numpy(
             rng.integers(0, cfg.vocab, (gb, seq)).astype(np.int32)).to(dev)
 
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(dev).to(cfg.param_dtype)
+
     def one():
-        tokens = draw()
-        return {"tokens": tokens, "labels": draw()}
+        ins = ({"embeddings": normal(gb, seq, cfg.d_model)} if cfg.emb_in()
+               else {"tokens": draw()})
+        if cfg.family == "vlm":
+            ins["memory"] = normal(gb, cfg.n_memory, cfg.d_model)
+        ins["labels"] = draw()
+        return ins
 
     def gen():
         first = one()

@@ -1,5 +1,6 @@
-"""Attention: GQA self-attention (full / sliding-window) and the
-single-token decode over a KV cache, both on the ``flash_attn`` kernel.
+"""Attention: GQA self-attention (full / sliding-window), cross-attention
+and the single-token decode over a KV cache, all on the ``flash_attn``
+kernel.
 
 The reference computes prefill with ``chunked_attention`` (an XLA
 online-softmax scan over query chunks) and decode with
@@ -7,7 +8,9 @@ online-softmax scan over query chunks) and decode with
 Pallas kernel as the runtime path on a TPU.  Both are that kernel's
 function at two shapes, so here both call :func:`flash_attention`:
 prefill at ``Sq = Sk``, decode at ``Sq = 1`` over the cache's first
-``valid`` keys.  In bf16 the port therefore follows the Pallas kernel's
+``valid`` keys; so does cross-attention, with no mask, at any ``Sq``
+against the memory's keys (a vlm's text queries may outnumber its 1,600
+patches).  In bf16 the port therefore follows the Pallas kernel's
 precision (fp32 scores and P.V), not the XLA path's (bf16 scores and P).
 
 Decode writes the new token's K/V into the caller's cache in place (a
@@ -102,3 +105,24 @@ def self_attention(
 
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
     return out @ p["wo"], new_cache
+
+
+def cross_attention(
+    x: torch.Tensor,       # [B, S, d]  text stream
+    memory: torch.Tensor,  # [B, M, d]  vision/audio embeddings
+    p: nn.ParameterDict,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """Every query sees every memory key (no rotary, no mask): the kernel
+    with ``causal=False``, whatever ``S`` is against ``M``."""
+    b, s, _ = x.shape
+    m = memory.shape[1]
+    q = (x @ p["wq"]).view(b, s, n_heads, head_dim).transpose(1, 2)
+    k = (memory @ p["wk"]).view(b, m, n_kv, head_dim).transpose(1, 2)
+    v = (memory @ p["wv"]).view(b, m, n_kv, head_dim).transpose(1, 2)
+    out = chunked_attention(q, k, v, causal=False)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    return out @ p["wo"]

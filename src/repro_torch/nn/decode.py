@@ -1,11 +1,22 @@
-"""Single-token decode (serve) path for the dense family.
+"""Single-token decode (serve) paths with per-family caches.
 
-Cache layout, stacked on the layer axis as in the reference:
+Cache layout, stacked on the layer axes as in the reference:
 
-  dense : k/v caches [L, B, Hkv, S_cache, hd], S_cache = min(max_len, window)
+  dense/moe/audio : k/v caches [L, B, Hkv, S_cache, hd],
+                    S_cache = min(max_len, window)
+  vlm             : self caches [n_super, ce-1, B, Hkv, max_len, hd]
+                    (cross-attention K/V are recomputed from the memory
+                    every step, as the reference does)
+  hybrid (zamba2) : mamba2 states h [n_sb, per, B, H, ds, hd] fp32 and
+                    conv [n_sb, per, B, W-1, d_inner + 2 ds], the tail's
+                    h_tail and conv_tail [rest, ...], and one shared-attention
+                    K/V history per superblock, attn_k/attn_v [n_sb, B, Hkv,
+                    S, hd], ring-cached at 4,096 past a 65,536 ``max_len``
+  ssm (xlstm)     : mLSTM states C [n_sb, 7, B, H, hd+1, hd] fp32 and sLSTM
+                    states s_c, s_n, s_h, s_m [n_sb, B, H, hd] fp32
 
-``decode_step`` writes each layer's new K/V into the cache in place and
-returns the same dict (the reference returns an updated copy).
+``decode_step`` writes every cache leaf in place and returns the same
+dict (the reference returns an updated copy).
 """
 from __future__ import annotations
 
@@ -15,32 +26,126 @@ from repro_torch.kernels import common
 from repro_torch.nn import layers, transformer
 from repro_torch.nn.transformer import LM, ArchConfig
 
+#: a hybrid's shared-attention history is ring-cached past this max_len
+HYBRID_FULL_CACHE = 65_536
+#: ... at this many slots
+HYBRID_RING = 4_096
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zeroed K/V caches on ``device`` (``cuda`` unless the caller says)."""
-    transformer.require_ported(cfg)
-    s_cache = min(max_len, cfg.window) if cfg.window else max_len
-    shape = (cfg.n_layers, batch, cfg.n_kv, s_cache, cfg.hd)
+    """Zeroed caches (sLSTM's stabilizer at -1e30) on ``device`` (``cuda``
+    unless the caller says)."""
+    fam, dt = cfg.family, cfg.param_dtype
     dev = common.device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)}
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(*lead, s):
+        return {"k": zeros(*lead, batch, cfg.n_kv, s, cfg.hd),
+                "v": zeros(*lead, batch, cfg.n_kv, s, cfg.hd)}
+
+    if fam in ("dense", "moe", "audio"):
+        return kv(cfg.n_layers,
+                  s=min(max_len, cfg.window) if cfg.window else max_len)
+    if fam == "vlm":
+        n_super, ce = transformer.vlm_shape(cfg)
+        return kv(n_super, ce - 1, s=max_len)
+    if fam == "hybrid":
+        meta = transformer._mamba_meta(cfg)
+        n_sb, per, rest = transformer.hybrid_shape(cfg)
+        state = (batch, meta["n_heads"], meta["d_state"], meta["head_dim"])
+        conv = (batch, meta["conv_width"] - 1,
+                meta["d_inner"] + 2 * meta["d_state"])
+        cache = {"h": zeros(n_sb, per, *state, dtype=torch.float32),
+                 "conv": zeros(n_sb, per, *conv)}
+        if rest:
+            cache["h_tail"] = zeros(rest, *state, dtype=torch.float32)
+            cache["conv_tail"] = zeros(rest, *conv)
+        attn = kv(n_sb, s=max_len if max_len <= HYBRID_FULL_CACHE
+                  else HYBRID_RING)
+        cache["attn_k"], cache["attn_v"] = attn["k"], attn["v"]
+        return cache
+    if fam == "ssm":
+        m_meta = transformer._mlstm_meta(cfg)
+        s_meta = transformer._slstm_meta(cfg)
+        n_sb, per = transformer.ssm_shape(cfg)
+        hd = m_meta["head_dim"]
+        sl = (n_sb, batch, s_meta["n_heads"], s_meta["head_dim"])
+        f32 = torch.float32
+        return {"C": zeros(n_sb, per - 1, batch, m_meta["n_heads"], hd + 1, hd,
+                           dtype=f32),
+                "s_c": zeros(*sl, dtype=f32), "s_n": zeros(*sl, dtype=f32),
+                "s_h": zeros(*sl, dtype=f32),
+                "s_m": torch.full(sl, -1e30, dtype=f32, device=dev)}
+    raise ValueError(f"unknown family {fam!r}")
 
 
 def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
                 idx: int):
-    """inputs: {"tokens" [B, 1]}; ``idx`` the host position of the step
-    (its rotary position and cache slot, shared by the batch).
+    """inputs: {"tokens" [B, 1]} or {"embeddings" [B, 1, d]} (audio), and
+    for vlm "memory" [B, M, d]; ``idx`` the host position of the step (its
+    rotary position and cache slot, shared by the batch).
 
     Returns (logits [B, vocab] fp32, cache written in place)."""
-    transformer.require_ported(cfg)
-    x = layers.embed(inputs["tokens"], params.embed)
+    fam = cfg.family
+    x = transformer.embed_inputs(params, cfg, inputs)
     positions = torch.full((x.shape[0], 1), idx, dtype=torch.int32,
                            device=x.device)
-    for layer, block in enumerate(params.layers):
-        x, _ = transformer.attn_block(
-            x, block, cfg, positions,
-            cache=(cache["k"][layer], cache["v"][layer], idx))
+
+    def attn(x, block, k, v):
+        return transformer.attn_block(x, block, cfg, positions,
+                                      cache=(k, v, idx))[0]
+
+    def write(states, new):
+        """A recurrent layer's new states over its cache slices."""
+        for old, t in zip(states, new):
+            old.copy_(t)
+
+    if fam in ("dense", "moe", "audio"):
+        for i, block in enumerate(params.layers):
+            x = attn(x, block, cache["k"][i], cache["v"][i])
+
+    elif fam == "vlm":
+        memory = inputs["memory"].to(cfg.param_dtype)
+        for sb, (self_p, cross_p) in enumerate(zip(params.self_layers,
+                                                   params.cross_layers)):
+            for j, lp in enumerate(self_p):
+                x = attn(x, lp, cache["k"][sb, j], cache["v"][sb, j])
+            x, _ = transformer.attn_block(x, cross_p, cfg, positions,
+                                          memory=memory)
+
+    elif fam == "hybrid":
+        def mamba(x, lp, h, conv):
+            x, new = transformer.mamba_layer(x, lp, cfg, state=h,
+                                             conv_state=conv)
+            write((h, conv), new)
+            return x
+
+        for sb, ps in enumerate(params.mamba_blocks):
+            for j, lp in enumerate(ps):
+                x = mamba(x, lp, cache["h"][sb, j], cache["conv"][sb, j])
+            # the shared (weight-tied) block, with this superblock's history
+            x = attn(x, params.shared_attn, cache["attn_k"][sb],
+                     cache["attn_v"][sb])
+        for t, lp in enumerate(getattr(params, "mamba_tail", ())):
+            x = mamba(x, lp, cache["h_tail"][t], cache["conv_tail"][t])
+
+    elif fam == "ssm":
+        for sb, (mp, sp) in enumerate(zip(params.mlstm_blocks,
+                                          params.slstm_blocks)):
+            for j, lp in enumerate(mp):
+                C = cache["C"][sb, j]
+                x, new = transformer.mlstm_layer(x, lp, cfg, state=C)
+                write((C,), (new,))
+            st = tuple(cache[k][sb] for k in ("s_c", "s_n", "s_h", "s_m"))
+            x, new = transformer.slstm_layer(x, sp, cfg, state=st)
+            write(st, new)
+
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+
     h = layers.rms_norm(x, params.final_norm)                 # [B, 1, d]
-    logits = (h[:, 0] @ params.embed.T).float()               # [B, V]
+    logits = (h[:, 0] @ params.unembedding().T).float()       # [B, V]
     return logits, cache

@@ -1,19 +1,28 @@
-"""Model assembly: the dense family's pre-norm block and forward pass.
+"""Model assembly: per-family blocks and forward passes.
 
+Families (the reference's ARCHITECTURES block):
   dense    pre-norm GQA attention + FFN (gated-SiLU or squared-ReLU)
+  moe      attention + top-k expert FFN
+  audio    dense backbone over precomputed frame embeddings (stub frontend)
+  hybrid   Mamba2 backbone + periodically-applied *shared* attention block
+  ssm      xLSTM: superblocks of (7 mLSTM + 1 sLSTM)
+  vlm      dense decoder + cross-attention to patch embeddings every 5 layers
 
-The reference also assembles the moe, audio, hybrid, ssm and vlm
-families; they are not ported yet (ROADMAP Queue 1 item 7(c)), and
-``init_params`` and ``forward`` raise ``NotImplementedError`` for them.
-Layers are an ``nn.ModuleList`` of :class:`AttnBlock`s run in a Python
-loop (the reference's ``scan``); weights keep the reference's
-``[d_in, d_out]`` layout.  ``forward`` and ``loss_fn`` take an
-:class:`LM`; ``LM.from_tree`` makes one over a parameter tree
+Layers are ``nn.ModuleList``s of blocks run in Python loops (the
+reference's ``scan`` over stacked layers; its two-level scans are nested
+lists: ``self_layers[super][j]``, ``mamba_blocks[super][j]``,
+``mlstm_blocks[super][j]``); weights keep the reference's ``[d_in,
+d_out]`` layout.  ``forward`` and ``loss_fn`` take an :class:`LM`;
+``LM.from_tree`` makes one over a parameter tree
 (``dict(lm.named_parameters())``, the tree the trainer and optimizers
 carry: :mod:`repro_torch.utils.tree`).  Training under grad mode
-rematerialises each block in the backward (``torch.utils.checkpoint``,
-the reference's ``jax.checkpoint`` with ``nothing_saveable``).  No mesh:
-the reference's ``shard`` callback and sharding specs stay out.
+rematerialises each scanned body in the backward, as the reference's
+``ckpt`` does (``torch.utils.checkpoint``, its ``jax.checkpoint`` with
+``nothing_saveable``): a block for dense, moe and audio, a superblock for
+vlm, hybrid and ssm; hybrid's tail layers are not rematerialised, as in
+the reference.  Attention, self and cross, runs on the ``flash_attn``
+kernel.  No mesh: the reference's ``shard`` callback and sharding specs
+stay out.
 """
 from __future__ import annotations
 
@@ -24,10 +33,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.nn import attention, layers
+from repro_torch.nn import attention, layers, moe, ssm, xlstm
 from repro_torch.nn import param as pm
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "ssm", "vlm")
+
+#: the layer stacks an LM may hold, in the order its parameters are listed
+STACKS = ("layers", "self_layers", "cross_layers", "mamba_blocks",
+          "mamba_tail", "shared_attn", "mlstm_blocks", "slstm_blocks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,97 +76,277 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
-
-def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 7(c)); the port runs {PORTED_FAMILIES}")
+    def emb_in(self) -> bool:
+        """True if the input is precomputed embeddings (stub frontend)."""
+        return self.family == "audio"
 
 
 class AttnBlock(nn.Module):
-    """One pre-norm block's parameters: ``attn`` (wq, wk, wv, wo), ``ffn``
-    (w_up, w_down[, w_gate]), ``norm1``, ``norm2``."""
+    """One pre-norm block's parameters: ``attn`` (wq, wk, wv, wo), then
+    ``ffn`` (w_up, w_down[, w_gate]) or ``moe`` (router, w_up, w_gate,
+    w_down), ``norm1``, ``norm2``."""
 
-    def __init__(self, attn: nn.ParameterDict, ffn: nn.ParameterDict,
-                 norm1: nn.Parameter, norm2: nn.Parameter):
+    def __init__(self, attn: nn.ParameterDict, norm1: nn.Parameter,
+                 norm2: nn.Parameter, *, ffn: nn.ParameterDict | None = None,
+                 moe: nn.ParameterDict | None = None):
         super().__init__()
-        self.attn, self.ffn = attn, ffn
+        if (ffn is None) == (moe is None):
+            raise ValueError("a block has an ffn or a moe, not both")
+        self.attn = attn
+        if ffn is not None:
+            self.ffn = ffn
+        else:
+            self.moe = moe
         self.norm1, self.norm2 = norm1, norm2
 
 
-class LM(nn.Module):
-    """The model's parameters: tied ``embed`` [V, d], ``final_norm`` [d],
-    and ``layers``."""
+class MixerBlock(nn.Module):
+    """One recurrent layer's parameters: its mixer under ``kind``
+    (``"mamba"`` for Mamba2, ``"mix"`` for mLSTM and sLSTM) and ``norm``."""
 
-    def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
-                 blocks: list[AttnBlock]):
+    def __init__(self, kind: str, mixer: nn.ParameterDict,
+                 norm: nn.Parameter):
         super().__init__()
-        self.embed, self.final_norm = embed, final_norm
-        self.layers = nn.ModuleList(blocks)
+        setattr(self, kind, mixer)
+        self.norm = norm
+
+
+class LM(nn.Module):
+    """The model's parameters: ``embed`` [V, d] (tied unembedding) or, for
+    audio, ``head`` [d, V]; ``final_norm`` [d]; and the family's stacks
+    (``STACKS``): ``layers`` (dense, moe, audio), ``self_layers`` and
+    ``cross_layers`` (vlm), ``mamba_blocks``, ``mamba_tail`` and one
+    weight-tied ``shared_attn`` (hybrid), ``mlstm_blocks`` and
+    ``slstm_blocks`` (ssm)."""
+
+    def __init__(self, final_norm: nn.Parameter, *,
+                 embed: nn.Parameter | None = None,
+                 head: nn.Parameter | None = None, **stacks: nn.Module):
+        super().__init__()
+        if (embed is None) == (head is None):
+            raise ValueError("an LM has an embed or a head, not both")
+        unknown = sorted(set(stacks) - set(STACKS))
+        if unknown:
+            raise ValueError(f"unknown stacks {unknown}")
+        if embed is not None:
+            self.embed = embed
+        else:
+            self.head = head
+        self.final_norm = final_norm
+        for name in STACKS:
+            if name in stacks:
+                setattr(self, name, stacks[name])
+
+    def unembedding(self) -> torch.Tensor:
+        """The [V, d] matrix logits are taken against: the tied embedding,
+        or the audio head transposed."""
+        return self.head.T if hasattr(self, "head") else self.embed
 
     @classmethod
     def from_tree(cls, tree: dict) -> "LM":
         """The LM over a parameter tree keyed by ``named_parameters()``'s
         names: each parameter shares its tensor's storage and is a new leaf
-        that requires grad."""
+        that requires grad.  The structure follows the names: numbered
+        children make a ``ModuleList``, a child with ``attn`` an
+        :class:`AttnBlock`, else a :class:`MixerBlock`."""
         def group(prefix: str) -> nn.ParameterDict:
-            return nn.ParameterDict({k[len(prefix):]: v
+            return nn.ParameterDict({k[len(prefix):]: nn.Parameter(v)
                                      for k, v in tree.items()
                                      if k.startswith(prefix)})
 
-        n = 1 + max((int(k.split(".")[1]) for k in tree
-                     if k.startswith("layers.")), default=-1)
-        return cls(nn.Parameter(tree["embed"]),
-                   nn.Parameter(tree["final_norm"]),
-                   [AttnBlock(group(f"layers.{i}.attn."),
-                              group(f"layers.{i}.ffn."),
-                              nn.Parameter(tree[f"layers.{i}.norm1"]),
-                              nn.Parameter(tree[f"layers.{i}.norm2"]))
-                    for i in range(n)])
+        def node(prefix: str) -> nn.Module:
+            heads = dict.fromkeys(k[len(prefix):].split(".")[0]
+                                  for k in tree if k.startswith(prefix))
+            if all(h.isdigit() for h in heads):
+                return nn.ModuleList(node(f"{prefix}{i}.")
+                                     for i in range(len(heads)))
+            if "attn" in heads:
+                return AttnBlock(
+                    group(f"{prefix}attn."),
+                    nn.Parameter(tree[f"{prefix}norm1"]),
+                    nn.Parameter(tree[f"{prefix}norm2"]),
+                    **{k: group(f"{prefix}{k}.") for k in ("ffn", "moe")
+                       if k in heads})
+            (kind,) = set(heads) - {"norm"}
+            return MixerBlock(kind, group(f"{prefix}{kind}."),
+                              nn.Parameter(tree[f"{prefix}norm"]))
+
+        leaves = {k: nn.Parameter(tree[k])
+                  for k in ("embed", "head", "final_norm") if k in tree}
+        tops = dict.fromkeys(k.split(".")[0] for k in tree)
+        return cls(**leaves, **{k: node(f"{k}.") for k in tops
+                                if k not in leaves})
 
 
 # ---------------------------------------------------------------------------
-# Dense block
+# Attention blocks (dense, moe, audio, vlm, hybrid's shared block)
 # ---------------------------------------------------------------------------
 
 
-def init_attn_block(cfg: ArchConfig, gen: torch.Generator) -> AttnBlock:
+def init_attn_block(cfg: ArchConfig, gen: torch.Generator, *,
+                    with_moe: bool = False) -> AttnBlock:
     dev = gen.device
-    return AttnBlock(
-        attention.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                 cfg.hd, cfg.param_dtype),
-        layers.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype,
-                        gated=cfg.ffn_gated),
-        pm.make_norm(cfg.d_model, cfg.param_dtype, dev),
-        pm.make_norm(cfg.d_model, cfg.param_dtype, dev))
+    attn = attention.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                    cfg.hd, cfg.param_dtype)
+    if with_moe:
+        mlp = {"moe": moe.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                   cfg.moe_experts, cfg.param_dtype)}
+    else:
+        mlp = {"ffn": layers.init_ffn(gen, cfg.d_model, cfg.d_ff,
+                                      cfg.param_dtype, gated=cfg.ffn_gated)}
+    return AttnBlock(attn, pm.make_norm(cfg.d_model, cfg.param_dtype, dev),
+                     pm.make_norm(cfg.d_model, cfg.param_dtype, dev), **mlp)
 
 
 def attn_block(x: torch.Tensor, p: AttnBlock, cfg: ArchConfig,
-               positions: torch.Tensor, *, cache=None):
-    """Pre-norm block.  Returns (x, new_cache)."""
+               positions: torch.Tensor, *, cache=None,
+               memory: torch.Tensor | None = None):
+    """Pre-norm block: self-attention, or cross-attention to ``memory``
+    (vlm), then the FFN or the MoE.  Returns (x, new_cache)."""
     h = layers.rms_norm(x, p.norm1)
-    a, new_cache = attention.self_attention(
-        h, p.attn, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-        positions=positions, causal=True, window=cfg.window, cache=cache)
+    if memory is not None:
+        a = attention.cross_attention(h, memory, p.attn, n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv, head_dim=cfg.hd)
+        new_cache = cache
+    else:
+        a, new_cache = attention.self_attention(
+            h, p.attn, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+            positions=positions, causal=True, window=cfg.window, cache=cache)
     x = x + a
     h = layers.rms_norm(x, p.norm2)
-    x = x + layers.ffn(h, p.ffn, gated=cfg.ffn_gated)
-    return x, new_cache
+    if hasattr(p, "moe"):
+        b, s, d = h.shape
+        out, _ = moe.moe_ffn(h.reshape(b * s, d), p.moe, top_k=cfg.moe_top_k,
+                             groups=cfg.moe_groups or 1,
+                             model_shards=cfg.moe_model_shards)
+        f = out.view(b, s, d)
+    else:
+        f = layers.ffn(h, p.ffn, gated=cfg.ffn_gated)
+    return x + f, new_cache
 
 
 # ---------------------------------------------------------------------------
-# Parameter init
+# Recurrent layers (hybrid, ssm)
+# ---------------------------------------------------------------------------
+
+
+def _mamba_meta(cfg: ArchConfig) -> dict:
+    d_inner = 2 * cfg.d_model
+    return dict(d_inner=d_inner, n_heads=d_inner // 64, head_dim=64,
+                d_state=cfg.ssm_state, conv_width=4)
+
+
+def _mlstm_meta(cfg: ArchConfig) -> dict:
+    d_inner = 2 * cfg.d_model
+    return dict(d_inner=d_inner, n_heads=cfg.n_heads,
+                head_dim=d_inner // cfg.n_heads)
+
+
+def _slstm_meta(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, head_dim=cfg.d_model // cfg.n_heads)
+
+
+def hybrid_shape(cfg: ArchConfig) -> tuple[int, int, int]:
+    """zamba2's layout: (superblocks, mamba layers a superblock, tail)."""
+    n_sb, per = cfg.n_layers // 6, 6
+    return n_sb, per, cfg.n_layers - n_sb * per
+
+
+def ssm_shape(cfg: ArchConfig) -> tuple[int, int]:
+    """xLSTM's layout: (superblocks, layers a superblock: 7 mLSTM and 1
+    sLSTM)."""
+    return cfg.n_layers // 8, 8
+
+
+def vlm_shape(cfg: ArchConfig) -> tuple[int, int]:
+    """(superblocks, layers a superblock: ce - 1 self + 1 cross)."""
+    return cfg.n_layers // cfg.cross_every, cfg.cross_every
+
+
+def _mixer(kind: str, params: nn.ParameterDict, cfg: ArchConfig,
+           dev) -> MixerBlock:
+    return MixerBlock(kind, params,
+                      pm.make_norm(cfg.d_model, cfg.param_dtype, dev))
+
+
+def mamba_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
+                state=None, conv_state=None):
+    """x + Mamba2(norm(x)).  Returns (x, (state, conv_state))."""
+    h = layers.rms_norm(x, lp.norm)
+    y, st = ssm.mamba2(h, lp.mamba, _mamba_meta(cfg), chunk=cfg.ssm_chunk,
+                       state=state, conv_state=conv_state)
+    return x + y, st
+
+
+def mlstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
+                state=None):
+    """x + mLSTM(norm(x)).  Returns (x, C)."""
+    h = layers.rms_norm(x, lp.norm)
+    y, C = xlstm.mlstm(h, lp.mix, _mlstm_meta(cfg), chunk=cfg.ssm_chunk,
+                       state=state)
+    return x + y, C
+
+
+def slstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
+                state=None):
+    """x + sLSTM(norm(x)).  Returns (x, (c, n, h, m))."""
+    h = layers.rms_norm(x, lp.norm)
+    y, st = xlstm.slstm(h, lp.mix, _slstm_meta(cfg), state=state)
+    return x + y, st
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (all families)
 # ---------------------------------------------------------------------------
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> LM:
-    """Random parameters drawn from ``gen``, on ``gen``'s device."""
-    require_ported(cfg)
-    blocks = [init_attn_block(cfg, gen) for _ in range(cfg.n_layers)]
-    embed = layers.init_embed(gen, cfg.vocab, cfg.d_model, cfg.param_dtype)
-    return LM(embed, pm.make_norm(cfg.d_model, cfg.param_dtype, gen.device),
-              blocks)
+    """Random parameters drawn from ``gen``, on ``gen``'s device: the
+    reference's tree and dtypes (the MoE router, Mamba2's dt_bias, a_log
+    and d_skip, mLSTM's gates and sLSTM's bias fp32 whatever
+    ``param_dtype`` is), not its random bits."""
+    dev, dt, d = gen.device, cfg.param_dtype, cfg.d_model
+    fam = cfg.family
+    ml = nn.ModuleList
+    if fam in ("dense", "audio", "moe"):
+        stacks = {"layers": ml(init_attn_block(cfg, gen, with_moe=fam == "moe")
+                               for _ in range(cfg.n_layers))}
+    elif fam == "vlm":
+        n_super, ce = vlm_shape(cfg)
+        stacks = {"self_layers": ml(ml(init_attn_block(cfg, gen)
+                                       for _ in range(ce - 1))
+                                    for _ in range(n_super)),
+                  "cross_layers": ml(init_attn_block(cfg, gen)
+                                     for _ in range(n_super))}
+    elif fam == "hybrid":  # zamba2: mamba backbone + one shared attn block
+        n_sb, per, rest = hybrid_shape(cfg)
+
+        def mamba():
+            return _mixer("mamba", ssm.init_mamba2(gen, d, cfg.ssm_state,
+                                                   dt)[0], cfg, dev)
+
+        stacks = {"mamba_blocks": ml(ml(mamba() for _ in range(per))
+                                     for _ in range(n_sb))}
+        if rest:
+            stacks["mamba_tail"] = ml(mamba() for _ in range(rest))
+        stacks["shared_attn"] = init_attn_block(cfg, gen)
+    elif fam == "ssm":  # xLSTM: superblocks of (7 mLSTM + 1 sLSTM)
+        n_sb, per = ssm_shape(cfg)
+        m_blocks, s_blocks = [], []
+        for _ in range(n_sb):
+            m_blocks.append(ml(
+                _mixer("mix", xlstm.init_mlstm(gen, d, cfg.n_heads, dt)[0],
+                       cfg, dev) for _ in range(per - 1)))
+            s_blocks.append(_mixer("mix", xlstm.init_slstm(
+                gen, d, cfg.n_heads, dt)[0], cfg, dev))
+        stacks = {"mlstm_blocks": ml(m_blocks), "slstm_blocks": ml(s_blocks)}
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+    if cfg.emb_in():  # stub frontend: an output head over the codec vocab
+        io = {"head": pm.frozen(pm.normal(gen, (d, cfg.vocab), d ** -0.5, dt))}
+    else:
+        io = {"embed": layers.init_embed(gen, cfg.vocab, d, dt)}
+    return LM(pm.make_norm(d, dt, dev), **io, **stacks)
 
 
 # ---------------------------------------------------------------------------
@@ -161,42 +354,132 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> LM:
 # ---------------------------------------------------------------------------
 
 
+def embed_inputs(params: LM, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
+    """The residual stream's input: audio's precomputed embeddings in the
+    model's dtype, else the tokens' embeddings."""
+    if cfg.emb_in():
+        return inputs["embeddings"].to(cfg.param_dtype)
+    return layers.embed(inputs["tokens"], params.embed)
+
+
 def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
-    """inputs: {"tokens": [B, S] int tensor on the parameters' device}.
+    """inputs: {"tokens" [B, S] | "embeddings" [B, S, d], and for vlm
+    "memory" [B, M, d]}, on the parameters' device.
 
     mode="train"   -> returns final hidden states [B, S, d]; under grad
-                      mode each block is checkpointed (its activations
-                      recomputed in the backward, flash_attn included)
+                      mode each scanned body is checkpointed (its
+                      activations recomputed in the backward, flash_attn
+                      included)
     mode="prefill" -> returns (hidden, cache) where cache matches
-                      decode.init_cache's structure: {"k", "v"}
-                      [L, B, Hkv, S, hd] post-rotary.
+                      decode.init_cache's structure, ready for decode_step
+                      (K/V post-rotary, the recurrent states after the
+                      last token).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode is 'train' or 'prefill', got {mode!r}")
-    require_ported(cfg)
     prefill = mode == "prefill"
-    x = layers.embed(inputs["tokens"], params.embed)
+    x = embed_inputs(params, cfg, inputs)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-
-    def body(x, block):
-        return attn_block(x, block, cfg, positions)[0]
-
     remat = not prefill and torch.is_grad_enabled()
-    ks, vs = [], []
-    for block in params.layers:
+
+    def scanned(body, x, *args):
+        """One scanned body: checkpointed under remat, where its cache
+        material is dropped."""
         if remat:
-            x = checkpoint(body, x, block, use_reentrant=False)
-            continue
-        x, (k, v) = attn_block(x, block, cfg, positions)
-        if prefill:
-            ks.append(k)
-            vs.append(v)
+            return checkpoint(lambda *a: body(*a)[0], x, *args,
+                              use_reentrant=False), None
+        return body(x, *args)
+
+    fam = cfg.family
+    outs = []
+    if fam in ("dense", "moe", "audio"):
+        def body(x, block):
+            return attn_block(x, block, cfg, positions)
+
+        for block in params.layers:
+            x, kv = scanned(body, x, block)
+            outs.append(kv)
+
+        def cache():
+            return {key: torch.stack([kv[i] for kv in outs])
+                    for i, key in enumerate("kv")}
+
+    elif fam == "vlm":
+        memory = inputs["memory"].to(cfg.param_dtype)
+
+        def body(x, self_p, cross_p):
+            kvs = []
+            for lp in self_p:
+                x, kv = attn_block(x, lp, cfg, positions)
+                kvs.append(kv)
+            x, _ = attn_block(x, cross_p, cfg, positions, memory=memory)
+            return x, kvs
+
+        for self_p, cross_p in zip(params.self_layers, params.cross_layers):
+            x, kvs = scanned(body, x, self_p, cross_p)
+            outs.append(kvs)
+
+        def cache():
+            return {key: torch.stack([torch.stack([kv[i] for kv in kvs])
+                                      for kvs in outs])
+                    for i, key in enumerate("kv")}
+
+    elif fam == "hybrid":
+        def body(x, ps):
+            sts = []
+            for lp in ps:
+                x, st = mamba_layer(x, lp, cfg)
+                sts.append(st)
+            x, kv = attn_block(x, params.shared_attn, cfg, positions)
+            return x, (sts, kv)
+
+        for ps in params.mamba_blocks:
+            x, out = scanned(body, x, ps)
+            outs.append(out)
+        tail = []
+        for lp in getattr(params, "mamba_tail", ()):
+            x, st = mamba_layer(x, lp, cfg)
+            tail.append(st)
+
+        def cache():
+            dt = cfg.param_dtype
+            c = {"h": torch.stack([torch.stack([h for h, _ in sts])
+                                   for sts, _ in outs]),
+                 "conv": torch.stack([torch.stack([cv for _, cv in sts])
+                                      for sts, _ in outs]).to(dt),
+                 "attn_k": torch.stack([kv[0] for _, kv in outs]),
+                 "attn_v": torch.stack([kv[1] for _, kv in outs])}
+            if tail:
+                c["h_tail"] = torch.stack([h for h, _ in tail])
+                c["conv_tail"] = torch.stack([cv for _, cv in tail]).to(dt)
+            return c
+
+    elif fam == "ssm":
+        def body(x, mp, sp):
+            Cs = []
+            for lp in mp:
+                x, C = mlstm_layer(x, lp, cfg)
+                Cs.append(C)
+            x, st = slstm_layer(x, sp, cfg)
+            return x, (Cs, st)
+
+        for mp, sp in zip(params.mlstm_blocks, params.slstm_blocks):
+            x, out = scanned(body, x, mp, sp)
+            outs.append(out)
+
+        def cache():
+            c = {"C": torch.stack([torch.stack(Cs) for Cs, _ in outs])}
+            for i, key in enumerate(("s_c", "s_n", "s_h", "s_m")):
+                c[key] = torch.stack([st[i] for _, st in outs])
+            return c
+
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+
     h = layers.rms_norm(x, params.final_norm)
-    if prefill:
-        return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return h
+    return (h, cache()) if prefill else h
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +488,8 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
 
 
 def loss_fn(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy (tied embeddings; chunked logits).
-    batch: {"tokens", "labels"} [B, S] int tensors."""
+    """Mean next-token cross-entropy (tied embeddings, or audio's head;
+    chunked logits).  batch: the model's inputs and "labels" [B, S]."""
     h = forward(params, cfg, batch)
-    return layers.chunked_softmax_xent(h, params.embed, batch["labels"],
-                                       chunk=cfg.loss_chunk)
+    return layers.chunked_softmax_xent(h, params.unembedding(),
+                                       batch["labels"], chunk=cfg.loss_chunk)

@@ -46,7 +46,7 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: LM, *, slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0, seed: int = 0,
                  device=None):
-        dev, here = common.device(device), params.embed.device
+        dev, here = common.device(device), params.final_norm.device
         if here.type != dev.type or dev.index not in (None, here.index):
             raise ValueError(f"parameters on {here}, engine on {dev}")
         self.device = here

@@ -163,7 +163,7 @@ def make_decode_step(cfg: ArchConfig):
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, inputs):
         h, cache = transformer.forward(params, cfg, inputs, mode="prefill")
-        logits = (h[:, -1] @ params.embed.T).float()
+        logits = (h[:, -1] @ params.unembedding().T).float()
         return logits, cache
 
     return prefill_step

@@ -95,12 +95,20 @@ def test_configs_carry_the_reference_data():
                                   "zamba2-1.2b", "xlstm-1.3b",
                                   "llama-3.2-vision-11b"])
 def test_unported_families_raise_naming_the_roadmap(name):
+    """ROADMAP Queue 1 item 7(c) is done: the families that raised here
+    now initialise and get caches; an unknown family raises."""
+    assert set(transformer.PORTED_FAMILIES) == {
+        configs.get(n).family for n in configs.ARCH_NAMES}
     cfg = configs.reduced(configs.get(name))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 7\(c\)"):
-        transformer.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        decode.init_cache(cfg, 2, 16, device="cpu")
+    lm = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    tree = convert._flatten(convert.lm_params_to_reference(lm, cfg))
+    assert {k: v.shape for k, v in tree.items()} == convert.lm_shapes(cfg)
+    assert decode.init_cache(cfg, 2, 16, device="cpu")
+    bad = dataclasses.replace(cfg, family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        transformer.init_params(bad, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown family"):
+        decode.init_cache(bad, 2, 16, device="cpu")
 
 
 # ---------------------------------------------------------------------------
