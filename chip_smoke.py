@@ -2816,8 +2816,8 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
     # each step's gradient: global norm, largest element and its leaf
     grads_seen, value_and_grad = [], trainer.value_and_grad
 
-    def recorded(*a):
-        loss, grads = value_and_grad(*a)
+    def recorded(*a, **kw):
+        loss, grads = value_and_grad(*a, **kw)
         tops = {k: float(g.abs().max()) for k, g in grads.items()}
         top = max(tops, key=tops.get)
         grads_seen.append({
@@ -3087,6 +3087,390 @@ def run_lm_families(scratch: Path) -> int:
     emit(phase_env(smi))
     emit(phase_build())
     line, _ = phase_lm_families(dev, scratch)
+    emit(line)
+    print(smi, flush=True)
+    return 0 if line["ok"] else 1
+
+
+# ---------------------------------------------------------------------------
+# Phase mesh: the port's mesh on a one-rank NCCL DeviceMesh, and the dry run
+# on the production meshes
+# ---------------------------------------------------------------------------
+
+#: (b)'s decode on the mesh: slots, ticks, cache length
+MESH_DECODE = (4, 8, 128)
+#: (d)'s cells: (arch, shape, multi-pod, update)
+MESH_CELLS = (("h2o-danube-1.8b", "train_4k", False, "sync"),
+              ("h2o-danube-1.8b", "train_4k", True, "async"),
+              ("olmoe-1b-7b", "prefill_32k", False, "sync"),
+              ("minitron-4b", "decode_32k", True, "sync"),
+              ("zamba2-1.2b", "long_500k", False, "sync"))
+#: the H100's device memory, which a rank's arguments must fit
+CARD_BYTES = 80e9
+#: per-rank matmul flops x 256 against the unsharded step's
+MESH_FLOPS_TOL = 0.10
+#: a dry-run cell's time limit (a subprocess each, all at once)
+MESH_CELL_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """A one-rank NCCL process group and its ``(data=1, model=1)`` mesh,
+    destroyed on the way out."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(torch.device(dev).index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _profiled_launches(fn, names: tuple[str, ...]) -> dict:
+    """Launches of each kernel named in ``names`` in one profiled call of
+    ``fn`` (behind a discarded warm-up call: ``device_profile``)."""
+    prof = device_profile(fn, 1)
+    return {n: sum(c for key, (_, c) in prof.items() if n in key)
+            for n in names}
+
+
+def _full_tree(tree):
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _full_tree(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def _trees_err(a: dict, b: dict) -> tuple[float, bool]:
+    """Max |a - b| over two trees' leaves, and whether every leaf is
+    within one bf16 step (``ATTN_BF16_TOL``)."""
+    err, ok = 0.0, True
+    for k, x in a.items():
+        x, y = x.float(), b[k].float()
+        err = max(err, float((x - y).abs().max()))
+        ok = ok and bool(torch.allclose(x, y, **ATTN_BF16_TOL))
+    return err, ok
+
+
+def _mesh_train(dev, mesh, cfg, params: dict, batches: list) -> tuple:
+    """(a): two sync steps with DTensor parameters against the mesh-less
+    step on the same weights and batches; ms a step, peak memory and a
+    profiled step's launches.  Returns the record, the mesh state and the
+    main path's flash_attn launches."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.nn import transformer
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.train import trainer
+
+    opt = sgd(TRAIN_LR)
+    p_specs = transformer.param_specs(cfg)
+    plain = trainer.make_sync_step(cfg, opt)
+    p, o, plain_losses = params, opt.init(params), []
+    for b in batches:
+        p, o, loss = plain(p, o, b)
+        plain_losses.append(float(loss))
+    plain_params = p
+    del p, o
+
+    o_specs = trainer.opt_state_specs({"step": None}, p_specs)
+    _, b_specs = specs_mod.batch_specs(cfg, "train", batches[0]["tokens"]
+                                       .shape[1], batches[0]["tokens"]
+                                       .shape[0])
+    dp = trainer.distribute(params, mesh, trainer.resolve_tree(p_specs, mesh,
+                                                               cfg))
+    do = trainer.distribute(opt.init(params), mesh,
+                            trainer.resolve_tree(o_specs, mesh, cfg))
+    dbatches = [trainer.distribute(b, mesh, trainer.resolve_tree(
+        b_specs, mesh, cfg)) for b in batches]
+    step = trainer.make_sync_step(cfg, opt, mesh=mesh, param_specs=p_specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    ms, losses = [], []
+    for b in dbatches:
+        t0 = time.perf_counter()
+        dp, do, loss = step(dp, do, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = common.LAUNCHES["flash_attn"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    err, held = _trees_err(_full_tree(dp), plain_params)
+    del plain_params
+    prof = _profiled_launches(lambda: step(dp, do, dbatches[0]),
+                              ("flash_attn_mma_kernel",))
+    rec = {"losses": losses, "plain_losses": plain_losses,
+           "loss_max_abs_err": max(abs(a - b) for a, b in
+                                   zip(losses, plain_losses)),
+           "params_max_abs_err": err, "ms_per_step": ms, "peak_gb": peak,
+           "launches": launches, "expected_launches": 2 * cfg.n_layers
+           * len(batches), "profiled_step_launches": prof,
+           "placements": {k: [repr(x) for x in v.placements] for k, v in
+                          list(dp.items())[:3]}}
+    rec["ok"] = bool(held and all(np.isclose(a, b, **ATTN_BF16_TOL)
+                                  for a, b in zip(losses, plain_losses))
+                     and launches == rec["expected_launches"]
+                     and prof["flash_attn_mma_kernel"] == 2 * cfg.n_layers)
+    return rec, (dp, do), launches
+
+
+def _mesh_decode(dev, mesh, cfg, params: dict) -> tuple[dict, int]:
+    """(b): decode ticks with DTensor parameters and caches against the
+    mesh-less decode on the same weights and tokens."""
+    from repro_torch.kernels import common
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.nn import decode, transformer
+    from repro_torch.train import trainer
+
+    b, ticks, max_len = MESH_DECODE
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (b, ticks))).to(dev)
+    lm = transformer.LM.from_tree(params)
+    plain_step = trainer.make_decode_step(cfg)
+    cache = decode.init_cache(cfg, b, max_len, device=dev)
+    plain = []
+    for t in range(ticks):
+        logits, cache = plain_step(lm, cache, {"tokens": tokens[:, t:t + 1]},
+                                   t)
+        plain.append(logits)
+    del cache
+
+    p_specs = transformer.param_specs(cfg)
+    dlm = transformer.LM.from_tree(trainer.distribute(
+        params, mesh, trainer.resolve_tree(p_specs, mesh, cfg)))
+    c_shapes, c_specs = specs_mod.cache_shapes_and_specs(cfg, b, max_len)
+    dcache = trainer.distribute(decode.init_cache(cfg, b, max_len,
+                                                  device=dev), mesh,
+                                trainer.resolve_tree(c_specs, mesh, cfg))
+    _, b_specs = specs_mod.batch_specs(cfg, "decode", 1, b)
+    b_pl = trainer.resolve_tree(b_specs, mesh, cfg)
+    step = trainer.make_decode_step(cfg, mesh)
+    ins = [trainer.distribute({"tokens": tokens[:, t:t + 1]}, mesh, b_pl)
+           for t in range(ticks)]
+    torch.cuda.synchronize()
+    common.reset_launches()
+    ms, err, held = [], 0.0, True
+    for t in range(ticks):
+        t0 = time.perf_counter()
+        logits, dcache = step(dlm, dcache, ins[t], t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, float((logits - plain[t]).abs().max()))
+        held = held and bool(torch.allclose(logits, plain[t],
+                                            **ATTN_BF16_TOL))
+    launches = common.LAUNCHES["flash_attn"]
+    prof = _profiled_launches(lambda: step(dlm, dcache, ins[-1], ticks - 1),
+                              ("flash_attn_decode_kernel",))
+    rec = {"slots": b, "ticks": ticks, "max_len": max_len,
+           "logits_max_abs_err": err, "ms_per_tick": ms,
+           "ms_per_tick_median": statistics.median(ms[1:]),
+           "launches": launches, "expected_launches": cfg.n_layers * ticks,
+           "profiled_tick_launches": prof,
+           "cache_placements": {k: [repr(x) for x in v.placements]
+                                for k, v in dcache.items()}}
+    rec["ok"] = bool(held and launches == rec["expected_launches"]
+                     and prof["flash_attn_decode_kernel"] == cfg.n_layers)
+    return rec, launches
+
+
+def _mesh_rescale(dev, mesh, state, scratch: Path) -> dict:
+    """(c): the state of (a) to the bare card and back with
+    ``elastic_rescale``, and through a checkpoint written on the mesh and
+    restored onto it (``tests/test_torch_mesh_state.py`` restores one onto
+    another mesh and onto one device)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train import fault
+
+    params, opt_state = state
+    tree = {"params": params, "opt": opt_state}
+    where = {"params": {k: str(dev) for k in params}, "opt": {"step": str(
+        dev)}}
+    back = {"params": {k: (mesh, v.placements) for k, v in params.items()},
+            "opt": {k: (mesh, v.placements) for k, v in opt_state.items()}}
+    t0 = time.perf_counter()
+    bare = fault.elastic_rescale(tree, where)
+    again = fault.elastic_rescale(bare, back)
+    torch.cuda.synchronize()
+    rescale_s = time.perf_counter() - t0
+    full = _full_tree(tree)
+
+    def equal(a, b):
+        return all(torch.equal(_full_tree(a)[g][k], b[g][k])
+                   for g in ("params", "opt") for k in b[g])
+
+    t0 = time.perf_counter()
+    save_checkpoint(scratch / "mesh_ckpt", 2, tree)
+    save_s = time.perf_counter() - t0
+    on_mesh, step = load_checkpoint(scratch / "mesh_ckpt", tree)
+    shutil.rmtree(scratch / "mesh_ckpt", ignore_errors=True)
+    rec = {"rescale_s": rescale_s, "save_s": save_s,
+           "bare_equal": equal(bare, full), "back_equal": equal(again, full),
+           "restored_on_mesh_equal": equal(on_mesh, full), "step": step,
+           "bare_types": sorted({type(v).__name__
+                                 for v in bare["params"].values()})}
+    rec["ok"] = bool(rec["bare_equal"] and rec["back_equal"]
+                     and rec["restored_on_mesh_equal"] and step == 2
+                     and rec["bare_types"] == ["Tensor"])
+    return rec
+
+
+#: the dense sync cell's step on one unsharded rank, for the flops check
+_UNSHARDED = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.launch import dryrun
+arch, shape = sys.argv[1:3]
+kind, seq, gb = configs.SHAPES[shape]
+with dryrun.fake_world(1):
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    print(json.dumps(dryrun.run_step(configs.get(arch), kind, seq, gb, mesh,
+                                     device="cuda")))
+"""
+
+
+def _mesh_dryrun() -> dict:
+    """(d): the five cells, each ``python -m repro_torch.launch.dryrun``
+    in its own process with cuda fakes, and the dense sync cell's step on
+    one unsharded fake rank; all at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for arch, shape, multi, update in MESH_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--update", update] + (
+                   ["--multipod"] if multi else [])
+        procs[(arch, shape, multi, update)] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+    dense = MESH_CELLS[0]
+    procs["unsharded"] = subprocess.Popen(
+        [sys.executable, "-c", _UNSHARDED, dense[0], dense[1]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    t0 = time.perf_counter()
+    out = {}
+    for key, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, MESH_CELL_TIMEOUT_S
+                            - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        if proc.returncode == 0:
+            out[key] = json.loads(stdout.strip().splitlines()[-1])
+        else:
+            out[key] = {"status": "fail", "rc": proc.returncode,
+                        "stderr": stderr[-2000:]}
+    cells = []
+    for arch, shape, multi, update in MESH_CELLS:
+        r = out[(arch, shape, multi, update)]
+        row = {"arch": arch, "shape": shape,
+               "mesh": "2x16x16" if multi else "16x16", "update": update,
+               "status": r.get("status")}
+        if r.get("status") == "ok":
+            mem = r["memory"]
+            row.update({
+                "argument_gb": mem["argument_bytes"] / 1e9,
+                "output_gb": mem["output_bytes"] / 1e9,
+                "peak_gb": mem["peak_bytes"] / 1e9,
+                "flops": r["cost_analysis"]["flops"],
+                "matmul_flops": r["matmul_flops"],
+                "place_s": r["lower_s"], "trace_s": r["compile_s"],
+                "collective_bytes": r["collective_bytes"],
+                "fits_card": mem["argument_bytes"] <= CARD_BYTES,
+                # recorded, not held: the dry run's placements may need
+                # more than a card at their peak (zamba2, xlstm, kimi)
+                "peak_fits_card": mem["peak_bytes"] <= CARD_BYTES})
+        else:
+            row["error"] = r.get("stderr", "")[-600:]
+        cells.append(row)
+    un = out["unsharded"]
+    first = cells[0]
+    ratio = (first["matmul_flops"] * 256 / un["matmul_flops"]
+             if first["status"] == "ok" and "matmul_flops" in un else None)
+    return {"cells": cells, "seconds": time.perf_counter() - t0,
+            "unsharded_matmul_flops": un.get("matmul_flops"),
+            "unsharded_flops": un.get("cost_analysis", {}).get("flops"),
+            "unsharded_error": un.get("stderr", "")[-600:] or None,
+            "dense_flops_ratio": ratio,
+            "peak_over_card": [f"{c['arch']} {c['shape']} {c['mesh']}"
+                               for c in cells
+                               if not c.get("peak_fits_card", True)],
+            "ok": bool(all(c["status"] == "ok" and c["fits_card"]
+                           for c in cells)
+                       and ratio is not None
+                       and abs(ratio - 1) <= MESH_FLOPS_TOL)}
+
+
+def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
+    """The port's mesh on the card: (a) two sync steps of full-width
+    h2o-danube-1.8b on a one-rank NCCL ``(data=1, model=1)`` mesh with
+    DTensor parameters, held to the mesh-less step; (b) decode ticks on
+    the mesh held to the mesh-less decode; (c) ``elastic_rescale`` and a
+    checkpoint round trip of (a)'s state; (d) the dry run's five cells on
+    the production meshes.  Returns the phase line and (a)'s and (b)'s
+    flash_attn launches by variant, counted from zero around each."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.nn import transformer
+
+    t_phase = time.perf_counter()
+    free_memory()
+    cfg = configs.get("h2o-danube-1.8b")
+    lm = transformer.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    del lm
+    gen = train.make_batch_fn(cfg, 2, LM_PREFILL, seed=13, device=dev)
+    batches = [next(gen) for _ in range(2)]
+    with one_rank_mesh(dev) as mesh:
+        t0 = time.perf_counter()
+        sync, state, mma = _mesh_train(dev, mesh, cfg, params, batches)
+        sync["seconds"] = time.perf_counter() - t0
+        del batches
+        t0 = time.perf_counter()
+        dec, decode_launches = _mesh_decode(dev, mesh, cfg, params)
+        dec["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rescale = _mesh_rescale(dev, mesh, state, scratch)
+        rescale["seconds"] = time.perf_counter() - t0
+    del state, params
+    free_memory()
+    dry = _mesh_dryrun()
+    return {"phase": "mesh", "arch": cfg.name, "mesh": "(data=1, model=1) "
+            "NCCL", "train": sync, "decode": dec, "rescale": rescale,
+            "dryrun": dry, "nvidia_smi": nvidia_smi(),
+            "seconds": time.perf_counter() - t_phase,
+            "ok": bool(sync["ok"] and dec["ok"] and rescale["ok"]
+                       and dry["ok"])}, {"mma": mma,
+                                         "decode": decode_launches}
+
+
+def run_mesh(scratch: Path) -> int:
+    """``python3 chip_smoke.py --mesh``: the env and build phases, then
+    phase ``mesh`` alone, the card's name and power limit last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    line, _ = phase_mesh(dev, scratch)
     emit(line)
     print(smi, flush=True)
     return 0 if line["ok"] else 1
@@ -4148,9 +4532,10 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--lm-train-probe"], ["--lm-families"]):
+    if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
+                    ["--mesh"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
-              "--lm-families]", file=sys.stderr)
+              "--lm-families | --mesh]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4164,6 +4549,8 @@ def main(argv: list[str]) -> int:
         os.environ.pop("REPRO_TORCH_KERNEL_AUTOTUNE", None)
         if argv == ["--lm-families"]:
             return run_lm_families(Path(scratch))
+        if argv == ["--mesh"]:
+            return run_mesh(Path(scratch))
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
@@ -4265,6 +4652,16 @@ def run(scratch: Path) -> int:
     launches["flash_attn_decode"] += family_launches["decode"]
     launches["flash_attn_mma"] += family_launches["mma"]
     torch.cuda.empty_cache()
+
+    line, mesh_launches = phase_mesh(dev, scratch)
+    emit(line)
+    if not line["ok"]:
+        return 1
+    # the mesh's training steps and decode ticks
+    launches["flash_attn_decode"] += mesh_launches["decode"]
+    launches["flash_attn_mma"] += mesh_launches["mma"]
+    del line
+    free_memory()
 
     line = phase_bench(dev, covtype, w8a, realsim, scratch / "bench")
     emit(line)

@@ -12,8 +12,14 @@ bf16 leaves are stored as their uint16 bits with ``"dtype": "bfloat16"``.
 Trees are the port's (dicts, lists and tuples of tensors:
 :mod:`repro_torch.utils.tree`); a leaf's path joins its dict keys and
 sequence indices with ``/``, as the reference's does.  Loading puts each
-leaf on ``device``, or where the like-tree's leaf lives; there are no
-shardings, so the reference's reshard-on-load waits for the port's mesh.
+leaf on ``device``, or where the like-tree's leaf lives.
+
+A checkpoint is mesh-agnostic: a DTensor leaf is written as its full host
+array (every rank gathers it; rank 0 of the process group writes, and
+``save_checkpoint`` and ``CheckpointManager.wait`` hold every rank until
+the step is published), and a load whose like-leaf is a DTensor places
+the array on that leaf's mesh and placements (reshard on load), so a
+state saved on one mesh restores onto another, or onto one device.
 Writes happen on a background thread (training continues; ``wait()`` joins
 before the next save — async checkpointing).
 """
@@ -27,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.utils.tree import tree_map
 
@@ -43,13 +51,23 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
 
 
 def _host(x):
-    """A leaf as it is written: a CPU tensor, or what it was."""
+    """A leaf as it is written: a CPU tensor (a DTensor's full tensor,
+    gathered on every rank), or what it was."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of an initialised process group
+    (every rank holds the same gathered tree), or a process without one."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _to_numpy(x) -> tuple[np.ndarray, str]:
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = _host(x)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         x = x.numpy()
@@ -59,7 +77,29 @@ def _to_numpy(x) -> tuple[np.ndarray, str]:
 
 def save_checkpoint(directory: str | Path, step: int, tree, *,
                     keep: int | None = None) -> Path:
-    """Blocking save.  Returns the step directory."""
+    """Blocking save.  Returns the step directory.  In a process group
+    every rank gathers the DTensor leaves, rank 0 writes, and every rank
+    returns once the step is published."""
+    if _writes():
+        step_dir = _write(directory, step, tree, keep=keep)
+    else:
+        for _, leaf in _flatten_with_paths(tree):
+            _host(leaf)
+        step_dir = Path(directory) / f"step_{step:09d}"
+    _barrier()
+    return step_dir
+
+
+def _barrier():
+    """Every rank of an initialised process group here before any goes on
+    (a step rank 0 publishes is then there for all to read)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+def _write(directory: str | Path, step: int, tree, *,
+           keep: int | None = None) -> Path:
+    """Write ``tree`` as step ``step`` and publish it."""
     directory = Path(directory)
     step_dir = directory / f"step_{step:09d}"
     tmp = directory / f".tmp_step_{step:09d}"
@@ -121,6 +161,10 @@ def load_checkpoint(directory: str | Path, like_tree, *,
                                  f"{tuple(like.shape)}")
             t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                  if m["dtype"] == "bfloat16" else torch.from_numpy(arr))
+            if isinstance(like, DTensor) and device is None:
+                mesh = like.device_mesh
+                return distribute_tensor(t.to(mesh.device_type), mesh,
+                                         like.placements)
             dev = device if device is not None else getattr(
                 like, "device", "cpu")
             return t.to(dev)
@@ -145,17 +189,22 @@ class CheckpointManager:
             return False
         self.wait()
         host_tree = tree_map(_host, tree)
+        if not _writes():
+            return True
         self._thread = threading.Thread(
-            target=save_checkpoint,
+            target=_write,
             args=(self.directory, step, host_tree),
             kwargs={"keep": self.keep}, daemon=True)
         self._thread.start()
         return True
 
     def wait(self):
+        """Join the writer; in a process group, then wait for every rank,
+        so that none reads the newest step before rank 0 published it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
     def restore(self, like_tree):
         return load_checkpoint(self.directory, like_tree)

@@ -5,9 +5,14 @@ shard can be extended with ``rep_k`` halo examples from the neighbouring
 shard — sequential access is preserved, hardware efficiency drops by k/|shard|
 per pass, statistical efficiency rises.
 
-The reference's mesh-less path: batches are drawn in numpy and land on one
-``device`` (``cuda`` unless the caller says).  Placing them against a mesh
-waits for the port's mesh (ROADMAP Queue 1 item 7(d)).
+Batches are drawn in numpy and land on ``device`` (``cuda`` unless the
+caller says).  With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``)
+each rank moves only its own rows of the global batch to the device, and
+the rows are assembled as a DTensor sharded over the batch axes
+(``("pod", "data")`` present in the mesh) and replicated over the rest:
+the counterpart of the reference's ``make_array_from_process_local_data``.
+Every rank draws the whole batch on the host, so the stream is the
+reference's for the same seed.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import common
 
@@ -28,6 +35,7 @@ class TokenPipeline:
     vocab: int
     seq: int
     global_batch: int
+    mesh: DeviceMesh | None = None
     seed: int = 0
     rep_k: int = 0
     device: str | torch.device | None = None
@@ -35,6 +43,20 @@ class TokenPipeline:
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
         self._device = common.device(self.device)
+        self._rows = None
+        if self.mesh is not None:
+            names = self.mesh.mesh_dim_names
+            batch = [i for i, n in enumerate(names) if n in ("pod", "data")]
+            self._placements = [Shard(0) if i in batch else Replicate()
+                                for i in range(len(names))]
+            coord = self.mesh.get_coordinate()
+            shard, shards = 0, 1
+            for i in batch:   # pod major, as the placements split the rows
+                shard = shard * self.mesh.size(i) + coord[i]
+                shards *= self.mesh.size(i)
+            size = -(-self.global_batch // shards)   # torch.chunk's rows
+            self._rows = slice(shard * size,
+                               min((shard + 1) * size, self.global_batch))
 
     def _gen(self, n: int) -> np.ndarray:
         return self._rng.integers(0, self.vocab, size=(n, self.seq + 1),
@@ -43,9 +65,18 @@ class TokenPipeline:
     def __iter__(self) -> Iterator[dict]:
         while True:
             buf = self._gen(self.global_batch)
-            yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(self._device)
-                   for k, v in (("tokens", buf[:, :-1]),
-                                ("labels", buf[:, 1:]))}
+            yield {k: self._place(v) for k, v in (("tokens", buf[:, :-1]),
+                                                  ("labels", buf[:, 1:]))}
+
+    def _place(self, rows: np.ndarray) -> torch.Tensor:
+        if self._rows is None:
+            return torch.from_numpy(np.ascontiguousarray(rows)).to(
+                self._device)
+        local = torch.from_numpy(np.ascontiguousarray(rows[self._rows]))
+        return DTensor.from_local(local.to(self._device), self.mesh,
+                                  self._placements, run_check=False,
+                                  shape=torch.Size(rows.shape),
+                                  stride=(rows.shape[1], 1))
 
 
 def shard_with_halo(n: int, shards: int, rep_k: int) -> list[np.ndarray]:

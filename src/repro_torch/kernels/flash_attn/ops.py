@@ -26,21 +26,48 @@ the dtype and the rows a kv head serves (``Sq * Hq / Hkv``) alone:
 Prefill's tiles are constants of the kernels; decode's key splits are a
 launch argument the tuner may set (``splits``).
 
-Inputs that require grad (under grad mode) go through :class:`_Attention`,
-an ``autograd.Function`` whose forward is the same dispatch (the kernel on
-``cuda``, ``ref.attention_ref`` on the CPU) and whose backward is
-``ref.attention_bwd_ref``: plain PyTorch that recomputes the scores a query
-chunk at a time.  The TPU kernel has no backward either; the reference
-differentiates its XLA ``chunked_attention``, one chunk at a time.
+Plain tensors with no grad to track (serving, prefill, decode) go
+straight to the family's dispatch, behind the tuner's consult.  The rest
+go through the operator ``torch.ops.repro_torch.flash_attn``
+(``torch.library.custom_op``), so that the tensors the kernel sees are
+plain ones:
+
+* inputs that require grad (under grad mode): its gradient is
+  ``torch.ops.repro_torch.flash_attn_bwd``, whose implementation is
+  ``ref.attention_bwd_ref``: plain PyTorch that recomputes the scores a
+  query chunk at a time.  The TPU kernel has no backward either; the
+  reference differentiates its XLA ``chunked_attention``, one chunk at a
+  time.  Such a call consults no tuner;
+* fake tensors (``FakeTensorMode``, the dry run): the operators' fake
+  implementations give the output's shape, and ``FlopCounterMode`` counts
+  4 (forward) and 10 (backward) operations a head dim of every visible
+  (query, key) pair, as ``roofline.visible_pairs`` counts them;
+* ``DTensor`` operands (a device mesh): DTensor's sharding rule runs each
+  operator on the local shards: batch sharded, or heads sharded where
+  every split of the mesh keeps a kv head's query heads on one rank, else
+  replicated.  Inputs sharded on the sequence (``seq_shard``, decode caches
+  on ``"kvseq"``) are redistributed to one of those before the call.
+
+A DTensor or a fake tensor that reached the ctypes call would hand the
+kernel a pointer to nothing: ``_flash_attn_cuda`` raises instead.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.flash_attn import ref as R
+from repro_torch.roofline.kernels import visible_pairs
+
+#: operands the ctypes call cannot take: their data is elsewhere or nowhere
+_NOT_PLAIN = (DTensor, FakeTensor)
 
 #: head dims the kernel takes: multiples of HEAD_DIM_MULTIPLE up to MAX_HEAD_DIM
 MAX_HEAD_DIM = 128
@@ -143,6 +170,10 @@ _WORKSPACES: dict[tuple[int, int], _Workspace] = {}
 
 @common.register_kernel("flash_attn", common.CUDA)
 def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
+    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v)):
+        raise TypeError("flash_attn: the CUDA kernel takes plain tensors; a "
+                        "DTensor or fake tensor reaches it only through "
+                        "torch.ops.repro_torch.flash_attn")
     b, hq, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if b * hkv > 65_535:
@@ -204,24 +235,93 @@ def _flash_attn_reference(q, k, v, *, causal, window, splits=None):
     return R.attention_ref(q, k, v, causal=causal, window=window)
 
 
-class _Attention(torch.autograd.Function):
-    """Attention with a gradient: the forward is the family's dispatch (on
-    ``cuda`` always the kernel), the backward ``ref.attention_bwd_ref`` on
-    the saved ``q``, ``k`` and ``v``."""
+@torch.library.custom_op("repro_torch::flash_attn", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int | None, splits: int | None,
+                  backend: str | None) -> torch.Tensor:
+    """The family's dispatch on plain tensors: the kernel on ``cuda``,
+    ``ref.attention_ref`` on the CPU (``backend``: the flavor the tuner's
+    pick was made for, else the device's)."""
+    return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
+                           window=window, splits=splits, backend=backend)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, splits):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
-                               window=window, splits=splits)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = R.attention_bwd_ref(q, k, v, do, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None, None
+@_attention_op.register_fake
+def _(q, k, v, causal, window, splits, backend):
+    return q.new_empty(q.shape)  # contiguous, as the kernel's output
+
+
+@torch.library.custom_op("repro_torch::flash_attn_bwd", mutates_args=())
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, causal: bool, window: int | None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: ``ref.attention_bwd_ref``."""
+    return R.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, do, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, _, _ = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+def _backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = _attention_bwd_op(q, k, v, do, ctx.causal, ctx.window)
+    return dq, dk, dv, None, None, None, None
+
+
+_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _pairs(q_shape, k_shape, causal, window) -> int:
+    """Visible (query, key) pairs of a call, over its batch and heads."""
+    b, hq, sq, _ = q_shape
+    return b * hq * visible_pairs(sq, k_shape[2], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn)
+def _attention_flops(q_shape, k_shape, v_shape, causal, window, splits,
+                     backend, *args, **kwargs) -> int:
+    """QK^T and P.V: 2 products of 2 operations a head dim and pair."""
+    return 4 * q_shape[3] * _pairs(q_shape, k_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_bwd)
+def _attention_bwd_flops(q_shape, k_shape, v_shape, do_shape, causal,
+                         window, *args, **kwargs) -> int:
+    """QK^T again, dO.V^T, P^T.dO, dS.K and dS^T.Q: 5 products."""
+    return 10 * q_shape[3] * _pairs(q_shape, k_shape, causal, window)
+
+
+def _shardings(k, tensors: int, scalars: int, outputs: int):
+    """Placements, one mesh dim at a time, for an operator over ``tensors``
+    attention operands ``[B, H, S, hd]`` then ``scalars`` other arguments:
+    all replicated; batch sharded; heads sharded where ``Hkv`` divides by
+    the whole mesh, so that any split of the heads keeps a kv head's query
+    heads (a GQA group) on one rank."""
+    def rule(p):
+        return [p] * outputs, [p] * tensors + [None] * scalars
+
+    out = [rule(Replicate()), rule(Shard(0))]
+    if k.tensor_meta.shape[1] % math.prod(k.mesh.shape) == 0:
+        out.append(rule(Shard(1)))
+    return out
+
+
+@register_sharding(torch.ops.repro_torch.flash_attn.default)
+def _attention_sharding(q, k, v, causal, window, splits, backend):
+    return _shardings(k, tensors=3, scalars=4, outputs=1)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attn_bwd.default)
+def _attention_bwd_sharding(q, k, v, do, causal, window):
+    return _shardings(k, tensors=4, scalars=2, outputs=3)
 
 
 def flash_attention(
@@ -239,9 +339,11 @@ def flash_attention(
     Queries end-align with keys (query ``i`` at position ``i + Sk - Sq``);
     ``causal`` hides later keys, ``window`` keys ``window`` or more
     positions back.  Query head ``h`` reads kv head ``h // (Hq // Hkv)``.
-    Differentiable: where an input requires grad under grad mode the call
-    goes through :class:`_Attention` (the same forward, the plain backward
-    of ``ref.attention_bwd_ref``), with no tuner consult.
+    Differentiable (the plain backward of ``ref.attention_bwd_ref``): where
+    an input requires grad under grad mode the call goes through the
+    operator and consults no tuner, as DTensor and fake operands do (their
+    sharding rule and fake implementation: module docstring).  Plain
+    tensors with no grad call the dispatch directly.
 
     ``splits`` sets the blocks a decode call splits each kv head's keys
     over; None runs the tuner's cached pick for this call
@@ -272,24 +374,32 @@ def flash_attention(
                          f"{v.device}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attn: window must be >= 1, got {window}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Attention.apply(q, k, v, causal, window, splits)
-    b = q.shape[0]
+    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v)) or (
+            torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _attention_op(q, k, v, causal, window, splits, None)
     backend = None
     if splits is None:
-        backend = common.resolve_backend("flash_attn", q.device)
-        key = (q.dtype, b, hq, hkv, sq, sk, hd)
-        cfg = tune.known("flash_attn", backend, key)
-        if cfg is None:
-            cfg = tune.consult(
-                "flash_attn", backend,
-                lambda: {"dtype": common.dtype_name(q), "batch": b,
-                         "heads_q": hq, "heads_kv": hkv, "seq_q": sq,
-                         "seq_k": sk, "head_dim": hd},
-                lambda **c: common.dispatch("flash_attn", q.device, q, k, v,
-                                            causal=causal, window=window,
-                                            backend=backend, **c), key=key)
-        splits = cfg.get("splits")
+        splits, backend = _tuned_splits(q, k, v, causal, window)
     return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
                            window=window, splits=splits, backend=backend)
+
+
+def _tuned_splits(q, k, v, causal, window) -> tuple[int | None, str]:
+    """The tuner's cached pick of ``splits`` for this call (None: the
+    plan's), and the flavor it was picked for."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    backend = common.resolve_backend("flash_attn", q.device)
+    key = (q.dtype, b, hq, hkv, sq, sk, hd)
+    cfg = tune.known("flash_attn", backend, key)
+    if cfg is None:
+        cfg = tune.consult(
+            "flash_attn", backend,
+            lambda: {"dtype": common.dtype_name(q), "batch": b,
+                     "heads_q": hq, "heads_kv": hkv, "seq_q": sq,
+                     "seq_k": sk, "head_dim": hd},
+            lambda **c: common.dispatch("flash_attn", q.device, q, k, v,
+                                        causal=causal, window=window,
+                                        backend=backend, **c), key=key)
+    return cfg.get("splits"), backend

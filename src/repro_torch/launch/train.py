@@ -7,8 +7,12 @@
 without it the full config trains on fresh batches.  Supports sync and
 async-local update strategies, checkpoint/restart and failure injection
 (``--inject-failure-at``).  Parameters are random, drawn from a seeded
-generator on the device.  Runs on ``cuda`` unless ``--device cpu``.  No
-mesh: one device holds the model and every replica.
+generator on the device.  Runs on ``cuda`` unless ``--device cpu``.  As
+the reference's launcher, it runs without a mesh: one device holds the
+model and every replica.  The steps it builds take one
+(``trainer.make_sync_step(..., mesh=...)``, a ``torch.distributed``
+``DeviceMesh``); ``repro_torch.launch.dryrun`` traces them on the
+production meshes.
 """
 from __future__ import annotations
 

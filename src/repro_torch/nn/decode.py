@@ -17,6 +17,11 @@ Cache layout, stacked on the layer axes as in the reference:
 
 ``decode_step`` writes every cache leaf in place and returns the same
 dict (the reference returns an updated copy).
+
+:func:`cache_specs` gives each leaf's sharding, the reference's: KV caches
+on the *sequence* axis (``"kvseq"``: GQA head counts such as 8 do not
+divide a model axis of 16, the sequence does), the recurrent states on
+their heads, xLSTM's on its head dim (it has 4 heads).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import torch
 
 from repro_torch.kernels import common
 from repro_torch.nn import layers, transformer
+from repro_torch.nn import param as pm
+from repro_torch.nn.param import NOSHARD, P
 from repro_torch.nn.transformer import LM, ArchConfig
 
 #: a hybrid's shared-attention history is ring-cached past this max_len
@@ -82,8 +89,34 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     raise ValueError(f"unknown family {fam!r}")
 
 
+def cache_specs(cfg: ArchConfig) -> dict[str, P]:
+    """Each cache leaf's :class:`param.P` (layer axes lead, unsharded)."""
+    fam = cfg.family
+
+    def kv(layer_axes):
+        return pm.stacked(P("batch", None, "kvseq", None), layer_axes)
+
+    if fam in ("dense", "moe", "audio"):
+        return {"k": kv(1), "v": kv(1)}
+    if fam == "vlm":
+        return {"k": kv(2), "v": kv(2)}
+    if fam == "hybrid":
+        state, conv = P("batch", "model", None, None), P("batch", None, "model")
+        specs = {"h": pm.stacked(state, 2), "conv": pm.stacked(conv, 2)}
+        if transformer.hybrid_shape(cfg)[2]:
+            specs["h_tail"] = pm.stacked(state)
+            specs["conv_tail"] = pm.stacked(conv)
+        specs["attn_k"], specs["attn_v"] = kv(1), kv(1)
+        return specs
+    if fam == "ssm":
+        s = pm.stacked(P("batch", None, "model"))
+        return {"C": pm.stacked(P("batch", None, None, "model"), 2),
+                "s_c": s, "s_n": s, "s_h": s, "s_m": s}
+    raise ValueError(f"unknown family {fam!r}")
+
+
 def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
-                idx: int):
+                idx: int, *, shard=NOSHARD):
     """inputs: {"tokens" [B, 1]} or {"embeddings" [B, 1, d]} (audio), and
     for vlm "memory" [B, M, d]; ``idx`` the host position of the step (its
     rotary position and cache slot, shared by the batch).
@@ -95,13 +128,13 @@ def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
                            device=x.device)
 
     def attn(x, block, k, v):
-        return transformer.attn_block(x, block, cfg, positions,
+        return transformer.attn_block(x, block, cfg, positions, shard=shard,
                                       cache=(k, v, idx))[0]
 
     def write(states, new):
         """A recurrent layer's new states over its cache slices."""
         for old, t in zip(states, new):
-            old.copy_(t)
+            pm.assign(old, t)
 
     if fam in ("dense", "moe", "audio"):
         for i, block in enumerate(params.layers):
@@ -114,7 +147,7 @@ def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
             for j, lp in enumerate(self_p):
                 x = attn(x, lp, cache["k"][sb, j], cache["v"][sb, j])
             x, _ = transformer.attn_block(x, cross_p, cfg, positions,
-                                          memory=memory)
+                                          shard=shard, memory=memory)
 
     elif fam == "hybrid":
         def mamba(x, lp, h, conv):

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import param as pm
@@ -38,6 +39,15 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def ffn_specs(gated: bool = True, fsdp: bool = False) -> dict:
+    """The FFN's sharding: hidden dim over ``"model"``."""
+    fa = pm.fsdp_axes(fsdp)
+    specs = {"w_up": pm.P(fa, "model"), "w_down": pm.P("model", fa)}
+    if gated:
+        specs["w_gate"] = pm.P(fa, "model")
+    return specs
+
+
 def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
              gated: bool = True) -> nn.ParameterDict:
     w = {"w_up": pm.normal(gen, (d_model, d_ff), d_model ** -0.5, dtype),
@@ -62,21 +72,35 @@ def ffn(x: torch.Tensor, p: nn.ParameterDict, *, gated: bool = True
 # ---------------------------------------------------------------------------
 
 
+#: the embedding's sharding: vocab rows over ``"model"``
+EMBED_SPEC = pm.P("model", None)
+
+
 def init_embed(gen: torch.Generator, vocab: int, d_model: int,
                dtype) -> nn.Parameter:
     return pm.frozen(pm.normal(gen, (vocab, d_model), d_model ** -0.5, dtype))
 
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+    """Rows of ``emb`` (``F.embedding``: DTensor has its rules, forward
+    and backward).  With the vocab sharded each rank looks up the rows it
+    holds, and the partial rows are summed here (a vocab-parallel
+    embedding's all-reduce), before anything else reads them."""
+    out = torch.nn.functional.embedding(tokens, emb)
+    if isinstance(out, DTensor) and any(p.is_partial() for p in
+                                        out.placements):
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
 
 
 def _xent_sum(hx: torch.Tensor, emb: torch.Tensor,
               lx: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of one chunk: [B, c, V] fp32 logits inside."""
     logits = (hx @ emb.T).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    vocab = logits.ndim - 1   # a non-negative dim, as DTensor's rules want
+    logz = torch.logsumexp(logits, dim=vocab, keepdim=True)
+    gold = torch.gather(logits, vocab, lx.long().unsqueeze(vocab))
     return torch.sum(logz - gold)
 
 

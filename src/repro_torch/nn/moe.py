@@ -8,16 +8,19 @@ as batched matmuls ``[g, E, C, d] x [E, d, ff]``, and results are
 combined back with the routing weights.
 
 Tokens are split into ``groups`` that each route and drop against their
-own capacity, as the reference's group-local dispatch does; its choice
-between gathered and all-to-all expert parallelism only sets how many
-groups there are.  There is no mesh here, so the configs' one group and
-one model shard give one group.  The router runs in fp32 whatever the
-experts' dtype.  The auxiliary load-balancing loss is returned beside
-the output.
+own capacity, as the reference's group-local dispatch does.  Without a
+mesh the configs' one group and one model shard give one group.  On a
+mesh (``shard`` from ``trainer.make_shard_fn``) the reference's sites
+place the groups over the batch axes, and in the gathered strategy over
+``"model"`` too; each rank routes, dispatches and combines the groups it
+holds on plain local tensors (the index math has no DTensor rule), and
+the expert products run on DTensors: gathered, against all-gathered
+experts; all-to-all, with the dispatch buffer moved to the expert shards
+and back.  The router runs in fp32 whatever the experts' dtype.  The
+auxiliary load-balancing loss is returned beside the output.
 
-The grouped products are plain batched matmuls: the reference computes
-them with ``einsum`` outside any Pallas kernel, so ``torch.matmul`` is
-their port.  A decode step pushes its few tokens through the full
+The grouped products are ``einsum``s, as the reference's, outside any
+Pallas kernel.  A decode step pushes its few tokens through the full
 ``[E, C, d]`` buffer, so it reads every expert's weights (the
 reference's capacity semantics).
 """
@@ -26,8 +29,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.nn import param as pm
+from repro_torch.nn.param import NOSHARD, P
+
+
+def moe_specs(fsdp: bool = False) -> dict:
+    """Experts over ``"model"`` (expert parallelism); the router
+    replicated."""
+    fa = pm.fsdp_axes(fsdp)
+    return {"router": pm.P(None, None), "w_up": pm.P("model", fa, None),
+            "w_gate": pm.P("model", fa, None), "w_down": pm.P("model", None, fa)}
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -68,8 +81,10 @@ def _route_group(x: torch.Tensor, router: torch.Tensor, *, top_k: int,
 
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
-    counts = torch.bincount(sorted_ids, minlength=n_experts)
-    start = torch.cumsum(counts, 0) - counts                 # [E]
+    # each expert's first slot in the sorted order (the reference's
+    # cumsum(counts) - counts; a search keeps the shape static)
+    start = torch.searchsorted(sorted_ids, torch.arange(
+        n_experts, device=x.device, dtype=sorted_ids.dtype))  # [E]
     pos_in_expert = (torch.arange(t * top_k, device=x.device)
                      - start[sorted_ids])
     keep = pos_in_expert < capacity
@@ -96,10 +111,33 @@ def _combine_group(down_flat: torch.Tensor, sel, t: int) -> torch.Tensor:
     return out.index_add(0, token_ord, out_sorted)
 
 
+def _local_groups(fn, xg, *args):
+    """``fn(xg, *args)`` on the groups this rank holds: plain tensors in
+    and out, every output ``[g, ...]`` back on ``xg``'s placements.  ``args``
+    are replicated (or plain) tensors, or lists of plain local tensors."""
+    if not isinstance(xg, DTensor):
+        return fn(xg, *args)
+    out = fn(xg.to_local(), *(a.full_tensor() if isinstance(a, DTensor)
+                              else a for a in args))
+
+    def wrap(t):
+        if isinstance(t, torch.Tensor):
+            return DTensor.from_local(t, xg.device_mesh, xg.placements,
+                                      run_check=False)
+        return t
+    return tuple(wrap(t) for t in out) if isinstance(out, tuple) else wrap(out)
+
+
 def moe_ffn(x: torch.Tensor, p: nn.ParameterDict, *, top_k: int,
             capacity_factor: float = 1.25, groups: int = 1,
-            model_shards: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [T, d] flattened tokens.  Returns (out [T, d], aux_loss scalar)."""
+            model_shards: int = 1, shard=NOSHARD
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [T, d] flattened tokens.  Returns (out [T, d], aux_loss scalar).
+
+    The reference's two strategies: ``gathered`` (dispatched activations
+    outweigh the expert weights, which fit 1 GiB: one group a device, the
+    experts all-gathered) or all-to-all (one group a batch shard, the
+    dispatch buffer sent to the expert shards and back)."""
     t, d = x.shape
     n_experts = p["router"].shape[1]
     d_ff = p["w_up"].shape[-1]
@@ -113,25 +151,53 @@ def moe_ffn(x: torch.Tensor, p: nn.ParameterDict, *, top_k: int,
     tg = t // g
     capacity = _capacity(tg, top_k, n_experts, capacity_factor)
     rows = n_experts * capacity + 1
+    group_spec = ("batch", "model") if gathered else "batch"
 
-    sels, auxs, bufs = [], [], []
-    for xl in x.view(g, tg, d):
-        sel, aux = _route_group(xl, p["router"], top_k=top_k,
-                                capacity=capacity, n_experts=n_experts)
-        sels.append(sel)
-        auxs.append(aux)
-        bufs.append(_dispatch_group(xl, sel[0], sel[1], rows=rows))
-    he = torch.stack(bufs)[:, :n_experts * capacity].view(
-        g, n_experts, capacity, d)
+    xg = shard(x.reshape(g, tg, d), P(group_spec, None, None))
 
-    up = torch.matmul(he, p["w_up"])                          # [g, E, C, f]
-    gate = F.silu(torch.matmul(he, p["w_gate"]))
-    down = torch.matmul(up * gate, p["w_down"])               # [g, E, C, d]
+    def dispatch(xs, router):
+        sels, auxs, bufs = [], [], []
+        for xl in xs:
+            sel, aux = _route_group(xl, router, top_k=top_k,
+                                    capacity=capacity, n_experts=n_experts)
+            sels.append(sel)
+            auxs.append(aux)
+            bufs.append(_dispatch_group(xl, sel[0], sel[1], rows=rows))
+        he = torch.stack(bufs)[:, :n_experts * capacity].reshape(
+            len(bufs), n_experts, capacity, d)
+        return he, torch.stack(auxs), sels
 
-    down_flat = torch.cat(
-        [down.reshape(g, n_experts * capacity, d),
-         torch.zeros(g, 1, d, dtype=down.dtype, device=down.device)],
-        dim=1)                                                # drop row
-    out = torch.stack([_combine_group(df, s, tg)
-                       for df, s in zip(down_flat, sels)])
-    return out.reshape(t, d), torch.stack(auxs).mean()
+    he, aux, sels = _local_groups(dispatch, xg, p["router"])
+
+    if gathered:
+        he = shard(he, P(group_spec, None, None, None))
+        w_up = shard(p["w_up"], P(None, None, None))
+        w_gate = shard(p["w_gate"], P(None, None, None))
+        w_down = shard(p["w_down"], P(None, None, None))
+    else:
+        he = shard(he, P(group_spec, "model", None, None))
+        w_up, w_gate, w_down = p["w_up"], p["w_gate"], p["w_down"]
+
+    up = torch.einsum("gecd,edf->gecf", he, w_up)
+    gate = F.silu(torch.einsum("gecd,edf->gecf", he, w_gate))
+    down = torch.einsum("gecf,efd->gecd", up * gate, w_down)
+    # return path: outputs live with their token-owner shards for the combine
+    down = shard(down, P(group_spec, None, None, None))
+
+    def combine(dn, sels):
+        flat = torch.cat([dn.reshape(dn.shape[0], n_experts * capacity, d),
+                          dn.new_zeros(dn.shape[0], 1, d)], dim=1)  # drop row
+        return torch.stack([_combine_group(df, s, tg)
+                            for df, s in zip(flat, sels)])
+
+    out = _local_groups(combine, _placed_like(down, xg), sels)
+    out = shard(out, P(group_spec, None, None))
+    return out.reshape(t, d), aux.mean()
+
+
+def _placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``like``'s placements (the group axis where the routing
+    put it), where ``like`` is a DTensor."""
+    if not isinstance(like, DTensor):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)

@@ -25,6 +25,13 @@ from torch import nn
 from repro_torch.nn import param as pm
 
 
+#: Mamba2's sharding (the reference's): the fused projection's columns
+#: and the conv's channels over ``"model"``
+MAMBA2_SPECS = {"w_in": pm.P(None, "model"), "conv": pm.P(None, "model"),
+                "dt_bias": pm.P(None), "a_log": pm.P(None),
+                "d_skip": pm.P(None), "w_out": pm.P("model", None)}
+
+
 def init_mamba2(gen: torch.Generator, d_model: int, d_state: int, dtype, *,
                 expand: int = 2, head_dim: int = 64, conv_width: int = 4):
     """Returns (params, meta)."""

@@ -21,8 +21,21 @@ rematerialises each scanned body in the backward, as the reference's
 ``nothing_saveable``): a block for dense, moe and audio, a superblock for
 vlm, hybrid and ssm; hybrid's tail layers are not rematerialised, as in
 the reference.  Attention, self and cross, runs on the ``flash_attn``
-kernel.  No mesh: the reference's ``shard`` callback and sharding specs
-stay out.
+kernel.
+
+:func:`param_specs` gives each parameter's sharding (:class:`param.P`,
+the reference's specs under the port's names, layer axes dropped), and
+``forward``, ``loss_fn`` and ``decode.decode_step`` thread the reference's
+``shard`` callback: the residual stream is placed on ``P("batch", "seq",
+None)`` after the embedding and after every block, as the reference's
+``with_sharding_constraint``s place it, and gathered whole on the
+sequence around a block's products and before the loss (:data:`ROWS`).
+Without a mesh it is :data:`NOSHARD` and nothing moves.  On a mesh
+(``trainer.make_shard_fn``) the parameters and activations are DTensors;
+the recurrent mixers (Mamba2, mLSTM, sLSTM) then run data-parallel, each
+rank on its batch rows with the mixer's weights gathered
+(:func:`batch_local`), since their scans and chunk loops have no DTensor
+rule.
 """
 from __future__ import annotations
 
@@ -31,10 +44,20 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import attention, layers, moe, ssm, xlstm
 from repro_torch.nn import param as pm
+from repro_torch.nn.param import NOSHARD, P
+
+#: the residual stream's spec [B, S, d]
+RESIDUAL = P("batch", "seq", None)
+#: a projection's input and output: the sequence whole (with
+#: ``seq_shard`` the all-gather and all-reduce XLA's SPMD inserts around a
+#: block's products; DTensor cannot flatten a batch- and sequence-sharded
+#: operand or gradient into a matmul)
+ROWS = P("batch", None, None)
 
 PORTED_FAMILIES = ("dense", "moe", "audio", "hybrid", "ssm", "vlm")
 
@@ -199,11 +222,11 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, *,
 
 
 def attn_block(x: torch.Tensor, p: AttnBlock, cfg: ArchConfig,
-               positions: torch.Tensor, *, cache=None,
+               positions: torch.Tensor, *, shard=NOSHARD, cache=None,
                memory: torch.Tensor | None = None):
     """Pre-norm block: self-attention, or cross-attention to ``memory``
     (vlm), then the FFN or the MoE.  Returns (x, new_cache)."""
-    h = layers.rms_norm(x, p.norm1)
+    h = shard(layers.rms_norm(x, p.norm1), ROWS)
     if memory is not None:
         a = attention.cross_attention(h, memory, p.attn, n_heads=cfg.n_heads,
                                       n_kv=cfg.n_kv, head_dim=cfg.hd)
@@ -212,17 +235,18 @@ def attn_block(x: torch.Tensor, p: AttnBlock, cfg: ArchConfig,
         a, new_cache = attention.self_attention(
             h, p.attn, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
             positions=positions, causal=True, window=cfg.window, cache=cache)
-    x = x + a
-    h = layers.rms_norm(x, p.norm2)
+    x = shard(x + shard(a, ROWS), RESIDUAL)
+    h = shard(layers.rms_norm(x, p.norm2), ROWS)
     if hasattr(p, "moe"):
         b, s, d = h.shape
         out, _ = moe.moe_ffn(h.reshape(b * s, d), p.moe, top_k=cfg.moe_top_k,
                              groups=cfg.moe_groups or 1,
-                             model_shards=cfg.moe_model_shards)
-        f = out.view(b, s, d)
+                             model_shards=cfg.moe_model_shards, shard=shard)
+        # tokens back on the batch axes alone before they unflatten
+        f = shard(out, P("batch", None)).reshape(b, s, d)
     else:
         f = layers.ffn(h, p.ffn, gated=cfg.ffn_gated)
-    return x + f, new_cache
+    return shard(x + shard(f, ROWS), RESIDUAL), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -269,30 +293,63 @@ def _mixer(kind: str, params: nn.ParameterDict, cfg: ArchConfig,
                       pm.make_norm(cfg.d_model, cfg.param_dtype, dev))
 
 
+def batch_local(fn, x: torch.Tensor, weights, *states):
+    """``fn(x, weights, *states) -> (y, state)`` where ``x`` may be a
+    DTensor: each rank runs ``fn`` on its batch rows (``x`` and the states
+    kept sharded only where ``x`` is sharded on its batch axis) with the
+    weights gathered whole, and ``y`` and the state come back as DTensors
+    on those placements.  Plain tensors run as they are."""
+    if not isinstance(x, DTensor):
+        return fn(x, weights, *states)
+    mesh = x.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements]
+
+    def local(t):
+        return None if t is None else t.redistribute(mesh, rows).to_local()
+
+    def wrap(t):
+        if isinstance(t, tuple):
+            return tuple(wrap(u) for u in t)
+        return DTensor.from_local(t, mesh, rows, run_check=False)
+
+    whole = {k: w.full_tensor() if isinstance(w, DTensor) else w
+             for k, w in weights.items()}
+    y, st = fn(local(x), whole, *(local(t) for t in states))
+    return wrap(y), wrap(st)
+
+
 def mamba_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
-                state=None, conv_state=None):
+                shard=NOSHARD, state=None, conv_state=None):
     """x + Mamba2(norm(x)).  Returns (x, (state, conv_state))."""
     h = layers.rms_norm(x, lp.norm)
-    y, st = ssm.mamba2(h, lp.mamba, _mamba_meta(cfg), chunk=cfg.ssm_chunk,
-                       state=state, conv_state=conv_state)
-    return x + y, st
+    y, st = batch_local(
+        lambda h, w, st, cv: ssm.mamba2(h, w, _mamba_meta(cfg),
+                                        chunk=cfg.ssm_chunk, state=st,
+                                        conv_state=cv),
+        h, lp.mamba, state, conv_state)
+    return shard(x + y, RESIDUAL), st
 
 
 def mlstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
-                state=None):
+                shard=NOSHARD, state=None):
     """x + mLSTM(norm(x)).  Returns (x, C)."""
     h = layers.rms_norm(x, lp.norm)
-    y, C = xlstm.mlstm(h, lp.mix, _mlstm_meta(cfg), chunk=cfg.ssm_chunk,
-                       state=state)
-    return x + y, C
+    y, C = batch_local(
+        lambda h, w, st: xlstm.mlstm(h, w, _mlstm_meta(cfg),
+                                     chunk=cfg.ssm_chunk, state=st),
+        h, lp.mix, state)
+    return shard(x + y, RESIDUAL), C
 
 
 def slstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
-                state=None):
+                shard=NOSHARD, state=None):
     """x + sLSTM(norm(x)).  Returns (x, (c, n, h, m))."""
     h = layers.rms_norm(x, lp.norm)
-    y, st = xlstm.slstm(h, lp.mix, _slstm_meta(cfg), state=state)
-    return x + y, st
+    y, st = batch_local(
+        lambda h, w, *st: xlstm.slstm(h, w, _slstm_meta(cfg),
+                                      state=st or None),
+        h, lp.mix, *(state or ()))
+    return shard(x + y, RESIDUAL), st
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +406,29 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> LM:
     return LM(pm.make_norm(d, dt, dev), **io, **stacks)
 
 
+def param_specs(cfg: ArchConfig) -> dict[str, P]:
+    """Each parameter's :class:`param.P`, keyed as ``named_parameters()``:
+    the reference's spec with its stacked layer axes dropped."""
+    groups = {"attn": attention.attention_specs(cfg.fsdp),
+              "ffn": layers.ffn_specs(cfg.ffn_gated, cfg.fsdp),
+              "moe": moe.moe_specs(cfg.fsdp), "mamba": ssm.MAMBA2_SPECS,
+              "mlstm_blocks": xlstm.MLSTM_SPECS,
+              "slstm_blocks": xlstm.SLSTM_SPECS}
+    top = {"embed": layers.EMBED_SPEC, "head": P(None, "model"),
+           "final_norm": pm.NORM_SPEC}
+    specs = {}
+    for name, _ in init_params(cfg, pm.META).named_parameters():
+        parts = name.split(".")
+        if name in top:
+            specs[name] = top[name]
+        elif parts[-1].startswith("norm"):
+            specs[name] = pm.NORM_SPEC
+        else:
+            group = parts[0] if parts[-2] == "mix" else parts[-2]
+            specs[name] = groups[group][parts[-1]]
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Forward (training / prefill): returns final hidden states [B, S, d]
 # ---------------------------------------------------------------------------
@@ -362,7 +442,8 @@ def embed_inputs(params: LM, cfg: ArchConfig, inputs: dict) -> torch.Tensor:
     return layers.embed(inputs["tokens"], params.embed)
 
 
-def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
+def forward(params: LM, cfg: ArchConfig, inputs: dict, *, shard=NOSHARD,
+            mode: str = "train"):
     """inputs: {"tokens" [B, S] | "embeddings" [B, S, d], and for vlm
     "memory" [B, M, d]}, on the parameters' device.
 
@@ -382,6 +463,7 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
+    x = shard(x, RESIDUAL)
     remat = not prefill and torch.is_grad_enabled()
 
     def scanned(body, x, *args):
@@ -396,7 +478,7 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
     outs = []
     if fam in ("dense", "moe", "audio"):
         def body(x, block):
-            return attn_block(x, block, cfg, positions)
+            return attn_block(x, block, cfg, positions, shard=shard)
 
         for block in params.layers:
             x, kv = scanned(body, x, block)
@@ -412,9 +494,10 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
         def body(x, self_p, cross_p):
             kvs = []
             for lp in self_p:
-                x, kv = attn_block(x, lp, cfg, positions)
+                x, kv = attn_block(x, lp, cfg, positions, shard=shard)
                 kvs.append(kv)
-            x, _ = attn_block(x, cross_p, cfg, positions, memory=memory)
+            x, _ = attn_block(x, cross_p, cfg, positions, shard=shard,
+                              memory=memory)
             return x, kvs
 
         for self_p, cross_p in zip(params.self_layers, params.cross_layers):
@@ -430,9 +513,10 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
         def body(x, ps):
             sts = []
             for lp in ps:
-                x, st = mamba_layer(x, lp, cfg)
+                x, st = mamba_layer(x, lp, cfg, shard=shard)
                 sts.append(st)
-            x, kv = attn_block(x, params.shared_attn, cfg, positions)
+            x, kv = attn_block(x, params.shared_attn, cfg, positions,
+                               shard=shard)
             return x, (sts, kv)
 
         for ps in params.mamba_blocks:
@@ -440,7 +524,7 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
             outs.append(out)
         tail = []
         for lp in getattr(params, "mamba_tail", ()):
-            x, st = mamba_layer(x, lp, cfg)
+            x, st = mamba_layer(x, lp, cfg, shard=shard)
             tail.append(st)
 
         def cache():
@@ -460,9 +544,9 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
         def body(x, mp, sp):
             Cs = []
             for lp in mp:
-                x, C = mlstm_layer(x, lp, cfg)
+                x, C = mlstm_layer(x, lp, cfg, shard=shard)
                 Cs.append(C)
-            x, st = slstm_layer(x, sp, cfg)
+            x, st = slstm_layer(x, sp, cfg, shard=shard)
             return x, (Cs, st)
 
         for mp, sp in zip(params.mlstm_blocks, params.slstm_blocks):
@@ -487,9 +571,10 @@ def forward(params: LM, cfg: ArchConfig, inputs: dict, *, mode: str = "train"):
 # ---------------------------------------------------------------------------
 
 
-def loss_fn(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict, *,
+            shard=NOSHARD) -> torch.Tensor:
     """Mean next-token cross-entropy (tied embeddings, or audio's head;
     chunked logits).  batch: the model's inputs and "labels" [B, S]."""
-    h = forward(params, cfg, batch)
+    h = shard(forward(params, cfg, batch, shard=shard), ROWS)
     return layers.chunked_softmax_xent(h, params.unembedding(),
                                        batch["labels"], chunk=cfg.loss_chunk)

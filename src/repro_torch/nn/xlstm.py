@@ -45,6 +45,13 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: mLSTM's sharding (the reference's): w_qkv column-parallel, w_down
+#: row-parallel
+MLSTM_SPECS = {"w_up": pm.P(None, "model"), "w_qkv": pm.P(None, "model"),
+               "w_gates": pm.P("model", None), "gate_bias": pm.P(None),
+               "w_down": pm.P("model", None)}
+
+
 def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int, dtype, *,
                proj_factor: int = 2):
     """Returns (params, meta)."""
@@ -136,6 +143,11 @@ def init_mlstm_state(b: int, meta: dict, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
+
+
+#: sLSTM's sharding (the reference's)
+SLSTM_SPECS = {"w_x": pm.P(None, "model"), "r_h": pm.P(None, None, "model"),
+               "bias": pm.P(None), "w_out": pm.P("model", None)}
 
 
 def init_slstm(gen: torch.Generator, d_model: int, n_heads: int, dtype):

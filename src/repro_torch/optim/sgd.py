@@ -13,7 +13,8 @@ Updates follow JAX's type promotion: a Python float (a rate, the momentum)
 is weakly typed, so it is first rounded to the array's dtype and the
 result keeps that dtype; a schedule's fp32 tensor rate promotes a bf16
 gradient to fp32 (torch would keep a 0-d tensor out of the promotion and
-multiply by the unrounded float).  No mesh, so no state specs.
+multiply by the unrounded float).  A state's specs on a mesh:
+``trainer.opt_state_specs``.
 """
 from __future__ import annotations
 

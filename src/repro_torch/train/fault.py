@@ -14,8 +14,10 @@ The port's copy of the reference's ``Heartbeat``, ``MergeGate`` and
 (``jax.block_until_ready``) the loop synchronizes the state's card, and on
 the CPU nothing.  Before it restores, the loop waits for the checkpoint
 writer, so a save started before the failure is the one restored (the
-reference reads whatever the writer has published by then).  The reference's ``elastic_rescale`` re-places a state on
-a new mesh and waits for the port's mesh (ROADMAP Queue 1 item 7(d)).
+reference reads whatever the writer has published by then).
+``elastic_rescale`` re-places a live state on another mesh or placements
+(grow or shrink): each leaf gathered whole, then distributed again, or
+left a plain tensor on one device.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -132,3 +135,21 @@ class ResilientLoop:
             self.step += 1
         self.ckpt.wait()
         return self.state, history
+
+
+def elastic_rescale(state, new_shardings):
+    """Re-place a live state onto a new mesh (grow/shrink).
+
+    ``new_shardings`` holds ``state``'s containers; at each leaf either a
+    ``(DeviceMesh, placements)`` pair, where the leaf becomes a DTensor on
+    that mesh, or a device (``torch.device`` or its name), where it becomes
+    a plain tensor there.  Each leaf is gathered whole first (a DTensor's
+    ``full_tensor``, a collective every rank of its mesh joins)."""
+    def one(x, where):
+        full = x.full_tensor() if isinstance(x, DTensor) else x
+        if isinstance(where, (torch.device, str)):
+            return full.to(where)
+        mesh, placements = where
+        return distribute_tensor(full.to(mesh.device_type), mesh, placements)
+
+    return tree_map(one, state, new_shardings)

@@ -6,8 +6,9 @@ The port's parameter tree is a flat ``dict[str, Tensor]`` keyed by the
 (``"embed"``, ``"final_norm"``, ``"layers.0.attn.wq"``, ...).  Optimizer
 and trainer states nest such dicts in dicts, lists and tuples:
 :func:`tree_map` and :func:`tree_leaves` walk those three containers and
-take anything else as a leaf.  There is no mesh here, so no sharding
-specs ride on a tree.
+take anything else as a leaf.  Sharding specs ride beside a tree, not on
+it: a dict of the same keys holding ``nn.param.P`` (a tuple, so these
+helpers would walk into it; ``trainer.resolve_tree`` maps spec trees).
 """
 from __future__ import annotations
 

@@ -3,12 +3,14 @@
 full-batch gradients of one checkout, for comparisons between two
 checkouts on one card.
 
-    python3 tools/port_ab.py [--root DIR] [--label NAME]
+    python3 tools/port_ab.py [--root DIR] [--label NAME] [--only A,B]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: the checkout this script
 lies in), so the same script times a parent commit unpacked beside this
 one and this one, each in a process of its own; run them in turns (A, B,
-B, A) inside one chip call.  Needs one card.  Prints one JSON line:
+B, A) inside one chip call.  Needs one card.  ``--only`` runs the named
+sections alone (``decode,sgd_sparse,grad,lm``; all but ``lm`` by default).
+Prints one JSON line:
 
 * ``decode``: ``flash_attention`` at h2o-danube-1.8b's decode shape (B=4,
   Hq=32, Hkv=8, hd=80, bf16, Sq=1, ``causal=False``, as
@@ -34,7 +36,13 @@ B, A) inside one chip call.  Needs one card.  Prints one JSON line:
 * ``train``: ``sgd.run`` for 4 epochs (``chip_smoke.py``'s phase ``train``
   rows) of ``AsyncLocalSGD(replicas=10, local_batch=10)`` on w8a, and of
   ``SyncSGD()`` on covtype and w8a and ``AsyncLocalSGD(replicas=10,
-  local_batch=6470)`` on w8a, the gradient kernels' epochs: ms per epoch.
+  local_batch=6470)`` on w8a, the gradient kernels' epochs: ms per epoch;
+* ``lm``: full-width h2o-danube-1.8b served as ``chip_smoke.py``'s phase
+  ``lm`` serves it (``repro_torch.launch.serve.setup``, 8 requests on 4
+  slots, 16 new tokens, seed 0; bf16, random weights): the run's ms a
+  decode step and tokens/s by the host clock, its ``flash_attn`` launches,
+  then 16 ticks on 4 live slots (ms a tick) and the device ms of 4
+  profiled ticks.
 """
 from __future__ import annotations
 
@@ -207,11 +215,66 @@ def grad_rows(K, synthetic, sgd) -> tuple[list[dict], list[dict]]:
     return rows, train
 
 
+#: phase ``lm``'s serving run (``chip_smoke.LM_ARGV``)
+LM_ARGV = ["--arch", "h2o-danube-1.8b", "--requests", "8", "--slots", "4",
+           "--max-new", "16", "--max-len", "128", "--seed", "0"]
+
+
+def lm_run() -> dict:
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    args = serve.parse_args(LM_ARGV)
+    cfg, engine, reqs = serve.setup(args)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, max_ticks=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in done)
+    out = {"decode_steps": engine.steps, "tokens": tokens, "wall_s": wall,
+           "ms_per_step": wall / engine.steps * 1e3,
+           "tokens_per_s": tokens / wall,
+           "flash_attn_launches": common.LAUNCHES["flash_attn"]}
+    stretch = ServeEngine(cfg, engine.params, slots=args.slots,
+                          max_len=args.max_len, device="cuda")
+    for i in range(args.slots):
+        stretch.try_admit(Request(100 + i, np.arange(1, 5) + i, max_new=64))
+    tick = lambda: [stretch.tick() for _ in range(4)]  # noqa: E731
+    tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        stretch.tick()
+    torch.cuda.synchronize()
+    out["ms_per_tick"] = (time.perf_counter() - t0) / 16 * 1e3
+    out["device_ms_per_tick"] = profiler_ms(tick, 1)["device_ms"] / 4
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tick()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    out["host_top_ops"] = {  # self host ms a tick, calls a tick
+        e.key[:60]: [e.self_cpu_time_total / 4e3, e.count / 4]
+        for e in top[:15]}
+    return out
+
+
+SECTIONS = ("decode", "sgd_sparse", "grad", "lm")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="decode,sgd_sparse,grad")
     args = ap.parse_args(argv)
+    only = args.only.split(",")
+    if not set(only) <= set(SECTIONS):
+        ap.error(f"--only takes sections of {SECTIONS}")
     if not torch.cuda.is_available():
         print("port_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -223,19 +286,29 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attn import ops
 
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn", "glm_grad", "glm_sgd_sparse",
-                      "glm_sparse"])
+    _build.build_all(["flash_attn"] + (
+        ["glm_grad", "glm_sgd_sparse", "glm_sparse"]
+        if {"sgd_sparse", "grad"} & set(only) else []))
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    decode = decode_rows(K, ops)
-    sparse, train = sparse_rows(K, synthetic, sgd)
-    grad, grad_train = grad_rows(K, synthetic, sgd)
-    print(json.dumps({"label": args.label, "root": args.root,
-                      "nvidia_smi": smi, "build_s": build_s,
-                      "decode": decode, "sgd_sparse": sparse, "grad": grad,
-                      "train": [train] + grad_train}), flush=True)
+    res = {"label": args.label, "root": args.root, "nvidia_smi": smi,
+           "build_s": build_s}
+    if "decode" in only:
+        res["decode"] = decode_rows(K, ops)
+    train = []
+    if "sgd_sparse" in only:
+        res["sgd_sparse"], sparse_train = sparse_rows(K, synthetic, sgd)
+        train.append(sparse_train)
+    if "grad" in only:
+        res["grad"], grad_train = grad_rows(K, synthetic, sgd)
+        train += grad_train
+    if train:
+        res["train"] = train
+    if "lm" in only:
+        res["lm"] = lm_run()
+    print(json.dumps(res), flush=True)
     return 0
 
 
