@@ -6,13 +6,17 @@ family) on one NVIDIA card.
     python3 chip_smoke.py          (from the repository root; needs one card)
     python3 chip_smoke.py --lm-train-probe
     python3 chip_smoke.py --lm-families
+    python3 chip_smoke.py --mesh
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
 and batches beside a library bf16 attention, and fresh-batch runs at
 other rates, lengths and parameter dtypes beside each batch's loss at the
 initial weights.  The third runs only env, build and phase
-``lm_families``.
+``lm_families``, the fourth only env, build and phase ``mesh`` (after
+``lm_families`` in the full run: ``phase_mesh``'s docstring; the placed
+families' sync steps and zamba2's decode ticks bit for bit on a one-rank
+NCCL mesh, and the dry run's cells on the production meshes).
 
 
 Phases, one JSON line each:
@@ -3099,12 +3103,26 @@ def run_lm_families(scratch: Path) -> int:
 
 #: (b)'s decode on the mesh: slots, ticks, cache length
 MESH_DECODE = (4, 8, 128)
+#: (a)'s placed families at full width: (arch, sync steps, depth or None
+#: for the config's own), at B=1 and phase lm_families' sequence
+#: (FAMILY_TRAIN_SEQ); xlstm-1.3b at one superblock (its sLSTM loop costs
+#: about 13 s a step at full depth)
+MESH_FAMILIES = (("zamba2-1.2b", 2, None), ("olmoe-1b-7b", 2, None),
+                 ("xlstm-1.3b", 1, 8))
+#: (b)'s decodes beyond danube's
+MESH_DECODED = ("zamba2-1.2b",)
 #: (d)'s cells: (arch, shape, multi-pod, update)
 MESH_CELLS = (("h2o-danube-1.8b", "train_4k", False, "sync"),
               ("h2o-danube-1.8b", "train_4k", True, "async"),
               ("olmoe-1b-7b", "prefill_32k", False, "sync"),
               ("minitron-4b", "decode_32k", True, "sync"),
-              ("zamba2-1.2b", "long_500k", False, "sync"))
+              ("zamba2-1.2b", "long_500k", False, "sync"),
+              ("zamba2-1.2b", "train_4k", False, "sync"),
+              ("kimi-k2-1t-a32b", "train_4k", True, "sync"),
+              ("command-r-35b", "prefill_32k", True, "sync"))
+#: (d)'s cells whose per-rank peak must fit the card (the others' is
+#: recorded beside it)
+MESH_PEAK_HELD = (("zamba2-1.2b", "train_4k", False, "sync"),)
 #: the H100's device memory, which a rank's arguments must fit
 CARD_BYTES = 80e9
 #: per-rank matmul flops x 256 against the unsharded step's
@@ -3118,6 +3136,19 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` (warnings only) for the
+    block, then as it was."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
 @contextlib.contextmanager
@@ -3163,24 +3194,32 @@ def _trees_err(a: dict, b: dict) -> tuple[float, bool]:
     return err, ok
 
 
-def _mesh_train(dev, mesh, cfg, params: dict, batches: list) -> tuple:
-    """(a): two sync steps with DTensor parameters against the mesh-less
-    step on the same weights and batches; ms a step, peak memory and a
-    profiled step's launches.  Returns the record, the mesh state and the
-    main path's flash_attn launches."""
+def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
+                lr: float = TRAIN_LR, exact: bool = False) -> tuple:
+    """(a): sync steps with DTensor parameters against the mesh-less step
+    on the same weights and batches; ms a step, peak memory and a profiled
+    step's launches.  ``exact``: the losses and parameters must equal the
+    mesh-less step's bit for bit, both run under
+    ``torch.use_deterministic_algorithms`` (the MoE combine's
+    ``index_add`` is atomic otherwise, and olmoe's mesh-less step then
+    differs from itself by about 1e-3 in the loss).  Returns the record,
+    the mesh state and the main path's flash_attn launches."""
     from repro_torch.kernels import common
     from repro_torch.launch import specs as specs_mod
     from repro_torch.nn import transformer
     from repro_torch.optim.sgd import sgd
     from repro_torch.train import trainer
 
-    opt = sgd(TRAIN_LR)
+    opt = sgd(lr)
     p_specs = transformer.param_specs(cfg)
     plain = trainer.make_sync_step(cfg, opt)
+
+    held_to = deterministic if exact else contextlib.nullcontext
     p, o, plain_losses = params, opt.init(params), []
-    for b in batches:
-        p, o, loss = plain(p, o, b)
-        plain_losses.append(float(loss))
+    with held_to():
+        for b in batches:
+            p, o, loss = plain(p, o, b)
+            plain_losses.append(float(loss))
     plain_params = p
     del p, o
 
@@ -3199,36 +3238,47 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     common.reset_launches()
     ms, losses = [], []
-    for b in dbatches:
-        t0 = time.perf_counter()
-        dp, do, loss = step(dp, do, b)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
+    with held_to():
+        for b in dbatches:
+            t0 = time.perf_counter()
+            dp, do, loss = step(dp, do, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
     launches = common.LAUNCHES["flash_attn"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     err, held = _trees_err(_full_tree(dp), plain_params)
     del plain_params
-    prof = _profiled_launches(lambda: step(dp, do, dbatches[0]),
-                              ("flash_attn_mma_kernel",))
-    rec = {"losses": losses, "plain_losses": plain_losses,
-           "loss_max_abs_err": max(abs(a - b) for a, b in
-                                   zip(losses, plain_losses)),
-           "params_max_abs_err": err, "ms_per_step": ms, "peak_gb": peak,
-           "launches": launches, "expected_launches": 2 * cfg.n_layers
-           * len(batches), "profiled_step_launches": prof,
+    attn = _attention_layers(cfg)
+    prof = (_profiled_launches(lambda: step(dp, do, dbatches[0]),
+                               ("flash_attn_mma_kernel",)) if attn
+            else {"flash_attn_mma_kernel": 0})
+    loss_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "batch": list(batches[0]["tokens"].shape), "lr": lr,
+           "losses": losses, "plain_losses": plain_losses,
+           "loss_max_abs_err": loss_err, "params_max_abs_err": err,
+           "deterministic": exact, "ms_per_step": ms,
+           "peak_gb": peak, "launches": launches,
+           "expected_launches": 2 * attn * len(batches),
+           "profiled_step_launches": prof,
            "placements": {k: [repr(x) for x in v.placements] for k, v in
                           list(dp.items())[:3]}}
-    rec["ok"] = bool(held and all(np.isclose(a, b, **ATTN_BF16_TOL)
-                                  for a, b in zip(losses, plain_losses))
-                     and launches == rec["expected_launches"]
-                     and prof["flash_attn_mma_kernel"] == 2 * cfg.n_layers)
+    if exact:
+        held = err == 0 and loss_err == 0 and all(np.isfinite(losses))
+    else:
+        held = held and all(np.isclose(a, b, **ATTN_BF16_TOL)
+                            for a, b in zip(losses, plain_losses))
+    rec["ok"] = bool(held and launches == rec["expected_launches"]
+                     and prof["flash_attn_mma_kernel"] == 2 * attn)
     return rec, (dp, do), launches
 
 
-def _mesh_decode(dev, mesh, cfg, params: dict) -> tuple[dict, int]:
+def _mesh_decode(dev, mesh, cfg, params: dict, *,
+                 exact: bool = False) -> tuple[dict, int]:
     """(b): decode ticks with DTensor parameters and caches against the
-    mesh-less decode on the same weights and tokens."""
+    mesh-less decode on the same weights and tokens (``exact``: the
+    logits bit for bit)."""
     from repro_torch.kernels import common
     from repro_torch.launch import specs as specs_mod
     from repro_torch.nn import decode, transformer
@@ -3273,15 +3323,18 @@ def _mesh_decode(dev, mesh, cfg, params: dict) -> tuple[dict, int]:
     launches = common.LAUNCHES["flash_attn"]
     prof = _profiled_launches(lambda: step(dlm, dcache, ins[-1], ticks - 1),
                               ("flash_attn_decode_kernel",))
-    rec = {"slots": b, "ticks": ticks, "max_len": max_len,
+    attn = _attention_layers(cfg)
+    rec = {"arch": cfg.name, "slots": b, "ticks": ticks, "max_len": max_len,
            "logits_max_abs_err": err, "ms_per_tick": ms,
            "ms_per_tick_median": statistics.median(ms[1:]),
-           "launches": launches, "expected_launches": cfg.n_layers * ticks,
+           "launches": launches, "expected_launches": attn * ticks,
            "profiled_tick_launches": prof,
            "cache_placements": {k: [repr(x) for x in v.placements]
                                 for k, v in dcache.items()}}
+    if exact:
+        held = err == 0
     rec["ok"] = bool(held and launches == rec["expected_launches"]
-                     and prof["flash_attn_decode_kernel"] == cfg.n_layers)
+                     and prof["flash_attn_decode_kernel"] == attn)
     return rec, launches
 
 
@@ -3342,7 +3395,7 @@ with dryrun.fake_world(1):
 
 
 def _mesh_dryrun() -> dict:
-    """(d): the five cells, each ``python -m repro_torch.launch.dryrun``
+    """(d): the cells, each ``python -m repro_torch.launch.dryrun``
     in its own process with cuda fakes, and the dense sync cell's step on
     one unsharded fake rank; all at once."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3390,10 +3443,11 @@ def _mesh_dryrun() -> dict:
                 "matmul_flops": r["matmul_flops"],
                 "place_s": r["lower_s"], "trace_s": r["compile_s"],
                 "collective_bytes": r["collective_bytes"],
+                "largest_live": mem["largest_live"],
                 "fits_card": mem["argument_bytes"] <= CARD_BYTES,
-                # recorded, not held: the dry run's placements may need
-                # more than a card at their peak (zamba2, xlstm, kimi)
-                "peak_fits_card": mem["peak_bytes"] <= CARD_BYTES})
+                # held for MESH_PEAK_HELD's cells, recorded for the others
+                "peak_fits_card": mem["peak_bytes"] <= CARD_BYTES,
+                "peak_held": (arch, shape, multi, update) in MESH_PEAK_HELD})
         else:
             row["error"] = r.get("stderr", "")[-600:]
         cells.append(row)
@@ -3410,19 +3464,63 @@ def _mesh_dryrun() -> dict:
                                for c in cells
                                if not c.get("peak_fits_card", True)],
             "ok": bool(all(c["status"] == "ok" and c["fits_card"]
+                           and (c["peak_fits_card"] or not c["peak_held"])
                            for c in cells)
                        and ratio is not None
                        and abs(ratio - 1) <= MESH_FLOPS_TOL)}
 
 
+def _mesh_family(dev, mesh, name: str, steps: int,
+                 depth: int | None) -> tuple[dict, dict]:
+    """(a) and (b) for a placed family: its sync steps at full width (and
+    ``depth`` layers where given), seeded random weights, B=1 at phase
+    lm_families' sequence, held bit for bit to the mesh-less step; then,
+    for MESH_DECODED, its decode ticks bit for bit.  Returns the record
+    and its flash_attn launches by variant."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.nn import transformer
+
+    free_memory()
+    cfg = configs.get(name)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    lm = transformer.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    del lm
+    gen = train.make_batch_fn(cfg, 1, FAMILY_TRAIN_SEQ[name], seed=13,
+                              device=dev)
+    batches = [next(gen) for _ in range(steps)]
+    t0 = time.perf_counter()
+    rec, state, mma = _mesh_train(
+        dev, mesh, cfg, params, batches, exact=True,
+        lr=FAMILY_TRAIN_LR.get(name, FAMILY_TRAIN_LR_DEFAULT))
+    rec["seconds"] = time.perf_counter() - t0
+    del state, batches
+    out, launches = {"train": rec}, {"mma": mma, "decode": 0}
+    if name in MESH_DECODED:
+        t0 = time.perf_counter()
+        out["decode"], launches["decode"] = _mesh_decode(dev, mesh, cfg,
+                                                         params, exact=True)
+        out["decode"]["seconds"] = time.perf_counter() - t0
+    del params
+    free_memory()
+    out["ok"] = all(r["ok"] for r in out.values())
+    return out, launches
+
+
 def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
     """The port's mesh on the card: (a) two sync steps of full-width
     h2o-danube-1.8b on a one-rank NCCL ``(data=1, model=1)`` mesh with
-    DTensor parameters, held to the mesh-less step; (b) decode ticks on
-    the mesh held to the mesh-less decode; (c) ``elastic_rescale`` and a
-    checkpoint round trip of (a)'s state; (d) the dry run's five cells on
-    the production meshes.  Returns the phase line and (a)'s and (b)'s
-    flash_attn launches by variant, counted from zero around each."""
+    DTensor parameters, held to the mesh-less step, and MESH_FAMILIES'
+    placed families (zamba2's Mamba2 on its heads, olmoe's experts,
+    xlstm's mLSTM on its key dim and sLSTM on its rows) held bit for bit;
+    (b) decode ticks on the mesh held to the mesh-less decode, danube's
+    and zamba2's; (c) ``elastic_rescale`` and a checkpoint round trip of
+    (a)'s danube state; (d) the dry run's cells on the production meshes.
+    Returns the phase line and (a)'s and (b)'s flash_attn launches by
+    variant, counted from zero around each."""
     from repro_torch import configs
     from repro_torch.launch import train
     from repro_torch.nn import transformer
@@ -3436,6 +3534,7 @@ def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
     del lm
     gen = train.make_batch_fn(cfg, 2, LM_PREFILL, seed=13, device=dev)
     batches = [next(gen) for _ in range(2)]
+    families = {}
     with one_rank_mesh(dev) as mesh:
         t0 = time.perf_counter()
         sync, state, mma = _mesh_train(dev, mesh, cfg, params, batches)
@@ -3447,14 +3546,20 @@ def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         rescale = _mesh_rescale(dev, mesh, state, scratch)
         rescale["seconds"] = time.perf_counter() - t0
-    del state, params
+        del state, params
+        for name, steps, depth in MESH_FAMILIES:
+            families[name], launches = _mesh_family(dev, mesh, name, steps,
+                                                    depth)
+            mma += launches["mma"]
+            decode_launches += launches["decode"]
     free_memory()
     dry = _mesh_dryrun()
     return {"phase": "mesh", "arch": cfg.name, "mesh": "(data=1, model=1) "
             "NCCL", "train": sync, "decode": dec, "rescale": rescale,
-            "dryrun": dry, "nvidia_smi": nvidia_smi(),
+            "families": families, "dryrun": dry, "nvidia_smi": nvidia_smi(),
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(sync["ok"] and dec["ok"] and rescale["ok"]
+                       and all(f["ok"] for f in families.values())
                        and dry["ok"])}, {"mma": mma,
                                          "decode": decode_launches}
 

@@ -6,6 +6,7 @@ peak memory and flops.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minitron-4b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all          # full sweep
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multipod-only
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 7 --cell-timeout 2400
 
 The reference lowers and compiles each cell with XLA on 512 placeholder
 host devices.  Here rank 0 of a fake world of 256 or 512 ranks builds the
@@ -23,7 +24,8 @@ tests pass ``cpu``).  A cell's result has the reference's keys:
   them, so the two compare with ``memory_analysis()``);
 * ``memory.peak_bytes``: rank 0's live local bytes at their peak over the
   step, the arguments included (:class:`LocalMemory`: ``MemTracker``
-  counts a DTensor op's output at its global size);
+  counts a DTensor op's output at its global size), and
+  ``memory.largest_live`` the three largest local storages alive near it;
   ``temp_bytes`` is null (XLA's scratch has no counterpart);
 * ``cost_analysis.flops``: ``FlopCounterMode`` over rank 0's share of each
   op (:class:`LocalFlopCounter`);
@@ -35,7 +37,8 @@ tests pass ``cpu``).  A cell's result has the reference's keys:
 
 No HLO is written (``roofline/hlo.py`` has no PyTorch counterpart).
 Each cell runs in its own process when swept (``--all``: one subprocess a
-cell, so a failure cannot take the sweep down).  Results land in
+cell, so a failure cannot take the sweep down; ``--jobs`` of them at once,
+each killed past ``--cell-timeout`` seconds and recorded as ``timeout``).  Results land in
 ``dryrun_results/torch/<arch>__<shape>__<mesh>.json``, never in the
 reference's ``dryrun_results/``.
 """
@@ -44,6 +47,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import heapq
 import json
 import math
 import subprocess
@@ -114,23 +118,41 @@ class LocalMemory(TorchDispatchMode):
     has died and the storage is gone: looked at the op after that tensor
     died, and, where something else still held it (saved for the
     backward), again every ``SWEEP`` ops, so the count can run high by
-    what such holders freed in between."""
+    what such holders freed in between.  ``largest`` lists the
+    ``LARGEST`` biggest live storages (bytes, shape, dtype, the op that
+    made them) when the count last stood past ``SNAP`` times the count at
+    the list before: within that factor of the peak."""
 
     SWEEP = 256
+    LARGEST = 3
+    SNAP = 1.01
 
     def __init__(self):
         super().__init__()
         self.peak = self.total = self._ops = 0
-        self._live: dict = {}      # storage -> [weak ref, bytes, tensors]
+        self._live: dict = {}      # storage -> [weak ref, bytes, tensors,
+        #                                        (shape, dtype, op)]
         self._held: set = set()    # no tensor left, storage not yet freed
         self._recent: list = []    # tensors died since the last op
+        self.largest: list = []
+        self._snap = 0
 
     def track(self, tensors) -> None:
         for t in tensors:
-            self._add(t)
-        self.peak = max(self.peak, self.total)
+            self._add(t, "argument")
+        self._peak()
 
-    def _add(self, t) -> None:
+    def _peak(self) -> None:
+        self.peak = max(self.peak, self.total)
+        if self.total > self._snap * self.SNAP:
+            self._snap = self.total
+            self.largest = [
+                {"bytes": e[1], "shape": list(e[3][0]), "dtype": e[3][1],
+                 "op": e[3][2]}
+                for e in heapq.nlargest(self.LARGEST, self._live.values(),
+                                        key=lambda e: e[1])]
+
+    def _add(self, t, op: str) -> None:
         if isinstance(t, DTensor):
             t = t._local_tensor
         st = t.untyped_storage()
@@ -140,7 +162,9 @@ class LocalMemory(TorchDispatchMode):
             if entry is not None:
                 self.total -= entry[1]
                 self._held.discard(ref.cdata)
-            entry = self._live[ref.cdata] = [ref, st.nbytes(), 0]
+            entry = self._live[ref.cdata] = [
+                ref, st.nbytes(), 0,
+                (tuple(t.shape), str(t.dtype).removeprefix("torch."), op)]
             self.total += entry[1]
         entry[2] += 1
         weakref.finalize(t, self._drop, ref.cdata, entry)
@@ -170,8 +194,8 @@ class LocalMemory(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
-                self._add(t)
-        self.peak = max(self.peak, self.total)
+                self._add(t, str(func.overloadpacket))
+        self._peak()
         self._ops += 1
         if self._ops % self.SWEEP == 0:
             for key in list(self._held):
@@ -380,7 +404,8 @@ def run_step(cfg, kind: str, seq: int, gb: int, mesh, *,
             "memory": {"argument_bytes": arg_bytes,
                        "output_bytes": local_bytes(out)
                        + TUPLE_ENTRY_BYTES * tuple_entries(out),
-                       "temp_bytes": None, "peak_bytes": peak},
+                       "temp_bytes": None, "peak_bytes": peak,
+                       "largest_live": memory.largest},
             "cost_analysis": {"flops": flops.get_total_flops()},
             "collective_bytes": comms.bytes,
             "matmul_flops": sum(
@@ -441,6 +466,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="the fakes' device (cuda unless given)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells a sweep runs at once")
+    ap.add_argument("--cell-timeout", type=float, default=float("inf"),
+                    help="seconds before a sweep's cell is killed")
     args = ap.parse_args(argv)
 
     RESULTS_DIR.mkdir(parents=True, exist_ok=True)
@@ -453,38 +482,61 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(res))
         return 0
 
-    # sweep: one subprocess per cell (fault isolation)
+    # sweep: one subprocess per cell (fault isolation), --jobs at once
     from repro_torch import configs
     meshes = []
     if not args.multipod_only:
         meshes.append(False)
     if not args.single_pod_only:
         meshes.append(True)
-    cells = [(a, s, mp) for mp in meshes for (a, s) in configs.cells()]
-    failures = []
-    for arch, shape, mp in cells:
-        out = RESULTS_DIR / _cell_name(arch, shape, mp)
-        if out.exists() and not args.force:
-            print(f"skip {out.name}")
-            continue
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--device", args.device] + (
-                   ["--multipod"] if mp else [])
-        print(f"=== {arch} {shape} {'2x16x16' if mp else '16x16'}",
-              flush=True)
-        t0 = time.time()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            failures.append((arch, shape, mp))
-            out.write_text(json.dumps({
-                "arch": arch, "shape": shape,
-                "mesh": "2x16x16" if mp else "16x16",
-                "status": "fail", "stderr": r.stderr[-4000:],
-            }, indent=1))
-            print(f"    FAIL ({time.time()-t0:.0f}s): "
-                  f"{r.stderr.strip().splitlines()[-1] if r.stderr else '?'}")
-        else:
-            print(f"    ok ({time.time()-t0:.0f}s)")
+    todo = []
+    for mp in meshes:
+        for arch, shape in configs.cells():
+            out = RESULTS_DIR / _cell_name(arch, shape, mp)
+            if out.exists() and not args.force:
+                print(f"skip {out.name}")
+            else:
+                todo.append((arch, shape, mp, out))
+    failures, running = [], {}
+    while todo or running:
+        while todo and len(running) < args.jobs:
+            arch, shape, mp, out = cell = todo.pop(0)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--device",
+                   args.device] + (["--multipod"] if mp else [])
+            print(f"=== {arch} {shape} {'2x16x16' if mp else '16x16'}",
+                  flush=True)
+            err = out.with_suffix(".stderr")
+            with err.open("w") as f:
+                running[subprocess.Popen(
+                    cmd, stdout=subprocess.DEVNULL, stderr=f)] = (
+                        cell, time.time())
+        time.sleep(1)
+        for proc, ((arch, shape, mp, out), t0) in list(running.items()):
+            late = time.time() - t0 > args.cell_timeout
+            if proc.poll() is None and not late:
+                continue
+            if late and proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            del running[proc]
+            err = out.with_suffix(".stderr")
+            stderr = err.read_text()[-4000:]
+            err.unlink()
+            name = f"{arch} {shape} {'2x16x16' if mp else '16x16'}"
+            if proc.returncode != 0:
+                failures.append((arch, shape, mp))
+                status = "timeout" if late else "fail"
+                out.write_text(json.dumps({
+                    "arch": arch, "shape": shape,
+                    "mesh": "2x16x16" if mp else "16x16",
+                    "status": status, "seconds": time.time() - t0,
+                    "stderr": stderr[-4000:]}, indent=1))
+                last = stderr.strip().splitlines()[-1] if stderr else "?"
+                print(f"    {status.upper()} {name} ({time.time()-t0:.0f}s):"
+                      f" {last}", flush=True)
+            else:
+                print(f"    ok {name} ({time.time()-t0:.0f}s)", flush=True)
     print(f"done; {len(failures)} failures: {failures}")
     return 0
 

@@ -151,8 +151,8 @@ def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
 
     elif fam == "hybrid":
         def mamba(x, lp, h, conv):
-            x, new = transformer.mamba_layer(x, lp, cfg, state=h,
-                                             conv_state=conv)
+            x, new = transformer.mamba_layer(x, lp, cfg, shard=shard,
+                                             state=h, conv_state=conv)
             write((h, conv), new)
             return x
 
@@ -170,10 +170,12 @@ def decode_step(params: LM, cfg: ArchConfig, cache: dict, inputs: dict,
                                           params.slstm_blocks)):
             for j, lp in enumerate(mp):
                 C = cache["C"][sb, j]
-                x, new = transformer.mlstm_layer(x, lp, cfg, state=C)
+                x, new = transformer.mlstm_layer(x, lp, cfg, shard=shard,
+                                                 state=C)
                 write((C,), (new,))
             st = tuple(cache[k][sb] for k in ("s_c", "s_n", "s_h", "s_m"))
-            x, new = transformer.slstm_layer(x, sp, cfg, state=st)
+            x, new = transformer.slstm_layer(x, sp, cfg, shard=shard,
+                                             state=st)
             write(st, new)
 
     else:

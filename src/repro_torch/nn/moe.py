@@ -13,11 +13,18 @@ mesh the configs' one group and one model shard give one group.  On a
 mesh (``shard`` from ``trainer.make_shard_fn``) the reference's sites
 place the groups over the batch axes, and in the gathered strategy over
 ``"model"`` too; each rank routes, dispatches and combines the groups it
-holds on plain local tensors (the index math has no DTensor rule), and
-the expert products run on DTensors: gathered, against all-gathered
-experts; all-to-all, with the dispatch buffer moved to the expert shards
-and back.  The router runs in fp32 whatever the experts' dtype.  The
-auxiliary load-balancing loss is returned beside the output.
+holds on plain local tensors (the index math has no DTensor rule;
+:class:`~repro_torch.nn.local.Local` gathers the router, whose gradient
+sums over the groups' ranks), and the expert products run on DTensors.
+Gathered: against all-gathered experts, by design (olmoe's fit a rank).
+All-to-all: the dispatch buffer moves to the expert shards and back, and
+the experts are placed on their ``E / model`` shards, gathered on the
+FSDP dim only, a layer at a time (their gradients reduce-scatter back
+onto it), as XLA's FSDP does; left to DTensor's own choice the products
+would move every group's buffer onto each rank's FSDP slice of ``d``
+instead, with partial outputs for every group.  The router runs in fp32
+whatever the experts' dtype.  The auxiliary load-balancing loss is
+returned beside the output.
 
 The grouped products are ``einsum``s, as the reference's, outside any
 Pallas kernel.  A decode step pushes its few tokens through the full
@@ -32,6 +39,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.nn import param as pm
+from repro_torch.nn.local import Local
 from repro_torch.nn.param import NOSHARD, P
 
 
@@ -117,7 +125,8 @@ def _local_groups(fn, xg, *args):
     are replicated (or plain) tensors, or lists of plain local tensors."""
     if not isinstance(xg, DTensor):
         return fn(xg, *args)
-    out = fn(xg.to_local(), *(a.full_tensor() if isinstance(a, DTensor)
+    loc = Local(xg)
+    out = fn(xg.to_local(), *(loc.whole(a) if isinstance(a, DTensor)
                               else a for a in args))
 
     def wrap(t):
@@ -176,7 +185,9 @@ def moe_ffn(x: torch.Tensor, p: nn.ParameterDict, *, top_k: int,
         w_down = shard(p["w_down"], P(None, None, None))
     else:
         he = shard(he, P(group_spec, "model", None, None))
-        w_up, w_gate, w_down = p["w_up"], p["w_gate"], p["w_down"]
+        # each rank's E / model experts, gathered on the FSDP dim alone
+        w_up, w_gate, w_down = (shard(p[k], P("model", None, None))
+                                for k in ("w_up", "w_gate", "w_down"))
 
     up = torch.einsum("gecd,edf->gecf", he, w_up)
     gate = F.silu(torch.einsum("gecd,edf->gecf", he, w_gate))

@@ -15,14 +15,26 @@ the reference exponentiates every pair and masks after, which gives the
 same values, but above the diagonal the exponent grows with the chunk
 (past fp32's range at the full configs' 256) and its gradient would be
 ``0 * inf``.
+
+On a mesh (:func:`mamba2_on_mesh`) each model rank runs this same mixer
+on its batch rows and its ``n_heads / model`` heads, the sequence whole:
+the heads' ``z``, ``x`` and ``dt`` columns of ``w_in`` and their conv
+channels, with ``B`` and ``C`` (shared by every head) whole on each rank.
+``w_in`` and ``conv`` store their fused columns split evenly, which does
+not line up with the heads, so both are gathered (a layer at a time) and
+the rank's columns taken from them; ``w_out``'s stored rows are the
+heads' own, and its partial sums reduce into the residual's placement.
+The decode state stays on its heads (``decode.cache_specs``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Shard
 
 from repro_torch.nn import param as pm
+from repro_torch.nn.local import Local
 
 
 #: Mamba2's sharding (the reference's): the fused projection's columns
@@ -149,6 +161,40 @@ def mamba2(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *,
     # final recurrent state + conv history -> decoding can continue from here
     conv_tail = xbc_raw[:, -(p["conv"].shape[0] - 1):, :]
     return (y * F.silu(z)) @ p["w_out"], (h, conv_tail)
+
+
+def mamba2_on_mesh(x, p: nn.ParameterDict, meta: dict, *, chunk: int = 256,
+                   state=None, conv_state=None):
+    """:func:`mamba2` with ``x`` a DTensor: each rank runs it on its rows
+    and its share of the heads (all of them where the model axis does not
+    divide ``n_heads``).  Returns ``y`` partial over the heads' ranks and
+    the states as DTensors: ``state`` on its heads, ``conv_state`` on the
+    rows, whole."""
+    loc = Local(x, meta["n_heads"])
+    di, nh, ds = meta["d_inner"], meta["n_heads"], meta["d_state"]
+    h0, h1 = loc.part_range(nh)
+    c0, c1 = loc.part_range(di)
+    dev = x.device
+    chans = torch.cat([torch.arange(c0, c1, device=dev),
+                       torch.arange(di, di + 2 * ds, device=dev)])
+    cols = torch.cat([torch.arange(c0, c1, device=dev), di + chans,
+                      torch.arange(2 * di + 2 * ds + h0, 2 * di + 2 * ds + h1,
+                                   device=dev)])
+    w = {"w_in": loc.whole(p["w_in"])[:, cols],
+         "conv": loc.whole(p["conv"])[:, chans],
+         **{k: loc.whole(p[k])[h0:h1] for k in ("dt_bias", "a_log",
+                                                "d_skip")},
+         "w_out": loc.chunk(p["w_out"], 0)}
+    mine = dict(meta, d_inner=c1 - c0, n_heads=h1 - h0)
+    decode = state is not None
+    y, (h, conv) = mamba2(
+        loc.rows(x), w, mine, chunk=chunk,
+        state=loc.rows(state, Shard(1)) if decode else None,
+        conv_state=loc.rows(conv_state)[..., chans] if decode else None)
+    # the conv history: the heads' x channels over the ranks, B and C whole
+    conv = torch.cat([loc.out(conv[..., :c1 - c0], on_split=Shard(2)),
+                      loc.out(conv[..., c1 - c0:])], dim=2)
+    return loc.out(y, summed=True), (loc.out(h, on_split=Shard(1)), conv)
 
 
 def init_decode_state(b: int, meta: dict, dtype=torch.float32, device=None):

@@ -32,10 +32,15 @@ None)`` after the embedding and after every block, as the reference's
 sequence around a block's products and before the loss (:data:`ROWS`).
 Without a mesh it is :data:`NOSHARD` and nothing moves.  On a mesh
 (``trainer.make_shard_fn``) the parameters and activations are DTensors;
-the recurrent mixers (Mamba2, mLSTM, sLSTM) then run data-parallel, each
-rank on its batch rows with the mixer's weights gathered
-(:func:`batch_local`), since their scans and chunk loops have no DTensor
-rule.
+the recurrent mixers' scans and chunk loops have no DTensor rule, so each
+runs on every rank's local tensors (:mod:`repro_torch.nn.local`), placed
+as the reference places them: Mamba2 on the rank's share of the heads
+(``ssm.mamba2_on_mesh``), mLSTM on its slice of the key dim
+(``xlstm.mlstm_on_mesh``), both with ``w_in``/``w_out`` (``w_up``,
+``w_qkv``/``w_down``) column- and row-parallel over ``"model"`` and their
+output partial sums reduced into the residual's placement; the sLSTM,
+whose loop would need a collective a step that way, on the rank's batch
+rows (``xlstm.slstm_on_mesh``).
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from typing import Any
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import attention, layers, moe, ssm, xlstm
@@ -293,63 +298,33 @@ def _mixer(kind: str, params: nn.ParameterDict, cfg: ArchConfig,
                       pm.make_norm(cfg.d_model, cfg.param_dtype, dev))
 
 
-def batch_local(fn, x: torch.Tensor, weights, *states):
-    """``fn(x, weights, *states) -> (y, state)`` where ``x`` may be a
-    DTensor: each rank runs ``fn`` on its batch rows (``x`` and the states
-    kept sharded only where ``x`` is sharded on its batch axis) with the
-    weights gathered whole, and ``y`` and the state come back as DTensors
-    on those placements.  Plain tensors run as they are."""
-    if not isinstance(x, DTensor):
-        return fn(x, weights, *states)
-    mesh = x.device_mesh
-    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements]
-
-    def local(t):
-        return None if t is None else t.redistribute(mesh, rows).to_local()
-
-    def wrap(t):
-        if isinstance(t, tuple):
-            return tuple(wrap(u) for u in t)
-        return DTensor.from_local(t, mesh, rows, run_check=False)
-
-    whole = {k: w.full_tensor() if isinstance(w, DTensor) else w
-             for k, w in weights.items()}
-    y, st = fn(local(x), whole, *(local(t) for t in states))
-    return wrap(y), wrap(st)
-
-
 def mamba_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
                 shard=NOSHARD, state=None, conv_state=None):
     """x + Mamba2(norm(x)).  Returns (x, (state, conv_state))."""
     h = layers.rms_norm(x, lp.norm)
-    y, st = batch_local(
-        lambda h, w, st, cv: ssm.mamba2(h, w, _mamba_meta(cfg),
-                                        chunk=cfg.ssm_chunk, state=st,
-                                        conv_state=cv),
-        h, lp.mamba, state, conv_state)
-    return shard(x + y, RESIDUAL), st
+    mixer = ssm.mamba2_on_mesh if isinstance(h, DTensor) else ssm.mamba2
+    y, st = mixer(h, lp.mamba, _mamba_meta(cfg), chunk=cfg.ssm_chunk,
+                  state=state, conv_state=conv_state)
+    return shard(x + shard(y, RESIDUAL), RESIDUAL), st
 
 
 def mlstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
                 shard=NOSHARD, state=None):
     """x + mLSTM(norm(x)).  Returns (x, C)."""
     h = layers.rms_norm(x, lp.norm)
-    y, C = batch_local(
-        lambda h, w, st: xlstm.mlstm(h, w, _mlstm_meta(cfg),
-                                     chunk=cfg.ssm_chunk, state=st),
-        h, lp.mix, state)
-    return shard(x + y, RESIDUAL), C
+    mixer = xlstm.mlstm_on_mesh if isinstance(h, DTensor) else xlstm.mlstm
+    y, C = mixer(h, lp.mix, _mlstm_meta(cfg), chunk=cfg.ssm_chunk,
+                 state=state)
+    return shard(x + shard(y, RESIDUAL), RESIDUAL), C
 
 
 def slstm_layer(x: torch.Tensor, lp: MixerBlock, cfg: ArchConfig, *,
                 shard=NOSHARD, state=None):
     """x + sLSTM(norm(x)).  Returns (x, (c, n, h, m))."""
     h = layers.rms_norm(x, lp.norm)
-    y, st = batch_local(
-        lambda h, w, *st: xlstm.slstm(h, w, _slstm_meta(cfg),
-                                      state=st or None),
-        h, lp.mix, *(state or ()))
-    return shard(x + y, RESIDUAL), st
+    mixer = xlstm.slstm_on_mesh if isinstance(h, DTensor) else xlstm.slstm
+    y, st = mixer(h, lp.mix, _slstm_meta(cfg), state=state or None)
+    return shard(x + shard(y, RESIDUAL), RESIDUAL), st
 
 
 # ---------------------------------------------------------------------------

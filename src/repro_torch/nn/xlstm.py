@@ -22,14 +22,23 @@ running-max stabilizer (initial ``m = -1e30``), a Python loop over time:
 the reference scans it with ``lax.scan`` and no kernel.  The bounds are
 ``torch.maximum``/``minimum`` against a scalar, not ``clamp``: at a tie
 they split the gradient as JAX does.
+
+On a mesh each rank runs the mLSTM on its slice of every head's key dim
+over ``"model"``, not on a share of the heads: xlstm-1.3b's 4 heads do not
+divide a model axis of 16, its key dim does, and the decode state is
+stored on that dim (:func:`mlstm_on_mesh`).  The sLSTM runs whole on each
+rank's batch rows (:func:`slstm_on_mesh`: a split of its recurrence would
+cost a collective a time step).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Shard
 
 from repro_torch.nn import param as pm
+from repro_torch.nn.local import Local
 from repro_torch.nn.ssm import _chunk
 
 
@@ -74,17 +83,70 @@ def mlstm(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *,
           chunk: int = 256, state: torch.Tensor | None = None):
     """x [B,S,d]; ``state`` (decode, S = 1): C [B,H,hd+1,hd].  Returns
     (y [B,S,d], C after the last token)."""
-    b, s, _ = x.shape
-    nh, hd, di = meta["n_heads"], meta["head_dim"], meta["d_inner"]
+    di = meta["d_inner"]
     up = x @ p["w_up"]
     xi, z = up[..., :di], up[..., di:]
     qkv = xi @ p["w_qkv"]
-    q = qkv[..., :di].reshape(b, s, nh, hd)
-    k = qkv[..., di: 2 * di].reshape(b, s, nh, hd) * (hd ** -0.5)
-    v = qkv[..., 2 * di:].reshape(b, s, nh, hd)
     # fp32 gate weights: bf16 activations meet them in fp32, as JAX promotes
     wide = torch.promote_types(xi.dtype, p["w_gates"].dtype)
     gates = xi.to(wide) @ p["w_gates"].to(wide) + p["gate_bias"]
+    y, C = _mlstm_core(qkv, gates, meta, chunk=chunk, state=state)
+    return (y * F.silu(z)) @ p["w_down"], C
+
+
+def mlstm_on_mesh(x, p: nn.ParameterDict, meta: dict, *, chunk: int = 256,
+                  state=None):
+    """:func:`mlstm` with ``x`` a DTensor: each rank runs it on its rows
+    and its slice of every head's key dim ``n`` (the whole key dim where
+    the model axis does not divide it).
+
+    The key dim and not the heads: xlstm-1.3b's 4 heads do not divide a
+    model axis of 16, its head dim of 1,024 does, and the decode state
+    ``C [B, H, hd+1, hd]`` is stored on that dim (``decode.cache_specs``,
+    the reference's), so the state never moves between ticks.  Then ``q``
+    and ``k`` hold the rank's key columns, ``v`` (with the normalizer's
+    ones column) stays whole, ``q . k`` and ``C q`` are partial sums, and
+    a chunk's ``h = scores v + (C q) exp(L)`` is summed over the ranks
+    once (linear in both); the state's update ``v k^T`` is local.  Past
+    that sum the arithmetic is :func:`mlstm`'s.  The gates
+    (``w_gates`` row-parallel) and ``w_down`` (row-parallel, on the rank's
+    channels of ``y``) are partial products summed over the ranks."""
+    loc = Local(x, meta["head_dim"])
+    nh, hd, di = meta["n_heads"], meta["head_dim"], meta["d_inner"]
+    k0, k1 = loc.part_range(hd)
+    c0, c1 = loc.part_range(di)
+    dev = x.device
+    keys = (torch.arange(nh, device=dev)[:, None] * hd
+            + torch.arange(k0, k1, device=dev)).reshape(-1)
+    values = torch.arange(2 * di, 3 * di, device=dev)
+    up = loc.rows(x) @ loc.whole(p["w_up"])[:, torch.cat([
+        torch.arange(di, device=dev), torch.arange(di + c0, di + c1,
+                                                   device=dev)])]
+    xi, z = up[..., :di], up[..., di:]
+    qkv = xi @ loc.whole(p["w_qkv"])[:, torch.cat([keys, di + keys, values])]
+    w_gates = loc.chunk(p["w_gates"], 0)
+    wide = torch.promote_types(xi.dtype, w_gates.dtype)
+    gates = (loc.reduce(xi[..., c0:c1].to(wide) @ w_gates.to(wide))
+             + loc.whole(p["gate_bias"]))
+    y, C = _mlstm_core(qkv, gates, meta, chunk=chunk,
+                       state=loc.rows(state, Shard(3)), reduce=loc.reduce)
+    out = (y[..., c0:c1] * F.silu(z)) @ loc.chunk(p["w_down"], 0)
+    return loc.out(out, summed=True), loc.out(C, on_split=Shard(3))
+
+
+def _mlstm_core(qkv: torch.Tensor, gates: torch.Tensor, meta: dict, *,
+                chunk: int, state: torch.Tensor | None, reduce=None):
+    """The recurrence from the projections: ``qkv`` [B, S, H*n (q), H*n
+    (k), d_inner (v)] with ``n`` the key columns held (``head_dim``
+    unless the key dim is split), ``gates`` [B, S, 2H].  ``reduce`` sums
+    a partial ``h`` over the key dim's ranks.  Returns (y [B, S, d_inner],
+    C [B, H, hd+1, n])."""
+    b, s, _ = qkv.shape
+    nh, hd, di = meta["n_heads"], meta["head_dim"], meta["d_inner"]
+    hk = (qkv.shape[-1] - di) // (2 * nh)
+    q = qkv[..., :nh * hk].reshape(b, s, nh, hk)
+    k = qkv[..., nh * hk: 2 * nh * hk].reshape(b, s, nh, hk) * (hd ** -0.5)
+    v = qkv[..., 2 * nh * hk:].reshape(b, s, nh, hd)
     i_g = torch.exp(torch.minimum(gates[..., :nh].float(), _const(8.0, gates)))
     log_f = F.logsigmoid(gates[..., nh:].float())          # [B,S,H]
 
@@ -98,18 +160,19 @@ def mlstm(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *,
                            k[:, 0].float())
         C = dec * state + upd
         hq = torch.einsum("bhpn,bhn->bhp", C, q[:, 0].float())
+        if reduce is not None:
+            hq = reduce(hq)
         y, n_dot = hq[..., :hd], hq[..., hd]
         y = y / torch.maximum(n_dot.abs(), _const(1.0, n_dot))[..., None]
-        y = y.reshape(b, 1, di).to(x.dtype)
-        return (y * F.silu(z)) @ p["w_down"], C
+        return y.reshape(b, 1, di).to(qkv.dtype), C
 
     qn = _chunk(s, chunk)
-    tri = torch.ones(qn, qn, dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones(qn, qn, dtype=torch.bool, device=qkv.device).tril()
 
     def rc(t):  # [B, Q, H, *] -> [B, H, Q, *]
         return t.transpose(1, 2)
 
-    C = torch.zeros(b, nh, hd + 1, hd, dtype=torch.float32, device=x.device)
+    C = torch.zeros(b, nh, hd + 1, hk, dtype=torch.float32, device=qkv.device)
     ys = []
     for c0 in range(0, s, qn):
         sl = slice(c0, c0 + qn)
@@ -123,6 +186,8 @@ def mlstm(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *,
         h = torch.matmul(scores.to(vv.dtype).float(), vv.float())
         h = h + torch.matmul(qq.float(), C.to(qq.dtype).float()
                              .transpose(-1, -2)) * torch.exp(Lq)[..., None]
+        if reduce is not None:
+            h = reduce(h)
         last = Lq[..., -1:]
         w_s = torch.exp(last - Lq) * ii                        # [B,H,Q]
         C = (torch.exp(last[..., 0])[:, :, None, None] * C
@@ -130,9 +195,8 @@ def mlstm(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *,
                             .transpose(-1, -2), kk.float()))
         y, n_dot = h[..., :hd], h[..., hd]
         y = y / torch.maximum(n_dot.abs(), _const(1.0, n_dot))[..., None]
-        ys.append(y.to(x.dtype))                               # [B,H,Q,P]
-    y = torch.cat(ys, dim=2).transpose(1, 2).reshape(b, s, di)
-    return (y * F.silu(z)) @ p["w_down"], C
+        ys.append(y.to(qkv.dtype))                             # [B,H,Q,P]
+    return torch.cat(ys, dim=2).transpose(1, 2).reshape(b, s, di), C
 
 
 def init_mlstm_state(b: int, meta: dict, device=None) -> torch.Tensor:
@@ -191,3 +255,16 @@ def slstm(x: torch.Tensor, p: nn.ParameterDict, meta: dict, *, state=None):
         hs.append(h.to(x.dtype))
     y = torch.stack(hs, dim=1).reshape(b, s, d)            # [B,S,d]
     return y @ p["w_out"], (c, n, h, m)
+
+
+def slstm_on_mesh(x, p: nn.ParameterDict, meta: dict, *, state=None):
+    """:func:`slstm` with ``x`` a DTensor: its time loop needs each head's
+    whole ``h`` at every step, and the reference's column-parallel
+    ``r_h`` would cost a collective a step, so each rank runs the whole
+    mixer, its weights gathered, on its batch rows, dealt over
+    ``"model"`` too where they divide.  The state comes back on those
+    rows."""
+    loc = Local(x, rows_over_model=True)
+    y, new = slstm(loc.rows(x), {k: loc.whole(w) for k, w in p.items()},
+                   meta, state=state and tuple(loc.rows(t) for t in state))
+    return loc.out(y), tuple(loc.out(t) for t in new)

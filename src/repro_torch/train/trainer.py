@@ -96,21 +96,20 @@ def resolve_spec(spec: P, mesh, cfg: ArchConfig | None = None, *,
 
 def placements(spec: P, mesh) -> list:
     """A resolved spec as DTensor placements: ``Shard(i)`` on every mesh
-    dim that tensor dim ``i`` names, ``Replicate()`` elsewhere.  A
-    composite entry lists its axes major to minor and DTensor splits mesh
-    dims left to right, so its axes must come in mesh order: one that does
-    not (``("data", "pod")`` on a ``(pod, data, model)`` mesh) raises, as
-    does an axis named twice."""
+    dim that tensor dim ``i`` names, ``Replicate()`` elsewhere; an axis
+    named twice raises.  A composite entry lists its axes major to minor,
+    and DTensor splits a dim over its mesh dims left to right, in mesh
+    order, so an entry whose axes come out of that order (the FSDP entry
+    ``("data", "pod")`` on a ``(pod, data, model)`` mesh) is split in mesh
+    order: each rank then holds another rank's chunk of the reference's
+    order, of the same size (an even split: every such dim of the
+    configs), and a gather gives the same tensor."""
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
         axes = entry if isinstance(entry, tuple) else (
             () if entry is None else (entry,))
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(f"spec {spec!r}: axes {axes} are not in the "
-                             f"mesh's order {tuple(names)}")
-        for i in idx:
+        for i in (names.index(a) for a in axes):
             if out[i] != Replicate():
                 raise ValueError(f"spec {spec!r} names {names[i]!r} twice")
             out[i] = Shard(dim)
@@ -139,7 +138,12 @@ def make_shard_fn(mesh: DeviceMesh | None, cfg: ArchConfig):
     counterpart of ``with_sharding_constraint``); plain tensors pass.  A
     ``"batch"`` entry whose axes cannot split the tensor's dim (long_500k's
     global batch of 1) is dropped there, as the reference's dry run
-    resolves its activations with ``extra={"batch": ()}``."""
+    resolves its activations with ``extra={"batch": ()}``.  What has no
+    DTensor rule (the recurrent mixers' scans, the MoE routing) leaves
+    DTensor for each rank's local tensors in between
+    (:mod:`repro_torch.nn.local`): the mixers on their share of the heads
+    or key dim over ``"model"``, their outputs' partial sums placed here
+    on the residual's spec."""
     if mesh is None:
         return NOSHARD
 

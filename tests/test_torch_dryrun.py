@@ -112,3 +112,66 @@ def test_local_shape_takes_rank_zeros_chunk():
     assert dryrun.local_shape((10,), [Shard(0), Shard(0)], m) == [1]
     assert dryrun.local_shape((10, 3), [Replicate(), Replicate()], m) == \
         [10, 3]
+
+
+def test_a_placed_mamba2_layer_splits_its_flops_over_the_ranks():
+    """A reduced hybrid (8 heads, ``seq_shard``) on a fake ``(data=2,
+    model=4)`` world: rank 0's flops over one Mamba2 layer's forward and
+    backward, times the 8 ranks, within 10% of the unsharded layer's (each
+    rank runs its batch rows on its 2 heads; ``B`` and ``C`` are computed
+    whole on every rank), where the layer's weights gathered whole on
+    every model rank would make it 4x."""
+    res = run_py("""
+        import json
+        import torch
+        from torch import nn
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import distribute_tensor
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch import configs
+        from repro_torch.launch import dryrun
+        from repro_torch.nn import param as pm
+        from repro_torch.nn import transformer
+        from repro_torch.train import trainer
+
+        cfg = configs.reduced(configs.get("zamba2-1.2b"), d_model=256,
+                              seq_shard=True, ssm_chunk=16)
+        lm = transformer.init_params(cfg, pm.META)
+        names = [k for k, _ in lm.named_parameters()
+                 if k.startswith("mamba_blocks.0.0.")]
+        specs = transformer.param_specs(cfg)
+
+        def flops(mesh):
+            counter = (dryrun.LocalFlopCounter if mesh else FlopCounterMode)
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                x = torch.randn(8, 64, cfg.d_model, requires_grad=True)
+                tree = {k: torch.randn(dict(lm.named_parameters())[k].shape)
+                        for k in names}
+                if mesh is not None:
+                    x = distribute_tensor(x.detach(), mesh, trainer.placements(
+                        trainer.resolve_spec(transformer.RESIDUAL, mesh, cfg),
+                        mesh)).requires_grad_()
+                    tree = trainer.distribute(tree, mesh, {
+                        k: trainer.placements(trainer.resolve_spec(
+                            specs[k], mesh, cfg), mesh) for k in names})
+                own = {k[len("mamba_blocks.0.0."):]: nn.Parameter(v)
+                       for k, v in tree.items()}
+                layer = transformer.MixerBlock("mamba", nn.ParameterDict(
+                    {k[len("mamba."):]: v for k, v in own.items()
+                     if k != "norm"}), own["norm"])
+                shard = trainer.make_shard_fn(mesh, cfg)
+                with counter(display=False) as c:
+                    y, _ = transformer.mamba_layer(x, layer, cfg, shard=shard)
+                    y.sum().backward()
+            return c.get_total_flops()
+
+        plain = flops(None)
+        with dryrun.fake_world(8):
+            mesh = init_device_mesh("cpu", (2, 4),
+                                    mesh_dim_names=("data", "model"))
+            rank = flops(mesh)
+        print(json.dumps({"plain": plain, "rank": rank}))
+    """, timeout=120)
+    ratio = res["rank"] * 8 / res["plain"]
+    assert abs(ratio - 1) <= 0.10, ratio

@@ -54,7 +54,7 @@ def test_port_has_the_expected_modules():
             "checkpoint/__init__.py", "checkpoint/checkpoint.py",
             "launch/train.py", "nn/moe.py", "nn/ssm.py", "nn/xlstm.py",
             "data/modality_stubs.py", "launch/mesh.py", "launch/specs.py",
-            "launch/dryrun.py"} <= names
+            "launch/dryrun.py", "nn/local.py"} <= names
     assert {f"benchmarks/{m}.py" for m in (
         "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
         "fig11_model_replication", "fig14_data_replication",

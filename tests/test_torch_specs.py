@@ -10,8 +10,10 @@ reference's, on the CPU, with no process group.
 * ``trainer.resolve_spec`` equals the reference's on a table of specs x
   meshes x ``seq_shard`` x ``extra`` (the reference reads only
   ``mesh.axis_names``, so a stand-in with the names serves both).
-* ``resolve_tree``'s placements, and the raise on an axis listed out of
-  mesh order.
+* ``resolve_tree``'s placements: an axis listed out of mesh order (the
+  FSDP entry ``("data", "pod")``) split in mesh order, each rank's shard
+  the size of the reference order's, and the raise on an axis named
+  twice.
 """
 import itertools
 from types import SimpleNamespace
@@ -166,20 +168,64 @@ def test_placements_shard_every_named_mesh_dim(spec, names, want):
 
 
 @pytest.mark.parametrize("spec,names", [
-    (P(("model", "data")), ("data", "model")),
-    (P(("data", "pod"), "model"), ("pod", "data", "model")),
     (P("model", "model"), ("data", "model")),
+    (P(("data", "data")), ("data", "model")),
+    (P(("pod", "data"), "pod"), ("pod", "data", "model")),
 ])
 def test_placements_refuse_axes_out_of_mesh_order_or_twice(spec, names):
-    with pytest.raises(ValueError):
+    """An axis named twice raises; axes out of mesh order are placed
+    (:func:`test_placements_split_axes_out_of_mesh_order_in_mesh_order`)."""
+    with pytest.raises(ValueError, match="twice"):
         trainer.placements(spec, _mesh(names))
+
+
+def _shard_size(n: int, axes, sizes: dict, coord: dict) -> int:
+    """Rank ``coord``'s chunk of a dim of ``n`` split over ``axes`` major
+    to minor, each as ``torch.chunk`` deals it."""
+    for a in axes:
+        chunk = -(-n // sizes[a])
+        n = max(0, min(chunk, n - coord[a] * chunk))
+    return n
+
+
+def _every_rank_holds_the_reference_orders_size(spec, placed, shape, sizes):
+    """Each rank's shard of every dim (DTensor splits in mesh order) has
+    the size the spec's own order gives that rank."""
+    names = list(sizes)
+    for coord in itertools.product(*(range(sizes[a]) for a in names)):
+        at = dict(zip(names, coord))
+        for dim, (n, entry) in enumerate(zip(shape, spec)):
+            axes = entry if isinstance(entry, tuple) else (
+                () if entry is None else (entry,))
+            mesh_order = [a for a, p in zip(names, placed)
+                          if p == Shard(dim)]
+            assert sorted(mesh_order) == sorted(axes)
+            assert _shard_size(n, mesh_order, sizes, at) == \
+                _shard_size(n, axes, sizes, at), (spec, dim, at)
+
+
+@pytest.mark.parametrize("spec,names,want", [
+    (P(("model", "data")), ("data", "model"), [Shard(0), Shard(0)]),
+    (P(("data", "pod"), "model"), ("pod", "data", "model"),
+     [Shard(0), Shard(0), Shard(1)]),
+])
+def test_placements_split_axes_out_of_mesh_order_in_mesh_order(spec, names,
+                                                              want):
+    """The FSDP entry ``("data", "pod")`` on the multi-pod mesh: DTensor
+    splits mesh dims left to right, so the dim is split in mesh order,
+    each rank's shard the size of the reference order's."""
+    placed = trainer.placements(spec, _mesh(names))
+    assert placed == want
+    sizes = dict(zip(names, (2, 16, 16)[-len(names):]))
+    _every_rank_holds_the_reference_orders_size(spec, placed, (7168, 2048),
+                                                sizes)
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_NAMES)
 def test_every_config_resolves_on_the_production_meshes(arch):
-    """Single pod: every tree resolves.  Multi-pod: every tree but an
-    FSDP config's, whose ``("data", "pod")`` entries list the pod axis
-    after the data axis (refused, never reordered)."""
+    """Every tree resolves on both meshes; an FSDP config's ``("data",
+    "pod")`` entries on the multi-pod mesh split in mesh order, each
+    rank's parameter shards the sizes of the reference order's."""
     cfg = configs.get(arch)
     trees = {"params": transformer.param_specs(cfg),
              "cache": decode.cache_specs(cfg)}
@@ -187,12 +233,19 @@ def test_every_config_resolves_on_the_production_meshes(arch):
     assert set(single["params"]) == set(trees["params"])
     assert all(len(p) == 2 for p in single["params"].values())
     multi = _mesh(("pod", "data", "model"))
-    if cfg.fsdp:
-        with pytest.raises(ValueError, match="mesh's order"):
-            trainer.resolve_tree(trees, multi, cfg)
-    else:
-        resolved = trainer.resolve_tree(trees, multi, cfg)
-        assert all(len(p) == 3 for p in resolved["cache"].values())
+    resolved = trainer.resolve_tree(trees, multi, cfg)
+    assert all(len(p) == 3 for p in resolved["cache"].values())
+    shapes, _ = specs.param_shapes_and_specs(cfg)
+    out_of_order = 0
+    for k, spec in trees["params"].items():
+        spec = trainer.resolve_spec(spec, multi, cfg)
+        out_of_order += ("data", "pod") in tuple(spec)
+        if ("data", "pod") in tuple(spec) or k.endswith(("0.attn.wq",
+                                                         "embed")):
+            _every_rank_holds_the_reference_orders_size(
+                spec, resolved["params"][k], shapes[k].shape,
+                {"pod": 2, "data": 16, "model": 16})
+    assert bool(out_of_order) == cfg.fsdp
 
 
 def test_specs_allocate_nothing():

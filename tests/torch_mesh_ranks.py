@@ -25,7 +25,8 @@ from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     load_checkpoint, save_checkpoint)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
-from repro_torch.nn import transformer  # noqa: E402
+from repro_torch.nn import (decode, moe, ssm, transformer,  # noqa: E402
+                            xlstm)
 from repro_torch.nn.param import P  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
 from repro_torch.train import fault, trainer  # noqa: E402
@@ -77,6 +78,83 @@ def case_sync(d: Path, inp: dict) -> dict:
     step = trainer.make_sync_step(cfg, opt, mesh=mesh, param_specs=p_specs)
     p, o, loss = step(params, state, batch)
     return {"params": _full(p), "loss": loss, "step": _full(o)["step"],
+            "placements": {k: [repr(x) for x in v.placements]
+                           for k, v in p.items()}}
+
+
+class Shares:
+    """What each rank's share of the placed families ran on, recorded
+    around the functions that run it: the local heads and rows of every
+    Mamba2 scan, the key columns of every mLSTM recurrence, and the local
+    shapes and placements of every MoE expert product's operands."""
+
+    def __init__(self):
+        self.mamba, self.mlstm, self.experts = [], [], []
+        self._undo = []
+        self._wrap(ssm, "mamba2", lambda x, p, meta, **kw: self.mamba.append(
+            {"rows": x.shape[0], "heads": meta["n_heads"],
+             "dtensor": isinstance(x, DTensor)}))
+        self._wrap(xlstm, "_mlstm_core", lambda qkv, gates, meta, **kw:
+                   self.mlstm.append(
+                       {"rows": qkv.shape[0],
+                        "keys": (qkv.shape[-1] - meta["d_inner"])
+                        // (2 * meta["n_heads"])}))
+        self._wrap(moe.torch, "einsum", self._expert_product)
+
+    def _expert_product(self, eq, *ops):
+        if eq in ("gecd,edf->gecf", "gecf,efd->gecd"):
+            he, w = ops
+            self.experts.append({
+                "he": list(he.to_local().shape),
+                "w": list(w.to_local().shape),
+                "w_placements": [repr(x) for x in w.placements]})
+
+    def _wrap(self, mod, name, record):
+        fn = getattr(mod, name)
+
+        def spy(*args, **kwargs):
+            record(*args, **kwargs)
+            return fn(*args, **kwargs)
+
+        setattr(mod, name, spy)
+        self._undo.append((mod, name, fn))
+
+    def undo(self):
+        for mod, name, fn in self._undo:
+            setattr(mod, name, fn)
+
+
+def case_family(d: Path, inp: dict) -> dict:
+    """One sync step of a reduced family on the mesh ``inp["mesh"]``
+    (shape, axis names), recording each rank's share (:class:`Shares`)."""
+    cfg = configs.reduced(configs.get(inp["arch"]), **inp["overrides"])
+    shape, names = inp["mesh"]
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    p_specs = transformer.param_specs(cfg)
+    b, s = inp["batch"]["tokens"].shape
+    _, b_specs = specs.batch_specs(cfg, "train", s, b)
+    opt = sgd(inp["lr"])
+    o_specs = trainer.opt_state_specs({"step": None}, p_specs)
+    params = trainer.distribute(inp["params"], mesh,
+                                trainer.resolve_tree(p_specs, mesh, cfg))
+    state = trainer.distribute(opt.init(inp["params"]), mesh,
+                               trainer.resolve_tree(o_specs, mesh, cfg))
+    batch = trainer.distribute(inp["batch"], mesh,
+                               trainer.resolve_tree(b_specs, mesh, cfg))
+    step = trainer.make_sync_step(cfg, opt, mesh=mesh, param_specs=p_specs)
+    shares = Shares()
+    try:
+        p, o, loss = step(params, state, batch)
+    finally:
+        shares.undo()
+    every = [None] * WORLD
+    dist.all_gather_object(every, {"mamba": shares.mamba,
+                                   "mlstm": shares.mlstm,
+                                   "experts": shares.experts})
+    return {"params": _full(p), "loss": loss, "step": _full(o)["step"],
+            "shares": every,
+            "local_shapes": {k: list(v.to_local().shape)
+                             for k, v in p.items()},
             "placements": {k: [repr(x) for x in v.placements]
                            for k, v in p.items()}}
 
@@ -210,10 +288,10 @@ def case_decode(d: Path, inp: dict) -> dict:
                                 trainer.resolve_tree(p_specs, mesh, cfg))
     lm = transformer.LM.from_tree(params)
     b = inp["tokens"].shape[0]
-    c_shapes, c_specs = specs.cache_shapes_and_specs(cfg, b, inp["max_len"])
+    _, c_specs = specs.cache_shapes_and_specs(cfg, b, inp["max_len"])
     cache = trainer.distribute(
-        {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in c_shapes.items()},
-        mesh, trainer.resolve_tree(c_specs, mesh, cfg))
+        decode.init_cache(cfg, b, inp["max_len"], device="cpu"), mesh,
+        trainer.resolve_tree(c_specs, mesh, cfg))
     _, b_specs = specs.batch_specs(cfg, "decode", 1, b)
     step = trainer.make_decode_step(cfg, mesh)
     logits = []
@@ -229,7 +307,7 @@ def case_decode(d: Path, inp: dict) -> dict:
                                  for k, v in cache.items()}}
 
 
-CASES = {"sync": case_sync, "decode": case_decode, "async": case_async,
+CASES = {"sync": case_sync, "decode": case_decode, "family": case_family, "async": case_async,
          "pipeline": case_pipeline, "rescale": case_rescale,
          "resilient": case_resilient}
 
