@@ -7,6 +7,7 @@ family) on one NVIDIA card.
     python3 chip_smoke.py --lm-train-probe
     python3 chip_smoke.py --lm-families
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --attn-bwd
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
@@ -16,14 +17,17 @@ initial weights.  The third runs only env, build and phase
 ``lm_families``, the fourth only env, build and phase ``mesh`` (after
 ``lm_families`` in the full run: ``phase_mesh``'s docstring; the placed
 families' sync steps and zamba2's decode ticks bit for bit on a one-rank
-NCCL mesh, and the dry run's cells on the production meshes).
+NCCL mesh, and the dry run's cells on the production meshes), the fifth
+only env, build, phase ``kernels``' checks of the attention backward and
+phase ``lm_train``'s (d).
 
 
 Phases, one JSON line each:
 
 1. ``env``     card name and power limit, torch, CUDA, nvcc, triton;
-2. ``build``   compiles the six sources from src/repro_torch/kernels/csrc
-               (one nvcc per source, all at once) and reports ptxas usage;
+2. ``build``   compiles the seven sources from src/repro_torch/kernels/csrc
+               (one nvcc per source, all at once) and reports ptxas usage
+               and every kernel that spills;
 3. ``kernels`` holds each kernel against its plain PyTorch version on the
                card: both tasks, both glm_grad layouts, covtype and w8a
                widths, a ragged N, a replica axis, real-sim's width, and
@@ -46,7 +50,12 @@ Phases, one JSON line each:
                127, 128 and 4096, a cache prefix read in place, head dims
                64, 72 and 128, B = 64 with no split, a window that leaves
                chunks with no key, two row groups, the same output twice)
-               and small fp32 cases; glm_grad's ring variant at d = 3, 54
+               and small fp32 cases; the attention backward's two
+               variants (``ATTN_BWD_CASES``: head dims 8 to 128, rep 1 and
+               4, causal with and without a window, acausal, cross Sq > Sk,
+               ragged lengths) against the plain backward, fp32 at
+               ATTN_TOL, bf16 within BWD_BF16_REL of the fp32 yardstick,
+               and five calls of each giving the same bits; glm_grad's ring variant at d = 3, 54
                and 300 with a ragged last tile; glm_sparse's smem variant
                at w8a (R = 1 and 10 x 6,470), real-sim's width and every
                glm_sgd_sparse edge case above (rows of all padding, a
@@ -126,17 +135,20 @@ Phases, one JSON line each:
                fall (the reference's check), ms per step, tokens/s, peak
                memory, the step-0
                checkpoint's host copy, and one step split into forward,
-               backward and optimizer with a profiled forward + backward;
+               backward and optimizer with a profiled forward + backward,
+               then again with the attention backward's plain version in
+               the kernel's place, and with the kernel again;
                (b) async-local, 2 replicas merged every 2 steps, the same
                shape, replicas equal after each merge, and one int8 merge
                with error feedback; (c) one step's loss and every gradient
                leaf through the kernel, through the plain versions in bf16
                and through the plain versions on an fp32 copy (the
                yardstick; each leaf by RMS and by max distance,
-               ``_held_bf16_grad``), and 2 layers in fp32 on the ``simt`` kernel
-               against the plain versions; (d) the attention backward alone
-               at one layer's shape against autograd through the plain
-               forward, with its time, bound and
+               ``_held_bf16_grad``), and 2 layers in fp32 on the ``simt``
+               kernels (forward and backward) against the plain versions;
+               (d) the attention backward kernel alone at one layer's shape
+               against autograd through the plain forward, with its time,
+               bounds, the plain backward's time, three calls' bits and
                ``scaled_dot_product_attention``'s forward + backward; (e) a
                restart at the reduced config through the launcher's
                ``main``;
@@ -230,6 +242,7 @@ line.  Without a card, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -277,6 +290,8 @@ REPLACES = {
     "glm_sparse": "src/repro/kernels/glm_sparse/kernel.py:108",
     "glm_score": "src/repro/kernels/glm_score/kernel.py:72",
     "flash_attn": "src/repro/kernels/flash_attn/kernel.py:110",
+    # no TPU kernel: the reference differentiates its XLA chunked_attention
+    "flash_attn_bwd": "src/repro/nn/attention.py:49",
 }
 
 
@@ -301,6 +316,10 @@ KERNEL_SYMBOLS = {
     "flash_attn": {"mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
                    "simt": ("flash_attn_kernel",)},
+    "flash_attn_bwd": {"mma": ("flash_attn_bwd_dq_mma_kernel",
+                               "flash_attn_bwd_dkv_mma_kernel"),
+                       "simt": ("flash_attn_bwd_dq_kernel",
+                                "flash_attn_bwd_dkv_kernel")},
 }
 #: cycles the card spins before an event-timed call (about 1 ms at the
 #: H100's 1.98 GHz boost), longer than the host takes to enqueue the call
@@ -516,6 +535,25 @@ ATTN_CASES = (
      True, None),
 )
 
+#: flash_attn_bwd cases of phase ``kernels``, each in fp32 and in bf16:
+#: (label, (B, Hq, Hkv, Sq, Sk, hd), causal, window).  The families train at
+#: hd 64 (musicgen, zamba2), 80 (danube), 112 (kimi-k2) and 128 (minitron,
+#: command-r, olmoe, vlm)
+ATTN_BWD_CASES = (
+    ("hd 64, rep 1, causal, ragged S", (1, 4, 4, 300, 300, 64), True, None),
+    ("hd 80, rep 4, window: danube's heads", (1, 32, 8, 1000, 1000, 80), True,
+     256),
+    ("hd 112, rep 4, causal", (1, 8, 2, 200, 200, 112), True, None),
+    ("hd 128, rep 1, window", (2, 4, 4, 257, 257, 128), True, 64),
+    ("hd 128, rep 4, cross Sq 300 > Sk 170", (1, 8, 2, 300, 170, 128), False,
+     None),
+    ("hd 80, rep 4, window, Sq 77 < Sk 201", (2, 8, 2, 77, 201, 80), True, 50),
+    ("hd 64, rep 4, acausal window", (1, 8, 2, 100, 150, 64), False, 20),
+    ("hd 72, depth padded to 80", (1, 4, 1, 130, 130, 72), True, None),
+    ("hd 8, window 7", (1, 2, 1, 40, 40, 8), True, 7),
+    ("hd 128, one query row", (1, 4, 4, 1, 33, 128), True, None),
+)
+
 
 # ---------------------------------------------------------------------------
 # Phases
@@ -567,7 +605,25 @@ def phase_build() -> dict:
              for name, text in reports.items()}
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "sources": _build.sources(), "built": sorted(reports),
-            "ptxas": usage}
+            "ptxas": usage, "spills": ptxas_spills(reports)}
+
+
+def ptxas_spills(reports: dict[str, str]) -> dict[str, list]:
+    """Each kernel that spills, from ``ptxas -v``'s report of every source:
+    ``[function, spill store bytes, spill load bytes]``."""
+    out = {}
+    for name, text in reports.items():
+        fn = None
+        for ln in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                out.setdefault(name, []).append(
+                    [fn, int(m.group(1)), int(m.group(2))])
+    return out
 
 
 def _dense_inputs(rng, n, d, dev):
@@ -925,6 +981,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                   "case": "decode Sk=4096: five calls give the same bits",
                   "ok": same_bits(lambda: K.flash_attention(q, k, v,
                                                             causal=False))})
+    bwd_cases, worst["flash_attn_bwd"] = _attention_backward_checks(dev)
+    cases += bwd_cases
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
@@ -945,6 +1003,72 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     return {"phase": "kernels", "cases": cases,
             "ok": all(c["ok"] for c in cases)}, worst
+
+
+def _grads(fn) -> torch.Tensor:
+    """``fn``'s gradients ``(dq, dk, dv)`` as one flat tensor."""
+    return torch.cat([g.flatten() for g in fn()])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _attention_backward_checks(dev) -> tuple[list[dict], float]:
+    """Both variants of the attention backward (the operator
+    ``repro_torch::flash_attn_bwd`` on CUDA tensors) against the plain
+    backward: fp32 (``simt``) at ATTN_TOL against ``attention_bwd_ref`` in
+    fp32, bf16 (``mma``) within BWD_BF16_REL of each gradient's largest
+    value against the fp32 yardstick (``attention_bwd_ref`` on fp32 copies
+    of the same bf16 inputs: the limit the plain bf16 backward is held to,
+    its own error recorded beside); and, for each variant, two calls at
+    danube's heads give the same bits.  Returns the cases and the worst
+    fp32 error."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
+
+    bwd = torch.ops.repro_torch.flash_attn_bwd
+    cases, worst = [], 0.0
+    for n, (label, shape, causal, window) in enumerate(ATTN_BWD_CASES):
+        q, k, v = _attn_inputs(shape, torch.float32, dev, seed=400 + n)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(500 + n))
+        ref = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        errs = [close(a, b, ATTN_TOL)
+                for a, b in zip(bwd(q, k, v, do, causal, window), ref)]
+        worst = max([worst] + [e for e, _ in errs])
+        cases.append({"kernel": "flash_attn_bwd",
+                      "case": f"{label} {list(shape)} fp32 causal={causal} "
+                              f"window={window} "
+                              f"{attn_ops.bwd_variant(torch.float32)}",
+                      "max_abs_err": [e for e, _ in errs], "tol": ATTN_TOL,
+                      "ok": all(ok for _, ok in errs)})
+        x16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+        ref = attention_bwd_ref(*(t.float() for t in x16), causal=causal,
+                                window=window)
+        rel = [_rel(a, b) for a, b in zip(bwd(*x16, causal, window), ref)]
+        plain = [_rel(a, b) for a, b in zip(attention_bwd_ref(
+            *x16, causal=causal, window=window), ref)]
+        cases.append({"kernel": "flash_attn_bwd",
+                      "case": f"{label} {list(shape)} bf16 causal={causal} "
+                              f"window={window} "
+                              f"{attn_ops.bwd_variant(torch.bfloat16)}",
+                      "rel_err": rel, "plain_rel_err": plain,
+                      "rel_limit": BWD_BF16_REL,
+                      "ok": max(rel) <= BWD_BF16_REL})
+    shape, causal, window = ATTN_BWD_CASES[1][1:]
+    q, k, v = _attn_inputs(shape, torch.float32, dev, seed=401)
+    do = torch.randn(q.shape, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [t.to(dtype) for t in (q, k, v, do)]
+        cases.append({"kernel": "flash_attn_bwd",
+                      "case": f"{list(shape)} {dtype} "
+                              f"{attn_ops.bwd_variant(dtype)}: five calls "
+                              "give the same bits",
+                      "ok": same_bits(lambda: _grads(
+                          lambda: bwd(*x, causal, window)))})
+    return cases, worst
 
 
 def main_path(covtype, w8a, n: int | None = None):
@@ -2140,19 +2264,21 @@ def _train_run(argv: list, ckpt_dir: Path) -> tuple[dict, object]:
            "tokens_per_s": tokens / steady * 1e3,
            "tokens_per_s_wall": tokens * len(losses) / wall,
            "flash_attn_launches": common.LAUNCHES["flash_attn"],
+           "flash_attn_bwd_launches": common.LAUNCHES["flash_attn_bwd"],
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "ckpt_steps": sorted(p.name for p in ckpt_dir.glob("step_*"))}
     shutil.rmtree(ckpt_dir)
     return out, (cfg, state, batches)
 
 
-def _step_split(cfg, params: dict, batch: dict, lr: float) -> dict:
+def _step_split(cfg, params: dict, batch: dict, lr: float,
+                profile: bool = True) -> dict:
     """One sync step's wall ms (host clock, ended by a synchronize) split
     into the loss forward (grad mode: checkpointed blocks, the kernel),
     the backward (forward + backward, less the forward: each block's
-    forward again, the plain attention backward, the rest) and the
-    optimizer (update and apply); then one profiled forward + backward,
-    device time by kernel."""
+    forward again, the attention backward, the rest) and the optimizer
+    (update and apply); then (``profile``) one profiled forward +
+    backward, device time by kernel."""
     from repro_torch.nn import transformer
     from repro_torch.optim.sgd import apply_updates, sgd
     from repro_torch.train import trainer
@@ -2181,11 +2307,15 @@ def _step_split(cfg, params: dict, batch: dict, lr: float) -> dict:
 
     optim, _ = wall(update)
     del grads
-    prof = _lm_profile(lambda: trainer.value_and_grad(cfg, params, batch), 1)
-    return {"forward_ms": fwd, "backward_ms": fwd_bwd - fwd,
-            "optimizer_ms": optim, "forward_backward_ms": fwd_bwd,
-            "profiled_step": {k: prof[k] for k in (
-                "device_ms_per_tick", "launches_per_tick", "device_top")}}
+    out = {"forward_ms": fwd, "backward_ms": fwd_bwd - fwd,
+           "optimizer_ms": optim, "forward_backward_ms": fwd_bwd,
+           "step_ms": fwd_bwd + optim}
+    if profile:
+        prof = _lm_profile(lambda: trainer.value_and_grad(cfg, params,
+                                                          batch), 1)
+        out["profiled_step"] = {k: prof[k] for k in (
+            "device_ms_per_tick", "launches_per_tick", "device_top")}
+    return out
 
 
 def _grads_held(cfg, params: dict, batch: dict) -> dict:
@@ -2220,12 +2350,16 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
         f"layers.{i}." for i in range(TRAIN_FP32_LAYERS))
     p2 = {k: v for k, v in p32.items() if k.startswith(keep)}
     cfg2 = dataclasses.replace(cfg32, n_layers=TRAIN_FP32_LAYERS)
+    common.reset_launches()
     l2, g2 = trainer.value_and_grad(cfg2, p2, batch)
+    bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     with common.plain_versions():
         l2p, g2p = trainer.value_and_grad(cfg2, p2, batch)
     fp32 = {"layers": TRAIN_FP32_LAYERS,
             "variant": attn_ops.variant(torch.float32, batch["tokens"].shape[1],
                                         cfg.n_heads // cfg.n_kv),
+            "bwd_variant": attn_ops.bwd_variant(torch.float32),
+            "flash_attn_bwd_launches": bwd_launches,
             "loss": float(l2), "loss_plain": float(l2p),
             "loss_ok": close(l2, l2p, ATTN_TOL)[1], "tol": ATTN_TOL}
     errs = {k: close(g2[k], g2p[k], ATTN_TOL) for k in g2}
@@ -2233,7 +2367,8 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     fp32["grads_ok"] = all(ok for _, ok in errs.values())
     fp32["failing"] = sorted(k for k, (_, ok) in errs.items() if not ok)[:8]
     fp32["ok"] = bool(fp32["loss_ok"] and fp32["grads_ok"]
-                      and fp32["variant"] == "simt")
+                      and fp32["variant"] == fp32["bwd_variant"] == "simt"
+                      and bwd_launches == TRAIN_FP32_LAYERS)
     return {"seconds_three_ways": seconds, "leaves": len(held),
             "loss": {"kernel": float(loss), "plain": float(loss_p),
                      "fp32": float(loss_32), **loss_held},
@@ -2251,14 +2386,32 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
                        and fp32["ok"])}
 
 
+#: the fp32 backward's timed call (the kernels line's ``flash_attn_bwd_simt``
+#: row): causal 1,024 x 1,024 at danube's heads, as row 6c times the forward
+BWD_FP32_SHAPE = (1, 32, 8, 1024, 1024, 80)
+
+
+def _bwd_work(q, k, causal, window, products: int) -> tuple[int, float]:
+    """Bytes (q, k, v, do read once, dq, dk, dv written once) and flops
+    (``products`` products of 2 * hd operations a visible pair) of one
+    attention backward."""
+    b, hq, sq, hd = q.shape
+    pairs = visible_pairs(sq, k.shape[2], causal, window)
+    return 3 * nbytes(q) + 4 * nbytes(k), 2.0 * products * hd * pairs * b * hq
+
+
 def _backward_alone(dev) -> dict:
-    """The ``autograd.Function``'s backward at one layer's training shape
-    (B=2, danube's heads, S=8192, window 4096): in bf16 and fp32 against
-    autograd through ``ref.attention_ref`` on the same inputs (fp32: at
-    ATTN_TOL; bf16: BWD_BF16_REL of each gradient's largest value), its
-    device time (events over back-to-back calls) and bound, and
-    ``scaled_dot_product_attention``'s forward and forward + backward at
-    the same shape."""
+    """(d) The attention backward at one layer's training shape (B=2,
+    danube's heads, S=8192, window 4096): autograd through
+    ``flash_attention`` (the kernel's forward, then the backward kernel) in
+    bf16 and fp32 against autograd through ``ref.attention_ref`` on the
+    same inputs (fp32: ATTN_TOL; bf16: BWD_BF16_REL of each gradient's
+    largest value); the backward kernel's ms (events over back-to-back
+    calls of the operator) and device ms beside the plain backward's and
+    SDPA's backward (its forward + backward less its forward), its bounds
+    (the function's 5 products, the design's 9), and three calls' bits;
+    then the fp32 kernel at BWD_FP32_SHAPE.  Returns the line and the
+    kernels line's two rows (launches left to the caller)."""
     import repro_torch.kernels as K
     from repro_torch.kernels.flash_attn import ref as attn_ref
 
@@ -2286,19 +2439,34 @@ def _backward_alone(dev) -> dict:
     checks["fp32"] = [close(a, b, ATTN_TOL) for a, b in zip(mine32, ref32)]
     del mine32
     mine16 = grads_of(kernel, torch.bfloat16)
-    rel = [float((a.float() - b).abs().max() / b.abs().max())
-           for a, b in zip(mine16, ref32)]
+    rel = [_rel(a, b) for a, b in zip(mine16, ref32)]
+    abs16 = max(float((a.float() - b).abs().max())
+                for a, b in zip(mine16, ref32))
     del mine16, ref32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    ms = cuda_ms(lambda: attn_ref.attention_bwd_ref(
+    bwd = torch.ops.repro_torch.flash_attn_bwd
+
+    def call():
+        return bwd(q, k, v, do, causal, window)
+
+    same = same_bits(lambda: _grads(call), calls=3)
+    ms = cuda_ms(call, 5)
+    dev_time = kernel_device_time(call, 3,
+                                  KERNEL_SYMBOLS["flash_attn_bwd"]["mma"])
+    # each pass's device ms (the profiler's mean over its launches)
+    prof = device_profile(call, 3)
+    dev_time["device_ms_by_pass"] = {
+        name: sum(t / c for key, (t, c) in prof.items() if name in key)
+        for name in KERNEL_SYMBOLS["flash_attn_bwd"]["mma"]}
+    plain_ms = cuda_ms(lambda: attn_ref.attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), 3)
     fwd_ms = cuda_ms(lambda: K.flash_attention(q, k, v, causal=causal,
                                                window=window), 10)
-    pairs = visible_pairs(shape[3], shape[4], causal, window)
-    flops = 10.0 * shape[5] * pairs * shape[0] * shape[1]
-    bound, by = bound_ms(3 * nbytes(q) + 2 * nbytes(k) + 2 * nbytes(v), flops,
+    in_bytes, flops = _bwd_work(q, k, causal, window, 5)
+    bound, by = bound_ms(in_bytes, flops, BF16_FLOPS_PER_S)
+    bound9, _ = bound_ms(in_bytes, _bwd_work(q, k, causal, window, 9)[1],
                          BF16_FLOPS_PER_S)
     mask = end_aligned_mask(shape[3], shape[4], causal, window, dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2313,22 +2481,66 @@ def _backward_alone(dev) -> dict:
            "fp32_max_abs_err": [e for e, _ in checks["fp32"]],
            "fp32_ok": all(ok for _, ok in checks["fp32"]),
            "bf16_rel_err": rel, "bf16_rel_limit": BWD_BF16_REL,
-           "backward_ms": ms, "forward_kernel_ms": fwd_ms,
-           "bound_ms": bound, "bound_by": by, "flops": flops,
-           "sdpa_forward_ms": sdpa_f, "sdpa_forward_backward_ms": sdpa_fb,
+           "same_bits": same, "kernel_ms": ms, **dev_time,
+           "plain_backward_ms": plain_ms, "forward_kernel_ms": fwd_ms,
+           "bound_ms": bound, "bound_by": by, "bound_9_products_ms": bound9,
+           "flops": flops, "sdpa_forward_ms": sdpa_f,
+           "sdpa_forward_backward_ms": sdpa_fb,
            "sdpa_backward_ms": sdpa_fb - sdpa_f,
            "sdpa_max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9}
-    out["ok"] = bool(out["fp32_ok"] and max(rel) <= BWD_BF16_REL)
-    return out
+    del qs, ks, vs, q, k, v, do
+    torch.cuda.empty_cache()
+    rows = [{"name": "flash_attn_bwd", "line": "flash_attn_bwd_mma",
+             "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"]["mma"]),
+             "max_abs_err": abs16, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by,
+             "library_ms": sdpa_fb - sdpa_f}]
+
+    # the fp32 kernel, bound by fp32 operations outside the tensor cores
+    q, k, v = _attn_inputs(BWD_FP32_SHAPE, torch.float32, dev, seed=13)
+    do = torch.randn(q.shape, device=dev)
+    mask = end_aligned_mask(q.shape[2], k.shape[2], True, None, dev)
+    ref = attn_ref.attention_bwd_ref(q, k, v, do, causal=True, window=None)
+    errs = [close(a, b, ATTN_TOL) for a, b in
+            zip(bwd(q, k, v, do, True, None), ref)]
+    err = max(e for e, _ in errs)
+    in_bytes, flops = _bwd_work(q, k, True, None, 5)
+    bound32, by32 = bound_ms(in_bytes, flops)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    f32 = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                               enable_gqa=True).detach(), 5)
+    fb32 = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), (qs, ks, vs), do),
+        5)
+    rows.append({"name": "flash_attn_bwd", "line": "flash_attn_bwd_simt",
+                 "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"]["simt"]),
+                 "shape": list(BWD_FP32_SHAPE), "max_abs_err": err,
+                 "ms": cuda_ms(lambda: bwd(q, k, v, do, True, None), 5),
+                 "plain_ms": cuda_ms(lambda: attn_ref.attention_bwd_ref(
+                     q, k, v, do, causal=True, window=None), 5),
+                 "bound_ms": bound32, "bound_by": by32,
+                 "library_ms": fb32 - f32})
+    out["fp32_row"] = rows[-1]
+    for r in rows:
+        r.update(route="cuda", source="src/repro_torch/kernels/csrc/"
+                 "flash_attn_bwd.cu", replaces=REPLACES["flash_attn_bwd"],
+                 study_launches=None)
+    out["ok"] = bool(out["fp32_ok"] and max(rel) <= BWD_BF16_REL and same
+                     and all(ok for _, ok in errs))
+    return out, rows
 
 
-def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
+def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     """LM training on full-width h2o-danube-1.8b through the launcher's
-    objects: (a) sync and (b) async-local runs with a compressed merge,
-    (c) one step's gradients held three ways, (d) the attention backward
-    alone beside SDPA's, (e) a restart at the reduced config.  Returns the
-    phase line and (a)'s flash_attn launches (the ``mma`` kernel)."""
+    objects: (a) sync and (b) async-local runs with a compressed merge, and
+    one sync step timed with the backward kernel and with the plain
+    backward in its place, (c) one step's gradients held three ways, (d)
+    the attention backward alone beside SDPA's, (e) a restart at the
+    reduced config.  Returns the phase line, the launches of (a)'s kernels
+    (``mma``: flash_attn's, ``bwd_mma``: the backward's) and of (c)'s fp32
+    backward (``bwd_simt``), and (d)'s kernels-line rows."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import train
     from repro_torch.optim.sgd import sgd
@@ -2341,8 +2553,18 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
     sync["flash_attn_variant"] = attn_ops.variant(cfg.param_dtype,
                                                   sync["seq"], rep)
     sync["expected_launches"] = 2 * cfg.n_layers * len(sync["losses"])
-    sync["split"] = _step_split(cfg, state[0], next(batches), TRAIN_LR)
-    del state, batches
+    sync["expected_bwd_launches"] = cfg.n_layers * len(sync["losses"])
+    sync["bwd_variant"] = attn_ops.bwd_variant(cfg.param_dtype)
+    # one step with the backward kernel, with the plain backward in its
+    # place, and with the kernel again, on the same weights and batch
+    batch = next(batches)
+    sync["split"] = _step_split(cfg, state[0], batch, TRAIN_LR)
+    with common.plain_versions("flash_attn_bwd"):
+        sync["split_plain_backward"] = _step_split(cfg, state[0], batch,
+                                                   TRAIN_LR, profile=False)
+    sync["split_again"] = _step_split(cfg, state[0], batch, TRAIN_LR,
+                                      profile=False)
+    del state, batches, batch
     torch.cuda.empty_cache()
 
     run_b, (_, state, batches) = _train_run(TRAIN_ARGV + TRAIN_ASYNC,
@@ -2371,6 +2593,7 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
     del params_r, opt_r, anchor, merged, new_anchor, ef, exact, batches
     torch.cuda.empty_cache()
     run_b["expected_launches"] = 2 * 2 * cfg.n_layers * len(run_b["losses"])
+    run_b["expected_bwd_launches"] = 2 * cfg.n_layers * len(run_b["losses"])
 
     # (c) a fresh model and batch: one step's gradients held three ways
     from repro_torch.nn import transformer
@@ -2382,7 +2605,7 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
     del params, batch
     torch.cuda.empty_cache()
 
-    bwd = _backward_alone(dev)
+    bwd, bwd_rows = _backward_alone(dev)
     torch.cuda.empty_cache()
 
     # (e) a restart at the reduced config, through the launcher's main
@@ -2402,7 +2625,9 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
     # the reference's own check: the last fresh batch's loss below the first
     ok_a = bool(sync["fresh_batch_loss_falls"] and sync["restarts"] == 0
                 and sync["flash_attn_launches"] == sync["expected_launches"]
-                and sync["flash_attn_variant"] == "mma"
+                and sync["flash_attn_bwd_launches"]
+                == sync["expected_bwd_launches"]
+                and sync["flash_attn_variant"] == sync["bwd_variant"] == "mma"
                 and all(np.isfinite(sync["losses"]))
                 and sync["ckpt_steps"] == ["step_000000000"])
     ok_b = bool(run_b["fresh_batch_loss_falls"]
@@ -2410,6 +2635,8 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
                 and run_b["replicas_equal"] == [False, True] * (TRAIN_STEPS
                                                                 // 2)
                 and run_b["flash_attn_launches"] == run_b["expected_launches"]
+                and run_b["flash_attn_bwd_launches"]
+                == run_b["expected_bwd_launches"]
                 and run_b["compressed_merge"]["replicas_equal"])
     return {"phase": "lm_train", "arch": cfg.name, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
@@ -2419,7 +2646,11 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, int]:
             "grads": grads, "backward": bwd, "restart": restart,
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(ok_a and ok_b and grads["ok"] and bwd["ok"]
-                       and restart["ok"])}, sync["flash_attn_launches"]
+                       and restart["ok"])}, {
+        "mma": sync["flash_attn_launches"],
+        "bwd_mma": sync["flash_attn_bwd_launches"],
+        "bwd_simt": grads["fp32_2_layers"]["flash_attn_bwd_launches"]}, \
+        bwd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2438,9 +2669,9 @@ PROBE_RUNS = ((torch.bfloat16, 4.0, 16), (torch.bfloat16, 1.0, 16),
 @contextlib.contextmanager
 def library_attention():
     """flash_attn's forward routed to ``scaled_dot_product_attention`` (an
-    end-aligned boolean mask, GQA) for the block, its backward still
-    ``ref.attention_bwd_ref``: a library bf16 attention in the kernel's
-    place, the control for the gradient rule."""
+    end-aligned boolean mask, GQA) for the block, its backward still the
+    operator's (the backward kernel): a library bf16 attention in the
+    forward kernel's place, the control for the gradient rule."""
     from repro_torch.kernels import common
 
     dispatch = common.dispatch
@@ -2831,15 +3062,7 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
             "finite": all(np.isfinite(v) for v in tops.values())})
         return loss, grads
 
-    # the plain attention backward's calls (row 6d of PERF.md's table)
-    from repro_torch.kernels.flash_attn import ref as attn_ref
-    bwd_calls, attention_bwd = [0], attn_ref.attention_bwd_ref
-
-    def counted(*a, **kw):
-        bwd_calls[0] += 1
-        return attention_bwd(*a, **kw)
-
-    trainer.value_and_grad, attn_ref.attention_bwd_ref = recorded, counted
+    trainer.value_and_grad = recorded
     common.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -2847,9 +3070,9 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
         torch.cuda.synchronize()
     finally:
         trainer.value_and_grad = value_and_grad
-        attn_ref.attention_bwd_ref = attention_bwd
     wall = time.perf_counter() - t0
     launches = common.LAUNCHES["flash_attn"]
+    bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     losses = train.losses_of(history)
     out = {"argv": argv, "setup_s": setup_s, "wall_s": wall,
            "losses": losses, "grads": grads_seen, "step_ms": rec["step_ms"],
@@ -2858,14 +3081,14 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
            "start_memory_gb": start_gb,
            "flash_attn_launches": launches,
            "expected_launches": 2 * _attention_layers(cfg) * len(losses),
-           "attention_backward_calls": bwd_calls[0]}
+           "flash_attn_bwd_launches": bwd_launches}
     out["ok"] = bool(len(losses) == FAMILY_TRAIN_STEPS
-                     and bwd_calls[0] == _attention_layers(cfg) * len(losses)
+                     and bwd_launches == _attention_layers(cfg) * len(losses)
                      and all(np.isfinite(losses))
                      and all(g["finite"] for g in grads_seen)
                      and launches == out["expected_launches"])
     del state, loop, batches
-    return out, {"decode": 0, "mma": launches, "backward": bwd_calls[0]}
+    return out, {"decode": 0, "mma": launches, "backward": bwd_launches}
 
 
 def _family_held(name: str, dev) -> dict:
@@ -2947,7 +3170,7 @@ def _family_held(name: str, dev) -> dict:
 def _family_attention(dev) -> dict:
     """(d): each new flash_attn shape through the kernel against the
     plain version, the cross call's backward too (autograd through the
-    kernel's forward and the plain backward, against autograd through the
+    kernel's forward and the backward kernel, against autograd through the
     plain forward in fp32), with the kernel's device ms beside
     ``scaled_dot_product_attention``'s."""
     import repro_torch.kernels as K
@@ -3119,10 +3342,15 @@ MESH_CELLS = (("h2o-danube-1.8b", "train_4k", False, "sync"),
               ("zamba2-1.2b", "long_500k", False, "sync"),
               ("zamba2-1.2b", "train_4k", False, "sync"),
               ("kimi-k2-1t-a32b", "train_4k", True, "sync"),
-              ("command-r-35b", "prefill_32k", True, "sync"))
+              ("command-r-35b", "prefill_32k", True, "sync"),
+              # the cells a gathered gold logit's global [B, chunk, V]
+              # block held over the card, before the vocab-parallel loss
+              ("minitron-4b", "train_4k", False, "sync"),
+              ("kimi-k2-1t-a32b", "train_4k", False, "sync"))
 #: (d)'s cells whose per-rank peak must fit the card (the others' is
 #: recorded beside it)
-MESH_PEAK_HELD = (("zamba2-1.2b", "train_4k", False, "sync"),)
+MESH_PEAK_HELD = (("zamba2-1.2b", "train_4k", False, "sync"),
+                  ("minitron-4b", "train_4k", False, "sync"))
 #: the H100's device memory, which a rank's arguments must fit
 CARD_BYTES = 80e9
 #: per-rank matmul flops x 256 against the unsharded step's
@@ -3136,19 +3364,6 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
-
-
-@contextlib.contextmanager
-def deterministic():
-    """``torch.use_deterministic_algorithms`` (warnings only) for the
-    block, then as it was."""
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
 @contextlib.contextmanager
@@ -3198,12 +3413,13 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
                 lr: float = TRAIN_LR, exact: bool = False) -> tuple:
     """(a): sync steps with DTensor parameters against the mesh-less step
     on the same weights and batches; ms a step, peak memory and a profiled
-    step's launches.  ``exact``: the losses and parameters must equal the
-    mesh-less step's bit for bit, both run under
-    ``torch.use_deterministic_algorithms`` (the MoE combine's
-    ``index_add`` is atomic otherwise, and olmoe's mesh-less step then
-    differs from itself by about 1e-3 in the loss).  Returns the record,
-    the mesh state and the main path's flash_attn launches."""
+    step's launches.  ``exact``: the losses and parameters on the mesh
+    must equal the mesh-less steps' bit for bit, and a MoE family's
+    mesh-less steps, run twice, the same bits (no
+    ``torch.use_deterministic_algorithms``: every op on the path, the MoE
+    combine included, sums in a fixed order).
+    Returns the record, the mesh state and the main path's launches of
+    flash_attn and of its backward."""
     from repro_torch.kernels import common
     from repro_torch.launch import specs as specs_mod
     from repro_torch.nn import transformer
@@ -3214,14 +3430,14 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
     p_specs = transformer.param_specs(cfg)
     plain = trainer.make_sync_step(cfg, opt)
 
-    held_to = deterministic if exact else contextlib.nullcontext
-    p, o, plain_losses = params, opt.init(params), []
-    with held_to():
+    def plain_run():
+        p, o, losses = params, opt.init(params), []
         for b in batches:
             p, o, loss = plain(p, o, b)
-            plain_losses.append(float(loss))
-    plain_params = p
-    del p, o
+            losses.append(float(loss))
+        return p, losses
+
+    plain_params, plain_losses = plain_run()
 
     o_specs = trainer.opt_state_specs({"step": None}, p_specs)
     _, b_specs = specs_mod.batch_specs(cfg, "train", batches[0]["tokens"]
@@ -3238,40 +3454,55 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
     torch.cuda.reset_peak_memory_stats()
     common.reset_launches()
     ms, losses = [], []
-    with held_to():
-        for b in dbatches:
-            t0 = time.perf_counter()
-            dp, do, loss = step(dp, do, b)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(loss))
+    for b in dbatches:
+        t0 = time.perf_counter()
+        dp, do, loss = step(dp, do, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
     launches = common.LAUNCHES["flash_attn"]
+    bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     err, held = _trees_err(_full_tree(dp), plain_params)
-    del plain_params
+    placements = {k: [repr(x) for x in v.placements] for k, v in
+                  list(dp.items())[:3]}
     attn = _attention_layers(cfg)
     prof = (_profiled_launches(lambda: step(dp, do, dbatches[0]),
                                ("flash_attn_mma_kernel",)) if attn
             else {"flash_attn_mma_kernel": 0})
     loss_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    state, repeats = (dp, do), None
+    if exact and cfg.family == "moe":  # its steps again, once the mesh's
+        # state is freed
+        del dp, do, state
+        free_memory()
+        again, again_losses = plain_run()
+        repeats = bool(again_losses == plain_losses and all(
+            torch.equal(again[k], plain_params[k]) for k in plain_params))
+        del again
+        state = None
     rec = {"arch": cfg.name, "layers": cfg.n_layers,
            "batch": list(batches[0]["tokens"].shape), "lr": lr,
            "losses": losses, "plain_losses": plain_losses,
            "loss_max_abs_err": loss_err, "params_max_abs_err": err,
-           "deterministic": exact, "ms_per_step": ms,
-           "peak_gb": peak, "launches": launches,
+           "exact": exact, "plain_repeats_bit_for_bit": repeats,
+           "ms_per_step": ms, "peak_gb": peak, "launches": launches,
            "expected_launches": 2 * attn * len(batches),
+           "bwd_launches": bwd_launches,
+           "expected_bwd_launches": attn * len(batches),
            "profiled_step_launches": prof,
-           "placements": {k: [repr(x) for x in v.placements] for k, v in
-                          list(dp.items())[:3]}}
+           "placements": placements}
     if exact:
-        held = err == 0 and loss_err == 0 and all(np.isfinite(losses))
+        held = (repeats is not False and err == 0 and loss_err == 0
+                and all(np.isfinite(losses)))
     else:
         held = held and all(np.isclose(a, b, **ATTN_BF16_TOL)
                             for a, b in zip(losses, plain_losses))
     rec["ok"] = bool(held and launches == rec["expected_launches"]
+                     and bwd_launches == rec["expected_bwd_launches"]
                      and prof["flash_attn_mma_kernel"] == 2 * attn)
-    return rec, (dp, do), launches
+    del plain_params
+    return rec, state, {"mma": launches, "backward": bwd_launches}
 
 
 def _mesh_decode(dev, mesh, cfg, params: dict, *,
@@ -3394,34 +3625,56 @@ with dryrun.fake_world(1):
 """
 
 
-def _mesh_dryrun() -> dict:
-    """(d): the cells, each ``python -m repro_torch.launch.dryrun``
-    in its own process with cuda fakes, and the dense sync cell's step on
-    one unsharded fake rank; all at once."""
+def start_mesh_dryrun() -> dict:
+    """(d)'s processes, all started at once: the cells, each ``python -m
+    repro_torch.launch.dryrun`` with cuda fakes, and the dense sync cell's
+    step on one unsharded fake rank.  The full run starts them with phase
+    ``lm_families``, whose work is on the card, so that they trace on the
+    host meanwhile; ``_mesh_dryrun`` reads them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(cmd):
+        # output to files: a pipe nobody reads for minutes would fill and
+        # stall the process
+        out, err = (tempfile.TemporaryFile(mode="w+") for _ in range(2))
+        return subprocess.Popen(cmd, stdout=out, stderr=err, text=True,
+                                env=env, cwd=ROOT), out, err
+
     procs = {}
     for arch, shape, multi, update in MESH_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--update", update] + (
-                   ["--multipod"] if multi else [])
-        procs[(arch, shape, multi, update)] = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env, cwd=ROOT)
+        procs[(arch, shape, multi, update)] = start(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--update", update]
+            + (["--multipod"] if multi else []))
     dense = MESH_CELLS[0]
-    procs["unsharded"] = subprocess.Popen(
-        [sys.executable, "-c", _UNSHARDED, dense[0], dense[1]],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
-    t0 = time.perf_counter()
+    procs["unsharded"] = start([sys.executable, "-c", _UNSHARDED, dense[0],
+                                dense[1]])
+    # a run that stops before phase mesh reads them leaves none behind
+    atexit.register(lambda: [proc.kill() for proc, _, _ in procs.values()
+                             if proc.poll() is None])
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def _read_back(f) -> str:
+    """What a process wrote to the temporary file ``f``; closes it."""
+    with f:
+        f.seek(0)
+        return f.read()
+
+
+def _mesh_dryrun(started: dict) -> dict:
+    """(d): the results of ``start_mesh_dryrun``'s processes, each within
+    MESH_CELL_TIMEOUT_S of their start."""
+    procs, t0 = started["procs"], started["t0"]
     out = {}
-    for key, proc in procs.items():
+    for key, (proc, out_file, err_file) in procs.items():
         try:
-            stdout, stderr = proc.communicate(
-                timeout=max(1.0, MESH_CELL_TIMEOUT_S
-                            - (time.perf_counter() - t0)))
+            proc.wait(timeout=max(1.0, MESH_CELL_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             proc.kill()
-            stdout, stderr = proc.communicate()
+            proc.wait()
+        stdout, stderr = (_read_back(f) for f in (out_file, err_file))
         if proc.returncode == 0:
             out[key] = json.loads(stdout.strip().splitlines()[-1])
         else:
@@ -3493,12 +3746,12 @@ def _mesh_family(dev, mesh, name: str, steps: int,
                               device=dev)
     batches = [next(gen) for _ in range(steps)]
     t0 = time.perf_counter()
-    rec, state, mma = _mesh_train(
+    rec, state, launches = _mesh_train(
         dev, mesh, cfg, params, batches, exact=True,
         lr=FAMILY_TRAIN_LR.get(name, FAMILY_TRAIN_LR_DEFAULT))
     rec["seconds"] = time.perf_counter() - t0
     del state, batches
-    out, launches = {"train": rec}, {"mma": mma, "decode": 0}
+    out, launches = {"train": rec}, {**launches, "decode": 0}
     if name in MESH_DECODED:
         t0 = time.perf_counter()
         out["decode"], launches["decode"] = _mesh_decode(dev, mesh, cfg,
@@ -3510,7 +3763,8 @@ def _mesh_family(dev, mesh, name: str, steps: int,
     return out, launches
 
 
-def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
+def phase_mesh(dev, scratch: Path, dryrun: dict | None = None
+               ) -> tuple[dict, dict]:
     """The port's mesh on the card: (a) two sync steps of full-width
     h2o-danube-1.8b on a one-rank NCCL ``(data=1, model=1)`` mesh with
     DTensor parameters, held to the mesh-less step, and MESH_FAMILIES'
@@ -3519,13 +3773,17 @@ def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
     (b) decode ticks on the mesh held to the mesh-less decode, danube's
     and zamba2's; (c) ``elastic_rescale`` and a checkpoint round trip of
     (a)'s danube state; (d) the dry run's cells on the production meshes.
-    Returns the phase line and (a)'s and (b)'s flash_attn launches by
-    variant, counted from zero around each."""
+    (d)'s processes are the ones ``dryrun`` started (``start_mesh_dryrun``),
+    else started here; they are read first, so that none holds a CUDA
+    context while (a) trains.  Returns the phase line and (a)'s and (b)'s
+    launches of flash_attn by variant and of its backward, counted from
+    zero around each."""
     from repro_torch import configs
     from repro_torch.launch import train
     from repro_torch.nn import transformer
 
     t_phase = time.perf_counter()
+    dry = _mesh_dryrun(dryrun or start_mesh_dryrun())
     free_memory()
     cfg = configs.get("h2o-danube-1.8b")
     lm = transformer.init_params(cfg, torch.Generator(device=dev)
@@ -3537,7 +3795,8 @@ def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
     families = {}
     with one_rank_mesh(dev) as mesh:
         t0 = time.perf_counter()
-        sync, state, mma = _mesh_train(dev, mesh, cfg, params, batches)
+        sync, state, train_launches = _mesh_train(dev, mesh, cfg, params,
+                                                  batches)
         sync["seconds"] = time.perf_counter() - t0
         del batches
         t0 = time.perf_counter()
@@ -3550,17 +3809,17 @@ def phase_mesh(dev, scratch: Path) -> tuple[dict, dict]:
         for name, steps, depth in MESH_FAMILIES:
             families[name], launches = _mesh_family(dev, mesh, name, steps,
                                                     depth)
-            mma += launches["mma"]
+            for key in train_launches:
+                train_launches[key] += launches[key]
             decode_launches += launches["decode"]
     free_memory()
-    dry = _mesh_dryrun()
     return {"phase": "mesh", "arch": cfg.name, "mesh": "(data=1, model=1) "
             "NCCL", "train": sync, "decode": dec, "rescale": rescale,
             "families": families, "dryrun": dry, "nvidia_smi": nvidia_smi(),
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(sync["ok"] and dec["ok"] and rescale["ok"]
                        and all(f["ok"] for f in families.values())
-                       and dry["ok"])}, {"mma": mma,
+                       and dry["ok"])}, {**train_launches,
                                          "decode": decode_launches}
 
 
@@ -4638,9 +4897,9 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
-                    ["--mesh"]):
+                    ["--mesh"], ["--attn-bwd"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
-              "--lm-families | --mesh]", file=sys.stderr)
+              "--lm-families | --mesh | --attn-bwd]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4656,9 +4915,33 @@ def main(argv: list[str]) -> int:
             return run_lm_families(Path(scratch))
         if argv == ["--mesh"]:
             return run_mesh(Path(scratch))
+        if argv == ["--attn-bwd"]:
+            return run_attn_bwd()
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
+
+
+def run_attn_bwd() -> int:
+    """``python3 chip_smoke.py --attn-bwd``: the env and build phases, then
+    the attention backward alone: phase kernels' checks of both variants
+    and phase lm_train's (d), the card's name and power limit last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    t0 = time.perf_counter()
+    cases, _ = _attention_backward_checks(dev)
+    alone, _ = _backward_alone(dev)
+    ok = all(c["ok"] for c in cases) and alone["ok"]
+    emit({"phase": "attn_bwd", "cases": cases, "backward": alone,
+          "seconds": time.perf_counter() - t0, "ok": ok})
+    print(smi, flush=True)
+    return 0 if ok else 1
 
 
 def run(scratch: Path) -> int:
@@ -4740,14 +5023,18 @@ def run(scratch: Path) -> int:
         return 1
     del line
     torch.cuda.empty_cache()
-    line, train_launches = phase_lm_train(dev, scratch)
+    line, train_launches, bwd_rows = phase_lm_train(dev, scratch)
     emit(line)
     if not line["ok"]:
         return 1
-    # the mma kernel's main paths: phase lm's prefill and the training run
-    launches["flash_attn_mma"] += train_launches
+    # the mma kernel's main paths: phase lm's prefill and the training run;
+    # the backward's: the training run (bf16), and (c)'s fp32 layers
+    launches["flash_attn_mma"] += train_launches["mma"]
+    launches["flash_attn_bwd_mma"] = train_launches["bwd_mma"]
+    launches["flash_attn_bwd_simt"] = train_launches["bwd_simt"]
     del line
     free_memory()
+    dryrun = start_mesh_dryrun()   # traced on the host during lm_families
     line, family_launches = phase_lm_families(dev, scratch)
     emit(line)
     if not line["ok"]:
@@ -4756,15 +5043,17 @@ def run(scratch: Path) -> int:
     # training steps
     launches["flash_attn_decode"] += family_launches["decode"]
     launches["flash_attn_mma"] += family_launches["mma"]
+    launches["flash_attn_bwd_mma"] += family_launches["backward"]
     torch.cuda.empty_cache()
 
-    line, mesh_launches = phase_mesh(dev, scratch)
+    line, mesh_launches = phase_mesh(dev, scratch, dryrun)
     emit(line)
     if not line["ok"]:
         return 1
     # the mesh's training steps and decode ticks
     launches["flash_attn_decode"] += mesh_launches["decode"]
     launches["flash_attn_mma"] += mesh_launches["mma"]
+    launches["flash_attn_bwd_mma"] += mesh_launches["backward"]
     del line
     free_memory()
 
@@ -4784,7 +5073,11 @@ def run(scratch: Path) -> int:
                                             worst)
     checks += full_checks
     # a kernels-line row's error: the worst of its kernel's rows and checks
-    for r in rows:
+    # (the backward's rows: phase lm_train (d)'s)
+    rows += bwd_rows
+    for r in bwd_rows:
+        r["launches"] = launches[r["line"]]
+    for r in rows[:len(rows) - len(bwd_rows)]:
         r["launches"] = launches[r["line"]] if r["line"] else None
         r["study_launches"] = study_launches.get(r["line"])
         r["max_abs_err"] = max(
@@ -4794,7 +5087,8 @@ def run(scratch: Path) -> int:
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "full_shape_checks": full_checks, "empty_launch": empty,
           "seconds_total": time.perf_counter() - t_start})
-    if not all(r["ok"] for r in rows + full_checks):
+    if not all(r.get("ok", True) for r in rows + full_checks) or not all(
+            launches[r["line"]] for r in rows if r["line"]):
         return 1
 
     print(smi)

@@ -52,8 +52,9 @@ LAUNCHES: dict[str, int] = {}
 #: serving thread at once, and ``+=`` on a dict entry is not atomic
 _LAUNCH_LOCK = threading.Lock()
 
-#: inside ``plain_versions()``: CUDA tensors go to the plain versions
-_plain_on_card = False
+#: the families whose CUDA tensors go to their plain versions inside
+#: ``plain_versions()``: every family (True) or the ones named
+_plain_on_card: bool | frozenset[str] = False
 
 #: whether each device seen is a card
 _ON_CARD: dict[torch.device, bool] = {}
@@ -104,7 +105,9 @@ def resolve_backend(kernel: str, dev: torch.device,
     on_card = _ON_CARD.get(dev)
     if on_card is None:  # ``dev.type`` builds a string: read it once a device
         on_card = _ON_CARD[dev] = dev.type == "cuda"
-    natural = CUDA if on_card and not _plain_on_card else TORCH_REFERENCE
+    plain = _plain_on_card is True or (_plain_on_card
+                                      and kernel in _plain_on_card)
+    natural = CUDA if on_card and not plain else TORCH_REFERENCE
     forced = backend or os.environ.get(ENV_BACKEND) or None
     if forced is None:
         return natural
@@ -132,12 +135,18 @@ def dispatch(kernel: str, dev: torch.device, *args,
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Run every family's plain version on CUDA tensors for a while: the
-    engine then runs the same code with the kernels taken out, which is
-    what a kernel is checked against on the card."""
+def plain_versions(*kernels: str):
+    """Run every family's plain version on CUDA tensors for a while, or
+    the named families' alone: the engine then runs the same code with the
+    kernels taken out, which is what a kernel is checked against on the
+    card."""
     global _plain_on_card
-    saved, _plain_on_card = _plain_on_card, True
+    for kernel in kernels:
+        if kernel not in _REGISTRY:
+            raise KeyError(f"no kernel registered under {kernel!r}; "
+                           f"known: {registered_kernels()}")
+    saved = _plain_on_card
+    _plain_on_card = frozenset(kernels) if kernels else True
     try:
         yield
     finally:

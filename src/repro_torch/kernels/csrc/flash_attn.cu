@@ -115,9 +115,20 @@
 
 #include <cstdint>
 
+#include "attn.cuh"
 #include "common.cuh"
 
 namespace {
+
+using repro::bits;
+using repro::copies_commit;
+using repro::copies_wait;
+using repro::copy16;
+using repro::kLog2e;
+using repro::ldsm4;
+using repro::ldsm4_t;
+using repro::mma;
+using repro::warp_max;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -134,12 +145,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, o));
-  return v;
 }
 
 // One 16-byte vector of T (4 fp32 or 8 bf16) into fp32 shared memory.
@@ -382,57 +387,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaRows = kWarps * 16;  // rows a block: 16 per warp
 constexpr int kMmaKeys = 64;           // keys a staged tile
 constexpr int kStages = 2;             // K/V tiles in the cp.async ring
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros instead where `fill` is false
-__device__ __forceinline__ void copy16(void* dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices; lanes 8m .. 8m + 7 give matrix m's row addresses
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // (a, b) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), the lower
 // column in the lower half
 __device__ __forceinline__ void split(float a, float b, uint32_t& hi,

@@ -33,11 +33,14 @@ go through the operator ``torch.ops.repro_torch.flash_attn``
 plain ones:
 
 * inputs that require grad (under grad mode): its gradient is
-  ``torch.ops.repro_torch.flash_attn_bwd``, whose implementation is
-  ``ref.attention_bwd_ref``: plain PyTorch that recomputes the scores a
-  query chunk at a time.  The TPU kernel has no backward either; the
-  reference differentiates its XLA ``chunked_attention``, one chunk at a
-  time.  Such a call consults no tuner;
+  ``torch.ops.repro_torch.flash_attn_bwd``, which dispatches the family
+  ``"flash_attn_bwd"`` on the device: ``cuda`` runs
+  ``csrc/flash_attn_bwd.cu`` (a dQ pass, then a dK/dV pass, no atomics;
+  :func:`bwd_variant` picks the bf16 tensor-core kernels or the fp32
+  ones), ``torch-reference`` ``ref.attention_bwd_ref``, plain PyTorch that
+  recomputes the scores a query chunk at a time.  The TPU kernel has no
+  backward; the reference differentiates its XLA ``chunked_attention``,
+  one chunk at a time.  Such a call consults no tuner;
 * fake tensors (``FakeTensorMode``, the dry run): the operators' fake
   implementations give the output's shape, and ``FlopCounterMode`` counts
   4 (forward) and 10 (backward) operations a head dim of every visible
@@ -91,6 +94,16 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _F, _I, _I, _P)
 _DECODE_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I,
                 _F, _I, _I, _P)
+_BWD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _I, _F, _I, _P)
+
+#: the backward's C entry point's code for each variant
+BWD_VARIANTS = ("simt", "mma")
+#: the backward's tiles (csrc/flash_attn_bwd.cu), by variant: query rows a
+#: dQ block serves (its keys staged as many at a time), keys a dK/dV block
+#: owns, queries a dK/dV block stages at a time
+BWD_TILES = {"mma": {"q_rows": 64, "keys": 64, "q_tile": 32},
+             "simt": {"q_rows": 32, "keys": 32, "q_tile": 32}}
 
 
 def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
@@ -100,6 +113,38 @@ def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     return "mma" if sq * rep >= MMA_MIN_ROWS else "decode"
+
+
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward's kernels for operands of ``dtype``: ``"mma"`` (the
+    tensor cores) for bf16, ``"simt"`` (fp32 on the CUDA cores) else."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_k_range(q_tile: int, sq: int, sk: int, causal: bool,
+                window: int | None, rows: int = 64) -> tuple[int, int]:
+    """The keys ``[begin, end)`` a dQ block walks: every key some query of
+    its tile of ``rows`` rows (queries ``[q_tile * rows, ...)``) can see,
+    queries end-aligned on the keys (the forward's range)."""
+    off = sk - sq
+    i_hi = min((q_tile + 1) * rows, sq) - 1
+    end = min(sk, i_hi + off + 1) if causal else sk
+    begin = max(0, q_tile * rows + off - window + 1) if window else 0
+    return begin, end
+
+
+def bwd_q_range(k_tile: int, sq: int, sk: int, causal: bool,
+                window: int | None, keys: int = 64,
+                q_tile: int = 32) -> tuple[int, int]:
+    """The query tiles ``[first, stop)`` (of ``q_tile`` queries) a dK/dV
+    block walks for each query head of its kv head: every tile with a
+    query that can see one of its keys ``[k_tile * keys, ...)``."""
+    off = sk - sq
+    j_lo, j_hi = k_tile * keys, min((k_tile + 1) * keys, sk) - 1
+    i_lo = max(0, j_lo - off) if causal else 0
+    i_hi = min(sq - 1, j_hi + window - 1 - off) if window else sq - 1
+    first = i_lo // q_tile
+    return first, (i_hi // q_tile + 1 if i_hi >= i_lo else first)
 
 
 def decode_rows(rows: int) -> tuple[int, int]:
@@ -179,10 +224,7 @@ def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
     if b * hkv > 65_535:
         raise ValueError(f"flash_attn: B * Hkv = {b * hkv} exceeds the "
                          f"kernel's grid limit of 65,535")
-    if not q.is_contiguous() or q.data_ptr() % 16:
-        q = q.contiguous()
-        if q.data_ptr() % 16:
-            q = q.clone()
+    q = _aligned(q)
     k, k_stride = _kv_operand(k)
     v, v_stride = _kv_operand(v)
     if k_stride != v_stride:
@@ -235,6 +277,47 @@ def _flash_attn_reference(q, k, v, *, causal, window, splits=None):
     return R.attention_ref(q, k, v, causal=causal, window=window)
 
 
+@common.register_kernel("flash_attn_bwd", common.CUDA)
+def _flash_attn_bwd_cuda(q, k, v, do, *, causal, window):
+    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v, do)):
+        raise TypeError("flash_attn_bwd: the CUDA kernel takes plain tensors; "
+                        "a DTensor or fake tensor reaches it only through "
+                        "torch.ops.repro_torch.flash_attn_bwd")
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if b * hq > 65_535:
+        raise ValueError(f"flash_attn_bwd: B * Hq = {b * hq} exceeds the "
+                         f"kernel's grid limit of 65,535")
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    with common.on_device(q):
+        code = _build.function("flash_attn_bwd", "flash_attn_bwd", *_BWD_ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), b, hq, hkv, sq, sk, hd, int(causal), window or 0,
+            hd ** -0.5, BWD_VARIANTS.index(bwd_variant(q.dtype)),
+            common.stream(q))
+    _build.check("flash_attn_bwd", code)
+    common.count_launch("flash_attn_bwd")
+    return dq, dk, dv
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the backward reads it."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.contiguous()
+        if t.data_ptr() % 16:
+            t = t.clone()
+    return t
+
+
+@common.register_kernel("flash_attn_bwd", common.TORCH_REFERENCE)
+def _flash_attn_bwd_reference(q, k, v, do, *, causal, window):
+    return R.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+
+
 @torch.library.custom_op("repro_torch::flash_attn", mutates_args=())
 def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: int | None, splits: int | None,
@@ -255,8 +338,11 @@ def _(q, k, v, causal, window, splits, backend):
 def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, causal: bool, window: int | None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)``: ``ref.attention_bwd_ref``."""
-    return R.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    """``(dq, dk, dv)``: the family ``"flash_attn_bwd"``'s dispatch on
+    plain tensors (the kernel on ``cuda``, ``ref.attention_bwd_ref`` on
+    the CPU)."""
+    return common.dispatch("flash_attn_bwd", q.device, q, k, v, do,
+                           causal=causal, window=window)
 
 
 @_attention_bwd_op.register_fake
@@ -339,7 +425,8 @@ def flash_attention(
     Queries end-align with keys (query ``i`` at position ``i + Sk - Sq``);
     ``causal`` hides later keys, ``window`` keys ``window`` or more
     positions back.  Query head ``h`` reads kv head ``h // (Hq // Hkv)``.
-    Differentiable (the plain backward of ``ref.attention_bwd_ref``): where
+    Differentiable (the backward kernel on ``cuda``, the plain
+    ``ref.attention_bwd_ref`` on the CPU): where
     an input requires grad under grad mode the call goes through the
     operator and consults no tuner, as DTensor and fake operands do (their
     sharding rule and fake implementation: module docstring).  Plain

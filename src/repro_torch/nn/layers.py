@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import param as pm
@@ -96,12 +96,86 @@ def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 
 def _xent_sum(hx: torch.Tensor, emb: torch.Tensor,
               lx: torch.Tensor) -> torch.Tensor:
-    """Summed cross-entropy of one chunk: [B, c, V] fp32 logits inside."""
+    """Summed cross-entropy of one chunk: [B, c, V] fp32 logits inside.
+    On logits whose vocab is split over more than one rank each rank reads
+    only its own shard (:class:`_VocabShardXent`); elsewhere (no mesh, or
+    a vocab axis of one rank, where the mesh's step stays the mesh-less
+    step's arithmetic) a ``gather``."""
     logits = (hx @ emb.T).float()
     vocab = logits.ndim - 1   # a non-negative dim, as DTensor's rules want
+    if isinstance(logits, DTensor) and any(
+            p.is_shard(vocab) and logits.device_mesh.size(i) > 1
+            for i, p in enumerate(logits.placements)):
+        return torch.sum(_xent_on_vocab_shards(logits, lx, vocab))
     logz = torch.logsumexp(logits, dim=vocab, keepdim=True)
     gold = torch.gather(logits, vocab, lx.long().unsqueeze(vocab))
     return torch.sum(logz - gold)
+
+
+def _xent_on_vocab_shards(logits: DTensor, lx: torch.Tensor,
+                          vocab: int) -> DTensor:
+    """Each row's cross-entropy ``[B, c, 1]`` from logits sharded on the
+    vocab, replicated over the vocab's ranks.  DTensor's own rules would
+    make blocks of the whole vocab: ``torch.gather``'s backward a zeros
+    block of the global ``[B, c, V]`` on every rank (its ``new_zeros``
+    replicates), ``logsumexp`` an all-gather of the vocab.  Here the
+    labels and the vocab ids of the rank's shard make the gold logit's
+    mask, and only ``[B, c, 1]`` rows cross the vocab's ranks."""
+    mesh, pl = logits.device_mesh, logits.placements
+    local = logits.to_local()
+    # the rows' placements: the logits' own on the dims before the vocab
+    rows = [p if isinstance(p, Shard) and p.dim < vocab else Replicate()
+            for p in pl]
+    lab = lx.redistribute(mesh, rows).to_local()
+    first = _offset(mesh, pl, vocab, logits.shape[vocab])
+    ids = torch.arange(first, first + local.shape[vocab], device=lab.device)
+    hit = ids == lab.long().unsqueeze(vocab)
+    shards = [i for i, p in enumerate(pl) if p.is_shard(vocab)]
+
+    def over_vocab(t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced by ``op`` over the vocab's ranks."""
+        part = [Partial(op) if i in shards else p for i, p in enumerate(rows)]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, rows).to_local()
+
+    row = _VocabShardXent.apply(local, hit, over_vocab)
+    return DTensor.from_local(row, mesh, rows, run_check=False)
+
+
+def _offset(mesh, placements, dim: int, size: int) -> int:
+    """Where this rank's shard of a tensor dim of ``size`` starts: each
+    mesh dim that shards it, in order, takes ``torch.chunk``'s share of
+    what the ones before it left (DTensor's own helper for this reads
+    tensors, which a fake world cannot)."""
+    first = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            rank = mesh.get_local_rank(i)
+            first += rank * chunk
+            size = max(0, min(chunk, size - rank * chunk))
+    return first
+
+
+class _VocabShardXent(torch.autograd.Function):
+    """A vocab-parallel cross-entropy on one rank's shard ``[B, c, V_r]``
+    of the logits: the row max and the sums of ``exp`` and of the gold
+    logit (its mask ``hit`` has one entry a row on one rank, so that sum
+    is exact) are reduced over the vocab's ranks by ``over_vocab``; the
+    gradient ``softmax - hit`` is the shard's own."""
+
+    @staticmethod
+    def forward(ctx, local, hit, over_vocab):
+        m = over_vocab(local.amax(-1, keepdim=True), "max")
+        z = over_vocab(torch.exp(local - m).sum(-1, keepdim=True), "sum")
+        gold = over_vocab((local * hit).sum(-1, keepdim=True), "sum")
+        ctx.save_for_backward(local, hit, m, z)
+        return m + torch.log(z) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        local, hit, m, z = ctx.saved_tensors
+        return g * (torch.exp(local - m) / z - hit.float()), None, None
 
 
 def chunked_softmax_xent(

@@ -72,7 +72,9 @@ def _route_group(x: torch.Tensor, router: torch.Tensor, *, top_k: int,
                  capacity: int, n_experts: int):
     """Group-local routing decisions (index math, no data movement).
 
-    Returns (sel = (perm_token, dest, weight, keep), aux)."""
+    Returns (sel = (perm_token, dest, weight, keep, order), aux): ``order``
+    is the sort's permutation of the ``t * top_k`` (token, slot) pairs,
+    which the combine inverts."""
     t = x.shape[0]
     probs = torch.softmax(x.float() @ router, dim=-1)        # [Tg, E]
     weights, ids = torch.topk(probs, top_k, dim=-1)          # [Tg, k]
@@ -98,7 +100,7 @@ def _route_group(x: torch.Tensor, router: torch.Tensor, *, top_k: int,
     keep = pos_in_expert < capacity
     dest = torch.where(keep, sorted_ids * capacity + pos_in_expert,
                        n_experts * capacity)                 # drop bucket
-    return (token_of[order], dest, flat_w[order], keep), aux
+    return (token_of[order], dest, flat_w[order], keep, order), aux
 
 
 def _dispatch_group(x: torch.Tensor, token_ord: torch.Tensor,
@@ -111,12 +113,21 @@ def _dispatch_group(x: torch.Tensor, token_ord: torch.Tensor,
 
 
 def _combine_group(down_flat: torch.Tensor, sel, t: int) -> torch.Tensor:
-    """down_flat [E*C+1, d] (with the drop row); scatter back to tokens."""
-    token_ord, dest, w_ord, keep = sel
-    out_sorted = down_flat[dest] * (w_ord * keep)[:, None].to(down_flat.dtype)
-    out = torch.zeros(t, down_flat.shape[1], dtype=down_flat.dtype,
-                      device=down_flat.device)
-    return out.index_add(0, token_ord, out_sorted)
+    """down_flat [E*C+1, d] (with the drop row) back to tokens: each
+    token's ``top_k`` rows gathered token-major (the inverse of the sort's
+    ``order``: token ``i``'s slots at ``i * top_k ...``), weighted, and
+    summed over the slot dim (a reduction in a fixed order, whose backward
+    is a broadcast).  No atomics: the reference's scatter-add, ``index_add``
+    on CUDA, sums in whatever order its atomics land.  So the same bits
+    every call, and no more memory than the scatter-add."""
+    _, dest, w_ord, keep, order = sel
+    inv = torch.argsort(order)
+    rows = down_flat[dest[inv]].view(t, -1, down_flat.shape[1])
+    # weighted as [t, top_k, d]: the gradient flows back into the gather
+    # as a view (weighting the flat rows made the view's backward copy the
+    # broadcast gradient, a [t * top_k, d] block)
+    w = (w_ord * keep)[inv].view(t, -1, 1).to(down_flat.dtype)
+    return (rows * w).sum(1)
 
 
 def _local_groups(fn, xg, *args):

@@ -383,6 +383,51 @@ def test_moe_ffn_matches_the_reference(cf, groups, rng):
     _close(aux, jaux, MODEL_TOL)
 
 
+@pytest.mark.parametrize("top_k,cf", [(2, 1.25), (4, 0.5), (8, 2.0)])
+def test_moe_combine_matches_the_scatter_add_without_index_add(
+        top_k, cf, rng, monkeypatch):
+    """The combine puts each weighted row back in its (token, slot) place
+    and sums a token's ``top_k`` rows in slot order: against the
+    ``index_add`` scatter it replaced (atomic on CUDA) on the same routing,
+    and against the reference at top_k 2 to 8, drops included; the
+    gradients through it as well.  No ``index_add`` runs, forward or
+    backward."""
+    p, _ = jmoe.init_moe(jax.random.PRNGKey(0), 16, 32, 8, jnp.float32)
+    x = rng.normal(0, 1, (64, 16)).astype(np.float32)
+    tp = {k: v.requires_grad_() for k, v in _torch_params(p).items()}
+    cap = moe._capacity(64, top_k, 8, cf)
+    down = torch.from_numpy(rng.normal(0, 1, (8 * cap + 1, 16))
+                            .astype(np.float32))
+    sel, _ = moe._route_group(torch.from_numpy(x), tp["router"].detach(),
+                              top_k=top_k, capacity=cap, n_experts=8)
+    token_ord, dest, w_ord, keep, _ = sel
+    scattered = torch.zeros(64, 16).index_add(
+        0, token_ord, down[dest] * (w_ord * keep)[:, None])
+
+    def no_index_add(*a, **kw):
+        raise AssertionError("index_add in the combine")
+
+    monkeypatch.setattr(torch.Tensor, "index_add", no_index_add)
+    monkeypatch.setattr(torch.Tensor, "index_add_", no_index_add)
+    monkeypatch.setattr(torch, "index_add", no_index_add)
+    _close(moe._combine_group(down, sel, 64), scattered,
+           MODEL_TOL)
+    want, _ = jmoe.moe_ffn(x, p, top_k=top_k, capacity_factor=cf)
+    xt = torch.from_numpy(x).requires_grad_()
+    got, aux = moe.moe_ffn(xt, tp, top_k=top_k, capacity_factor=cf)
+    _close(got.detach(), want, MODEL_TOL)
+    (got.square().sum() + aux).backward()
+
+    def jloss(x, p):
+        out, aux = jmoe.moe_ffn(x, p, top_k=top_k, capacity_factor=cf)
+        return jnp.sum(jnp.square(out)) + aux
+
+    jgx, jgp = jax.grad(jloss, argnums=(0, 1))(x, p)
+    _close(xt.grad, jgx, GRAD_TOL)
+    for k in jgp:
+        _close(tp[k].grad, jgp[k], GRAD_TOL, k)
+
+
 def test_moe_capacity_drops_tokens_and_routing_conserves_mass(rng):
     """tests/test_nn.py's two MoE checks on the port."""
     p, _ = jmoe.init_moe(jax.random.PRNGKey(0), 16, 32, 8, jnp.float32)
@@ -406,7 +451,7 @@ def test_moe_dispatch_sort_is_stable_and_drops_past_capacity():
     router = torch.tensor([[0.0, 5.0], [0.0, 5.0], [5.0, 0.0]])
     for capacity, dest, keep in ((8, [0, 8, 9], [True] * 3),
                                  (1, [0, 1, 2], [True, True, False])):
-        (token_ord, d, _, k), _ = moe._route_group(
+        (token_ord, d, _, k, _), _ = moe._route_group(
             x, router, top_k=1, capacity=capacity, n_experts=2)
         assert token_ord.tolist() == [2, 0, 1]
         assert d.tolist() == dest and k.tolist() == keep

@@ -610,6 +610,8 @@ def _calls():
         "glm_sparse": lambda **kw: tk.ell_glm_grad("lr", ws, values, indices,
                                                    ys, **kw),
         "flash_attn": lambda: tk.flash_attention(*_t(*_qkv(1, 4, 2, 3, 9, 8))),
+        "flash_attn_bwd": lambda: torch.ops.repro_torch.flash_attn_bwd(
+            *_t(*_qkv(1, 4, 2, 3, 9, 8)), torch.ones(1, 4, 3, 8), True, None),
     }
 
 
@@ -641,8 +643,8 @@ def test_plain_versions_route_cuda_tensors_to_the_plain_version():
 
 def test_every_family_registers_both_flavors():
     assert common.registered_kernels() == (
-        "flash_attn", "glm_grad", "glm_score", "glm_sgd", "glm_sgd_sparse",
-        "glm_sparse")
+        "flash_attn", "flash_attn_bwd", "glm_grad", "glm_score", "glm_sgd",
+        "glm_sgd_sparse", "glm_sparse")
     for fam in common.registered_kernels():
         assert common.backends_for(fam) == (common.CUDA, common.TORCH_REFERENCE)
 
@@ -1079,14 +1081,116 @@ def test_flash_attention_dispatches_on_the_device_alone(monkeypatch):
         tk.flash_attention(q, k, v)
 
 
+def test_flash_attention_backward_dispatches_on_the_device_alone(
+        monkeypatch):
+    """The operator's backward is the family ``"flash_attn_bwd"``: CPU
+    tensors reach its plain flavor (``ref.attention_bwd_ref``) and launch
+    nothing; naming the kernel for them raises; ``plain_versions`` can
+    take it out alone."""
+    q, k, v = _t(*_qkv(1, 4, 2, 5, 9, 8))
+    do = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, q.shape).astype(np.float32))
+    before = dict(common.LAUNCHES)
+    got = torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, True, 3)
+    want = attn_ref.attention_bwd_ref(q, k, v, do, causal=True, window=3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert common.LAUNCHES == before
+    assert common.backends_for("flash_attn_bwd") == (common.CUDA,
+                                                     common.TORCH_REFERENCE)
+    with pytest.raises(RuntimeError, match="cannot take tensors on cpu"):
+        common.dispatch("flash_attn_bwd", CPU, q, k, v, do, causal=True,
+                        window=3, backend=common.CUDA)
+    cuda = torch.device("cuda")
+    with common.plain_versions("flash_attn_bwd"):
+        assert common.resolve_backend("flash_attn_bwd", cuda) == \
+            common.TORCH_REFERENCE
+        assert common.resolve_backend("flash_attn", cuda) == common.CUDA
+    assert common.resolve_backend("flash_attn_bwd", cuda) == common.CUDA
+    with pytest.raises(KeyError):
+        with common.plain_versions("no_such_kernel"):
+            pass
+    monkeypatch.setenv(common.ENV_BACKEND, common.CUDA)
+    with pytest.raises(RuntimeError, match="cannot take tensors on cpu"):
+        torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, True, 3)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "simt")])
+def test_flash_attention_backward_variant_is_chosen_from_the_dtype(dtype,
+                                                                   want):
+    """Pure: the dtype alone picks the kernels, the same on every call."""
+    assert [attn_ops.bwd_variant(dtype) for _ in range(3)] == [want] * 3
+    assert want in attn_ops.BWD_VARIANTS
+    assert set(attn_ops.BWD_TILES) == set(attn_ops.BWD_VARIANTS)
+
+
+def _visible(sq, sk, causal, window):
+    """The end-aligned visibility of every (query, key) pair: ``[sq, sk]``."""
+    qpos = np.arange(sq)[:, None] + sk - sq
+    kj = np.arange(sk)[None]
+    vis = np.ones((sq, sk), dtype=bool)
+    if causal:
+        vis &= kj <= qpos
+    if window is not None:
+        vis &= qpos - kj < window
+    return vis
+
+
+@pytest.mark.parametrize("kind", ["mma", "simt"])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (300, 300, True, None),     # causal, a ragged last tile
+    (300, 300, True, 64),       # a window
+    (130, 130, True, 7),        # a window inside one tile
+    (64, 64, True, 1),          # each query its own key
+    (77, 201, True, 50),        # end-aligned on a longer key range
+    (200, 513, True, None),     # end-aligned, ragged keys
+    (1, 33, True, None),        # one query
+    (300, 170, False, None),    # cross: Sq > Sk, every pair visible
+    (100, 150, False, 20),      # acausal window
+])
+def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
+        kind, sq, sk, causal, window):
+    """The kernel's walks as ``ops.bwd_k_range`` and ``ops.bwd_q_range``
+    mirror them: in the dQ pass each query tile meets the key tiles of its
+    range, in the dK/dV pass each key tile the query tiles of its range
+    (for every query head).  Over all meetings every visible (query, key)
+    pair falls in exactly one of each pass, none is left out, and every
+    dK/dV meeting holds a visible pair (no tile is walked for nothing)."""
+    t = attn_ops.BWD_TILES[kind]
+    vis = _visible(sq, sk, causal, window)
+    dq = np.zeros((sq, sk), dtype=int)
+    for qt in range(-(-sq // t["q_rows"])):
+        begin, end = attn_ops.bwd_k_range(qt, sq, sk, causal, window,
+                                          rows=t["q_rows"])
+        assert 0 <= begin and end <= sk
+        rows = slice(qt * t["q_rows"], (qt + 1) * t["q_rows"])
+        for k0 in range(begin, end, t["q_rows"]):
+            dq[rows, k0:min(k0 + t["q_rows"], end)] += 1
+    dkv = np.zeros((sq, sk), dtype=int)
+    for kt in range(-(-sk // t["keys"])):
+        first, stop = attn_ops.bwd_q_range(kt, sq, sk, causal, window,
+                                           keys=t["keys"], q_tile=t["q_tile"])
+        assert 0 <= first <= stop <= -(-sq // t["q_tile"])
+        cols = slice(kt * t["keys"], (kt + 1) * t["keys"])
+        for qt in range(first, stop):
+            rows = slice(qt * t["q_tile"], (qt + 1) * t["q_tile"])
+            dkv[rows, cols] += 1
+            assert vis[rows, cols].any()
+    for count in (dq, dkv):
+        assert (count[vis] == 1).all()
+        assert count.max() == 1
+
+
 # ---------------------------------------------------------------------------
 # Build
 # ---------------------------------------------------------------------------
 
 
 def test_build_compiles_each_source_for_sm90a(monkeypatch):
-    assert _build.sources() == ["flash_attn", "glm_grad", "glm_score",
-                                "glm_sgd", "glm_sgd_sparse", "glm_sparse"]
+    assert _build.sources() == ["flash_attn", "flash_attn_bwd", "glm_grad",
+                                "glm_score", "glm_sgd", "glm_sgd_sparse",
+                                "glm_sparse"]
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     cmd = _build.nvcc_command("glm_sgd", _build.library_path("glm_sgd"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd

@@ -36,6 +36,7 @@ from repro.optim.sgd import sgd as jmake_sgd
 from repro.train import trainer as jtrainer
 
 from repro_torch import configs, convert
+from repro_torch.nn import layers
 from repro_torch.optim.sgd import sgd as make_sgd
 from repro_torch.train import trainer
 
@@ -142,3 +143,34 @@ def test_async_local_step_on_a_pod_mesh_matches_the_meshless_step(tmp_path):
         assert any(set(ranks) <= pod for pod in pods), (op, ranks)
     assert any(not any(set(ranks) <= pod for pod in pods)
                for _, ranks in out["merge_groups"])
+
+
+def test_loss_on_a_vocab_sharded_mesh_takes_the_gold_logit_by_a_mask(
+        tmp_path):
+    """The chunked loss on (data=2, model=2), the logits' vocab on
+    ``"model"``: loss and gradients as the mesh-less loss's, with the
+    normaliser and the gold logit (by a mask) taken on each rank's vocab
+    shard, so no rank holds more of a chunk's logits than its own quarter:
+    ``torch.gather``'s backward made the global ``[B, chunk, V]`` block on
+    every rank (DTensor's ``new_zeros`` replicates), ``logsumexp`` the
+    rank's rows over the whole vocab."""
+    rng = np.random.default_rng(4)
+    b, s, dm, vocab, chunk = 4, 16, 8, 64, 8
+    inp = {"h": torch.from_numpy(rng.normal(0, 1, (b, s, dm))
+                                 .astype(np.float32)),
+           "emb": torch.from_numpy(rng.normal(0, 1, (vocab, dm))
+                                   .astype(np.float32)),
+           "labels": torch.from_numpy(rng.integers(0, vocab, (b, s))
+                                      .astype(np.int32))}
+    out = _world("xent", inp, tmp_path, timeout=120)
+    h, emb = (inp[k].clone().requires_grad_() for k in ("h", "emb"))
+    loss = layers.chunked_softmax_xent(h, emb, inp["labels"], chunk=chunk)
+    loss.backward()
+    np.testing.assert_allclose(float(out["loss"]), float(loss.detach()),
+                               **MESH_TOL)
+    for k, want in (("h_grad", h.grad), ("emb_grad", emb.grad)):
+        np.testing.assert_allclose(out[k].numpy(), want.numpy(), **MESH_TOL,
+                                   err_msg=k)
+    assert not out["gather"]
+    # a rank's largest tensor is its own quarter of a chunk's logits
+    assert out["largest"] == b * chunk * vocab // 4

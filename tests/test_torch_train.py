@@ -380,19 +380,34 @@ def _attn_case(b, hq, hkv, sq, sk, hd, seed=0):
         (b, hq, sq, hd), (b, hkv, sk, hd), (b, hkv, sk, hd), (b, hq, sq, hd))]
 
 
-@pytest.mark.parametrize("causal,window,sq,sk", [
-    (True, None, 600, 600),      # two query chunks, the second ragged
-    (True, 100, 600, 600),       # the window slices each chunk's keys
-    (True, 20, 40, 100),         # queries end-aligned on a longer key range
-    (False, None, 48, 80),
+@pytest.mark.parametrize("causal,window,sq,sk,hq,hkv,hd", [
+    (True, None, 600, 600, 4, 2, 16),    # two query chunks, the second ragged
+    (True, 100, 600, 600, 4, 2, 16),     # the window slices each chunk's keys
+    (True, 20, 40, 100, 4, 2, 16),       # queries end-aligned on longer keys
+    (False, None, 48, 80, 4, 2, 16),
+    # the families' head dims: rep 4 at hd 64, danube's window at hd 80,
+    # rep 1 at hd 128 on ragged lengths
+    (True, None, 600, 600, 4, 1, 64),
+    (True, 100, 300, 300, 8, 2, 80),
+    (True, None, 130, 201, 4, 4, 128),
+    (True, 37, 77, 77, 4, 1, 80),        # lengths not multiples of 64
+    (False, 20, 65, 130, 4, 2, 64),      # acausal window, ragged
+    (False, None, 150, 70, 8, 2, 128),   # cross: Sq > Sk (vlm's call)
 ])
-def test_flash_attention_grads_match_jax_chunked_attention(causal, window,
-                                                           sq, sk):
-    q, k, v, do = _attn_case(1, 4, 2, sq, sk, 16)
+def test_flash_attention_grads_match_jax_chunked_attention(
+        causal, window, sq, sk, hq, hkv, hd, monkeypatch):
+    """Through the operator: on the CPU its backward is the family
+    ``"flash_attn_bwd"``'s plain flavor, reached once a call."""
+    calls = []
+    plain = attn_ref.attention_bwd_ref
+    monkeypatch.setattr(attn_ref, "attention_bwd_ref",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    q, k, v, do = _attn_case(1, hq, hkv, sq, sk, hd)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = flash_attention(tq, tk, tv, causal=causal, window=window)
     assert out.grad_fn is not None
     out.backward(torch.from_numpy(do))
+    assert calls == [1]
 
     def f(q, k, v):
         return jnp.sum(jattention.chunked_attention(

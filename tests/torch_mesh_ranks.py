@@ -15,7 +15,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.debug import CommDebugMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -25,8 +25,8 @@ from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     load_checkpoint, save_checkpoint)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
-from repro_torch.nn import (decode, moe, ssm, transformer,  # noqa: E402
-                            xlstm)
+from repro_torch.nn import (decode, layers, moe, ssm,  # noqa: E402
+                            transformer, xlstm)
 from repro_torch.nn.param import P  # noqa: E402
 from repro_torch.optim.sgd import sgd  # noqa: E402
 from repro_torch.train import fault, trainer  # noqa: E402
@@ -80,6 +80,45 @@ def case_sync(d: Path, inp: dict) -> dict:
     return {"params": _full(p), "loss": loss, "step": _full(o)["step"],
             "placements": {k: [repr(x) for x in v.placements]
                            for k, v in p.items()}}
+
+
+class LocalSizes(CommDebugMode):
+    """``CommDebugMode`` that also records the largest storage (in
+    elements) of a rank's own tensors that any op returns (not the fake
+    tensors of DTensor's sharding rules), and the ops that ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest, self.ops = 0, set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        self.ops.add(str(func._overloadpacket))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and type(t) is torch.Tensor:
+                self.largest = max(self.largest, t.untyped_storage().nbytes()
+                                   // t.element_size())
+        return out
+
+
+def case_xent(d: Path, inp: dict) -> dict:
+    """The chunked loss on (data=2, model=2): the hidden states on the
+    batch, the tied embedding's vocab and the logits on ``"model"``; the
+    loss, its gradients, and the largest local tensor of the forward and
+    backward."""
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    h = DTensor.from_local(inp["h"].chunk(2)[mesh.get_local_rank(0)], mesh,
+                           [Shard(0), Replicate()]).requires_grad_()
+    emb = DTensor.from_local(inp["emb"].chunk(2)[mesh.get_local_rank(1)],
+                             mesh, [Replicate(), Shard(0)]).requires_grad_()
+    labels = DTensor.from_local(inp["labels"].chunk(2)[mesh.get_local_rank(0)],
+                                mesh, [Shard(0), Replicate()])
+    with LocalSizes() as seen:
+        loss = layers.chunked_softmax_xent(h, emb, labels, chunk=8)
+        loss.backward()
+    return {"loss": loss.detach().full_tensor(), "h_grad": h.grad.full_tensor(),
+            "emb_grad": emb.grad.full_tensor(), "largest": seen.largest,
+            "gather": "aten.gather" in seen.ops}
 
 
 class Shares:
@@ -307,7 +346,8 @@ def case_decode(d: Path, inp: dict) -> dict:
                                  for k, v in cache.items()}}
 
 
-CASES = {"sync": case_sync, "decode": case_decode, "family": case_family, "async": case_async,
+CASES = {"sync": case_sync, "decode": case_decode, "family": case_family,
+         "async": case_async, "xent": case_xent,
          "pipeline": case_pipeline, "rescale": case_rescale,
          "resilient": case_resilient}
 
