@@ -50,12 +50,17 @@ Phases, one JSON line each:
                127, 128 and 4096, a cache prefix read in place, head dims
                64, 72 and 128, B = 64 with no split, a window that leaves
                chunks with no key, two row groups, the same output twice)
-               and small fp32 cases; the attention backward's two
-               variants (``ATTN_BWD_CASES``: head dims 8 to 128, rep 1 and
-               4, causal with and without a window, acausal, cross Sq > Sk,
-               ragged lengths) against the plain backward, fp32 at
-               ATTN_TOL, bf16 within BWD_BF16_REL of the fp32 yardstick,
-               and five calls of each giving the same bits; glm_grad's ring variant at d = 3, 54
+               and small fp32 cases; the attention backward
+               (``ATTN_BWD_CASES``: head dims 8 to 128, rep 1 and 4,
+               causal with and without a window, acausal, cross Sq > Sk,
+               ragged lengths) on the forward's output, log-sum-exp and
+               rounding residual against the plain backward, in the
+               variant ``bwd_variant`` picks and, forced, the other that
+               takes the case, fp32 at ATTN_TOL, bf16 within BWD_BF16_REL
+               of the fp32 yardstick and the picked variant within
+               BWD_PLAIN_RATIO of the plain bf16 backward's error, the
+               picked variant's five calls giving the same bits;
+               glm_grad's ring variant at d = 3, 54
                and 300 with a ragged last tile; glm_sparse's smem variant
                at w8a (R = 1 and 10 x 6,470), real-sim's width and every
                glm_sgd_sparse edge case above (rows of all padding, a
@@ -145,11 +150,14 @@ Phases, one JSON line each:
                and through the plain versions on an fp32 copy (the
                yardstick; each leaf by RMS and by max distance,
                ``_held_bf16_grad``), and 2 layers in fp32 on the ``simt``
-               kernels (forward and backward) against the plain versions;
-               (d) the attention backward kernel alone at one layer's shape
-               against autograd through the plain forward, with its time,
-               bounds, the plain backward's time, three calls' bits and
-               ``scaled_dot_product_attention``'s forward + backward; (e) a
+               forward and ``simt_tiled`` backward against the plain
+               versions; (d) the attention backward alone at one layer's
+               shape against autograd through the plain forward, three
+               calls' bits, then the first designs and the redesigns in
+               turns (``_turns``: the call and each pass by events) at the
+               window and causal with no window, and in fp32 at causal
+               1,024², beside bounds, the plain backward and SDPA's
+               backward and backend, and the forward's rows 6a and 6b; (e) a
                restart at the reduced config through the launcher's
                ``main``;
 11. ``lm_families`` the moe, hybrid, ssm, audio and vlm families at full
@@ -316,10 +324,13 @@ KERNEL_SYMBOLS = {
     "flash_attn": {"mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
                    "simt": ("flash_attn_kernel",)},
-    "flash_attn_bwd": {"mma": ("flash_attn_bwd_dq_mma_kernel",
-                               "flash_attn_bwd_dkv_mma_kernel"),
-                       "simt": ("flash_attn_bwd_dq_kernel",
-                                "flash_attn_bwd_dkv_kernel")},
+    "flash_attn_bwd": {"wgmma": ("flash_attn_bwd_dq_wgmma_kernel",
+                                 "flash_attn_bwd_dkv_wgmma_kernel"),
+                       "simt_tiled": ("flash_attn_bwd_dq_tiled_kernel",
+                                      "flash_attn_bwd_dkv_tiled_kernel",
+                                      "flash_attn_bwd_sum_kernel"),
+                       "mma": ("flash_attn_bwd_dq_mma_kernel",
+                               "flash_attn_bwd_dkv_mma_kernel")},
 }
 #: cycles the card spins before an event-timed call (about 1 ms at the
 #: H100's 1.98 GHz boost), longer than the host takes to enqueue the call
@@ -399,6 +410,27 @@ def device_profile(fn, reps: int) -> dict[str, tuple[float, int]]:
         # start a new cycle and clear its records
     return {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def counted(fn, names) -> tuple[object, dict]:
+    """``fn()`` once under ``torch.profiler``: its result, and the launches
+    of each kernel whose name holds one of ``names`` that the card ran in
+    it (what ran, not what a wrapper chose).  A warm-up step of small
+    launches opens the trace and is discarded, since a trace's first
+    launches can go unrecorded (``device_profile``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        x = torch.zeros(1, device="cuda")
+        for _ in range(32):
+            x.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return out, {n: sum(e.count for e in ev if n in e.key) for n in names}
 
 
 def event_device_ms(fn) -> float:
@@ -538,7 +570,8 @@ ATTN_CASES = (
 #: flash_attn_bwd cases of phase ``kernels``, each in fp32 and in bf16:
 #: (label, (B, Hq, Hkv, Sq, Sk, hd), causal, window).  The families train at
 #: hd 64 (musicgen, zamba2), 80 (danube), 112 (kimi-k2) and 128 (minitron,
-#: command-r, olmoe, vlm)
+#: command-r, olmoe, vlm); 96, which none trains at, is the fifth width
+#: ``"wgmma"`` takes
 ATTN_BWD_CASES = (
     ("hd 64, rep 1, causal, ragged S", (1, 4, 4, 300, 300, 64), True, None),
     ("hd 80, rep 4, window: danube's heads", (1, 32, 8, 1000, 1000, 80), True,
@@ -552,6 +585,7 @@ ATTN_BWD_CASES = (
     ("hd 72, depth padded to 80", (1, 4, 1, 130, 130, 72), True, None),
     ("hd 8, window 7", (1, 2, 1, 40, 40, 8), True, 7),
     ("hd 128, one query row", (1, 4, 4, 1, 33, 128), True, None),
+    ("hd 96, rep 4, window, ragged S", (1, 8, 2, 300, 300, 96), True, 128),
 )
 
 
@@ -561,15 +595,17 @@ ATTN_BWD_CASES = (
 
 
 @contextlib.contextmanager
-def forced_variant(ops, kind: str):
-    """Make a family's wrapper run the variant ``kind`` for a while: how a
-    redesigned kernel's predecessor is timed beside it, in the same call."""
-    saved = ops.variant
-    ops.variant = lambda *shape: kind
+def forced_variant(ops, kind: str, choice: str = "variant"):
+    """Make a family's wrapper run the variant ``kind`` for a while (its
+    ``choice`` function: ``variant``, or flash_attn's ``bwd_variant`` for
+    the backward): how a redesigned kernel's predecessor is timed beside
+    it, in the same call."""
+    saved = getattr(ops, choice)
+    setattr(ops, choice, lambda *shape: kind)
     try:
         yield
     finally:
-        ops.variant = saved
+        setattr(ops, choice, saved)
 
 
 def same_bits(fn, calls: int = 5) -> bool:
@@ -1015,59 +1051,95 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
+def _rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The RMS of a - b over the RMS of b."""
+    a, b = a.float(), b.float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def bwd_variants_taking(dtype, hd) -> list[str]:
+    """The backward variants that take ``dtype`` at head dim ``hd``, the one
+    ``ops.bwd_variant`` picks first (fp32 has one; in bf16 the first
+    design ``"mma"`` takes every hd, ``"wgmma"`` its WGMMA_HEAD_DIMS)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+
+    picked = attn_ops.bwd_variant(dtype, hd)
+    if dtype == torch.float32:
+        kinds = ["simt_tiled"]
+    else:
+        kinds = (["wgmma"] if hd in attn_ops.WGMMA_HEAD_DIMS else []) + ["mma"]
+    return [picked] + [k for k in kinds if k != picked]
+
+
 def _attention_backward_checks(dev) -> tuple[list[dict], float]:
-    """Both variants of the attention backward (the operator
-    ``repro_torch::flash_attn_bwd`` on CUDA tensors) against the plain
-    backward: fp32 (``simt``) at ATTN_TOL against ``attention_bwd_ref`` in
-    fp32, bf16 (``mma``) within BWD_BF16_REL of each gradient's largest
-    value against the fp32 yardstick (``attention_bwd_ref`` on fp32 copies
-    of the same bf16 inputs: the limit the plain bf16 backward is held to,
-    its own error recorded beside); and, for each variant, two calls at
-    danube's heads give the same bits.  Returns the cases and the worst
-    fp32 error."""
+    """The attention backward (the operator ``repro_torch::flash_attn_bwd``
+    on CUDA tensors, fed the forward operator's output, log-sum-exp and
+    rounding residual) against the plain backward, in the variant
+    ``ops.bwd_variant`` picks for each case and, forced, in the other
+    variant that takes its dtype and head dim (``bwd_variants_taking``: the
+    first design ``"mma"`` beside ``"wgmma"``): fp32 at ATTN_TOL against
+    ``attention_bwd_ref`` in fp32, bf16 within BWD_BF16_REL of each
+    gradient's largest value against the fp32 yardstick
+    (``attention_bwd_ref`` on fp32 copies of the same bf16 inputs: the
+    limit the plain bf16 backward is held to) and, in the picked variant,
+    each gradient's error within BWD_PLAIN_RATIO times the plain bf16
+    backward's (max-based; the RMS ratio recorded beside); and the picked
+    variant's five calls give the same bits on every case.  Returns the
+    cases and the worst fp32 error of a picked variant."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
 
     bwd = torch.ops.repro_torch.flash_attn_bwd
+    fwd = torch.ops.repro_torch.flash_attn
     cases, worst = [], 0.0
     for n, (label, shape, causal, window) in enumerate(ATTN_BWD_CASES):
         q, k, v = _attn_inputs(shape, torch.float32, dev, seed=400 + n)
         do = torch.randn(q.shape, device=dev, generator=torch.Generator(
             device=dev).manual_seed(500 + n))
-        ref = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
-        errs = [close(a, b, ATTN_TOL)
-                for a, b in zip(bwd(q, k, v, do, causal, window), ref)]
-        worst = max([worst] + [e for e, _ in errs])
-        cases.append({"kernel": "flash_attn_bwd",
-                      "case": f"{label} {list(shape)} fp32 causal={causal} "
-                              f"window={window} "
-                              f"{attn_ops.bwd_variant(torch.float32)}",
-                      "max_abs_err": [e for e, _ in errs], "tol": ATTN_TOL,
-                      "ok": all(ok for _, ok in errs)})
-        x16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
-        ref = attention_bwd_ref(*(t.float() for t in x16), causal=causal,
-                                window=window)
-        rel = [_rel(a, b) for a, b in zip(bwd(*x16, causal, window), ref)]
-        plain = [_rel(a, b) for a, b in zip(attention_bwd_ref(
-            *x16, causal=causal, window=window), ref)]
-        cases.append({"kernel": "flash_attn_bwd",
-                      "case": f"{label} {list(shape)} bf16 causal={causal} "
-                              f"window={window} "
-                              f"{attn_ops.bwd_variant(torch.bfloat16)}",
-                      "rel_err": rel, "plain_rel_err": plain,
-                      "rel_limit": BWD_BF16_REL,
-                      "ok": max(rel) <= BWD_BF16_REL})
-    shape, causal, window = ATTN_BWD_CASES[1][1:]
-    q, k, v = _attn_inputs(shape, torch.float32, dev, seed=401)
-    do = torch.randn(q.shape, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        x = [t.to(dtype) for t in (q, k, v, do)]
-        cases.append({"kernel": "flash_attn_bwd",
-                      "case": f"{list(shape)} {dtype} "
-                              f"{attn_ops.bwd_variant(dtype)}: five calls "
-                              "give the same bits",
-                      "ok": same_bits(lambda: _grads(
-                          lambda: bwd(*x, causal, window)))})
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in (q, k, v, do)]
+            out, lse, lo = fwd(*x[:3], causal, window, None, None, True)
+            ref = attention_bwd_ref(*(t.float() for t in x), causal=causal,
+                                    window=window)
+            if dtype == torch.bfloat16:
+                mine = attention_bwd_ref(*x, causal=causal, window=window)
+                plain = [_rel(a, b) for a, b in zip(mine, ref)]
+                plain_rms = [_rms(a, b) for a, b in zip(mine, ref)]
+            kinds = bwd_variants_taking(dtype, shape[-1])
+            for kind in kinds:
+                with forced_variant(attn_ops, kind, "bwd_variant"):
+                    got = bwd(*x, out, lse, lo, causal, window)
+                    same = kind == kinds[0] and same_bits(lambda: _grads(
+                        lambda: bwd(*x, out, lse, lo, causal, window)))
+                case = {"kernel": "flash_attn_bwd",
+                        "case": f"{label} {list(shape)} {dtype} "
+                                f"causal={causal} window={window} {kind}",
+                        "variant": kind, "picked": kind == kinds[0]}
+                if kind == kinds[0]:
+                    case["five_calls_same_bits"] = same
+                if dtype == torch.float32:
+                    errs = [close(a, b, ATTN_TOL) for a, b in zip(got, ref)]
+                    if kind == kinds[0]:
+                        worst = max([worst] + [e for e, _ in errs])
+                    case.update(max_abs_err=[e for e, _ in errs],
+                                tol=ATTN_TOL,
+                                ok=all(ok for _, ok in errs))
+                else:
+                    rel = [_rel(a, b) for a, b in zip(got, ref)]
+                    ratio = [a / b for a, b in zip(rel, plain)]
+                    case.update(
+                        rel_err=rel, plain_rel_err=plain,
+                        ratio_to_plain=ratio,
+                        rms_ratio_to_plain=[_rms(a, b) / c for a, b, c in
+                                            zip(got, ref, plain_rms)],
+                        rel_limit=BWD_BF16_REL,
+                        ok=max(rel) <= BWD_BF16_REL and (
+                            kind != kinds[0]
+                            or max(ratio) <= BWD_PLAIN_RATIO))
+                    if kind == kinds[0]:
+                        case["ratio_limit"] = BWD_PLAIN_RATIO
+                case["ok"] = bool(case["ok"] and (same or kind != kinds[0]))
+                cases.append(case)
     return cases, worst
 
 
@@ -1954,12 +2026,13 @@ def _held_bf16(out: torch.Tensor, plain: torch.Tensor,
                        and torch.isfinite(out).all())}
 
 
-def _lm_profile(fn, ticks: int) -> dict:
+def _lm_profile(fn, ticks: int, count: tuple[str, ...] = ()) -> dict:
     """Where a decode tick's time goes, from one profiled call of ``fn``
     (``ticks`` ticks): host ops by self CPU time, aten calls (nested ones
     included), kernel launches, and device kernels by device time (kernel
     events only: an op's device time repeats its kernels'), each per
-    tick."""
+    tick; and the launches of each kernel named in ``count`` over the
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1986,7 +2059,9 @@ def _lm_profile(fn, ticks: int) -> dict:
         "device_ms_per_tick": sum(e.self_device_time_total for e in dev)
         / 1e3 / ticks,
         "device_top": [[short_name(e.key), e.self_device_time_total / 1e3
-                        / ticks, e.count / ticks] for e in dev[:8]]}
+                        / ticks, e.count / ticks] for e in dev[:8]],
+        "launches_by_kernel": {n: sum(e.count for e in dev if n in e.key)
+                               for n in count}}
 
 
 def _record_steps(engine) -> list:
@@ -2161,6 +2236,10 @@ TRAIN_FP32_LAYERS = 2
 #: bf16 (2^-9 each); measured 0.0047-0.0062 (2^-7.3 at most) on the card at
 #: danube's shape and on the CPU at the tests' shapes
 BWD_BF16_REL = 2 ** -6
+#: the picked bf16 backward's largest error, each gradient, at most this
+#: times the plain bf16 backward's on the same inputs (the worst ratio of
+#: the first design, ``"mma"``, over phase kernels' cases on the card)
+BWD_PLAIN_RATIO = 1.09
 
 
 #: the max-based rule's slack for one gradient leaf: over four seeded
@@ -2312,9 +2391,11 @@ def _step_split(cfg, params: dict, batch: dict, lr: float,
            "step_ms": fwd_bwd + optim}
     if profile:
         prof = _lm_profile(lambda: trainer.value_and_grad(cfg, params,
-                                                          batch), 1)
+                                                          batch), 1,
+                           KERNEL_SYMBOLS["flash_attn_bwd"]["wgmma"])
         out["profiled_step"] = {k: prof[k] for k in (
-            "device_ms_per_tick", "launches_per_tick", "device_top")}
+            "device_ms_per_tick", "launches_per_tick", "device_top",
+            "launches_by_kernel")}
     return out
 
 
@@ -2351,15 +2432,16 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     p2 = {k: v for k, v in p32.items() if k.startswith(keep)}
     cfg2 = dataclasses.replace(cfg32, n_layers=TRAIN_FP32_LAYERS)
     common.reset_launches()
-    l2, g2 = trainer.value_and_grad(cfg2, p2, batch)
+    (l2, g2), ran = counted(lambda: trainer.value_and_grad(cfg2, p2, batch),
+                            KERNEL_SYMBOLS["flash_attn_bwd"]["simt_tiled"])
     bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     with common.plain_versions():
         l2p, g2p = trainer.value_and_grad(cfg2, p2, batch)
     fp32 = {"layers": TRAIN_FP32_LAYERS,
             "variant": attn_ops.variant(torch.float32, batch["tokens"].shape[1],
                                         cfg.n_heads // cfg.n_kv),
-            "bwd_variant": attn_ops.bwd_variant(torch.float32),
             "flash_attn_bwd_launches": bwd_launches,
+            "bwd_kernel_launches": ran,
             "loss": float(l2), "loss_plain": float(l2p),
             "loss_ok": close(l2, l2p, ATTN_TOL)[1], "tol": ATTN_TOL}
     errs = {k: close(g2[k], g2p[k], ATTN_TOL) for k in g2}
@@ -2367,8 +2449,9 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     fp32["grads_ok"] = all(ok for _, ok in errs.values())
     fp32["failing"] = sorted(k for k, (_, ok) in errs.items() if not ok)[:8]
     fp32["ok"] = bool(fp32["loss_ok"] and fp32["grads_ok"]
-                      and fp32["variant"] == fp32["bwd_variant"] == "simt"
-                      and bwd_launches == TRAIN_FP32_LAYERS)
+                      and fp32["variant"] == "simt"
+                      and bwd_launches == TRAIN_FP32_LAYERS
+                      and all(c == TRAIN_FP32_LAYERS for c in ran.values()))
     return {"seconds_three_ways": seconds, "leaves": len(held),
             "loss": {"kernel": float(loss), "plain": float(loss_p),
                      "fp32": float(loss_32), **loss_held},
@@ -2386,37 +2469,154 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
                        and fp32["ok"])}
 
 
-#: the fp32 backward's timed call (the kernels line's ``flash_attn_bwd_simt``
-#: row): causal 1,024 x 1,024 at danube's heads, as row 6c times the forward
+#: the fp32 backward's timed call (the kernels line's
+#: ``flash_attn_bwd_simt_tiled`` row): causal 1,024 x 1,024 at danube's
+#: heads, as row 6c times the forward
 BWD_FP32_SHAPE = (1, 32, 8, 1024, 1024, 80)
+#: the bf16 backward's timed calls at danube's layer (B=2, S=8192): its
+#: window, and causal with no window (SDPA's is_causal beside it)
+BWD_BF16_SHAPE = (2, 32, 8, LM_PREFILL, LM_PREFILL, 80)
+BWD_BF16_MASKS = ((True, 4096), (True, None))
+#: the bf16 backward's first design and redesign, timed in turns in one
+#: call (fp32 has one variant)
+BWD_PAIRS = {torch.bfloat16: ("mma", "wgmma"),
+             torch.float32: ("simt_tiled",)}
+#: products a visible pair each pass of the redesigns runs: QK^T and dO V^T
+#: in both passes, dQ in the first, dV and dK in the second
+BWD_PASS_PRODUCTS = {"dq_pass_ms": 3, "dkv_pass_ms": 4}
+#: profiles of a timed turn at most: a trace of a few long launches can
+#: hold none of them (seen in whole runs of this script on the card)
+TURN_PROFILES = 4
 
 
 def _bwd_work(q, k, causal, window, products: int) -> tuple[int, float]:
-    """Bytes (q, k, v, do read once, dq, dk, dv written once) and flops
+    """Bytes (q, k, v, do, the output, for bf16 its rounding residual, and
+    its log-sum-exp read once, dq, dk, dv written once) and flops
     (``products`` products of 2 * hd operations a visible pair) of one
     attention backward."""
     b, hq, sq, hd = q.shape
     pairs = visible_pairs(sq, k.shape[2], causal, window)
-    return 3 * nbytes(q) + 4 * nbytes(k), 2.0 * products * hd * pairs * b * hq
+    rows = 5 if q.dtype == torch.bfloat16 else 4
+    return (rows * nbytes(q) + 4 * nbytes(k) + 4 * b * hq * sq,
+            2.0 * products * hd * pairs * b * hq)
 
 
-def _backward_alone(dev) -> dict:
-    """(d) The attention backward at one layer's training shape (B=2,
-    danube's heads, S=8192, window 4096): autograd through
-    ``flash_attention`` (the kernel's forward, then the backward kernel) in
-    bf16 and fp32 against autograd through ``ref.attention_ref`` on the
-    same inputs (fp32: ATTN_TOL; bf16: BWD_BF16_REL of each gradient's
-    largest value); the backward kernel's ms (events over back-to-back
-    calls of the operator) and device ms beside the plain backward's and
-    SDPA's backward (its forward + backward less its forward), its bounds
-    (the function's 5 products, the design's 9), and three calls' bits;
-    then the fp32 kernel at BWD_FP32_SHAPE.  Returns the line and the
-    kernels line's two rows (launches left to the caller)."""
+def sdpa_backend(*args, **kwargs) -> dict:
+    """The backend ``scaled_dot_product_attention`` picks for a call, and
+    the attention kernels one forward + backward of it launches."""
+    from torch.nn.attention import SDPBackend
+
+    choice = SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
+    leaves = [a.detach().requires_grad_() for a in args[:3]]
+
+    def step():
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                               **kwargs)
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+
+    names = sorted({short_name(key) for key in device_profile(step, 1)
+                    if re.search("attention|fmha|flash|cudnn", key, re.I)})
+    return {"backend": choice, "kernels": names}
+
+
+def _turns(bwd, kinds, x, out, lse, lo, causal, window) -> dict:
+    """The backward in each variant of ``kinds`` (first design, redesign;
+    or one variant) on the same inputs, timed in turns (first, re, re,
+    first; or twice): per turn the call's ms by events and each kernel's
+    device ms a call from the profiler, which gives each pass's ms (the dQ
+    pass's kernel; the dK/dV pass's and, for ``"simt_tiled"``, its sum of
+    the query heads' parts).  A turn profiles up to TURN_PROFILES times
+    until the trace holds every launch of its calls; where none does, its
+    pass times are None (means over the turns that have them)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+
+    def call():
+        return bwd(*x, out, lse, lo, causal, window)
+
+    reps = 3
+    runs = {kind: [] for kind in kinds}
+    for kind in (*kinds, *kinds[::-1]):
+        names = KERNEL_SYMBOLS["flash_attn_bwd"][kind]
+        with forced_variant(attn_ops, kind, "bwd_variant"):
+            run = {"ms": cuda_ms(call, 5)}
+            for attempt in range(1, TURN_PROFILES + 1):
+                prof = device_profile(call, reps)
+                hits = {n: [(t, c) for key, (t, c) in prof.items()
+                            if n in key] for n in names}
+                whole = all(sum(c for _, c in h) == reps
+                            for h in hits.values())
+                if whole:
+                    break
+        run["profiles"] = attempt
+        by = ({n: sum(t for t, _ in h) / reps for n, h in hits.items()}
+              if whole else None)
+        run.update(device_ms_by_kernel=by,
+                   dq_pass_ms=by and by[names[0]],
+                   dkv_pass_ms=by and sum(by[n] for n in names[1:]))
+        runs[kind].append(run)
+
+    def mean(values):
+        values = [v for v in values if v is not None]
+        return statistics.mean(values) if values else None
+
+    return {kind: {"runs": r, "ms": statistics.mean(t["ms"] for t in r),
+                   **{p: mean(t[p] for t in r) for p in BWD_PASS_PRODUCTS}}
+            for kind, r in runs.items()}
+
+
+def _forward_rows(dev) -> dict:
+    """Row 6b's forward (B=1, S=8192, window 4096, the mma kernel; also
+    through the operator, which writes the log-sum-exp) and row 6a's decode
+    (4 slots over 128 and 4,096 keys): ms by events and device ms, to read
+    beside the backward in the same call."""
     import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+
+    rows = {}
+    for label, shape, causal, window, reps in (
+            ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
+             20),
+            ("decode_sk128", (4, 32, 8, 1, 128, 80), False, None, 200),
+            ("decode_sk4096", (4, 32, 8, 1, 4096, 80), False, None, 200)):
+        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=7)
+        kind = attn_ops.variant(torch.bfloat16, shape[3], shape[1] // shape[2])
+
+        def call():
+            return K.flash_attention(q, k, v, causal=causal, window=window)
+
+        rows[label] = {"shape": list(shape), "variant": kind,
+                       "ms": cuda_ms(call, reps),
+                       **kernel_device_time(call, 20,
+                                            KERNEL_SYMBOLS["flash_attn"][kind])}
+        if label == "prefill":
+            rows[label]["with_lse_ms"] = cuda_ms(
+                lambda: torch.ops.repro_torch.flash_attn(
+                    q, k, v, causal, window, None, None, True),
+                reps)
+    return rows
+
+
+def _backward_alone(dev) -> tuple[dict, list]:
+    """(d) The attention backward at one layer's training shape
+    (BWD_BF16_SHAPE, window 4096): autograd through ``flash_attention``
+    (the forward kernel with its log-sum-exp, then the backward variant
+    ``ops.bwd_variant`` picks: ``"wgmma"`` in bf16, ``"simt_tiled"`` in
+    fp32) against autograd through ``ref.attention_ref`` on the same
+    inputs (fp32: ATTN_TOL; bf16: BWD_BF16_REL of each gradient's largest
+    value), and three calls' bits; then for the window and for causal with
+    no window the first design and the redesign in turns (``_turns``),
+    beside the bounds of the function's 5 products and the redesign's 7
+    (each pass's 3 and 4), the plain backward and SDPA's backward (its
+    forward + backward less its forward; the window by an explicit mask,
+    causal by ``is_causal``; the backend each ran); then the fp32 pair at
+    BWD_FP32_SHAPE the same way beside SDPA's fp32 backward; and the
+    forward rows (``_forward_rows``) in the same call.  Returns the line
+    and the kernels line's two rows (launches left to the caller)."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.flash_attn import ref as attn_ref
 
-    shape = (2, 32, 8, LM_PREFILL, LM_PREFILL, 80)
-    causal, window = True, 4096
+    shape, (causal, window) = BWD_BF16_SHAPE, BWD_BF16_MASKS[0]
     q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=11)
     do = torch.randn(q.shape, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(12)
@@ -2433,10 +2633,9 @@ def _backward_alone(dev) -> dict:
     def plain(*x):
         return attn_ref.attention_ref(*x, causal=causal, window=window)
 
-    checks = {}
     ref32 = grads_of(plain, torch.float32)
     mine32 = grads_of(kernel, torch.float32)
-    checks["fp32"] = [close(a, b, ATTN_TOL) for a, b in zip(mine32, ref32)]
+    fp32_errs = [close(a, b, ATTN_TOL) for a, b in zip(mine32, ref32)]
     del mine32
     mine16 = grads_of(kernel, torch.bfloat16)
     rel = [_rel(a, b) for a, b in zip(mine16, ref32)]
@@ -2447,87 +2646,117 @@ def _backward_alone(dev) -> dict:
     torch.cuda.empty_cache()
 
     bwd = torch.ops.repro_torch.flash_attn_bwd
-
-    def call():
-        return bwd(q, k, v, do, causal, window)
-
-    same = same_bits(lambda: _grads(call), calls=3)
-    ms = cuda_ms(call, 5)
-    dev_time = kernel_device_time(call, 3,
-                                  KERNEL_SYMBOLS["flash_attn_bwd"]["mma"])
-    # each pass's device ms (the profiler's mean over its launches)
-    prof = device_profile(call, 3)
-    dev_time["device_ms_by_pass"] = {
-        name: sum(t / c for key, (t, c) in prof.items() if name in key)
-        for name in KERNEL_SYMBOLS["flash_attn_bwd"]["mma"]}
-    plain_ms = cuda_ms(lambda: attn_ref.attention_bwd_ref(
-        q, k, v, do, causal=causal, window=window), 3)
-    fwd_ms = cuda_ms(lambda: K.flash_attention(q, k, v, causal=causal,
-                                               window=window), 10)
-    in_bytes, flops = _bwd_work(q, k, causal, window, 5)
-    bound, by = bound_ms(in_bytes, flops, BF16_FLOPS_PER_S)
-    bound9, _ = bound_ms(in_bytes, _bwd_work(q, k, causal, window, 9)[1],
-                         BF16_FLOPS_PER_S)
-    mask = end_aligned_mask(shape[3], shape[4], causal, window, dev)
+    fwd = torch.ops.repro_torch.flash_attn
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    torch.cuda.reset_peak_memory_stats()
-    sdpa_f = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
-                                  enable_gqa=True).detach(), 3)
-    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), (qs, ks, vs), do),
-        3)
-    out = {"shape": list(shape), "causal": causal, "window": window,
-           "fp32_max_abs_err": [e for e, _ in checks["fp32"]],
-           "fp32_ok": all(ok for _, ok in checks["fp32"]),
-           "bf16_rel_err": rel, "bf16_rel_limit": BWD_BF16_REL,
-           "same_bits": same, "kernel_ms": ms, **dev_time,
-           "plain_backward_ms": plain_ms, "forward_kernel_ms": fwd_ms,
-           "bound_ms": bound, "bound_by": by, "bound_9_products_ms": bound9,
-           "flops": flops, "sdpa_forward_ms": sdpa_f,
-           "sdpa_forward_backward_ms": sdpa_fb,
-           "sdpa_backward_ms": sdpa_fb - sdpa_f,
-           "sdpa_max_memory_allocated_gb":
-               torch.cuda.max_memory_allocated() / 1e9}
-    del qs, ks, vs, q, k, v, do
+    out = {"shape": list(shape), "bf16_variant": attn_ops.bwd_variant(
+               torch.bfloat16, shape[-1]),
+           "fp32_variant": attn_ops.bwd_variant(torch.float32, shape[-1]),
+           "fp32_max_abs_err": [e for e, _ in fp32_errs],
+           "fp32_ok": all(ok for _, ok in fp32_errs),
+           "bf16_rel_err": rel, "bf16_rel_limit": BWD_BF16_REL}
+    for causal, window in BWD_BF16_MASKS:
+        o, lse, lo = fwd(q, k, v, causal, window, None, None, True)
+        x = (q, k, v, do)
+        case = {"causal": causal, "window": window}
+        if window is not None:
+            case["same_bits"] = same_bits(lambda: _grads(
+                lambda: bwd(*x, o, lse, lo, causal, window)), calls=3)
+        case["variants"] = _turns(bwd, BWD_PAIRS[torch.bfloat16], x, o, lse,
+                                  lo, causal, window)
+        in_bytes, flops = _bwd_work(q, k, causal, window, 5)
+        case["bound_ms"], case["bound_by"] = bound_ms(in_bytes, flops,
+                                                      BF16_FLOPS_PER_S)
+        case["bound_7_products_ms"] = bound_ms(
+            in_bytes, _bwd_work(q, k, causal, window, 7)[1],
+            BF16_FLOPS_PER_S)[0]
+        case["bound_9_products_ms"] = bound_ms(
+            in_bytes, _bwd_work(q, k, causal, window, 9)[1],
+            BF16_FLOPS_PER_S)[0]
+        case["pass_bound_ms"] = {
+            name: _bwd_work(q, k, causal, window, n)[1] / BF16_FLOPS_PER_S
+            * 1e3 for name, n in BWD_PASS_PRODUCTS.items()}
+        case["flops_5_products"] = flops
+        case["plain_backward_ms"] = cuda_ms(lambda: attn_ref.attention_bwd_ref(
+            q, k, v, do, causal=causal, window=window), 3)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        mask = end_aligned_mask(shape[3], shape[4], causal, window, dev)
+        lib = ({"attn_mask": mask} if mask is not None and window is not None
+               else {"is_causal": causal})
+        case["sdpa"] = sdpa_backend(qs, ks, vs, enable_gqa=True, **lib)
+        torch.cuda.reset_peak_memory_stats()
+        f = cuda_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True,
+                                 **lib).detach(), 3)
+        fb = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(qs, ks, vs, enable_gqa=True, **lib), (qs, ks, vs), do), 3)
+        case["sdpa"].update(forward_ms=f, forward_backward_ms=fb,
+                            backward_ms=fb - f,
+                            max_memory_allocated_gb=(
+                                torch.cuda.max_memory_allocated() / 1e9))
+        out["window" if window else "causal"] = case
+        del qs, ks, vs, mask, o, lse, lo
+        torch.cuda.empty_cache()
+    win = out["window"]
+    new, old = BWD_PAIRS[torch.bfloat16][1], BWD_PAIRS[torch.bfloat16][0]
+    out["speedup_over_first_design"] = {
+        key: out[key]["variants"][old]["ms"] / out[key]["variants"][new]["ms"]
+        for key in ("window", "causal")}
+    rows = [{"name": "flash_attn_bwd", "line": "flash_attn_bwd_" + new,
+             "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"][new]),
+             "max_abs_err": abs16, "ms": win["variants"][new]["ms"],
+             "plain_ms": win["plain_backward_ms"],
+             "bound_ms": win["bound_ms"], "bound_by": win["bound_by"],
+             "library_ms": win["sdpa"]["backward_ms"]}]
+    del q, k, v, do
     torch.cuda.empty_cache()
-    rows = [{"name": "flash_attn_bwd", "line": "flash_attn_bwd_mma",
-             "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"]["mma"]),
-             "max_abs_err": abs16, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound, "bound_by": by,
-             "library_ms": sdpa_fb - sdpa_f}]
 
-    # the fp32 kernel, bound by fp32 operations outside the tensor cores
+    # the fp32 kernels, bound by fp32 operations outside the tensor cores
     q, k, v = _attn_inputs(BWD_FP32_SHAPE, torch.float32, dev, seed=13)
     do = torch.randn(q.shape, device=dev)
-    mask = end_aligned_mask(q.shape[2], k.shape[2], True, None, dev)
+    o, lse, lo = fwd(q, k, v, True, None, None, None, True)
     ref = attn_ref.attention_bwd_ref(q, k, v, do, causal=True, window=None)
     errs = [close(a, b, ATTN_TOL) for a, b in
-            zip(bwd(q, k, v, do, True, None), ref)]
-    err = max(e for e, _ in errs)
+            zip(bwd(q, k, v, do, o, lse, lo, True, None), ref)]
     in_bytes, flops = _bwd_work(q, k, True, None, 5)
     bound32, by32 = bound_ms(in_bytes, flops)
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    f32 = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
-                               enable_gqa=True).detach(), 5)
-    fb32 = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), (qs, ks, vs), do),
-        5)
-    rows.append({"name": "flash_attn_bwd", "line": "flash_attn_bwd_simt",
-                 "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"]["simt"]),
-                 "shape": list(BWD_FP32_SHAPE), "max_abs_err": err,
-                 "ms": cuda_ms(lambda: bwd(q, k, v, do, True, None), 5),
-                 "plain_ms": cuda_ms(lambda: attn_ref.attention_bwd_ref(
-                     q, k, v, do, causal=True, window=None), 5),
-                 "bound_ms": bound32, "bound_by": by32,
-                 "library_ms": fb32 - f32})
-    out["fp32_row"] = rows[-1]
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    # SDPA's fp32 backward two ways: the explicit mask (as timed since the
+    # first fp32 kernel) and is_causal; the faster is the yardstick
+    sdpa32 = {}
+    for form, lib in (("mask", {"attn_mask": end_aligned_mask(
+            1024, 1024, True, None, dev)}), ("is_causal", {"is_causal": True})):
+        f32 = cuda_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True,
+                                   **lib).detach(), 5)
+        fb32 = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(qs, ks, vs, enable_gqa=True, **lib), (qs, ks, vs), do), 5)
+        sdpa32[form] = {**sdpa_backend(qs, ks, vs, enable_gqa=True, **lib),
+                        "backward_ms": fb32 - f32}
+    lib32 = min(r["backward_ms"] for r in sdpa32.values())
+    pair = BWD_PAIRS[torch.float32]
+    fp32 = {"shape": list(BWD_FP32_SHAPE),
+            "max_abs_err": max(e for e, _ in errs),
+            "ok": all(ok for _, ok in errs),
+            "variants": _turns(bwd, pair, (q, k, v, do), o, lse, lo, True,
+                               None),
+            "bound_ms": bound32, "bound_by": by32,
+            "plain_backward_ms": cuda_ms(lambda: attn_ref.attention_bwd_ref(
+                q, k, v, do, causal=True, window=None), 5),
+            "sdpa": sdpa32}
+    out["fp32"] = fp32
+    rows.append({"name": "flash_attn_bwd", "line": "flash_attn_bwd_" + pair[0],
+                 "variant": "/".join(KERNEL_SYMBOLS["flash_attn_bwd"][pair[0]]),
+                 "shape": list(BWD_FP32_SHAPE), "max_abs_err": fp32["max_abs_err"],
+                 "ms": fp32["variants"][pair[0]]["ms"],
+                 "plain_ms": fp32["plain_backward_ms"],
+                 "bound_ms": bound32, "bound_by": by32, "library_ms": lib32})
+    del qs, ks, vs, q, k, v, do, o, lse, lo
+    torch.cuda.empty_cache()
+    out["forward"] = _forward_rows(dev)
     for r in rows:
         r.update(route="cuda", source="src/repro_torch/kernels/csrc/"
                  "flash_attn_bwd.cu", replaces=REPLACES["flash_attn_bwd"],
                  study_launches=None)
-    out["ok"] = bool(out["fp32_ok"] and max(rel) <= BWD_BF16_REL and same
-                     and all(ok for _, ok in errs))
+    out["ok"] = bool(out["fp32_ok"] and max(rel) <= BWD_BF16_REL
+                     and win["same_bits"] and fp32["ok"])
     return out, rows
 
 
@@ -2538,8 +2767,8 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     backward in its place, (c) one step's gradients held three ways, (d)
     the attention backward alone beside SDPA's, (e) a restart at the
     reduced config.  Returns the phase line, the launches of (a)'s kernels
-    (``mma``: flash_attn's, ``bwd_mma``: the backward's) and of (c)'s fp32
-    backward (``bwd_simt``), and (d)'s kernels-line rows."""
+    (``mma``: flash_attn's, ``bwd_wgmma``: the backward's) and of (c)'s
+    fp32 backward (``bwd_simt_tiled``), and (d)'s kernels-line rows."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import train
@@ -2554,7 +2783,6 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
                                                   sync["seq"], rep)
     sync["expected_launches"] = 2 * cfg.n_layers * len(sync["losses"])
     sync["expected_bwd_launches"] = cfg.n_layers * len(sync["losses"])
-    sync["bwd_variant"] = attn_ops.bwd_variant(cfg.param_dtype)
     # one step with the backward kernel, with the plain backward in its
     # place, and with the kernel again, on the same weights and batch
     batch = next(batches)
@@ -2627,7 +2855,11 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
                 and sync["flash_attn_launches"] == sync["expected_launches"]
                 and sync["flash_attn_bwd_launches"]
                 == sync["expected_bwd_launches"]
-                and sync["flash_attn_variant"] == sync["bwd_variant"] == "mma"
+                and sync["flash_attn_variant"] == "mma"
+                # the profiled step's backward ran the wgmma kernels, a
+                # pair a layer
+                and all(c == cfg.n_layers for c in sync["split"][
+                    "profiled_step"]["launches_by_kernel"].values())
                 and all(np.isfinite(sync["losses"]))
                 and sync["ckpt_steps"] == ["step_000000000"])
     ok_b = bool(run_b["fresh_batch_loss_falls"]
@@ -2648,8 +2880,8 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
             "ok": bool(ok_a and ok_b and grads["ok"] and bwd["ok"]
                        and restart["ok"])}, {
         "mma": sync["flash_attn_launches"],
-        "bwd_mma": sync["flash_attn_bwd_launches"],
-        "bwd_simt": grads["fp32_2_layers"]["flash_attn_bwd_launches"]}, \
+        "bwd_wgmma": sync["flash_attn_bwd_launches"],
+        "bwd_simt_tiled": grads["fp32_2_layers"]["flash_attn_bwd_launches"]}, \
         bwd_rows
 
 
@@ -3051,8 +3283,19 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
     # each step's gradient: global norm, largest element and its leaf
     grads_seen, value_and_grad = [], trainer.value_and_grad
 
+    wgmma = KERNEL_SYMBOLS["flash_attn_bwd"]["wgmma"]
+    ran = {}
+
     def recorded(*a, **kw):
-        loss, grads = value_and_grad(*a, **kw)
+        # the first step of a family with attention under the profiler:
+        # what the card ran (xlstm's has none, and its time loop's
+        # launches made a profiled step 8x longer on the card)
+        if grads_seen or not _attention_layers(cfg):
+            loss, grads = value_and_grad(*a, **kw)
+        else:
+            (loss, grads), got = counted(lambda: value_and_grad(*a, **kw),
+                                         wgmma)
+            ran.update(got)
         tops = {k: float(g.abs().max()) for k, g in grads.items()}
         top = max(tops, key=tops.get)
         grads_seen.append({
@@ -3081,9 +3324,12 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
            "start_memory_gb": start_gb,
            "flash_attn_launches": launches,
            "expected_launches": 2 * _attention_layers(cfg) * len(losses),
-           "flash_attn_bwd_launches": bwd_launches}
+           "flash_attn_bwd_launches": bwd_launches,
+           "first_step_bwd_kernel_launches": ran}
     out["ok"] = bool(len(losses) == FAMILY_TRAIN_STEPS
                      and bwd_launches == _attention_layers(cfg) * len(losses)
+                     and all(c == _attention_layers(cfg)
+                             for c in ran.values())
                      and all(np.isfinite(losses))
                      and all(g["finite"] for g in grads_seen)
                      and launches == out["expected_launches"])
@@ -3383,14 +3629,6 @@ def one_rank_mesh(dev):
         dist.destroy_process_group()
 
 
-def _profiled_launches(fn, names: tuple[str, ...]) -> dict:
-    """Launches of each kernel named in ``names`` in one profiled call of
-    ``fn`` (behind a discarded warm-up call: ``device_profile``)."""
-    prof = device_profile(fn, 1)
-    return {n: sum(c for key, (_, c) in prof.items() if n in key)
-            for n in names}
-
-
 def _full_tree(tree):
     from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
@@ -3467,9 +3705,10 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
     placements = {k: [repr(x) for x in v.placements] for k, v in
                   list(dp.items())[:3]}
     attn = _attention_layers(cfg)
-    prof = (_profiled_launches(lambda: step(dp, do, dbatches[0]),
-                               ("flash_attn_mma_kernel",)) if attn
-            else {"flash_attn_mma_kernel": 0})
+    names = ("flash_attn_mma_kernel",) + KERNEL_SYMBOLS["flash_attn_bwd"][
+        "wgmma"]
+    prof = (counted(lambda: step(dp, do, dbatches[0]), names)[1]
+            if attn else dict.fromkeys(names, 0))
     loss_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
     state, repeats = (dp, do), None
     if exact and cfg.family == "moe":  # its steps again, once the mesh's
@@ -3500,7 +3739,9 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
                             for a, b in zip(losses, plain_losses))
     rec["ok"] = bool(held and launches == rec["expected_launches"]
                      and bwd_launches == rec["expected_bwd_launches"]
-                     and prof["flash_attn_mma_kernel"] == 2 * attn)
+                     and prof["flash_attn_mma_kernel"] == 2 * attn
+                     # one step's backward ran the wgmma pair a layer
+                     and all(prof[n] == attn for n in names[1:]))
     del plain_params
     return rec, state, {"mma": launches, "backward": bwd_launches}
 
@@ -3552,8 +3793,8 @@ def _mesh_decode(dev, mesh, cfg, params: dict, *,
         held = held and bool(torch.allclose(logits, plain[t],
                                             **ATTN_BF16_TOL))
     launches = common.LAUNCHES["flash_attn"]
-    prof = _profiled_launches(lambda: step(dlm, dcache, ins[-1], ticks - 1),
-                              ("flash_attn_decode_kernel",))
+    prof = counted(lambda: step(dlm, dcache, ins[-1], ticks - 1),
+                   ("flash_attn_decode_kernel",))[1]
     attn = _attention_layers(cfg)
     rec = {"arch": cfg.name, "slots": b, "ticks": ticks, "max_len": max_len,
            "logits_max_abs_err": err, "ms_per_tick": ms,
@@ -4924,7 +5165,7 @@ def main(argv: list[str]) -> int:
 
 def run_attn_bwd() -> int:
     """``python3 chip_smoke.py --attn-bwd``: the env and build phases, then
-    the attention backward alone: phase kernels' checks of both variants
+    the attention backward alone: phase kernels' checks of every variant
     and phase lm_train's (d), the card's name and power limit last."""
     from repro_torch.kernels import common
 
@@ -5030,8 +5271,8 @@ def run(scratch: Path) -> int:
     # the mma kernel's main paths: phase lm's prefill and the training run;
     # the backward's: the training run (bf16), and (c)'s fp32 layers
     launches["flash_attn_mma"] += train_launches["mma"]
-    launches["flash_attn_bwd_mma"] = train_launches["bwd_mma"]
-    launches["flash_attn_bwd_simt"] = train_launches["bwd_simt"]
+    launches["flash_attn_bwd_wgmma"] = train_launches["bwd_wgmma"]
+    launches["flash_attn_bwd_simt_tiled"] = train_launches["bwd_simt_tiled"]
     del line
     free_memory()
     dryrun = start_mesh_dryrun()   # traced on the host during lm_families
@@ -5043,7 +5284,7 @@ def run(scratch: Path) -> int:
     # training steps
     launches["flash_attn_decode"] += family_launches["decode"]
     launches["flash_attn_mma"] += family_launches["mma"]
-    launches["flash_attn_bwd_mma"] += family_launches["backward"]
+    launches["flash_attn_bwd_wgmma"] += family_launches["backward"]
     torch.cuda.empty_cache()
 
     line, mesh_launches = phase_mesh(dev, scratch, dryrun)
@@ -5053,7 +5294,7 @@ def run(scratch: Path) -> int:
     # the mesh's training steps and decode ticks
     launches["flash_attn_decode"] += mesh_launches["decode"]
     launches["flash_attn_mma"] += mesh_launches["mma"]
-    launches["flash_attn_bwd_mma"] += mesh_launches["backward"]
+    launches["flash_attn_bwd_wgmma"] += mesh_launches["backward"]
     del line
     free_memory()
 

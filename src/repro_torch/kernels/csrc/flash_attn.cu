@@ -181,6 +181,7 @@ flash_attn_kernel(const T* __restrict__ q,    // [B, Hq, Sq, hd]
                   const T* __restrict__ k,    // [B, Hkv] heads of [Sk, hd]
                   const T* __restrict__ v,    // same layout as k
                   T* __restrict__ out,        // [B, Hq, Sq, hd]
+                  float* __restrict__ lse,    // [B, Hq, Sq] or null
                   int Hq, int Hkv, int Sq, int Sk, int hd,
                   long long kv_head_stride, int causal, int window,
                   float scale) {
@@ -317,19 +318,23 @@ flash_attn_kernel(const T* __restrict__ q,    // [B, Hq, Sq, hd]
     const float div = lt == 0.0f ? 1.0f : lt;
     const int R = r0 + warp * RPW + r;
     const int i = R / rep, h = hkv * rep + R % rep;
-    T* dst = out + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd;
+    const long long row = (static_cast<long long>(b) * Hq + h) * Sq + i;
+    T* dst = out + row * hd;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = lane + 32 * c;
       if (col < hd) dst[col] = from_float<T>(acc[r][c] / div);
     }
+    if (lse != nullptr && lane == 0)  // base 2, as the backward reads it
+      lse[row] = lt == 0.0f ? INFINITY : fmaf(m[r], kLog2e, log2f(lt));
   }
 }
 
 template <typename T, int RPW, int C>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Sk, int hd, long long kv_head_stride,
-           int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Hq, int Hkv, int Sq, int Sk, int hd,
+           long long kv_head_stride, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr int kRows = kWarps * RPW;
   const size_t smem =
       sizeof(float) * ((kRows + 2 * kTileK) * static_cast<size_t>(hd + 4) +
@@ -342,40 +347,41 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq * (Hq / Hkv) + kRows - 1) / kRows, B * Hkv);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Sk, hd,
-      kv_head_stride, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk,
+      hd, kv_head_stride, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int RPW>
-int by_columns(const void* q, const void* k, const void* v, void* out, int B,
-               int Hq, int Hkv, int Sq, int Sk, int hd,
+int by_columns(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int hd,
                long long kv_head_stride, int causal, int window, float scale,
                cudaStream_t s) {
   switch ((hd + 31) / 32) {
     case 1:
-      return launch<T, RPW, 1>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+      return launch<T, RPW, 1>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                                kv_head_stride, causal, window, scale, s);
     case 2:
-      return launch<T, RPW, 2>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+      return launch<T, RPW, 2>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                                kv_head_stride, causal, window, scale, s);
     case 3:
-      return launch<T, RPW, 3>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+      return launch<T, RPW, 3>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                                kv_head_stride, causal, window, scale, s);
     default:
-      return launch<T, RPW, 4>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+      return launch<T, RPW, 4>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                                kv_head_stride, causal, window, scale, s);
   }
 }
 
 template <typename T>
-int by_rows(const void* q, const void* k, const void* v, void* out, int B,
-            int Hq, int Hkv, int Sq, int Sk, int hd, long long kv_head_stride,
-            int causal, int window, float scale, cudaStream_t s) {
+int by_rows(const void* q, const void* k, const void* v, void* out, float* lse,
+            int B, int Hq, int Hkv, int Sq, int Sk, int hd,
+            long long kv_head_stride, int causal, int window, float scale,
+            cudaStream_t s) {
   if (Sq * (Hq / Hkv) <= kWarps)
-    return by_columns<T, 1>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+    return by_columns<T, 1>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                             kv_head_stride, causal, window, scale, s);
-  return by_columns<T, 8>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
+  return by_columns<T, 8>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                           kv_head_stride, causal, window, scale, s);
 }
 
@@ -406,6 +412,8 @@ flash_attn_mma_kernel(const bf16* __restrict__ q,   // [B, Hq, Sq, hd]
                       const bf16* __restrict__ k,   // [B, Hkv] heads of [Sk, hd]
                       const bf16* __restrict__ v,   // same layout as k
                       bf16* __restrict__ out,       // [B, Hq, Sq, hd]
+                      float* __restrict__ lse,      // [B, Hq, Sq] or null
+                      bf16* __restrict__ out_lo,    // as out, or null
                       int Hq, int Hkv, int Sq, int Sk, int hd,
                       long long kv_head_stride, int causal, int window,
                       float scale_log2) {
@@ -600,20 +608,28 @@ flash_attn_mma_kernel(const bf16* __restrict__ q,   // [B, Hq, Sq, hd]
     const int R = r0 + qrow + 8 * h2;
     if (R >= total) continue;
     const int i = R / rep, h = hkv * rep + R % rep;
-    bf16* dst = out + ((static_cast<long long>(b) * Hq + h) * Sq + i) * hd;
+    const long long row = (static_cast<long long>(b) * Hq + h) * Sq + i;
+    bf16* dst = out + row * hd;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int col = nt * 8 + 2 * t4;
-      if (col < hd)
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-            o[nt][2 * h2] / div, o[nt][2 * h2 + 1] / div);
+      if (col >= hd) continue;
+      uint32_t hi, lo;  // the output's bf16 and its rounding residual
+      split(o[nt][2 * h2] / div, o[nt][2 * h2 + 1] / div, hi, lo);
+      *reinterpret_cast<uint32_t*>(dst + col) = hi;
+      if (out_lo != nullptr)
+        *reinterpret_cast<uint32_t*>(out_lo + row * hd + col) = lo;
     }
+    // the row's log2-sum-exp2 of the scaled scores (m is in base 2)
+    if (lse != nullptr && t4 == 0)
+      lse[row] = lt == 0.0f ? INFINITY : m[h2] + log2f(lt);
   }
 }
 
 template <int HDP>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int Hq, int Hkv, int Sq, int Sk, int hd,
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, void* out_lo, int B, int Hq, int Hkv, int Sq,
+               int Sk, int hd,
                long long kv_head_stride, int causal, int window, float scale,
                cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (kMmaRows + 2 * kStages * kMmaKeys) *
@@ -624,19 +640,21 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq * (Hq / Hkv) + kMmaRows - 1) / kMmaRows, B * Hkv);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, Sq, Sk,
-      hd, kv_head_stride, causal, window, scale * kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
+      static_cast<bf16*>(out_lo), Hq, Hkv, Sq, Sk, hd, kv_head_stride, causal,
+      window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-int mma_by_depth(const void* q, const void* k, const void* v, void* out, int B,
-                 int Hq, int Hkv, int Sq, int Sk, int hd,
+int mma_by_depth(const void* q, const void* k, const void* v, void* out,
+                 float* lse, void* out_lo, int B, int Hq, int Hkv, int Sq,
+                 int Sk, int hd,
                  long long kv_head_stride, int causal, int window, float scale,
                  cudaStream_t s) {
 #define REPRO_MMA_CASE(n)                                                    \
   case n:                                                                    \
-    return launch_mma<16 * n>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,          \
-                              kv_head_stride, causal, window, scale, s);
+    return launch_mma<16 * n>(q, k, v, out, lse, out_lo, B, Hq, Hkv, Sq, Sk, \
+                              hd, kv_head_stride, causal, window, scale, s);
   switch ((hd + 15) / 16) {
     REPRO_MMA_CASE(1)
     REPRO_MMA_CASE(2)
@@ -1029,20 +1047,29 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
 // none.  bf16 != 0: bf16 operands, else
 // fp32.  variant: 0 flash_attn_kernel (fp32 only), 1 flash_attn_mma_kernel
 // (bf16 only); bf16 decode has its own entry point, flash_attn_decode.
+// lse: null, or fp32 [B, Hq, Sq] that gets each row's log-sum-exp of the
+// scaled scores in base 2 (+inf for a row that sees no key), the
+// statistics flash_attn_bwd's "wgmma" and "simt_tiled" kernels read.
+// out_lo (bf16 only): null, or as out, that gets the rounding residual
+// bf16(o - bf16(o)) of each fp32 output o, so that out + out_lo is the
+// output to 16 bits (the "wgmma" backward's D = rowsum(dO o O)).
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
-                          void* out, int B, int Hq, int Hkv, int Sq, int Sk,
-                          int hd, long long kv_head_stride, int causal,
-                          int window, float scale, int bf16, int variant,
-                          void* stream) {
+                          void* out, void* lse, void* out_lo, int B, int Hq,
+                          int Hkv, int Sq, int Sk, int hd,
+                          long long kv_head_stride,
+                          int causal, int window, float scale, int bf16,
+                          int variant, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  auto* ls = static_cast<float*>(lse);
   if (variant == 1) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return mma_by_depth(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
-                        causal, window, scale, s);
+    return mma_by_depth(q, k, v, out, ls, out_lo, B, Hq, Hkv, Sq, Sk, hd,
+                        kv_head_stride, causal, window, scale, s);
   }
-  if (variant != 0 || bf16) return static_cast<int>(cudaErrorInvalidValue);
-  return by_rows<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
-                        causal, window, scale, s);
+  if (variant != 0 || bf16 || out_lo != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_rows<float>(q, k, v, out, ls, B, Hq, Hkv, Sq, Sk, hd,
+                        kv_head_stride, causal, window, scale, s);
 }
 
 // The decode variant (bf16, Sq * Hq / Hkv < 16 rows; the wrapper checks):

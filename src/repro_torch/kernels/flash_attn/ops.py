@@ -32,12 +32,18 @@ go through the operator ``torch.ops.repro_torch.flash_attn``
 (``torch.library.custom_op``), so that the tensors the kernel sees are
 plain ones:
 
-* inputs that require grad (under grad mode): its gradient is
+* inputs that require grad (under grad mode): the operator, asked for it
+  (``with_lse``), returns the output, each row's log-sum-exp
+  (``[B, Hq, Sq]`` fp32, base 2) and, for bf16, the output's rounding
+  residual (``out + out_lo`` is the fp32 output to 16 bits; fp32 gives an
+  empty ``[B, Hq, Sq, 0]``), all written by the forward kernel (the bf16
+  decode variant writes no statistics, so such a call runs ``"mma"``), and
+  saves q, k, v and the three.  Its gradient is
   ``torch.ops.repro_torch.flash_attn_bwd``, which dispatches the family
   ``"flash_attn_bwd"`` on the device: ``cuda`` runs
   ``csrc/flash_attn_bwd.cu`` (a dQ pass, then a dK/dV pass, no atomics;
-  :func:`bwd_variant` picks the bf16 tensor-core kernels or the fp32
-  ones), ``torch-reference`` ``ref.attention_bwd_ref``, plain PyTorch that
+  :func:`bwd_variant` picks the kernels from the dtype and head dim),
+  ``torch-reference`` ``ref.attention_bwd_ref``, plain PyTorch that
   recomputes the scores a query chunk at a time.  The TPU kernel has no
   backward; the reference differentiates its XLA ``chunked_attention``,
   one chunk at a time.  Such a call consults no tuner;
@@ -91,19 +97,24 @@ DECODE_CHUNK_MULTIPLE = 128
 DECODE_MAX_ROWS = 8
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _F, _I, _I, _P)
+_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _F, _I,
+         _I, _P)
 _DECODE_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I,
                 _F, _I, _I, _P)
-_BWD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _F, _I, _P)
+_BWD_ARGS = (_P,) * 12 + (_I,) * 8 + (_F, _I, _P)
 
 #: the backward's C entry point's code for each variant
-BWD_VARIANTS = ("simt", "mma")
+BWD_VARIANTS = ("mma", "wgmma", "simt_tiled")
+#: bf16 head dims the ``"wgmma"`` kernels take; ``"mma"`` keeps the rest
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
 #: the backward's tiles (csrc/flash_attn_bwd.cu), by variant: query rows a
-#: dQ block serves (its keys staged as many at a time), keys a dK/dV block
-#: owns, queries a dK/dV block stages at a time
-BWD_TILES = {"mma": {"q_rows": 64, "keys": 64, "q_tile": 32},
-             "simt": {"q_rows": 32, "keys": 32, "q_tile": 32}}
+#: dQ block serves, keys it stages at a time, keys a dK/dV block owns,
+#: queries a dK/dV block stages at a time
+BWD_TILES = {"mma": {"q_rows": 64, "k_tile": 64, "keys": 64, "q_tile": 32},
+             "wgmma": {"q_rows": 128, "k_tile": 64, "keys": 128,
+                       "q_tile": 64},
+             "simt_tiled": {"q_rows": 64, "k_tile": 64, "keys": 64,
+                            "q_tile": 64}}
 
 
 def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
@@ -115,10 +126,16 @@ def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
     return "mma" if sq * rep >= MMA_MIN_ROWS else "decode"
 
 
-def bwd_variant(dtype: torch.dtype) -> str:
-    """The backward's kernels for operands of ``dtype``: ``"mma"`` (the
-    tensor cores) for bf16, ``"simt"`` (fp32 on the CUDA cores) else."""
-    return "mma" if dtype == torch.bfloat16 else "simt"
+def bwd_variant(dtype: torch.dtype, hd: int) -> str:
+    """The backward's kernels for operands of ``dtype`` and head dim ``hd``:
+    for bf16 ``"wgmma"`` (warpgroup products fed by TMA, Hopper's tensor
+    cores at full rate) at the head dims of WGMMA_HEAD_DIMS, ``"mma"``
+    (``mma.sync``) at the others; ``"simt_tiled"`` (fp32, register-tiled on
+    the CUDA cores) for fp32.  The first design, ``"mma"``, walks its keys
+    twice for the softmax statistics; the other two read the forward's."""
+    if dtype != torch.bfloat16:
+        return "simt_tiled"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
 
 
 def bwd_k_range(q_tile: int, sq: int, sk: int, causal: bool,
@@ -214,7 +231,7 @@ _WORKSPACES: dict[tuple[int, int], _Workspace] = {}
 
 
 @common.register_kernel("flash_attn", common.CUDA)
-def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
+def _flash_attn_cuda(q, k, v, *, causal, window, splits=None, lse=False):
     if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v)):
         raise TypeError("flash_attn: the CUDA kernel takes plain tensors; a "
                         "DTensor or fake tensor reaches it only through "
@@ -232,6 +249,12 @@ def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
         k_stride = k.stride(1)
     out = torch.empty_like(q)
     kind = variant(q.dtype, sq, hq // hkv)
+    stats = lo = None
+    if lse:  # the decode kernel writes no statistics; "mma" takes any rows
+        stats = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+        lo = (torch.empty_like(out) if q.dtype == torch.bfloat16
+              else _no_out_lo(q))
+        kind = "mma" if kind == "decode" else kind
     stream = common.stream(q)
     with common.on_device(q):
         if kind == "decode":
@@ -239,13 +262,15 @@ def _flash_attn_cuda(q, k, v, *, causal, window, splits=None):
                            causal, window, splits, stream)
         else:
             code = _build.function("flash_attn", "flash_attn", *_ARGS)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if stats is None else stats.data_ptr(),
+                lo.data_ptr() if lo is not None and lo.numel() else None, b,
                 hq, hkv, sq, sk, hd, k_stride, int(causal), window or 0,
-                hd ** -0.5, int(q.dtype == torch.bfloat16),
-                VARIANTS.index(kind), stream)
+                hd ** -0.5,
+                int(q.dtype == torch.bfloat16), VARIANTS.index(kind), stream)
     _build.check("flash_attn", code)
     common.count_launch("flash_attn")
-    return out
+    return out if stats is None else (out, stats, lo)
 
 
 def _decode(q, k, v, out, b, hq, hkv, sq, sk, hd, k_stride, causal, window,
@@ -272,14 +297,15 @@ def _decode(q, k, v, out, b, hq, hkv, sq, sk, hd, k_stride, causal, window,
 
 
 @common.register_kernel("flash_attn", common.TORCH_REFERENCE)
-def _flash_attn_reference(q, k, v, *, causal, window, splits=None):
+def _flash_attn_reference(q, k, v, *, causal, window, splits=None, lse=False):
     del splits  # the kernel's tiling
-    return R.attention_ref(q, k, v, causal=causal, window=window)
+    return R.attention_ref(q, k, v, causal=causal, window=window,
+                           with_lse=lse)
 
 
 @common.register_kernel("flash_attn_bwd", common.CUDA)
-def _flash_attn_bwd_cuda(q, k, v, do, *, causal, window):
-    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v, do)):
+def _flash_attn_bwd_cuda(q, k, v, do, out, lse, out_lo, *, causal, window):
+    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v, do, out, lse, out_lo)):
         raise TypeError("flash_attn_bwd: the CUDA kernel takes plain tensors; "
                         "a DTensor or fake tensor reaches it only through "
                         "torch.ops.repro_torch.flash_attn_bwd")
@@ -288,16 +314,33 @@ def _flash_attn_bwd_cuda(q, k, v, do, *, causal, window):
     if b * hq > 65_535:
         raise ValueError(f"flash_attn_bwd: B * Hq = {b * hq} exceeds the "
                          f"kernel's grid limit of 65,535")
-    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    kind = bwd_variant(q.dtype, hd)
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or out.shape != q.shape or out.dtype != q.dtype \
+            or (kind == "wgmma" and (out_lo.shape != q.shape
+                                     or out_lo.dtype != q.dtype)):
+        raise ValueError(f"flash_attn_bwd: out {tuple(out.shape)} "
+                         f"{out.dtype}, lse {tuple(lse.shape)} {lse.dtype} "
+                         f"and out_lo {tuple(out_lo.shape)} {out_lo.dtype} "
+                         f"are not the forward's for q {tuple(q.shape)}")
+    q, k, v, do, out, lse = (_aligned(t) for t in (q, k, v, do, out, lse))
+    lo = _aligned(out_lo) if kind == "wgmma" else None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
-    dsum = torch.empty_like(lse)
+    dsum = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    # the first design makes its own statistics (never over the forward's)
+    stats = lse if kind in ("wgmma", "simt_tiled") else torch.empty_like(dsum)
+    # "simt_tiled" sums a kv head's query heads from per-head partials
+    part = (torch.empty(2, b, hq, sk, hd, dtype=torch.float32,
+                        device=q.device)
+            if kind == "simt_tiled" and hq > hkv else None)
     with common.on_device(q):
         code = _build.function("flash_attn_bwd", "flash_attn_bwd", *_BWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), b, hq, hkv, sq, sk, hd, int(causal), window or 0,
-            hd ** -0.5, BWD_VARIANTS.index(bwd_variant(q.dtype)),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), dsum.data_ptr(),
+            None if part is None else part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, hd,
+            int(causal), window or 0, hd ** -0.5, BWD_VARIANTS.index(kind),
             common.stream(q))
     _build.check("flash_attn_bwd", code)
     common.count_launch("flash_attn_bwd")
@@ -314,52 +357,85 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 @common.register_kernel("flash_attn_bwd", common.TORCH_REFERENCE)
-def _flash_attn_bwd_reference(q, k, v, do, *, causal, window):
+def _flash_attn_bwd_reference(q, k, v, do, out, lse, out_lo, *, causal,
+                              window):
+    del out, lse, out_lo  # the plain backward recomputes the softmax
     return R.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
 
 
 @torch.library.custom_op("repro_torch::flash_attn", mutates_args=())
 def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: int | None, splits: int | None,
-                  backend: str | None) -> torch.Tensor:
-    """The family's dispatch on plain tensors: the kernel on ``cuda``,
-    ``ref.attention_ref`` on the CPU (``backend``: the flavor the tuner's
-    pick was made for, else the device's)."""
-    return common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
-                           window=window, splits=splits, backend=backend)
+                  backend: str | None, with_lse: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(out, lse, out_lo)``: the family's dispatch on plain tensors (the
+    kernel on ``cuda``, ``ref.attention_ref`` on the CPU; ``backend``: the
+    flavor the tuner's pick was made for, else the device's) with each
+    row's log-sum-exp and the bf16 output's rounding residual for the
+    backward, or, without ``with_lse`` (a call with no gradient to take:
+    decode, no-grad mesh calls), empty ``[B, Hq, 0]`` and
+    ``[B, Hq, Sq, 0]`` in their place and the kernel the plain dispatch
+    runs."""
+    if with_lse:
+        return common.dispatch("flash_attn", q.device, q, k, v,
+                               causal=causal, window=window, splits=splits,
+                               backend=backend, lse=True)
+    out = common.dispatch("flash_attn", q.device, q, k, v, causal=causal,
+                          window=window, splits=splits, backend=backend)
+    return out, _no_lse(q), _no_out_lo(q)
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(q.shape[0], q.shape[1], 0, dtype=torch.float32)
+
+
+def _no_out_lo(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(*q.shape[:3], 0)
 
 
 @_attention_op.register_fake
-def _(q, k, v, causal, window, splits, backend):
-    return q.new_empty(q.shape)  # contiguous, as the kernel's output
+def _(q, k, v, causal, window, splits, backend, with_lse):
+    # contiguous, as the kernel's outputs
+    if not with_lse:
+        return q.new_empty(q.shape), _no_lse(q), _no_out_lo(q)
+    return (q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                              dtype=torch.float32),
+            q.new_empty(q.shape) if q.dtype == torch.bfloat16
+            else _no_out_lo(q))
 
 
 @torch.library.custom_op("repro_torch::flash_attn_bwd", mutates_args=())
 def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      do: torch.Tensor, causal: bool, window: int | None
+                      do: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                      out_lo: torch.Tensor, causal: bool, window: int | None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: the family ``"flash_attn_bwd"``'s dispatch on
     plain tensors (the kernel on ``cuda``, ``ref.attention_bwd_ref`` on
-    the CPU)."""
-    return common.dispatch("flash_attn_bwd", q.device, q, k, v, do,
-                           causal=causal, window=window)
+    the CPU), given the forward's output, log-sum-exp and rounding
+    residual."""
+    return common.dispatch("flash_attn_bwd", q.device, q, k, v, do, out, lse,
+                           out_lo, causal=causal, window=window)
 
 
 @_attention_bwd_op.register_fake
-def _(q, k, v, do, causal, window):
+def _(q, k, v, do, out, lse, out_lo, causal, window):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, causal, window, _, _ = inputs
-    ctx.save_for_backward(q, k, v)
+    q, k, v, causal, window, _, _, _ = inputs
+    out, lse, out_lo = output
+    ctx.mark_non_differentiable(lse, out_lo)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(q, k, v, out, lse, out_lo)
     ctx.causal, ctx.window = causal, window
 
 
-def _backward(ctx, do):
-    q, k, v = ctx.saved_tensors
-    dq, dk, dv = _attention_bwd_op(q, k, v, do, ctx.causal, ctx.window)
-    return dq, dk, dv, None, None, None, None
+def _backward(ctx, do, _, __):
+    q, k, v, out, lse, out_lo = ctx.saved_tensors
+    dq, dk, dv = _attention_bwd_op(q, k, v, do, out, lse, out_lo, ctx.causal,
+                                   ctx.window)
+    return dq, dk, dv, None, None, None, None, None
 
 
 _attention_op.register_autograd(_backward, setup_context=_setup_context)
@@ -379,15 +455,16 @@ def _attention_flops(q_shape, k_shape, v_shape, causal, window, splits,
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attn_bwd)
-def _attention_bwd_flops(q_shape, k_shape, v_shape, do_shape, causal,
-                         window, *args, **kwargs) -> int:
+def _attention_bwd_flops(q_shape, k_shape, v_shape, do_shape, o_shape,
+                         lse_shape, lo_shape, causal, window, *args,
+                         **kwargs) -> int:
     """QK^T again, dO.V^T, P^T.dO, dS.K and dS^T.Q: 5 products."""
     return 10 * q_shape[3] * _pairs(q_shape, k_shape, causal, window)
 
 
 def _shardings(k, tensors: int, scalars: int, outputs: int):
     """Placements, one mesh dim at a time, for an operator over ``tensors``
-    attention operands ``[B, H, S, hd]`` then ``scalars`` other arguments:
+    attention operands ``[B, H, S, ...]`` then ``scalars`` other arguments:
     all replicated; batch sharded; heads sharded where ``Hkv`` divides by
     the whole mesh, so that any split of the heads keeps a kv head's query
     heads (a GQA group) on one rank."""
@@ -401,13 +478,13 @@ def _shardings(k, tensors: int, scalars: int, outputs: int):
 
 
 @register_sharding(torch.ops.repro_torch.flash_attn.default)
-def _attention_sharding(q, k, v, causal, window, splits, backend):
-    return _shardings(k, tensors=3, scalars=4, outputs=1)
+def _attention_sharding(q, k, v, causal, window, splits, backend, with_lse):
+    return _shardings(k, tensors=3, scalars=5, outputs=3)
 
 
 @register_sharding(torch.ops.repro_torch.flash_attn_bwd.default)
-def _attention_bwd_sharding(q, k, v, do, causal, window):
-    return _shardings(k, tensors=4, scalars=2, outputs=3)
+def _attention_bwd_sharding(q, k, v, do, out, lse, out_lo, causal, window):
+    return _shardings(k, tensors=7, scalars=2, outputs=3)
 
 
 def flash_attention(
@@ -461,10 +538,10 @@ def flash_attention(
                          f"{v.device}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attn: window must be >= 1, got {window}")
-    if any(isinstance(t, _NOT_PLAIN) for t in (q, k, v)) or (
-            torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return _attention_op(q, k, v, causal, window, splits, None)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if grad or any(isinstance(t, _NOT_PLAIN) for t in (q, k, v)):
+        return _attention_op(q, k, v, causal, window, splits, None, grad)[0]
     backend = None
     if splits is None:
         splits, backend = _tuned_splits(q, k, v, causal, window)

@@ -611,7 +611,9 @@ def _calls():
                                                    ys, **kw),
         "flash_attn": lambda: tk.flash_attention(*_t(*_qkv(1, 4, 2, 3, 9, 8))),
         "flash_attn_bwd": lambda: torch.ops.repro_torch.flash_attn_bwd(
-            *_t(*_qkv(1, 4, 2, 3, 9, 8)), torch.ones(1, 4, 3, 8), True, None),
+            *_t(*_qkv(1, 4, 2, 3, 9, 8)), torch.ones(1, 4, 3, 8),
+            torch.ones(1, 4, 3, 8), torch.zeros(1, 4, 3),
+            torch.zeros(1, 4, 3, 0), True, None),
     }
 
 
@@ -1091,7 +1093,18 @@ def test_flash_attention_backward_dispatches_on_the_device_alone(
     do = torch.from_numpy(np.random.default_rng(1).normal(
         0, 1, q.shape).astype(np.float32))
     before = dict(common.LAUNCHES)
-    got = torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, True, 3)
+    out, lse, lo = torch.ops.repro_torch.flash_attn(q, k, v, True, 3, None,
+                                                    None, True)
+    # a call with no gradient to take asks for no statistics
+    again, none, no_lo = torch.ops.repro_torch.flash_attn(q, k, v, True, 3,
+                                                          None, None, False)
+    assert torch.equal(again, out) and none.shape == (1, 4, 0)
+    assert lse.shape == (1, 4, 5) and lse.dtype == torch.float32
+    # fp32's output needs no rounding residual
+    assert lo.shape == no_lo.shape == (1, 4, 5, 0)
+    assert common.LAUNCHES == before
+    got = torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, out, lse, lo,
+                                               True, 3)
     want = attn_ref.attention_bwd_ref(q, k, v, do, causal=True, window=3)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -1099,8 +1112,8 @@ def test_flash_attention_backward_dispatches_on_the_device_alone(
     assert common.backends_for("flash_attn_bwd") == (common.CUDA,
                                                      common.TORCH_REFERENCE)
     with pytest.raises(RuntimeError, match="cannot take tensors on cpu"):
-        common.dispatch("flash_attn_bwd", CPU, q, k, v, do, causal=True,
-                        window=3, backend=common.CUDA)
+        common.dispatch("flash_attn_bwd", CPU, q, k, v, do, out, lse, lo,
+                        causal=True, window=3, backend=common.CUDA)
     cuda = torch.device("cuda")
     with common.plain_versions("flash_attn_bwd"):
         assert common.resolve_backend("flash_attn_bwd", cuda) == \
@@ -1112,17 +1125,44 @@ def test_flash_attention_backward_dispatches_on_the_device_alone(
             pass
     monkeypatch.setenv(common.ENV_BACKEND, common.CUDA)
     with pytest.raises(RuntimeError, match="cannot take tensors on cpu"):
-        torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, True, 3)
+        torch.ops.repro_torch.flash_attn_bwd(q, k, v, do, out, lse, lo, True,
+                                             3)
 
 
-@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"),
-                                        (torch.float32, "simt")])
-def test_flash_attention_backward_variant_is_chosen_from_the_dtype(dtype,
-                                                                   want):
-    """Pure: the dtype alone picks the kernels, the same on every call."""
-    assert [attn_ops.bwd_variant(dtype) for _ in range(3)] == [want] * 3
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 72, "mma"),
+    (torch.bfloat16, 48, "mma"), (torch.bfloat16, 8, "mma"),
+    (torch.float32, 80, "simt_tiled"), (torch.float32, 8, "simt_tiled"),
+    (torch.float32, 128, "simt_tiled")])
+def test_flash_attention_backward_variant_is_chosen_from_the_dtype(
+        dtype, hd, want):
+    """Pure: the dtype and head dim alone pick the kernels, the same on
+    every call."""
+    assert [attn_ops.bwd_variant(dtype, hd) for _ in range(3)] == [want] * 3
     assert want in attn_ops.BWD_VARIANTS
     assert set(attn_ops.BWD_TILES) == set(attn_ops.BWD_VARIANTS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_choice_covers_every_head_dim(dtype):
+    """Every head dim the kernels take (8 to 128 in steps of 8) has one
+    variant: bf16 goes to ``"wgmma"`` exactly at the families' 16-multiple
+    widths from 64 (WGMMA_HEAD_DIMS), to ``"mma"`` below 64 and at the
+    widths of 16 k + 8; fp32 always to ``"simt_tiled"``."""
+    table = {hd: attn_ops.bwd_variant(dtype, hd)
+             for hd in range(attn_ops.HEAD_DIM_MULTIPLE,
+                             attn_ops.MAX_HEAD_DIM + 1,
+                             attn_ops.HEAD_DIM_MULTIPLE)}
+    assert len(table) == 16
+    if dtype == torch.float32:
+        assert set(table.values()) == {"simt_tiled"}
+    else:
+        assert [hd for hd, k in table.items() if k == "wgmma"] == \
+            list(attn_ops.WGMMA_HEAD_DIMS) == [64, 80, 96, 112, 128]
+        assert all(k == "mma" for hd, k in table.items()
+                   if hd < 64 or hd % 16)
+    assert table == {hd: attn_ops.bwd_variant(dtype, hd) for hd in table}
 
 
 def _visible(sq, sk, causal, window):
@@ -1137,7 +1177,7 @@ def _visible(sq, sk, causal, window):
     return vis
 
 
-@pytest.mark.parametrize("kind", ["mma", "simt"])
+@pytest.mark.parametrize("kind", ["mma", "wgmma", "simt_tiled"])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (300, 300, True, None),     # causal, a ragged last tile
     (300, 300, True, 64),       # a window
@@ -1165,8 +1205,8 @@ def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
                                           rows=t["q_rows"])
         assert 0 <= begin and end <= sk
         rows = slice(qt * t["q_rows"], (qt + 1) * t["q_rows"])
-        for k0 in range(begin, end, t["q_rows"]):
-            dq[rows, k0:min(k0 + t["q_rows"], end)] += 1
+        for k0 in range(begin, end, t["k_tile"]):
+            dq[rows, k0:min(k0 + t["k_tile"], end)] += 1
     dkv = np.zeros((sq, sk), dtype=int)
     for kt in range(-(-sk // t["keys"])):
         first, stop = attn_ops.bwd_q_range(kt, sq, sk, causal, window,

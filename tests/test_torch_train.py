@@ -418,6 +418,82 @@ def test_flash_attention_grads_match_jax_chunked_attention(
         _close(got, w, GRAD_TOL)
 
 
+@pytest.mark.parametrize("causal,window,sq,sk,hq,hkv,hd", [
+    (True, None, 70, 70, 4, 1, 16),     # causal, rep 4
+    (True, 20, 60, 90, 4, 4, 32),       # a window, end-aligned, rep 1
+    (False, None, 50, 30, 8, 2, 16),    # acausal cross: Sq > Sk, rep 4
+    (False, 12, 40, 40, 4, 4, 8),       # an acausal window, rep 1
+])
+def test_saved_statistics_give_the_reference_gradients(
+        causal, window, sq, sk, hq, hkv, hd):
+    """The forward operator's log-sum-exp (base 2) is numpy's of the
+    reference's scores, and the backward fed with it and with D =
+    rowsum(dO o O) of the operator's output (the arithmetic of the
+    ``"wgmma"`` and ``"simt_tiled"`` kernels) gives ``jax.grad`` of the
+    reference's ``chunked_attention``."""
+    q, k, v, do = _attn_case(1, hq, hkv, sq, sk, hd, seed=3)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse, _ = torch.ops.repro_torch.flash_attn(tq, tk, tv, causal,
+                                                   window, None, None, True)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  np.repeat(k, hq // hkv, axis=1).astype(np.float64))
+    qi = np.arange(sq)[:, None] + sk - sq
+    kj = np.arange(sk)[None]
+    vis = np.ones((sq, sk), dtype=bool)
+    if causal:
+        vis &= kj <= qi
+    if window is not None:
+        vis &= qi - kj < window
+    s = np.where(vis, s * hd ** -0.5, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    want_lse = (m[..., 0] + np.log(np.exp(s - m).sum(axis=-1))) / np.log(2)
+    _close(lse, want_lse, GRAD_TOL)
+
+    def attend(q, k, v):
+        return jattention.chunked_attention(q, k, v, causal=causal,
+                                            window=window, chunk_q=512)
+
+    _close(out, attend(q, k, v), GRAD_TOL)
+    want = jax.grad(lambda *x: jnp.sum(attend(*x) * do),
+                    argnums=(0, 1, 2))(q, k, v)
+    got = attn_ref.attention_bwd_ref(tq, tk, tv, tdo, causal=causal,
+                                     window=window, lse=lse,
+                                     dsum=(tdo * out).sum(-1))
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,window,sq,sk,hq,hkv,hd", [
+    (True, None, 70, 70, 4, 1, 16),     # causal, rep 4
+    (True, 20, 60, 90, 4, 4, 32),       # a window, end-aligned, rep 1
+    (False, None, 50, 30, 8, 2, 16),    # acausal cross: Sq > Sk, rep 4
+])
+def test_rounding_residual_restores_the_fp32_output_and_its_d(
+        causal, window, sq, sk, hq, hkv, hd):
+    """With bf16 operands the forward operator's ``out_lo`` is the rounding
+    residual of its bf16 output: ``out + out_lo`` is the reference's fp32
+    output (``chunked_attention`` on the same bf16 values) to 16 bits,
+    where ``out`` alone is a bf16 step off, and D = rowsum(dO o (out +
+    out_lo)), the ``"wgmma"`` backward's, is the reference's rowsum(dO o O)
+    at GRAD_TOL."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _attn_case(1, hq, hkv, sq, sk, hd, seed=5))
+    out, lse, lo = torch.ops.repro_torch.flash_attn(q, k, v, causal, window,
+                                                    None, None, True)
+    assert lo.shape == out.shape and lo.dtype == torch.bfloat16
+    assert lse.shape == (1, hq, sq)
+    want = np.asarray(jattention.chunked_attention(
+        *(t.float().numpy() for t in (q, k, v)), causal=causal,
+        window=window, chunk_q=512), dtype=np.float64)
+    full = out.double() + lo.double()
+    top = np.abs(want).max()
+    err_full = float(np.abs(full.numpy() - want).max())
+    err_out = float(np.abs(out.double().numpy() - want).max())
+    assert err_full <= 2.0 ** -16 * top < err_out
+    _close((do.float() * (out.float() + lo.float())).sum(-1),
+           (do.double().numpy() * want).sum(-1), GRAD_TOL)
+
+
 @pytest.mark.parametrize("causal,window,chunk", [
     (True, None, 7), (True, 5, 7), (True, 16, 64), (False, 9, 10),
     (False, None, 64)])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's decode attention, sparse SGD epoch and
-full-batch gradients of one checkout, for comparisons between two
-checkouts on one card.
+"""Time the PyTorch/CUDA port's decode attention, prefill attention, the
+attention backward, sparse SGD epoch and full-batch gradients of one
+checkout, for comparisons between two checkouts on one card.
 
     python3 tools/port_ab.py [--root DIR] [--label NAME] [--only A,B]
 
@@ -9,7 +9,8 @@ Imports ``repro_torch`` from ``DIR/src`` (default: the checkout this script
 lies in), so the same script times a parent commit unpacked beside this
 one and this one, each in a process of its own; run them in turns (A, B,
 B, A) inside one chip call.  Needs one card.  ``--only`` runs the named
-sections alone (``decode,sgd_sparse,grad,lm``; all but ``lm`` by default).
+sections alone (``decode,prefill,backward,sgd_sparse,grad,lm``;
+``decode``, ``sgd_sparse`` and ``grad`` by default).
 Prints one JSON line:
 
 * ``decode``: ``flash_attention`` at h2o-danube-1.8b's decode shape (B=4,
@@ -42,7 +43,15 @@ Prints one JSON line:
   slots, 16 new tokens, seed 0; bf16, random weights): the run's ms a
   decode step and tokens/s by the host clock, its ``flash_attn`` launches,
   then 16 ticks on 4 live slots (ms a tick) and the device ms of 4
-  profiled ticks.
+  profiled ticks;
+* ``prefill``: ``flash_attention`` at danube's prefill (B=1, S=8192,
+  window 4096, bf16) on plain tensors and through the operator (inputs
+  that require grad): ms by CUDA events and device ms;
+* ``backward``: the gradient of ``flash_attention`` (``autograd.grad``
+  over one forward's graph, so the backward operator alone runs) at
+  danube's training layer (B=2, S=8192, window 4096, bf16) and at fp32
+  causal 1,024 x 1,024 on danube's heads: ms by CUDA events over 5 calls
+  and device ms by kernel, whatever kernels the checkout's backward runs.
 """
 from __future__ import annotations
 
@@ -136,6 +145,52 @@ def decode_rows(K, ops) -> list[dict]:
             "sdpa_ms": events_ms(lib, 200),
             "sdpa_device_ms": profiler_ms(lib, 200)["device_ms"],
             "sdpa_host_us": host_us(lib), "vs_sdpa_max_abs_err": err})
+    return rows
+
+
+def prefill_rows(K) -> list[dict]:
+    """``flash_attention`` at danube's prefill (B=1, S=8192, window 4096,
+    bf16): plain tensors (the no-grad path), and inputs that require grad
+    (the training path's forward through the operator, which in a checkout
+    whose backward reads the forward's statistics also writes each row's
+    log-sum-exp and the output's rounding residual); ms by CUDA events over
+    20 calls and the profiler's device ms."""
+    shape = (1, 32, 8, 8192, 8192, 80)
+    b, hq, hkv, s, _, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(b, hq, s, hd, device="cuda", generator=g).bfloat16()
+    k = torch.randn(b, hkv, s, hd, device="cuda", generator=g).bfloat16()
+    v = torch.randn(b, hkv, s, hd, device="cuda", generator=g).bfloat16()
+    rows = []
+    for label, grad in (("no_grad", False), ("operator", True)):
+        x = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+        call = lambda: K.flash_attention(  # noqa: E731
+            *x, causal=True, window=4096)
+        rows.append({"shape": list(shape), "path": label,
+                     "ms": events_ms(call, 20), **profiler_ms(call, 20)})
+    return rows
+
+
+def backward_rows(K) -> list[dict]:
+    """The attention backward through autograd at danube's training layer
+    (bf16, B=2, S=8192, window 4096) and at fp32 causal 1,024 x 1,024:
+    ms by CUDA events and device ms by kernel of one backward."""
+    rows = []
+    for shape, dtype, window in (((2, 32, 8, 8192, 80), torch.bfloat16, 4096),
+                                 ((1, 32, 8, 1024, 80), torch.float32, None)):
+        b, hq, hkv, s, hd = shape
+        g = torch.Generator(device="cuda").manual_seed(11)
+        x = [torch.randn(b, h, s, hd, device="cuda", generator=g).to(dtype)
+             .requires_grad_() for h in (hq, hkv, hkv)]
+        do = torch.randn(b, hq, s, hd, device="cuda", generator=g).to(dtype)
+        out = K.flash_attention(*x, causal=True, window=window)
+        call = lambda: torch.autograd.grad(  # noqa: E731
+            out, x, do, retain_graph=True)
+        rows.append({"shape": list(shape), "dtype": str(dtype),
+                     "window": window, "ms": events_ms(call, 5),
+                     **profiler_ms(call, 5)})
+        del x, do, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -263,7 +318,7 @@ def lm_run() -> dict:
     return out
 
 
-SECTIONS = ("decode", "sgd_sparse", "grad", "lm")
+SECTIONS = ("decode", "prefill", "backward", "sgd_sparse", "grad", "lm")
 
 
 def main(argv=None) -> int:
@@ -287,6 +342,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build_all(["flash_attn"] + (
+        ["flash_attn_bwd"] if "backward" in only else []) + (
         ["glm_grad", "glm_sgd_sparse", "glm_sparse"]
         if {"sgd_sparse", "grad"} & set(only) else []))
     build_s = time.perf_counter() - t0
@@ -297,6 +353,10 @@ def main(argv=None) -> int:
            "build_s": build_s}
     if "decode" in only:
         res["decode"] = decode_rows(K, ops)
+    if "prefill" in only:
+        res["prefill"] = prefill_rows(K)
+    if "backward" in only:
+        res["backward"] = backward_rows(K)
     train = []
     if "sgd_sparse" in only:
         res["sgd_sparse"], sparse_train = sparse_rows(K, synthetic, sgd)
