@@ -8,6 +8,7 @@ family) on one NVIDIA card.
     python3 chip_smoke.py --lm-families
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --attn-bwd
+    python3 chip_smoke.py --wide
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
@@ -19,7 +20,10 @@ initial weights.  The third runs only env, build and phase
 families' sync steps and zamba2's decode ticks bit for bit on a one-rank
 NCCL mesh, and the dry run's cells on the production meshes), the fifth
 only env, build, phase ``kernels``' checks of the attention backward and
-phase ``lm_train``'s (d).
+phase ``lm_train``'s (d), the sixth only env, build and the paper profile's
+widest datasets (``run_wide``: phase ``kernels``' checks of glm_sgd's grid
+and glm_sparse's hot kernels, phase ``news``, phase ``study``'s (c) and
+their timing rows).
 
 
 Phases, one JSON line each:
@@ -74,7 +78,13 @@ Phases, one JSON line each:
                calls of glm_grad, glm_sparse, glm_sgd's cluster variant and
                both glm_score kernels at the serving flushes' shapes giving
                the same bits; and that the sparse kernels refuse an index
-               outside [0, d);
+               outside [0, d); ``wide_kernel_checks``: glm_sgd's grid
+               variant from d = 65,537 to news' 1,355,191 (ragged tails,
+               a batch streamed twice, 3 replicas, five calls' bits) and
+               glm_sparse's hot variant at rcv1's and news' widths and past
+               the smem cap (padding spread through the rows, rows of all
+               padding, a feature thrice a row, 3 replicas, an index
+               outside [0, d) refused);
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
                padded ELL) stand-ins, six strategies; launch counts are zeroed
@@ -86,11 +96,14 @@ Phases, one JSON line each:
 5. ``news``    the paper's news at full size (19,996 x 1,355,191, K =
                2,729: a 437 MB padded ELL drawn on the card,
                ``news_dataset``) through ``sgd.run`` under Table 7's
-               ``AsyncLocalSGD(replicas=8 and 64, local_batch=1)`` for 3
-               epochs, launch counts zeroed just before and read just
-               after (glm_sgd_sparse's stream variant); ms per epoch and
-               us per update; then both on the first 1,600 rows through
-               the kernels and through the plain versions, loss for loss;
+               ``AsyncLocalSGD(replicas=8 and 64, local_batch=1)`` and
+               under ``SyncSGD()``, and rcv1 at full size (677,399 x
+               47,236, K = 438, ``rcv1_dataset``) under ``SyncSGD()``, 3
+               epochs each, launch counts zeroed just before each run and
+               read just after (glm_sgd_sparse's stream variant, glm_sparse's
+               hot variant); ms per epoch and us per update; then each on
+               the first 1,600 rows through the kernels and through the
+               plain versions, loss for loss;
 6. ``study``   the paper's study layer (``repro_torch.study`` and the
                drivers in ``repro_torch.benchmarks``): (a) the Table 7,
                Table 4 and Fig. 22 drivers on the ci profile (covtype, w8a,
@@ -105,7 +118,14 @@ Phases, one JSON line each:
                zeroed just before and read just after, each row with ms per
                iteration, epochs and seconds to 1%, best step, final loss
                and launches by family, and Table 4's execution paths and
-               ``speedup_sync_vs_seq`` on each dataset;
+               ``speedup_sync_vs_seq`` on each dataset; (c) the paper
+               profile's rcv1 (``benchmarks.common.load``) and news (drawn
+               on the card), 16,384 rows each, LR and SVM: Table 4's three
+               paths (seq on glm_sgd's cluster and grid variants) and
+               ``SyncSGD()`` at the three steps for 30 epochs (glm_sparse's
+               hot variant), launches by family read around each run, each
+               run held epoch by epoch to the plain versions on its first
+               1,600 rows;
 7. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
                requests under the model phase ``train``'s SyncSGD run ended
                with (max_batch 128, with a swap_model halfway, and 32), and
@@ -169,7 +189,8 @@ Phases, one JSON line each:
                llama-3.2-vision-11b through ``trainer.make_prefill_step``
                at B=2, S=512 (1,600 patches) and 16 ``decode_step``s; (b)
                ``launch.train --batch 1 --seq 1024 --steps 2`` (vlm 2,048,
-               past its 1,600 patches) with SGD, checkpoint writes off; each
+               past its 1,600 patches; xlstm 512) with SGD, checkpoint
+               writes off; each
                with launch counts zeroed just before and read just after;
                (c) each at a cut depth (moe and audio 2 layers, vlm 5,
                hybrid and ssm 8) through the kernels, the plain versions
@@ -234,7 +255,11 @@ Phases, one JSON line each:
                redesign replaced, glm_sparse also at R=10, glm_score's flat
                kernel beside the group kernel at w8a N = 128 and 32,
                real-sim N = 128, all of w8a and news N = 512, flash_attn
-               decode also over a full 4096-key window, and an fp32 call),
+               decode also over a full 4096-key window, and an fp32 call;
+               ``wide_timing``: glm_sgd's grid variant beside the global one
+               at Table 4's news seq epoch and at d = 100,000, glm_sparse's
+               hot variant beside the atomic one at rcv1's and news' full
+               sizes, and at w8a forced),
                with the variant each row ran and its device time
                (profiler, or a CUDA event pair around one call where the
                profiler saw no launch), the decode wrapper's host us per
@@ -308,6 +333,7 @@ REPLACES = {
 KERNEL_SYMBOLS = {
     "glm_sgd": {"warp": ("glm_sgd_warp_kernel",),
                 "cluster": ("glm_sgd_cluster_kernel",),
+                "grid": ("glm_sgd_grid_kernel",),
                 "smem": ("glm_sgd_kernel",),
                 "global": ("glm_sgd_global_kernel",)},
     "glm_grad": {"ring": ("glm_grad_ring_kernel", "glm_grad_reduce_kernel"),
@@ -318,6 +344,7 @@ KERNEL_SYMBOLS = {
                        "stream": ("ell_sgd_stream_kernel",),
                        "global": ("ell_sgd_global_kernel",)},
     "glm_sparse": {"smem": ("ell_grad_smem_kernel", "ell_grad_reduce_kernel"),
+                   "hot": ("ell_grad_hot_kernel", "ell_grad_hot_sum_kernel"),
                    "atomic": ("ell_grad_kernel",)},
     "glm_score": {"flat": ("glm_score_flat_kernel",),
                   "group": ("glm_score_kernel",)},
@@ -693,36 +720,155 @@ def _wide_ell_inputs(n, d, k, dev, seed):
     return v, i, w
 
 
-#: the paper's news (Table 3) at full size; K is paper_dataset's pad width
+#: the paper's news and rcv1 (Table 3) at full size; K is paper_dataset's
+#: pad width (``data/synthetic.py:paper_dataset``: min(max_nnz, 6 x avg))
 NEWS = dict(n=19_996, d=1_355_191, avg_nnz=454.99, k=2_729)
+RCV1 = dict(n=677_399, d=47_236, avg_nnz=73.16, k=438)
+#: rows of the paper profile's datasets (``benchmarks/common.py``)
+PAPER_ROWS = 16_384
 
 
-def news_dataset(dev, seed: int = 0):
-    """news at full size as a padded-ELL ``(ELLMatrix, y)`` drawn on the
-    card with ``synthetic.make_sparse``'s profile: log-normal row lengths
-    around 455 nonzeros clipped to [1, 2,729], Zipfian feature popularity
-    (an inverse-CDF draw over 1/rank), N(0, 1) values, value-0 padding at
-    index 0, and labels planted by w* ~ N(0, 1/rank) with 5% flipped.
+def wide_dataset(dev, n: int, d: int, avg_nnz: float, k: int,
+                 seed: int = 0):
+    """A padded-ELL ``(ELLMatrix, y)`` of ``n`` rows drawn on the card with
+    ``synthetic.make_sparse``'s profile: log-normal row lengths around
+    ``avg_nnz`` nonzeros clipped to [1, k], Zipfian feature popularity over
+    d (an inverse-CDF draw over 1/rank), N(0, 1) values, value-0 padding
+    at index 0, and labels planted by w* ~ N(0, 1/rank) with 5% flipped.
     ``make_sparse`` draws row by row on the host, which takes hours at
-    this width; here a feature may repeat within a row."""
+    news's width; here a feature may repeat within a row.  Rows are drawn
+    in blocks, so the float64 draws stay small."""
     from repro_torch.core import sparse
 
-    n, d, k = NEWS["n"], NEWS["d"], NEWS["k"]
     g = torch.Generator(device=dev).manual_seed(seed)
-    nnz = torch.exp(np.log(NEWS["avg_nnz"]) + 0.8 * torch.randn(
+    nnz = torch.exp(np.log(avg_nnz) + 0.8 * torch.randn(
         n, 1, device=dev, generator=g)).clamp(1, k).long()
     live = torch.arange(k, device=dev)[None] < nnz
     ranks = torch.arange(1, d + 1, device=dev, dtype=torch.float64)
     cdf = torch.cumsum(1.0 / ranks, 0)
     cdf /= cdf[-1].clone()
-    u = torch.rand(n, k, device=dev, generator=g, dtype=torch.float64)
-    idx = torch.searchsorted(cdf, u).clamp_(max=d - 1).to(torch.int32) * live
-    del u
+    idx = torch.empty(n, k, device=dev, dtype=torch.int32)
+    for r0 in range(0, n, 65_536):
+        u = torch.rand(min(65_536, n - r0), k, device=dev, generator=g,
+                       dtype=torch.float64)
+        idx[r0:r0 + len(u)] = torch.searchsorted(cdf, u).clamp_(max=d - 1)
+        del u
+    idx *= live
     vals = torch.randn(n, k, device=dev, generator=g) * live
+    del live
     w_star = torch.randn(d, device=dev, generator=g) / ranks.sqrt().float()
-    y = torch.where((vals * w_star[idx.long()]).sum(1) >= 0, 1.0, -1.0)
+    y = torch.cat([torch.where((vals[r0:r0 + 65_536] * w_star[
+        idx[r0:r0 + 65_536].long()]).sum(1) >= 0, 1.0, -1.0)
+        for r0 in range(0, n, 65_536)])
     y[torch.rand(n, device=dev, generator=g) < 0.05] *= -1.0
     return sparse.ELLMatrix(vals, idx, d), y
+
+
+def news_dataset(dev, seed: int = 0, n: int = NEWS["n"]):
+    """news (full size unless ``n`` cuts it) drawn on the card
+    (``wide_dataset``)."""
+    return wide_dataset(dev, n, NEWS["d"], NEWS["avg_nnz"], NEWS["k"], seed)
+
+
+def rcv1_dataset(dev, seed: int = 0):
+    """rcv1 at full size drawn on the card (``wide_dataset``)."""
+    return wide_dataset(dev, RCV1["n"], RCV1["d"], RCV1["avg_nnz"],
+                        RCV1["k"], seed)
+
+
+#: glm_sgd's grid kernel cases of ``wide_kernel_checks``: (d, micro-batch,
+#: rows, replicas); ragged tails at 16, 3 and 64, a batch past a fill (64:
+#: streamed twice), three replicas, news's width
+GRID_CASES = ((65_537, 1, 300, 1), (100_000, 1, 203, 1), (100_000, 16, 150, 3),
+              (140_000, 3, 101, 1), (100_000, 64, 130, 1),
+              (1_355_191, 1, 64, 1), (1_355_191, 10, 45, 1))
+#: glm_sparse's hot kernel cases: (label, d, K, rows, replicas)
+SPARSE_HOT_CASES = (("rcv1 width", 47_236, 438, 2_003, 1),
+                        ("rcv1 width R=3", 47_236, 438, 700, 3),
+                        ("news width", 1_355_191, 2_729, 500, 1),
+                        ("d=100,000", 100_000, 200, 1_500, 1),
+                        ("d=300,000", 300_000, 600, 1_500, 1),
+                        ("one past the smem cap", 29_025, 69, 2_003, 1))
+
+
+def wide_kernel_checks(dev) -> tuple[list[dict], dict]:
+    """glm_sgd's grid kernel and glm_sparse's hot kernel against their
+    plain versions on the card, LR and SVM (whose margins past 1 give pulls
+    of 0): the grid kernel at GRID_CASES and five calls' bits at news's
+    width; the hot kernel at SPARSE_HOT_CASES, as drawn, with the
+    padding spread through each row, with every 7th row all padding and
+    with one feature three times in every row, and the refusal of an index
+    outside [0, d).
+    Returns the cases and the worst error by family."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+    from repro_torch.kernels.glm_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
+
+    cases, worst = [], {"glm_sgd": 0.0, "glm_sparse": 0.0}
+
+    def record(kernel, label, out, ref, tol):
+        err, ok = close(out, ref, tol)
+        cases.append({"kernel": kernel, "case": label, "max_abs_err": err,
+                      "tol": tol, "ok": ok})
+        worst[kernel] = max(worst[kernel], err)
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    for d, mb, n, reps in GRID_CASES:
+        X = torch.randn(reps, n, d, device=dev, generator=g)
+        y = torch.where(torch.rand(reps, n, device=dev, generator=g) < 0.5,
+                        -1.0, 1.0)
+        W = torch.randn(reps, d, device=dev, generator=g) * 0.1
+        kind = sgd_ops.variant(d, mb, reps)
+        for task in ("lr", "svm"):
+            record("glm_sgd", f"{task} d={d} mb={mb} R={reps} per={n} {kind}",
+                   K.glm_sgd_epoch(task, W, X, y, step=1.0 / d,
+                                   micro_batch=mb),
+                   glm_sgd_epoch_ref(task, W, X, y, 1.0 / d, mb), EPOCH_TOL)
+        if (d, mb) == (1_355_191, 1):
+            cases.append({"kernel": "glm_sgd",
+                          "case": f"news width N={n} mb=1 {kind}: five calls "
+                                  "give the same bits",
+                          "ok": same_bits(lambda: K.glm_sgd_epoch(
+                              "lr", W, X, y, step=1.0 / d, micro_batch=1))})
+        del X
+    for label, d, k, n, reps in SPARSE_HOT_CASES:
+        v, i, w = _wide_ell_inputs(n * reps, d, k, dev, seed=k)
+        y = torch.where(torch.arange(n * reps, device=dev) % 3 == 0, -1.0, 1.0)
+        W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
+        kind = sparse_ops.variant(d, k, reps)
+        for edge in ("", "padding spread", "rows of all padding",
+                     "a feature thrice a row"):
+            ve, ie = v.clone(), i.clone()
+            if edge == "padding spread":
+                cols = torch.randperm(k, device=dev, generator=g)
+                ve, ie = ve[:, cols].contiguous(), ie[:, cols].contiguous()
+            elif edge == "rows of all padding":
+                ve[::7], ie[::7] = 0.0, 0
+            elif edge:
+                ve[:, -3:], ie[:, -3:] = 1.0, 5
+            vr, ir, yr = (ve.reshape(reps, n, k), ie.reshape(reps, n, k),
+                          y.reshape(reps, n))
+            for task in ("lr", "svm"):
+                record("glm_sparse", f"{task} {label} n={n} d={d} K={k} "
+                       f"R={reps} {edge or 'as drawn'} {kind}",
+                       K.ell_glm_grad(task, W, vr, ir, yr),
+                       ell_glm_grad_ref(task, W, vr, ir, yr), GRAD_TOL)
+        if label == "rcv1 width":
+            for j in (-1, d):
+                bad = ie.clone()
+                bad[5, 0] = j
+                try:
+                    K.ell_glm_grad("lr", w, ve, bad, y)
+                    refused = False
+                except ValueError:
+                    refused = True
+                cases.append({"kernel": "glm_sparse",
+                              "case": f"index {j} with d={d} refused ({kind})",
+                              "ok": refused})
+    torch.cuda.synchronize()
+    return cases, worst
 
 
 def phase_kernels(dev) -> tuple[dict, dict]:
@@ -1019,6 +1165,12 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                                                             causal=False))})
     bwd_cases, worst["flash_attn_bwd"] = _attention_backward_checks(dev)
     cases += bwd_cases
+    # the redesigns past the shapes above: glm_sgd's grid kernel and
+    # glm_sparse's hot kernel
+    wide_cases, wide_worst = wide_kernel_checks(dev)
+    cases += wide_cases
+    for name, err in wide_worst.items():
+        worst[name] = max(worst.get(name, 0.0), err)
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
     for name, call in (
@@ -1277,65 +1429,79 @@ NEWS_REPLICAS = (8, 64)
 #: the step of the news runs, and the rows the plain versions rerun them on
 NEWS_STEP = 0.01
 NEWS_CUT = 1_600
+#: SyncSGD()'s full-batch step on news and rcv1, over N (it multiplies the
+#: sum gradient): under 4 / lambda_max(X^T X) / N of the Zipfian draws,
+#: whose hottest feature holds about 31 entries of a news row (rcv1: 6.5)
+NEWS_SYNC_STEP = 0.05
 
 
-def phase_news(news, epochs: int) -> tuple[dict, int]:
+def phase_news(news, rcv1, epochs: int) -> tuple[dict, dict]:
     """news at full size through ``sgd.run`` under Table 7's two async
     configurations (glm_sgd_sparse's stream variant: the model is 5.4 MB a
-    replica), launch counts zeroed just before and read just after; then
-    both runs on the first NEWS_CUT rows through the kernels and through
+    replica) and under ``SyncSGD()`` (glm_sparse's full-batch gradient),
+    and rcv1 at full size (677,399 x 47,236, K = 438) under ``SyncSGD()``,
+    launch counts zeroed just before each run and read just after; then
+    every run on the first NEWS_CUT rows through the kernels and through
     the plain versions on the card, loss for loss.  Returns the phase line
-    and glm_sgd_sparse's launches."""
+    and the launches by kernels-line name."""
     from repro_torch.core import sgd, sparse
     from repro_torch.kernels import common
     from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
 
-    m, y = news
-    n, k = m.values.shape
-
-    def strategy(replicas):
-        return sgd.AsyncLocalSGD(replicas=replicas, local_batch=1)
-
-    runs = []
-    common.reset_launches()
-    for replicas in NEWS_REPLICAS:
+    configs = [("news", news, sgd.AsyncLocalSGD(replicas=r, local_batch=1))
+               for r in NEWS_REPLICAS]
+    configs += [("news", news, sgd.SyncSGD()), ("rcv1", rcv1, sgd.SyncSGD())]
+    runs, launches = [], {"glm_sgd_sparse_stream": 0, "glm_sparse_hot": 0}
+    for label, (m, y), strat in configs:
+        n, k = m.values.shape
+        sync = isinstance(strat, sgd.SyncSGD)
+        step = NEWS_SYNC_STEP / n if sync else NEWS_STEP
+        fam, kind = (("glm_sparse", sparse_grad_ops.variant(m.d, k, 1)) if sync
+                     else ("glm_sgd_sparse", sparse_ops.variant(m.d, k, 1)))
+        common.reset_launches()
         t0 = time.perf_counter()
-        res = sgd.run(("lr", m, y, NEWS_STEP), strategy(replicas), epochs,
-                      sparse_data=True)
-        updates = n // replicas  # each replica's chain of updates an epoch
-        runs.append({"strategy": res.strategy, "replicas": replicas,
+        res = sgd.run(("lr", m, y, step), strat, epochs, sparse_data=True)
+        count = common.LAUNCHES[fam]
+        launches[f"{fam}_{kind}"] = launches.get(f"{fam}_{kind}", 0) + count
+        updates = 1 if sync else n // strat.replicas
+        runs.append({"data": label, "shape": [n, m.d, k],
+                     "strategy": res.strategy, "step": step,
+                     "variant": f"{fam} {kind}", "launches": count,
                      "updates_per_epoch": updates,
                      "ms_per_epoch": res.time_per_epoch * 1e3,
                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
-                     "us_per_update": res.time_per_epoch * 1e6 / updates,
+                     "us_per_update": None if sync else
+                     res.time_per_epoch * 1e6 / updates,
                      "losses": res.losses.tolist(),
                      "falling": falling(res.losses),
                      "wall_s": time.perf_counter() - t0})
-    launches = dict(common.LAUNCHES)
-    variant = sparse_ops.variant(m.d, k, 1)
-    cut = (sparse.ELLMatrix(m.values[:NEWS_CUT], m.indices[:NEWS_CUT], m.d),
-           y[:NEWS_CUT])
     parity = []
-    for replicas in NEWS_REPLICAS:
-        problem = ("lr", *cut, NEWS_STEP)
-        kern = sgd.run(problem, strategy(replicas), epochs, sparse_data=True)
+    for (label, (m, y), strat), r in zip(configs, runs):
+        cut = (sparse.ELLMatrix(m.values[:NEWS_CUT], m.indices[:NEWS_CUT], m.d),
+               y[:NEWS_CUT])
+        problem = ("lr", *cut, r["step"])
+        kern = sgd.run(problem, strat, epochs, sparse_data=True)
         with common.plain_versions():
-            plain = sgd.run(problem, strategy(replicas), epochs,
-                            sparse_data=True)
+            plain = sgd.run(problem, strat, epochs, sparse_data=True)
         err, ok = close(torch.from_numpy(kern.losses),
                         torch.from_numpy(plain.losses), LOSS_TOL)
-        parity.append({"strategy": kern.strategy, "rows": NEWS_CUT,
+        parity.append({"data": label, "strategy": kern.strategy,
+                       "rows": NEWS_CUT,
                        "kernel_losses": kern.losses.tolist(),
                        "plain_losses": plain.losses.tolist(),
                        "max_abs_err": err, "ok": ok})
     ok = (all(r["falling"] for r in runs) and all(p["ok"] for p in parity)
-          and variant == "stream"
-          and launches["glm_sgd_sparse"] == len(NEWS_REPLICAS) * epochs)
-    return {"phase": "news", "shape": [n, m.d, k],
-            "ell_mb": nbytes(m.values, m.indices) / 1e6, "epochs": epochs,
-            "step": NEWS_STEP, "runs": runs, "launches": launches,
-            "glm_sgd_sparse_variant": variant, "parity_cut": NEWS_CUT,
-            "parity": parity, "ok": ok}, launches["glm_sgd_sparse"]
+          and [r["variant"] for r in runs] == [
+              "glm_sgd_sparse stream"] * len(NEWS_REPLICAS)
+          + ["glm_sparse hot"] * 2
+          and all(r["launches"] == epochs for r in runs))
+    return {"phase": "news", "news_shape": list(news[0].values.shape),
+            "rcv1_shape": list(rcv1[0].values.shape),
+            "ell_mb": {"news": nbytes(news[0].values, news[0].indices) / 1e6,
+                       "rcv1": nbytes(rcv1[0].values, rcv1[0].indices) / 1e6},
+            "epochs": epochs, "runs": runs, "launches": launches,
+            "parity_cut": NEWS_CUT, "parity": parity, "ok": ok}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1351,24 +1517,29 @@ STUDY_STEPS = (1e-3, 1e-2, 1e-1)
 STUDY_EPOCHS = 12
 
 
-def _study_drivers(dev, plain: bool) -> tuple[dict, dict, float]:
-    """The ci profile's drivers on a fresh runner (no trial cache) with a
-    store that records every trial; returns the rows by driver, the
-    store's trials and the wall seconds."""
+def _study_drivers(dev, plain: bool) -> tuple[dict, dict, dict]:
+    """The ci profile's drivers on a fresh runner with a store that records
+    every trial and a trial cache of the pass's own, empty at its start (as
+    the drivers run with one: Fig. 22's trials are Table 7's and Table 4's,
+    so they run once a pass); returns the rows by driver, the store's
+    trials and the wall seconds by driver."""
     from repro_torch.benchmarks import common as bcommon
     from repro_torch.kernels import common
     from repro_torch.study.runner import Runner
     from repro_torch.study.store import StudyStore
 
     store = StudyStore()            # never written: held in memory
-    bcommon.RUNNER = Runner(cache_dir=None, store=store, device=dev)
-    t0 = time.perf_counter()
-    with common.plain_versions() if plain else contextlib.nullcontext():
-        rows = {name: importlib.import_module(
-            f"repro_torch.benchmarks.{name}").run("ci")
-            for name in STUDY_DRIVERS}
-    torch.cuda.synchronize()
-    return rows, store.trials, time.perf_counter() - t0
+    rows, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="study-cache-") as cache, \
+            common.plain_versions() if plain else contextlib.nullcontext():
+        bcommon.RUNNER = Runner(cache_dir=cache, store=store, device=dev)
+        for name in STUDY_DRIVERS:
+            t0 = time.perf_counter()
+            rows[name] = importlib.import_module(
+                f"repro_torch.benchmarks.{name}").run("ci")
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    return rows, store.trials, seconds
 
 
 def _fell(losses) -> bool:
@@ -1401,8 +1572,165 @@ def _study_variants(ds) -> dict[str, str]:
 STUDY_LINE = {("glm_grad", "ring"): "glm_grad_ring",
               ("glm_sgd", "warp"): "glm_sgd",
               ("glm_sgd", "cluster"): "glm_sgd_cluster",
+              ("glm_sgd", "grid"): "glm_sgd_grid",
               ("glm_sgd_sparse", "warp"): "glm_sgd_sparse_warp",
-              ("glm_sparse", "smem"): "glm_sparse_smem"}
+              ("glm_sparse", "smem"): "glm_sparse_smem",
+              ("glm_sparse", "hot"): "glm_sparse_hot"}
+#: the lines (b) launches: covtype, w8a and real-sim
+STUDY_FULL_LINES = {"glm_grad_ring", "glm_sgd", "glm_sgd_cluster",
+                    "glm_sgd_sparse_warp", "glm_sparse_smem"}
+#: (c): the paper profile's datasets that no other phase runs through the
+#: study (``benchmarks/common.py`` PROFILES["paper"]), and the variants
+#: their paths take: Table 4's seq epoch and SyncSGD()'s gradient
+STUDY_PAPER = {"rcv1": {"glm_sgd_seq": "cluster", "glm_sparse": "hot"},
+               "news": {"glm_sgd_seq": "grid", "glm_sparse": "hot"}}
+
+
+def _final(res) -> float:
+    """A run's final loss, inf where it is not finite."""
+    last = float(res.losses[-1])
+    return last if np.isfinite(last) else float("inf")
+
+
+def _count(into: dict, line: str, n: int) -> None:
+    into[line] = into.get(line, 0) + n
+
+
+def _table4_paths(table4_sync, ds, task: str) -> dict:
+    """Table 4's execution paths on ``ds`` (the driver's ``_sync_paths`` at
+    its step 1e-3), with whether the composition path's 3 steps stayed
+    finite: its exp(-margin) / (1 + exp(-margin)) is inf / inf once a
+    margin passes -88, which the driver's step reaches at full size."""
+    from repro_torch.core import glm
+
+    t = table4_sync._sync_paths(ds, task, 1e-3)
+    X, y = table4_sync.dense_operands(ds)
+    wc = torch.zeros(X.shape[1], device=X.device)
+    for _ in range(3):
+        wc = wc - 1e-3 * glm.grad_primitive_composition(task, wc, X, y)
+    rows = X.shape[0]
+    del X, y
+    return {"rows_timed": rows, "t_iter_sync_ms": t["sync"] * 1e3,
+            "t_iter_comp_ms": t["sync-comp"] * 1e3,
+            "t_iter_seq_ms": t["seq"] * 1e3,
+            "speedup_fused_vs_comp": t["sync-comp"] / t["sync"],
+            "speedup_sync_vs_seq": t["seq"] / t["sync"],
+            "paths_statistically_identical": t["_path_equiv"],
+            "composition_finite": bool(torch.isfinite(wc).all())}
+
+
+def _held_epochs(problem, epochs: int) -> tuple[float, bool]:
+    """A ``SyncSGD()`` run of ``problem`` (sparse) held epoch by epoch: each
+    epoch through the kernels and through the plain versions from the same
+    model (the kernels' run so far), their losses within LOSS_TOL.  At the
+    tuner's larger steps the full-batch runs diverge to losses in the
+    millions, where a margin's last bit, summed in another order, compounds
+    from epoch to epoch; from the same model each epoch's error shows where
+    it arises.  Returns the largest difference and whether all held."""
+    from repro_torch.core import sgd
+    from repro_torch.kernels import common
+
+    state, epoch_fn, loss_fn, _ = sgd.make_epoch_fn(
+        problem, sgd.SyncSGD(), sparse_data=True)
+    kern, plain = [], []
+    for _ in range(epochs):
+        with common.plain_versions():
+            plain.append(float(loss_fn(epoch_fn(state))))
+        state = epoch_fn(state)
+        kern.append(float(loss_fn(state)))
+    return close(torch.tensor(kern), torch.tensor(plain), LOSS_TOL)
+
+
+def _study_paper(dev) -> tuple[dict, dict]:
+    """(c): rcv1 (the study's own loader, ``benchmarks.common.load("rcv1",
+    "paper")``: 16,384 rows, d = 47,236, pad 438) and news (16,384 rows
+    drawn on the card, ``news_dataset``: ``make_sparse`` takes hours at
+    its width), LR and SVM: Table 4's three paths (fused, comp, seq), then
+    ``sgd.run`` under ``SyncSGD()`` at each of the tuner's steps for the
+    profile's 30 epochs, launch counts zeroed just before each run and read
+    just after; every SyncSGD() run again on the first NEWS_CUT rows, held
+    loss for loss to the plain versions epoch by epoch (``_held_epochs``).
+    Returns the part's line and its launches by kernels-line name."""
+    from repro_torch.benchmarks import common as bcommon
+    from repro_torch.benchmarks import table4_sync
+    from repro_torch.core import convergence, sgd, sparse
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.kernels import common
+    from repro_torch.study.runner import Runner
+
+    profile = bcommon.PROFILES["paper"]
+    bcommon.RUNNER = Runner(cache_dir=None, device=dev)
+    t0 = time.perf_counter()
+    rcv1 = bcommon.load("rcv1", "paper")
+    torch.cuda.synchronize()
+    seconds = {"rcv1": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    m, y = news_dataset(dev, n=profile["max_n"])
+    news = Dataset("news", None, m, y, m.d, dense=False)
+    torch.cuda.synchronize()
+    seconds["news"] = time.perf_counter() - t0
+    rows, launches = [], {}
+    for ds in (rcv1, news):
+        variants = _study_variants(ds)
+        k = ds.ell.max_nnz
+        for task in bcommon.TASKS:
+            common.reset_launches()
+            paths = _table4_paths(table4_sync, ds, task)
+            t4 = {f: common.LAUNCHES[f] for f in TRAIN_KERNELS}
+            _count(launches, STUDY_LINE[("glm_sgd", variants["glm_sgd_seq"])],
+                   t4["glm_sgd"])
+            cut = (sparse.ELLMatrix(ds.ell.values[:NEWS_CUT],
+                                    ds.ell.indices[:NEWS_CUT], ds.d),
+                   ds.y[:NEWS_CUT])
+            sync_runs = []
+            for step in STUDY_STEPS:
+                common.reset_launches()
+                res = sgd.run((task, ds.ell, ds.y, step), sgd.SyncSGD(),
+                              profile["epochs"], sparse_data=True)
+                counts = {f: common.LAUNCHES[f] for f in TRAIN_KERNELS}
+                _count(launches,
+                       STUDY_LINE[("glm_sparse", variants["glm_sparse"])],
+                       counts["glm_sparse"])
+                err, held = _held_epochs((task, *cut, step),
+                                         profile["epochs"])
+                sync_runs.append((step, res, counts, err, held))
+            target = convergence.thresholds(convergence.optimal_loss(
+                r for _, r, _, _, _ in sync_runs), (0.01,))[0.01]
+            # the tuner's pick: the lowest final loss
+            best = min(sync_runs, key=lambda r: _final(r[1]))
+            rows.append({
+                "dataset": ds.name, "task": task, "n": ds.n, "d": ds.d,
+                "k": k, "variants": variants, "table4": paths,
+                "table4_launches": t4,
+                "sync": [{"step": step, "ms_per_epoch":
+                          res.time_per_epoch * 1e3,
+                          "final_loss": float(res.losses[-1]),
+                          "finite": bool(np.isfinite(res.losses).all()),
+                          "epochs_to_1pct": res.epochs_to(target),
+                          "launches": counts, "cut_max_abs_err": err,
+                          "cut_held": held}
+                         for step, res, counts, err, held in sync_runs],
+                "best_step": best[0],
+                "iters_to_1pct": best[1].epochs_to(target),
+                "time_to_1pct_s": best[1].time_to(target)})
+    ok = all(
+        r["variants"]["glm_sgd_seq"] == STUDY_PAPER[r["dataset"]]["glm_sgd_seq"]
+        and r["variants"]["glm_sparse"] == STUDY_PAPER[r["dataset"]][
+            "glm_sparse"]
+        and r["table4_launches"]["glm_sgd"] > 0
+        and r["table4"]["speedup_sync_vs_seq"] >= 1.0
+        and (r["table4"]["paths_statistically_identical"]
+             or not r["table4"]["composition_finite"])
+        and all(s["finite"] and s["cut_held"]
+                and s["launches"]["glm_sparse"] == profile["epochs"]
+                for s in r["sync"])
+        for r in rows)
+    return {"profile": "paper", "datasets": {
+        ds.name: {"n": ds.n, "d": ds.d, "k": ds.ell.max_nnz,
+                  "seconds": seconds[ds.name]} for ds in (rcv1, news)},
+        "steps": list(STUDY_STEPS), "epochs": profile["epochs"],
+        "parity_cut": NEWS_CUT, "tol": LOSS_TOL, "rows": rows,
+        "launches": launches, "ok": ok}, launches
 
 
 def phase_study(dev) -> tuple[dict, dict]:
@@ -1414,10 +1742,11 @@ def phase_study(dev) -> tuple[dict, dict]:
     through ``tuner.tune_many``: Table 7's four configurations and
     ``SyncSGD()`` (LR, the ci grid, 12 epochs), each row with its
     launches by family; Table 4's execution paths on each dataset.
-    Launch counts are zeroed just before (b) and read just after.  Returns
-    the phase line and (b)'s launches by kernel-line name."""
+    Launch counts are zeroed just before (b) and read just after.  (c) the
+    paper profile's rcv1 and news (``_study_paper``).  Returns the phase
+    line and (b)'s and (c)'s launches by kernel-line name."""
     from repro_torch.benchmarks import table4_sync, table7_async
-    from repro_torch.core import convergence, glm, sgd
+    from repro_torch.core import convergence, sgd
     from repro_torch.kernels import common
     from repro_torch.study import claims, tuner
     from repro_torch.study.runner import Runner
@@ -1449,7 +1778,8 @@ def phase_study(dev) -> tuple[dict, dict]:
           "same_trials": sorted(kern_trials) == sorted(plain_trials),
           "tol": LOSS_TOL, "max_abs_err": worst, "losses_held": held,
           "rows_mismatched": mismatched, "claims": verdicts,
-          "launches": ci_launches, "kernels_s": kern_s, "plain_s": plain_s,
+          "launches": ci_launches, "kernels_s": sum(kern_s.values()),
+          "plain_s": sum(plain_s.values()), "plain_s_by_driver": plain_s,
           "rows": kern_rows}
     ci["ok"] = bool(held and ci["same_trials"] and not mismatched
                     and not verdicts["kernels"] and not verdicts["plain"]
@@ -1505,31 +1835,13 @@ def phase_study(dev) -> tuple[dict, dict]:
         # Table 4's execution paths at this size (seq: the glm_sgd kernel
         # at micro-batch 1 on one replica)
         before = common.LAUNCHES["glm_sgd"]
-        t = table4_sync._sync_paths(ds, "lr", 1e-3)
+        paths = _table4_paths(table4_sync, ds, "lr")
         seq = common.LAUNCHES["glm_sgd"] - before
-        # whether the composition path's 3 steps stayed finite: its
-        # exp(-margin) / (1 + exp(-margin)) is inf / inf once a margin
-        # passes -88, which the driver's step reaches at full size
-        X, y = table4_sync.dense_operands(ds)
-        wc = torch.zeros(X.shape[1], device=X.device)
-        for _ in range(3):
-            wc = wc - 1e-3 * glm.grad_primitive_composition("lr", wc, X, y)
-        del X, y
-        line = STUDY_LINE[("glm_sgd", variants["glm_sgd_seq"])]
-        study_launches[line] = study_launches.get(line, 0) + seq
-        table4.append({
-            "dataset": name, "task": "lr", "n": ds.n,
-            "rows_timed": (ds.n if ds.dense
-                           or ds.n * ds.d <= table4_sync.DENSE_CAP
-                           else table4_sync.DENSE_CAP_ROWS),
-            "t_iter_sync_ms": t["sync"] * 1e3,
-            "t_iter_comp_ms": t["sync-comp"] * 1e3,
-            "t_iter_seq_ms": t["seq"] * 1e3,
-            "speedup_fused_vs_comp": t["sync-comp"] / t["sync"],
-            "speedup_sync_vs_seq": t["seq"] / t["sync"],
-            "paths_statistically_identical": t["_path_equiv"],
-            "composition_finite": bool(torch.isfinite(wc).all()),
-            "seq_variant": variants["glm_sgd_seq"], "seq_launches": seq})
+        _count(study_launches,
+               STUDY_LINE[("glm_sgd", variants["glm_sgd_seq"])], seq)
+        table4.append({"dataset": name, "task": "lr", "n": ds.n, **paths,
+                       "seq_variant": variants["glm_sgd_seq"],
+                       "seq_launches": seq})
     launches = dict(common.LAUNCHES)
     full = {"datasets": data, "steps": list(STUDY_STEPS),
             "epochs": STUDY_EPOCHS, "rows": rows, "table4": table4,
@@ -1543,14 +1855,18 @@ def phase_study(dev) -> tuple[dict, dict]:
     # identical wherever the composition stayed finite
     full["ok"] = bool(
         all(launches[k] > 0 for k in TRAIN_KERNELS)
-        and set(study_launches) == set(STUDY_LINE.values())
+        and set(study_launches) == STUDY_FULL_LINES
         and all(r["finite"] for r in rows)
         and all(r["fell"] for r in rows if r["config"] != "sync")
         and all(r["speedup_sync_vs_seq"] >= 1.0 and (
             r["paths_statistically_identical"] or not r["composition_finite"])
             for r in table4))
-    return {"phase": "study", "ci": ci, "full": full,
-            "ok": ci["ok"] and full["ok"]}, study_launches
+    del runner, data
+    paper, paper_launches = _study_paper(dev)
+    for line, n in paper_launches.items():
+        _count(study_launches, line, n)
+    return {"phase": "study", "ci": ci, "full": full, "paper": paper,
+            "ok": ci["ok"] and full["ok"] and paper["ok"]}, study_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3062,9 +3378,11 @@ FAMILY_ARGV = ["--requests", "8", "--slots", "4", "--max-new", "16",
 FAMILY_PREFILL = (2, 512)
 FAMILY_DECODE_STEPS = 16
 #: the training runs: sequence length per architecture (vlm past its 1,600
-#: patches, so its cross-attention runs Sq 2,048 > Sk 1,600), batch 1
+#: patches, so its cross-attention runs Sq 2,048 > Sk 1,600; xlstm at 512,
+#: since its sLSTM steps through time in a host loop: 46-60 s of the run at
+#: 1,024), batch 1
 FAMILY_TRAIN_SEQ = {"olmoe-1b-7b": 1024, "zamba2-1.2b": 1024,
-                    "xlstm-1.3b": 1024, "musicgen-large": 1024,
+                    "xlstm-1.3b": 512, "musicgen-large": 1024,
                     "llama-3.2-vision-11b": 2048}
 FAMILY_TRAIN_STEPS = 2
 #: SGD's rate: xlstm-1.3b's gradient at its initial weights is too large
@@ -4801,51 +5119,9 @@ def phase_sweep(dev, scratch: Path) -> dict:
     return line
 
 
-def phase_timing(covtype, w8a, news, realsim, worst: dict
-                 ) -> tuple[list[dict], list[dict], dict]:
-    """Each kernel and its plain version at the main path's shapes: one
-    timed row per kernel and variant (glm_grad: covtype on the ring kernel
-    and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
-    the serving flushes' shapes (w8a at max_batch 128 and 32, real-sim at
-    128), all of w8a and news' first 512 rows, on the flat kernel and on the
-    group kernel it replaced, their device times taken twice in turns;
-    glm_sgd: SyncSGD(batch=16) on the warp
-    kernel and on the smem kernel it replaced, the R=8 B=1 replica epochs,
-    and the cluster kernel beside the kernels it replaced: at Table 4's
-    real-sim seq epoch (smem) and at d = 58,112 (global); glm_sgd_sparse:
-    the R=10 replica epochs at B=10 (also on the shared-memory kernel the
-    warp kernel replaced) and B=1, and news' R=8 and R=64 B=1
-    epochs on the stream kernel and on the global kernel it replaced;
-    glm_sparse: w8a at R=1 and R=10 x 6,470 on the
-    smem kernel and on the atomic kernel it replaced; flash_attn: decode
-    over the serving run's 128 keys and a full 4096-key window, prefill,
-    and an fp32 call; the kernels line takes the rows marked ``line``), the
-    decode wrapper's host us per call, a check of w8a's R=10
-    full-partition gradient, and the device time of a launch that does
-    nothing (``torch.cuda._sleep(0)``)."""
-    import repro_torch.kernels as K
-    from repro_torch.core import sgd
-    from repro_torch.kernels.flash_attn import ops as attn_ops
-    from repro_torch.kernels.glm_grad import ops as grad_ops
-    from repro_torch.kernels.glm_grad.ref import glm_grad_ref
-    from repro_torch.kernels.glm_score import ops as score_ops
-    from repro_torch.kernels.glm_score.ref import glm_score_ref
-    from repro_torch.kernels.glm_sgd import ops as sgd_ops
-    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
-    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
-    from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
-    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
-    from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
-
-    X, yd = covtype
-    m, ys = w8a
-    n, d = X.shape
-    ns, k = m.values.shape
-    rng = np.random.default_rng(1)
-    w = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32)).to(X.device)
-    ws = torch.from_numpy(rng.normal(0, 0.1, m.d).astype(np.float32)).to(X.device)
-    nnz = int((m.values != 0).sum())
-    rows = []
+def make_row(rows: list, worst: dict):
+    """The timing phase's ``row``: one timed row a call, appended to
+    ``rows`` (``worst``: each family's worst error in phase kernels)."""
     plain_runs = {}
 
     def row(name, shape, kernel, plain, reps, plain_reps, in_bytes, flops, tol,
@@ -4879,6 +5155,125 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
                      "check_max_abs_err": worst[name], "ms": ms, **dev_time,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      **lib})
+
+    return row
+
+
+def wide_timing(row, news, dev) -> None:
+    """The timing rows of the paper profile's widest shapes, each redesign
+    beside the kernel it replaced there: glm_sgd's grid kernel at Table 4's
+    seq epoch on news (its first 1,024 rows densified, 1,024 x 1,355,191,
+    micro-batch 1, the driver's step 1e-3 from w = 0; the kernels line's
+    row) and at d = 100,000 (2,003 rows, micro-batch 1), beside the global
+    kernel; glm_sparse's hot kernel at rcv1's full size (677,399 x
+    438; the kernels line's row) and at news's (19,996 x 2,729), beside
+    the atomic kernel."""
+    import repro_torch.kernels as K
+    from repro_torch.benchmarks import table4_sync
+    from repro_torch.core import sparse
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
+    from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
+
+    mn, yn = news
+    seq = table4_sync.DENSE_CAP_ROWS
+    Xs = sparse.to_dense(sparse.ELLMatrix(mn.values[:seq], mn.indices[:seq],
+                                          mn.d))
+    ys, ws = yn[:seq], torch.zeros(mn.d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(100_000)
+    Xw = torch.randn(2_003, 100_000, device=dev, generator=g)
+    yw = torch.where(torch.rand(2_003, device=dev, generator=g) < 0.5, -1.0,
+                     1.0)
+    ww = torch.randn(100_000, device=dev, generator=g) * 0.1
+    for label, X, y, w, step, line in (
+            (f"news seq N={seq}", Xs, ys, ws, 1e-3, "glm_sgd_grid"),
+            ("N=2003", Xw, yw, ww, 1.0 / 100_000, None)):
+        n, d = X.shape
+
+        def plain():
+            return glm_sgd_epoch_ref("lr", w[None], X[None], y[None], step,
+                                     1)[0]
+
+        for kind in (sgd_ops.variant(d, 1), "global"):
+            with forced_variant(sgd_ops, kind):
+                row("glm_sgd", f"{label} d={d} MB=1 R=1 {kind}",
+                    lambda: K.glm_sgd_epoch("lr", w, X, y, step=step,
+                                            micro_batch=1), plain,
+                    5 if kind == "grid" else 1, 1, nbytes(X, y, w, w),
+                    4.0 * X.numel() + 8.0 * n, EPOCH_TOL,
+                    line=line if kind == "grid" else None, variant=kind,
+                    updates=n)
+    del Xs, Xw
+    torch.cuda.empty_cache()
+    rcv1 = rcv1_dataset(dev)
+    for label, (m, y), line in (("rcv1", rcv1, "glm_sparse_hot"),
+                                ("news", news, None)):
+        n, k = m.values.shape
+        w = torch.randn(m.d, device=dev, generator=g) * 0.01
+        nnz = int((m.values != 0).sum())
+
+        def plain():
+            return ell_glm_grad_ref("lr", w[None], m.values[None],
+                                    m.indices[None], y[None])[0]
+
+        for kind in (sparse_grad_ops.variant(m.d, k, 1), "atomic"):
+            with forced_variant(sparse_grad_ops, kind):
+                row("glm_sparse", f"{label} N={n} K={k} d={m.d} R=1 {kind}",
+                    lambda: K.ell_glm_grad("lr", w, m.values, m.indices, y),
+                    plain, 10, 1, ell_bytes(m.values) + nbytes(y, w, w),
+                    4.0 * nnz + 8.0 * n, GRAD_TOL,
+                    line=line if kind == "hot" else None, variant=kind)
+    del rcv1
+    torch.cuda.empty_cache()
+
+
+def phase_timing(covtype, w8a, news, realsim, worst: dict
+                 ) -> tuple[list[dict], list[dict], dict]:
+    """Each kernel and its plain version at the main path's shapes: one
+    timed row per kernel and variant (glm_grad: covtype on the ring kernel
+    and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
+    the serving flushes' shapes (w8a at max_batch 128 and 32, real-sim at
+    128), all of w8a and news' first 512 rows, on the flat kernel and on the
+    group kernel it replaced, their device times taken twice in turns;
+    glm_sgd: SyncSGD(batch=16) on the warp
+    kernel and on the smem kernel it replaced, the R=8 B=1 replica epochs,
+    and the cluster kernel beside the kernels it replaced: at Table 4's
+    real-sim seq epoch (smem) and at d = 58,112 (global); glm_sgd_sparse:
+    the R=10 replica epochs at B=10 (also on the shared-memory kernel the
+    warp kernel replaced) and B=1, and news' R=8 and R=64 B=1
+    epochs on the stream kernel and on the global kernel it replaced;
+    glm_sparse: w8a at R=1 and R=10 x 6,470 on the smem kernel, on the
+    atomic kernel it replaced and on the hot kernel; flash_attn: decode over
+    the serving run's 128 keys and a full 4096-key window, prefill, and an
+    fp32 call; ``wide_timing``'s rows; the kernels line takes the rows
+    marked ``line``), the decode wrapper's host us per call, a check of
+    w8a's R=10 full-partition gradient, and the device time of a launch
+    that does nothing (``torch.cuda._sleep(0)``)."""
+    import repro_torch.kernels as K
+    from repro_torch.core import sgd
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+    from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_score import ops as score_ops
+    from repro_torch.kernels.glm_score.ref import glm_score_ref
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
+    from repro_torch.kernels.glm_sparse.ref import ell_glm_grad_ref
+
+    X, yd = covtype
+    m, ys = w8a
+    n, d = X.shape
+    ns, k = m.values.shape
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.normal(0, 0.1, d).astype(np.float32)).to(X.device)
+    ws = torch.from_numpy(rng.normal(0, 0.1, m.d).astype(np.float32)).to(X.device)
+    nnz = int((m.values != 0).sum())
+    rows = []
+    row = make_row(rows, worst)
 
     # SyncSGD() on covtype: the full-batch sum gradient, on the ring kernel
     # and on the two-pass row kernel it replaced
@@ -4984,7 +5379,8 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
     # SyncSGD() on w8a: the full-batch sparse sum gradient, and
     # AsyncLocalSGD(replicas=10, local_batch=6470)'s replica gradients, on
     # the smem kernel and on the atomic kernel it replaced
-    for kind, line in (("smem", "glm_sparse_smem"), ("atomic", None)):
+    for kind, line in (("smem", "glm_sparse_smem"), ("atomic", None),
+                       ("hot", None)):
         with forced_variant(sparse_grad_ops, kind):
             row("glm_sparse", f"w8a N={ns} K={k} d={m.d} R=1 {kind}",
                 lambda: K.ell_glm_grad("lr", ws, m.values, m.indices, ys),
@@ -5025,6 +5421,7 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
                     4.0 * int((vn != 0).sum()) + 8.0 * ynr.numel(), EPOCH_TOL,
                     line=line, variant=kind, updates=vn.shape[1])
         del vn, i_n
+    wide_timing(row, news, X.device)
 
     # the serving path: glm_score at the flushes' shapes (w8a at max_batch
     # 128, the kernels line's row, and 32; real-sim at 128), on all of w8a
@@ -5138,9 +5535,10 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
-                    ["--mesh"], ["--attn-bwd"]):
+                    ["--mesh"], ["--attn-bwd"], ["--wide"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
-              "--lm-families | --mesh | --attn-bwd]", file=sys.stderr)
+              "--lm-families | --mesh | --attn-bwd | --wide]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5158,9 +5556,52 @@ def main(argv: list[str]) -> int:
             return run_mesh(Path(scratch))
         if argv == ["--attn-bwd"]:
             return run_attn_bwd()
+        if argv == ["--wide"]:
+            return run_wide()
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
+
+
+def run_wide() -> int:
+    """``python3 chip_smoke.py --wide``: the env and build phases, then the
+    paper profile's widest datasets alone: ``wide_kernel_checks``, phase
+    news (news and rcv1 at full size), phase study's (c) and
+    ``wide_timing``'s rows, the card's name and power limit last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    cases, worst = wide_kernel_checks(dev)
+    ok = all(c["ok"] for c in cases)
+    emit({"phase": "kernels", "cases": cases, "ok": ok})
+    news = news_dataset(dev)
+    rcv1 = rcv1_dataset(dev)
+    line, launches = phase_news(news, rcv1, epochs=3)
+    emit(line)
+    ok = ok and line["ok"]
+    del rcv1
+    t0 = time.perf_counter()
+    paper, paper_launches = _study_paper(dev)
+    emit({"phase": "study", "paper": paper,
+          "seconds": time.perf_counter() - t0, "ok": paper["ok"]})
+    ok = ok and paper["ok"]
+    torch.cuda.empty_cache()
+    rows = []
+    wide_timing(make_row(rows, worst), news, dev)
+    for r in rows:
+        r["launches"] = launches.get(r["line"]) if r["line"] else None
+        r["study_launches"] = paper_launches.get(r["line"])
+    emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
+          "seconds_total": time.perf_counter() - t_start})
+    ok = ok and all(r["ok"] for r in rows)
+    print(smi, flush=True)
+    return 0 if ok else 1
 
 
 def run_attn_bwd() -> int:
@@ -5225,13 +5666,16 @@ def run(scratch: Path) -> int:
 
     t0 = time.perf_counter()
     news = news_dataset(dev)
+    rcv1 = rcv1_dataset(dev)
     torch.cuda.synchronize()
-    news_seconds = time.perf_counter() - t0
-    line, launches["glm_sgd_sparse_stream"] = phase_news(news, epochs=3)
-    line["data_seconds"] = news_seconds
+    data_seconds = time.perf_counter() - t0
+    line, news_launches = phase_news(news, rcv1, epochs=3)
+    line["data_seconds"] = data_seconds
     emit(line)
     if not line["ok"]:
         return 1
+    del rcv1
+    launches.update(news_launches)
 
     t0 = time.perf_counter()
     line, study_launches = phase_study(dev)
@@ -5239,8 +5683,11 @@ def run(scratch: Path) -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    # the study path is the only one that runs glm_sgd's cluster variant
+    # the study path is the only one that runs glm_sgd's cluster and grid
+    # variants
     launches["glm_sgd_cluster"] = study_launches["glm_sgd_cluster"]
+    launches["glm_sgd_grid"] = study_launches["glm_sgd_grid"]
+    torch.cuda.empty_cache()
 
     # the serving path: w8a under the model SyncSGD ended with, swapped
     # halfway for the one AsyncLocalSGD(replicas=10, local_batch=10) merged

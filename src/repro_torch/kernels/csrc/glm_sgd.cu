@@ -11,11 +11,11 @@
 //   at MB=16: 36,314 steps on one SM; the bytes alone, 125.5 MB of X, would
 //   take about 38 us at 3.35 TB/s).  The time per update is the target.
 //
-// Four kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch);
-// the wrapper passes the warp kernel's ring as `stages` and `group`
-// (ops.py:warp_plan), and stages = 0 for the shared-memory kernel; the
-// cluster and global-memory kernels have their own entry points
-// (glm_sgd_epoch_cluster, glm_sgd_epoch_global):
+// Five kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch,
+// replicas, SMs); the wrapper passes the warp kernel's ring as `stages` and
+// `group` (ops.py:warp_plan), and stages = 0 for the shared-memory kernel;
+// the cluster, grid and global-memory kernels have their own entry points
+// (glm_sgd_epoch_cluster, glm_sgd_epoch_grid, glm_sgd_epoch_global):
 //
 // glm_sgd_warp_kernel (d <= WARP_MAX_D = 1024, and a ring of at least two
 //   stages fits in shared memory).  The chain is one warp's alone:
@@ -87,6 +87,45 @@
 //   (a butterfly, a round trip through distributed shared memory, the
 //   pull), about 1.3 us at real-sim's width (PERF.md).
 //
+// glm_sgd_grid_kernel (past the cluster's 65,536 features, where
+//   ops.py:grid_plan fits: news's Table 4 seq epoch, d = 1,355,191).  The
+//   cluster kernel stretched from one cluster to the whole card: a
+//   replica's model is split over `blocks` blocks, one a SM, all
+//   co-resident (a cooperative launch, which fails rather than hangs when
+//   the grid cannot be placed), each owning a slice in its 16 chain warps'
+//   registers for the whole epoch (read at the start, written at the end).
+//   glm_sgd_global_kernel, its predecessor there, walked the whole row and
+//   the model through L2 on one SM: 132 us an update at d = 58,112.  Here:
+//   - 2 copy warps keep a ring of the block's slice of the next rows
+//     (ring.cuh, as the cluster kernel), so the chain reads X from shared
+//     memory only;
+//   - each chain warp sums its threads' partial margins (a transposed
+//     butterfly) into shared memory; after a chain barrier warp 0 adds the
+//     16 warps' partials in warp order and stores the block's into slot
+//     [parity][block] of a global exchange as one 8-byte word tagged with
+//     the exchange's number, so the tag and the value land together: no
+//     counter, fence or grid barrier.  Warp 0 then reads every block's slot
+//     of the row until each carries the exchange's tag (a lane's 5 slots
+//     loaded together a pass) and sums them in block order (lanes, then a
+//     butterfly: a fixed order), so every block computes the same pulls bit
+//     for bit and an epoch gives the same bits on every call; the pulls go
+//     to shared memory, and after a second chain barrier each block updates
+//     only its own slice, with no atomics.  Slots of parity p are written
+//     again two exchanges later, which a block reaches only after every
+//     block's slot of the exchange between, and each block writes that only
+//     after its warp 0 has read exchange e's slots.  Measured slower: every
+//     chain warp polling the slots (16 times the loads at L2), and a counter
+//     that each block's arrival bumps with red.release before an
+//     ld.acquire wait (the arrivals queue on one address).  No cluster: the
+//     exchange's cost is a store's and a load's trip through L2, and summing
+//     132 slots a row is five loads a lane;
+//   - a batch longer than a fill is streamed twice (ring.cuh:Fill), its
+//     pulls kept in a global scratch between;
+//   - a wait that lasts past 4 s traps (a launch error, not a hang).
+//   What it leaves for later: an update is still a chain of latencies (a
+//   butterfly, a chain barrier, the exchange's trip through L2, the sum of
+//   the slots); the chain re-reads X from shared memory for the update.
+//
 // glm_sgd_kernel (the first port; d + micro_batch floats within a block's
 //   shared memory): what is left of it is d <= WARP_MAX_D with batches too
 //   long for the warp kernel's ring.  One block of 256 threads per
@@ -95,8 +134,9 @@
 //   shared memory; after a barrier each thread updates its features with
 //   the tile's X^T pull.
 //
-// glm_sgd_global_kernel (any wider d: past the cluster's 65,536, or a
-//   batch past shared memory at d <= WARP_MAX_D): glm_sgd_kernel's loop with the
+// glm_sgd_global_kernel (what the others refuse: a wide model past the grid
+//   plan, such as many replicas past 65,536 features, or a batch past
+//   shared memory at d <= WARP_MAX_D): glm_sgd_kernel's loop with the
 //   replica's model left in the output tensor in global memory.  A row's
 //   margin is split over the whole block (a thread per feature), summed
 //   with shuffles and then across the warps in warp order; the batch's
@@ -107,8 +147,8 @@
 //   L1-bypassing __ldcg / __stcg (L1 is not coherent), and __syncthreads
 //   orders the passes.
 //
-// All: one block (a cluster for glm_sgd_cluster_kernel) per replica
-//   (R = 1 for SyncSGD), fp32 throughout, no fast math (the LR pull's expf over 36k updates); a ragged
+// All: one block (a cluster for glm_sgd_cluster_kernel, `blocks` for
+//   glm_sgd_grid_kernel) per replica (R = 1 for SyncSGD), fp32 throughout, no fast math (the LR pull's expf over 36k updates); a ragged
 //   tail is one final smaller batch at its own scale alpha/|tail|
 //   (glm_sgd/ref.py); the step arrives as a runtime float (scale = alpha/MB
 //   computed by the caller).
@@ -793,6 +833,308 @@ int cluster_rows(const float* X, const float* y, float* W, float* P, int R,
                                tail_scale, cluster, slice, stages, crows, s);
 }
 
+// ---------------------------------------------------------------------------
+// The grid kernel: one replica's model split over co-resident blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kGridChainWarps = 16;
+constexpr int kGridChainThreads = 32 * kGridChainWarps;
+constexpr int kGridCopyWarps = 2;
+constexpr int kGridThreads = kGridChainThreads + 32 * kGridCopyWarps;
+constexpr int kGridMaxValues = 24;
+// nanoseconds a grid-barrier wait may last before it traps
+constexpr unsigned long long kGridWaitNs = 4000000000ull;
+
+// A stage of the grid kernel's ring is the cluster kernel's (the block's
+// slice of `crows` rows, each at its offset from a 16-byte boundary, then
+// the labels); a chain thread reads only its values below the slice's
+// width, so there is no slack.  kernels/glm_sgd/ops.py:grid_smem_bytes
+// computes the same layout:
+// [2 * stages mbarriers][kGridChainWarps x crows partials][pad4(crows)
+// pulls][stages x stage]
+size_t grid_smem_bytes(int slice, int stages, int crows) {
+  return 16 * static_cast<size_t>(stages) +
+         4 * static_cast<size_t>(kGridChainWarps * crows + pad4(crows)) +
+         4 * static_cast<size_t>(stages) * cluster_stage_floats(slice, crows);
+}
+
+// The chain warps' barrier of the grid kernel (the copy warps do not take
+// part).
+__device__ __forceinline__ void grid_chain_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kGridChainThreads) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A block's partial margin of a fill's row, tagged with its exchange's
+// number (from 1) in the high word: one 8-byte store, so a reader that sees
+// the tag sees the value with it, with no fence and no flag.
+__device__ __forceinline__ void put_tagged(unsigned long long* slot,
+                                           unsigned tag, float v) {
+  const unsigned long long word =
+      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(slot), "l"(word)
+               : "memory");
+}
+
+// slots of an exchange row a lane reads at most (blocks <= 32 x this)
+constexpr int kGridLaneSlots = 8;
+
+// The sum of row i's slots over the blocks, each once it carries `tag`:
+// lane l adds slots l, l + 32, ... in order, then a butterfly (a fixed
+// order).  A pass issues all of a lane's loads together and checks their
+// tags; passes repeat until every tag has arrived.  Traps past
+// kGridWaitNs: a grid that lost a block would otherwise spin for ever.
+__device__ __forceinline__ float sum_tagged(const unsigned long long* got,
+                                           int crows, int i, int blocks,
+                                           int lane, unsigned tag) {
+  unsigned long long word[kGridLaneSlots];
+  unsigned polls = 0;
+  unsigned long long start = 0;
+  for (;;) {
+    bool ready = true;
+#pragma unroll
+    for (int k = 0; k < kGridLaneSlots; ++k) {
+      const int q = lane + 32 * k;
+      if (q < blocks) {
+        asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                     : "=l"(word[k])
+                     : "l"(got + q * crows + i)
+                     : "memory");
+        ready &= static_cast<unsigned>(word[k] >> 32) == tag;
+      }
+    }
+    if (ready) break;
+    if ((++polls & 1023u) == 0) {
+      const unsigned long long now = global_ns();
+      if (start == 0) start = now;
+      else if (now - start > kGridWaitNs) __trap();
+    }
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kGridLaneSlots; ++k)
+    if (lane + 32 * k < blocks)
+      m += __uint_as_float(static_cast<unsigned>(word[k]));
+  return repro::warp_sum(m);
+}
+
+// V: model values a chain thread holds in registers (feature j0 + t + 512 c
+// of the slice on chain thread t, slice <= 512 V); RB: rows whose partial
+// margins a chain thread carries through one butterfly.
+template <int V, int RB>
+__global__ void __launch_bounds__(kGridThreads, 1)
+glm_sgd_grid_kernel(const float* __restrict__ X,  // [R, n, d]
+                    const float* __restrict__ y,  // [R, n]
+                    float* __restrict__ W,        // [R, d] in/out
+                    float* __restrict__ P,        // [R * blocks, mb] scratch
+                    // [R, 2, blocks, crows], zero at launch
+                    unsigned long long* __restrict__ slots,
+                    int n, int d, int mb, int task, float scale,
+                    float tail_scale, int blocks, int slice, int stages,
+                    int crows) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);  // [stages]
+  uint64_t* empty = full + stages;                     // [stages]
+  float* red = reinterpret_cast<float*>(empty + stages);  // [16][crows]
+  float* pls = red + kGridChainWarps * crows;              // [pad4(crows)]
+  float* ring = pls + pad4(crows);
+
+  const int r = blockIdx.x / blocks, b = blockIdx.x % blocks;
+  const int j0 = b * slice, width = min(slice, d - j0);
+  const float* Xr = X + static_cast<size_t>(r) * n * d + j0;  // the slice
+  const float* yr = y + static_cast<size_t>(r) * n;
+  float* Wr = W + static_cast<size_t>(r) * d + j0;
+  float* Pb = P + static_cast<size_t>(blockIdx.x) * mb;
+  unsigned long long* sl = slots + static_cast<size_t>(r) * 2 * blocks * crows;
+  const int rowf = row_floats(slice), sf = cluster_stage_floats(slice, crows);
+  const int fills = fill_count(n, mb, crows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 32);  // one copy warp fills a stage
+      mbar_init(&empty[s], kGridChainWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kGridChainWarps) {
+    // the cluster kernel's copy warps, on this block's slice
+    const int copiers = min(kGridCopyWarps, stages);
+    const int cw = warp - kGridChainWarps;
+    FillWalk walk(n, mb, crows);
+    for (int k = 0; k < cw; ++k) walk.next();
+    for (int f = cw; cw < copiers && f < fills; f += copiers) {
+      const int s = f % stages, use = f / stages;
+      if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+      const Fill& fl = walk.fl;
+      float* st = ring + s * sf;
+      for (int i = 0; i < fl.rows; ++i) {
+        const float* src = Xr + static_cast<size_t>(fl.start + i) * d;
+        copy_words(reinterpret_cast<uint32_t*>(st + i * rowf + misalign(src)),
+                   reinterpret_cast<const uint32_t*>(src), width, lane);
+      }
+      for (int e = lane; e < fl.rows; e += 32)
+        copy4(st + crows * rowf + e, yr + fl.start + e);
+      mbar_arrive_on_copies(&full[s]);
+      for (int k = 0; k < copiers; ++k) walk.next();
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // a chain thread: features j0 + t + 512 c of the slice
+  const int t = threadIdx.x;
+  constexpr int kShift = 5 - log2i(RB);
+  float w[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int k = t + kGridChainThreads * c;
+    w[c] = k < width ? Wr[k] : 0.0f;
+  }
+  int s = 0;            // stage of fill f
+  uint32_t parity = 0;  // of that fill: flips each lap of the ring
+  int xe = 0;           // exchanges so far
+  FillWalk walk(n, mb, crows);
+  for (int f = 0; f < fills; ++f, walk.next()) {
+    const Fill& fl = walk.fl;
+    mbar_wait(&full[s], parity);
+    const float* st = ring + s * sf;
+    const float* xrow0 = Xr + static_cast<size_t>(fl.start) * d;
+    // row i of the fill, this thread's first value
+    auto row_at = [&](int i) {
+      return st + i * rowf + t + misalign(xrow0 + static_cast<size_t>(i) * d);
+    };
+    const float step = fl.batch_rows == mb ? scale : tail_scale;
+    float pr = 0.0f;  // lane i: the pull of the fill's row i
+    if (fl.pass != 1) {
+      // the fill's margins over this block's slice, RB rows at a time; the
+      // first lane of each row stores its warp's partial
+      for (int r0 = 0; r0 < fl.rows; r0 += RB) {
+        float v[RB];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const float* xi = row_at(min(r0 + i, fl.rows - 1));
+          float even = 0.0f, odd = 0.0f;  // two chains of FMAs, not one
+#pragma unroll
+          for (int c = 0; c < V; c += 2) {
+            if (t + kGridChainThreads * c < width)
+              even = fmaf(xi[kGridChainThreads * c], w[c], even);
+            if (c + 1 < V && t + kGridChainThreads * (c + 1) < width)
+              odd = fmaf(xi[kGridChainThreads * (c + 1)], w[c + 1], odd);
+          }
+          v[i] = even + odd;
+        }
+        const float p = transposed_sum<RB>(v, lane);  // row lane >> kShift
+        const int row = r0 + (lane >> kShift);
+        if ((lane & ((1 << kShift) - 1)) == 0 && row < fl.rows)
+          red[warp * crows + row] = p;
+      }
+      grid_chain_sync();
+      if (warp == 0) {
+        // the block's partial of row `lane`, its warps' in warp order, into
+        // its slot of this exchange's parity; then every block's, summed in
+        // block order, and the rows' pulls into shared memory
+        const int xp = xe & 1;
+        const unsigned tag = static_cast<unsigned>(xe + 1);
+        if (lane < fl.rows) {
+          float m = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kGridChainWarps; ++q) m += red[q * crows + lane];
+          put_tagged(sl + (xp * blocks + b) * crows + lane, tag, m);
+        }
+        const unsigned long long* got = sl + xp * blocks * crows;
+        for (int i = 0; i < fl.rows; ++i) {
+          const float m = sum_tagged(got, crows, i, blocks, lane, tag);
+          if (lane == i) {
+            const float yi = st[crows * rowf + i];
+            const float pi = repro::pull(task, yi * m, yi);
+            pls[i] = pi;
+            if (fl.pass == 0) __stcg(Pb + fl.chunk * crows + i, pi);
+          }
+        }
+      }
+      ++xe;
+      grid_chain_sync();  // the pulls are in (and in the scratch for pass 0)
+      if (lane < fl.rows) pr = pls[lane];
+    }
+    if (fl.pass != 0) {
+      // w -= step * X_fill^T pulls, a row at a time; past the slice's width
+      // w stays 0
+      for (int i = 0; i < fl.rows; ++i) {
+        const float sp =
+            -step * (fl.pass == 1 ? __ldcg(Pb + fl.chunk * crows + i)
+                                  : __shfl_sync(kFullMask, pr, i));
+        const float* xi = row_at(i);
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (t + kGridChainThreads * c < width)
+            w[c] = fmaf(sp, xi[kGridChainThreads * c], w[c]);
+      }
+    }
+    __syncwarp();  // every lane has read the stage
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    const int k = t + kGridChainThreads * c;
+    if (k < width) Wr[k] = w[c];
+  }
+}
+
+template <int V, int RB>
+int launch_grid(const float* X, const float* y, float* W, float* P,
+                unsigned long long* slots, int R, int n, int d, int mb,
+                int task, float scale, float tail_scale, int blocks,
+                int slice, int stages, int crows, cudaStream_t stream) {
+  auto kernel = glm_sgd_grid_kernel<V, RB>;
+  const size_t smem = grid_smem_bytes(slice, stages, crows);
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(R * blocks);
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  // every block co-resident, or the launch fails: the blocks wait on each
+  // other at every exchange
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, X, y, W, P, slots, n, d, mb, task,
+                           scale, tail_scale, blocks, slice, stages, crows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// RB: the smallest power of two >= a fill's rows, at most 8
+template <int V, int RB = 8>
+int grid_rows(const float* X, const float* y, float* W, float* P,
+              unsigned long long* slots, int R, int n, int d, int mb,
+              int task, float scale, float tail_scale, int blocks, int slice,
+              int stages, int crows, cudaStream_t s) {
+  if constexpr (RB > 1) {
+    if (crows <= RB / 2)
+      return grid_rows<V, RB / 2>(X, y, W, P, slots, R, n, d, mb, task, scale,
+                                  tail_scale, blocks, slice, stages, crows,
+                                  s);
+  }
+  return launch_grid<V, RB>(X, y, W, P, slots, R, n, d, mb, task, scale,
+                            tail_scale, blocks, slice, stages, crows, s);
+}
+
 }  // namespace
 
 // glm_sgd_cluster_kernel: a cluster of `cluster` blocks per replica, block
@@ -823,6 +1165,41 @@ extern "C" int glm_sgd_epoch_cluster(const void* X, const void* y, void* W,
   REPRO_CLUSTER_CASE(8)
   REPRO_CLUSTER_CASE(16)
 #undef REPRO_CLUSTER_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// glm_sgd_grid_kernel: `blocks` co-resident blocks per replica, block b
+// holding features [b * slice, (b + 1) * slice) of d, a ring of `stages`
+// fills of at most `crows` rows (kernels/glm_sgd/ops.py:grid_plan checks
+// that it fits).  X, y contiguous fp32 [R, n, d] and [R, n]; W [R, d]
+// updated in place; P an fp32 scratch of R * blocks * mb floats; slots
+// R * 2 * blocks * crows zeroed 8-byte words.
+extern "C" int glm_sgd_epoch_grid(const void* X, const void* y, void* W,
+                                  void* P, void* slots, int R, int n, int d,
+                                  int mb, int task, float scale,
+                                  float tail_scale, int blocks, int slice,
+                                  int stages, int crows, void* stream) {
+  if (blocks < 1 || stages < 2 || crows < 1 || crows > kChunkRows ||
+      (blocks - 1) * slice >= d || blocks * slice < d ||
+      blocks > 32 * kGridLaneSlots ||
+      slice > kGridChainThreads * kGridMaxValues)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* Xf = static_cast<const float*>(X);
+  const auto* yf = static_cast<const float*>(y);
+  auto* Wf = static_cast<float*>(W);
+  auto* Pf = static_cast<float*>(P);
+  auto* sf = static_cast<unsigned long long*>(slots);
+  const int vn = (slice + kGridChainThreads - 1) / kGridChainThreads;
+#define REPRO_GRID_CASE(v)                                                   \
+  if (vn <= v)                                                               \
+    return grid_rows<v>(Xf, yf, Wf, Pf, sf, R, n, d, mb, task, scale,        \
+                        tail_scale, blocks, slice, stages, crows, s);
+  REPRO_GRID_CASE(4)
+  REPRO_GRID_CASE(8)
+  REPRO_GRID_CASE(16)
+  REPRO_GRID_CASE(24)
+#undef REPRO_GRID_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,7 +9,7 @@
 //   index of each nonzero once (w8a: 64,700 x 69 values and 754k indices,
 //   21 MB, about 6.3 us at 3.35 TB/s); the model is small and stays in L1.
 //
-// Two kernels, chosen by kernels/glm_sparse/ops.py:variant(d, K, R):
+// Three kernels, chosen by kernels/glm_sparse/ops.py:variant(d, K, R):
 //
 // ell_grad_smem_kernel (a model of up to about 29,000 features: at least two
 //   warps' copies of the gradient fit a block's shared memory).  Partial
@@ -34,13 +34,44 @@
 //     row; ell_grad_reduce_kernel sums a replica's partials in a fixed
 //     order.  So every call gives the same bits.
 //
-// ell_grad_kernel (any wider model: news, d = 1,355,191).  A warp per row
+// ell_grad_kernel (the first port; a wider model that the hot kernel does
+//   not take: rows past its HOT_MAX_K entries).  A warp per row
 //   gathers w[idx] from global memory, sums the margin with shuffles,
 //   applies the pull, and atomicAdds vals * pull into the zeroed gradient
 //   the caller passes (one atomic per nonzero, in an order that changes
 //   from run to run).
 //
-// Both: indices are not range-checked here (the wrapper has checked the
+// ell_grad_hot_kernel (past the smem kernel's width, rows of up to
+//   ops.py:HOT_MAX_K entries: rcv1, d = 47,236, and news, d = 1,355,191;
+//   it replaces ell_grad_kernel there, which read every value and nonzero
+//   index twice, once for the margin and once for the scatter, and whose
+//   global atomics on the Zipf-popular features queued at L2):
+//   - one pass: a warp a row (a row of these widths has hundreds of
+//     entries), 32 warps a block, one block a SM; lane l holds entries
+//     l + 32 e (e < E) of its row in registers, values and the indices of
+//     its nonzeros, from the margin to the scatter, so the data is read
+//     once; value-0 entries (the padding, wherever it lies in the row) load
+//     no index and add nothing.  Entries past the registers are read in
+//     chunks of 256 for the margin, and a lane marks each chunk that held a
+//     nonzero of its own; the scatter reads again only the marked chunks
+//     (news's rows of up to 2,729 entries, most of them padding, are read
+//     once).  A row whose pull is 0 (an SVM margin past 1) scatters
+//     nothing;
+//   - the gradient in global memory (L2 holds news's 5.4 MB), zeroed by the
+//     caller, under RED.ADD.F32, except its `hot` most frequent features
+//     (ops.py:hot_features, counted once an operand), which each block adds
+//     into its own copy in shared memory with atomicAdd and writes as one
+//     partial row; ell_grad_hot_sum_kernel adds a replica's partials in a
+//     fixed order into the gradient's hot entries, which took no global
+//     add.  Without it a Zipfian feature takes a global atomic from a large
+//     share of the rows (news's hottest: about 7% of the entries), and
+//     those queue at L2 (PERF.md, tools/wide_sweep.py).
+//   A cluster-resident gradient (a thread-block cluster's shared memory
+//   holding all of d, each add sent to the owner block with
+//   red.shared::cluster.add.f32 or a compare-and-swap loop) was built and
+//   measured slower than this at rcv1's and w8a's shapes, and was removed.
+//
+// All: indices are not range-checked here (the wrapper has checked the
 //   operand once before its first launch); the replica axis is blockIdx.y,
 //   for the async full-partition path.
 #include "common.cuh"
@@ -226,7 +257,188 @@ int launch_smem(const float* vals, const int* idx, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The hot kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kHotWarps = 32;
+constexpr int kHotThreads = 32 * kHotWarps;
+// entries a lane reads at once past its registers' (E, at most 8: fewer
+// registers live beside the row's held entries), in chunks of 32 of them,
+// each marked by a bit of a 64-bit word
+constexpr int kRestE = 8;
+constexpr int kMarkedChunks = 64;
+constexpr size_t kMaxSmemBytes = 232448;  // a Hopper block's opt-in limit
+
+// Entries k0 + lane + 32 e (e < E) of a row: values (0 past K), then the
+// index of each nonzero (0 elsewhere); whether any of them is nonzero.
+template <int E>
+__device__ __forceinline__ bool load_entries(const float* __restrict__ v_row,
+                                             const int* __restrict__ i_row,
+                                             int k0, int lane, int K,
+                                             float (&v)[E], int (&j)[E]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int k = k0 + lane + 32 * e;
+    v[e] = k < K ? __ldcs(v_row + k) : 0.0f;
+  }
+  bool any = false;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    any |= v[e] != 0.0f;
+    j[e] = v[e] != 0.0f ? __ldcs(i_row + k0 + lane + 32 * e) : 0;
+  }
+  return any;
+}
+
+// E: entries of a row a lane holds in registers.  G [R, d] zeroed by the
+// caller; its `hot` features (slot[j] >= 0: j's place among them) go to the
+// block's shared copy, written into hot_out [R, blocks, hot].  The grid is
+// (blocks, R); block b walks rows [b * per_block, (b + 1) * per_block), a
+// warp every 32nd.
+template <int E>
+__global__ void __launch_bounds__(kHotThreads, 1)
+ell_grad_hot_kernel(const float* __restrict__ vals,  // [R, n, K]
+                    const int* __restrict__ idx,     // [R, n, K]
+                    const float* __restrict__ y,     // [R, n]
+                    const float* __restrict__ W,     // [R, d]
+                    float* __restrict__ G,           // [R, d], zeroed
+                    const int* __restrict__ slot,    // [d]
+                    float* __restrict__ hot_out, int hot, int n, int K,
+                    int d, int task, int per_block) {
+  extern __shared__ float gs[];  // [hot]
+  const int r = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* vr = vals + static_cast<size_t>(r) * n * K;
+  const int* ir = idx + static_cast<size_t>(r) * n * K;
+  const float* yr = y + static_cast<size_t>(r) * n;
+  const float* wr = W + static_cast<size_t>(r) * d;
+  float* gr = G + static_cast<size_t>(r) * d;
+  for (int f = threadIdx.x; f < hot; f += kHotThreads) gs[f] = 0.0f;
+  __syncthreads();
+  auto add = [&](int j, float v) {
+    const int s = __ldg(slot + j);
+    if (s >= 0) atomicAdd(gs + s, v);
+    else atomicAdd(gr + j, v);
+  };
+
+  const int start = blockIdx.x * per_block, end = min(n, start + per_block);
+  for (int row = start + warp; row < end; row += kHotWarps) {
+    const float* v_row = vr + static_cast<size_t>(row) * K;
+    const int* i_row = ir + static_cast<size_t>(row) * K;
+    float v[E];
+    int j[E];
+    load_entries<E>(v_row, i_row, 0, lane, K, v, j);
+    float acc = 0.0f;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (v[e] != 0.0f) acc = fmaf(v[e], __ldg(wr + j[e]), acc);
+    // bit c: chunk c past the registers held a nonzero of this lane
+    unsigned long long marked = 0;
+    constexpr int kR = E < kRestE ? E : kRestE;
+    for (int c = 0, k0 = 32 * E; k0 < K; ++c, k0 += 32 * kR) {
+      float u[kR];
+      int q[kR];
+      if (load_entries<kR>(v_row, i_row, k0, lane, K, u, q))
+        marked |= 1ull << c;
+#pragma unroll
+      for (int e = 0; e < kR; ++e)
+        if (u[e] != 0.0f) acc = fmaf(u[e], __ldg(wr + q[e]), acc);
+    }
+    acc = repro::warp_sum(acc);  // the same bits on every lane
+    const float yi = yr[row];
+    const float p = repro::pull(task, yi * acc, yi);
+    if (p == 0.0f) continue;  // the whole warp: nothing to add
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (v[e] != 0.0f) add(j[e], v[e] * p);
+    for (int c = 0, k0 = 32 * E; c < kMarkedChunks && (marked >> c);
+         ++c, k0 += 32 * kR) {
+      if (!((marked >> c) & 1ull)) continue;
+      float u[kR];
+      int q[kR];
+      load_entries<kR>(v_row, i_row, k0, lane, K, u, q);
+#pragma unroll
+      for (int e = 0; e < kR; ++e)
+        if (u[e] != 0.0f) add(q[e], u[e] * p);
+    }
+  }
+  __syncthreads();
+  float* po = hot_out + (static_cast<size_t>(r) * gridDim.x + blockIdx.x) * hot;
+  for (int f = threadIdx.x; f < hot; f += kHotThreads) po[f] = gs[f];
+}
+
+// G[r, hot_list[s]] = sum over b of hot_out[r, b, s], b in order (the hot
+// features took no global add, so this writes their whole gradient)
+__global__ void ell_grad_hot_sum_kernel(const float* __restrict__ hot_out,
+                                        const int* __restrict__ hot_list,
+                                        float* __restrict__ G, int nparts,
+                                        int hot, int d) {
+  const int s = blockIdx.x * kThreads + threadIdx.x, r = blockIdx.y;
+  if (s >= hot) return;
+  const float* pr = hot_out + static_cast<size_t>(r) * nparts * hot + s;
+  float acc = 0.0f;
+  for (int p = 0; p < nparts; ++p)
+    acc += __ldcs(pr + static_cast<size_t>(p) * hot);
+  G[static_cast<size_t>(r) * d + hot_list[s]] = acc;
+}
+
+template <int E>
+int launch_hot(const float* vals, const int* idx, const float* y,
+               const float* W, float* G, const int* slot, float* hot_out,
+               int hot, int R, int n, int K, int d, int task, int blocks,
+               int per_block, cudaStream_t stream) {
+  auto kernel = ell_grad_hot_kernel<E>;
+  const size_t smem = 4 * static_cast<size_t>(hot);
+  const cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(blocks, R), kHotThreads, smem, stream>>>(
+      vals, idx, y, W, G, slot, hot_out, hot, n, K, d, task, per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// ell_grad_hot_kernel (ops.py:hot_plan): `blocks` blocks a replica of
+// `per_block` rows scattering into G, which the caller zeroed, the `hot`
+// features of hot_list (slot[j]: j's place in it, or -1; 1 to 58,112 of
+// them) in each block's shared memory, then ell_grad_hot_sum_kernel adds
+// them into G through hot_out [R, blocks, hot].
+extern "C" int ell_glm_grad_hot(const void* vals, const void* idx,
+                                const void* y, const void* W, void* G,
+                                const void* slot, const void* hot_list,
+                                void* hot_out, int hot, int R, int n, int K,
+                                int d, int task, int blocks, int per_block,
+                                void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* v = static_cast<const float*>(vals);
+  const auto* i = static_cast<const int*>(idx);
+  const auto* yf = static_cast<const float*>(y);
+  const auto* Wf = static_cast<const float*>(W);
+  auto* Gf = static_cast<float*>(G);
+  const auto* sl = static_cast<const int*>(slot);
+  auto* ho = static_cast<float*>(hot_out);
+  if (blocks < 1 || per_block < 1 || hot < 1 || hot > d ||
+      4 * static_cast<size_t>(hot) > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (K <= 32 * 4)
+    err = launch_hot<4>(v, i, yf, Wf, Gf, sl, ho, hot, R, n, K, d, task,
+                        blocks, per_block, s);
+  else if (K <= 32 * 8)
+    err = launch_hot<8>(v, i, yf, Wf, Gf, sl, ho, hot, R, n, K, d, task,
+                        blocks, per_block, s);
+  else if (K <= 32 * (16 + kRestE * kMarkedChunks))
+    err = launch_hot<16>(v, i, yf, Wf, Gf, sl, ho, hot, R, n, K, d, task,
+                         blocks, per_block, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return err;
+  ell_grad_hot_sum_kernel<<<dim3((hot + kThreads - 1) / kThreads, R),
+                            kThreads, 0, s>>>(
+      ho, static_cast<const int*>(hot_list), Gf, blocks, hot, d);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ell_glm_grad(const void* vals, const void* idx, const void* y,
                             const void* W, void* G, int R, int n, int K, int d,

@@ -1,7 +1,8 @@
 """Public wrapper for the fused dense mini-batch SGD epoch.
 
 ``cuda`` runs ``csrc/glm_sgd.cu``: one launch per epoch.  :func:`variant`
-picks the kernel from ``(d, micro_batch)`` alone:
+picks the kernel from ``(d, micro_batch)`` and, past the cluster's cap, the
+replica count and the card's SMs:
 
 * ``"warp"`` (``glm_sgd_warp_kernel``) for the paper's dense widths, d up to
   :data:`WARP_MAX_D` with a ring of at least two micro-batch tiles in shared
@@ -21,10 +22,19 @@ picks the kernel from ``(d, micro_batch)`` alone:
   cluster kernel takes any batch too, but there it sums each row's margin
   over a whole block where this kernel gives a warp whole rows, and ran up
   to 3.9x slower (``tools/cluster_sweep.py``);
-* ``"global"`` (``glm_sgd_global_kernel``) for every model past the
-  cluster's cap: the model stays in the output tensor in global memory, a
-  row's margin is summed by the whole block, the batch's pulls go to a
-  global scratch, and each feature's update belongs to one thread.
+* ``"grid"`` (``glm_sgd_grid_kernel``) past the cluster's cap where
+  :func:`grid_plan` fits (news's Table 4 seq epoch): the cluster kernel
+  stretched over co-resident blocks, one a SM, each holding a slice of the
+  model in registers and streaming its slice of the next rows through a
+  ring; the blocks' partial margins meet in a global exchange of slots
+  tagged with the exchange's number, each block summing them in block
+  order;
+* ``"global"`` (``glm_sgd_global_kernel``) for what the others refuse (a
+  wide model of many replicas, or past :data:`GRID_MAX_VALUES` x 512
+  features a SM; a batch past shared memory at d <= WARP_MAX_D): the model
+  stays in the output tensor in global memory, a row's margin is summed by
+  the whole block, the batch's pulls go to a global scratch, and each
+  feature's update belongs to one thread.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -167,16 +177,82 @@ def cluster_plan(d: int, micro_batch: int) -> tuple[int, int, int, int]:
     return cluster, slice_, _cluster_stages(cluster, slice_, rows), rows
 
 
-def variant(d: int, micro_batch: int) -> str:
-    """The kernel that runs ``(d, micro_batch)``: ``"warp"`` up to
-    WARP_MAX_D where a two-stage ring fits, ``"cluster"`` past WARP_MAX_D
-    where :func:`cluster_plan` fits, else ``"smem"`` where the model and
-    the batch's pulls fit a block's shared memory, else ``"global"``."""
+#: chain threads of a grid kernel block (16 warps; 2 more warps copy)
+GRID_CHAIN_THREADS = 512
+#: most model values a chain thread of the grid kernel holds (its template
+#: V: 4, 8, 16 or 24, the smallest that covers the slice)
+GRID_MAX_VALUES = 24
+#: most stages the grid kernel's ring holds ahead of the chain
+GRID_MAX_STAGES = 8
+#: most blocks a replica of the grid kernel (each lane of an exchange reads
+#: 8 blocks' slots)
+GRID_MAX_BLOCKS = 256
+
+
+def grid_smem_bytes(slice_: int, stages: int, rows: int) -> int:
+    """Shared memory of one ``"grid"`` block (csrc/glm_sgd.cu lays it out
+    the same way): two mbarriers a stage, the 16 chain warps' partial
+    margins of a fill and its pulls, and ``stages`` stages of ``rows`` rows
+    of the block's slice of X (each after up to 3 floats of alignment) and
+    their labels."""
+    row = common.padded(slice_ + 3, 4)
+    return (16 * stages
+            + 4 * ((GRID_CHAIN_THREADS // 32) * rows + common.padded(rows, 4))
+            + 4 * stages * (rows * row + common.padded(rows, 4)))
+
+
+def _grid_stages(slice_: int, rows: int) -> int:
+    """Stages of ``rows`` rows that fit beside the rest (0 below two)."""
+    for stages in range(GRID_MAX_STAGES, 1, -1):
+        if grid_smem_bytes(slice_, stages, rows) <= common.MAX_SMEM_BYTES:
+            return stages
+    return 0
+
+
+def grid_plan(d: int, micro_batch: int, n_rep: int = 1,
+              sms: int = tune.H100_SMS) -> tuple[int, int, int, int]:
+    """The grid kernel's plan as ``(blocks, slice, stages, rows)`` for
+    ``n_rep`` replicas on ``sms`` SMs: block ``b`` of a replica owns
+    features ``[b * slice, (b + 1) * slice)`` of d (every block at least
+    one) in its chain threads' registers, at most GRID_MAX_VALUES a thread,
+    and streams them through a ring of ``stages`` fills of at most ``rows``
+    rows (a whole batch up to CLUSTER_CHUNK_ROWS where two stages hold it,
+    else as many rows as two stages allow, the batch then streamed twice).
+    A replica takes ``sms // n_rep`` blocks, one a SM, so every block of
+    the launch is co-resident; no more than the features need at one a
+    chain thread.  ``(0, 0, 0, 0)`` where the slices or a two-stage ring do
+    not fit."""
+    per = min(sms // n_rep, GRID_MAX_BLOCKS)
+    if per < 1:
+        return 0, 0, 0, 0
+    blocks = min(per, -(-d // GRID_CHAIN_THREADS))
+    slice_ = -(-d // blocks)
+    blocks = -(-d // slice_)
+    if slice_ > GRID_CHAIN_THREADS * GRID_MAX_VALUES:
+        return 0, 0, 0, 0
+    want = min(micro_batch, CLUSTER_CHUNK_ROWS)
+    rows = next((r for r in range(want, 0, -1) if _grid_stages(slice_, r)),
+                0)
+    if not rows:
+        return 0, 0, 0, 0
+    return blocks, slice_, _grid_stages(slice_, rows), rows
+
+
+def variant(d: int, micro_batch: int, n_rep: int = 1,
+            sms: int = tune.H100_SMS) -> str:
+    """The kernel that runs ``(d, micro_batch)`` for ``n_rep`` replicas on
+    ``sms`` SMs: ``"warp"`` up to WARP_MAX_D where a two-stage ring fits,
+    ``"cluster"`` past WARP_MAX_D where :func:`cluster_plan` fits,
+    ``"grid"`` past that where :func:`grid_plan` fits, else ``"smem"``
+    where the model and the batch's pulls fit a block's shared memory,
+    else ``"global"``."""
     if d <= WARP_MAX_D:
         if warp_plan(d, micro_batch)[0]:
             return "warp"
     elif cluster_plan(d, micro_batch)[0]:
         return "cluster"
+    elif grid_plan(d, micro_batch, n_rep, sms)[0]:
+        return "grid"
     if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
         return "smem"
     return "global"
@@ -185,13 +261,29 @@ def variant(d: int, micro_batch: int) -> str:
 @common.register_kernel("glm_sgd", common.CUDA)
 def _glm_sgd_cuda(task, W, X, y, *, step, micro_batch):
     n_rep, n, d = X.shape
-    kind = variant(d, micro_batch)
     X, y = common.cuda_operand(X), common.cuda_operand(y)
+    sms = common.sm_count(X.device)
+    kind = variant(d, micro_batch, n_rep, sms)
     out = common.cuda_operand(W).clone()
     tail = n % micro_batch
     scales = (step / micro_batch, step / tail if tail else 0.0)
     with common.on_device(X):
-        if kind == "cluster":
+        if kind == "grid":
+            plan = grid_plan(d, micro_batch, n_rep, sms)
+            blocks, rows = plan[0], plan[3]
+            # one zeroed allocation: the exchange's tagged slots (8 bytes
+            # each, tag 0 matches no exchange), then the pulls' scratch
+            words = 2 * n_rep * 2 * blocks * rows
+            buf = torch.zeros(words + n_rep * blocks * micro_batch,
+                              dtype=torch.float32, device=X.device)
+            fn = _build.function("glm_sgd", "glm_sgd_epoch_grid", _P, _P,
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                                 _I, _I, _I, _P)
+            code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(),
+                      buf[words:].data_ptr(), buf.data_ptr(), n_rep, n, d,
+                      micro_batch, common.task_code(task), *scales, *plan,
+                      common.stream(X))
+        elif kind == "cluster":
             plan = cluster_plan(d, micro_batch)
             pulls = torch.empty((n_rep * plan[0], micro_batch),
                                 dtype=torch.float32, device=X.device)

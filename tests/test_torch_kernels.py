@@ -235,9 +235,14 @@ def test_glm_sgd_replica_axis_matches_per_replica_jax():
     pytest.param(20_000, 64, "cluster", id="20000-64-smem"),  # in chunks
     (20_958, 1, "cluster"),                   # real-sim: Table 4's seq
     (58_112, 10, "cluster"),                  # past a block's shared memory
-    (100_000, 16, "global"),
+    # these two ids name the kernel that took the shapes before the grid
+    # kernel did; kept so that the cases keep their names
+    pytest.param(100_000, 16, "grid", id="100000-16-global"),
     (16 * 4_096, 1, "cluster"),               # the cluster's widest
-    (16 * 4_096 + 1, 1, "global"),            # past the cluster's cap
+    pytest.param(16 * 4_096 + 1, 1, "grid", id="65537-1-global"),
+    (1_355_191, 1, "grid"),                   # news: Table 4's seq epoch
+    (1_355_191, 64, "grid"),                  # a batch in fills of 2 rows
+    (512 * 24 * 132 + 1, 1, "global"),        # past the grid's slices
 ])
 def test_glm_sgd_variant_is_chosen_from_the_shape(d, mb, want):
     assert sgd_ops.variant(d, mb) == want
@@ -314,8 +319,8 @@ def test_glm_sgd_accepted_shapes_did_not_shrink():
     """Every (d, micro_batch) some variant took still runs: the shared-memory
     kernel's shapes up to WARP_MAX_D stay on the warp or shared-memory
     kernels and every wider one goes to the cluster kernel, as do the
-    global kernel's up to the cluster's cap; the global kernel keeps the
-    rest."""
+    global kernel's up to the cluster's cap; past it the grid kernel takes
+    what its plan fits, and the global kernel keeps the rest."""
     for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111,
               58_112, 65_536, 65_537, 100_000, 200_000):
         for mb in (1, 2, 10, 16, 27, 28, 64, 111, 112):
@@ -326,11 +331,14 @@ def test_glm_sgd_accepted_shapes_did_not_shrink():
             elif d <= 16 * 4_096:
                 assert kind == "cluster"
             else:
-                assert kind == "global"
+                assert kind == ("grid" if sgd_ops.grid_plan(d, mb)[0]
+                                else "global")
+                assert kind == "grid"  # every one of these widths at R = 1
     assert sgd_ops.variant(58_111, 1) == "cluster"
     assert sgd_ops.variant(58_112, 1) == "cluster"
     assert sgd_ops.variant(65_536, 16) == "cluster"
-    assert sgd_ops.variant(100_000, 16) == "global"
+    assert sgd_ops.variant(100_000, 16) == "grid"
+    assert sgd_ops.variant(100_000, 16, 200) == "global"  # too many replicas
     assert sgd_ops.variant(1_025, 57_087) == "cluster"  # smem's longest batch
     assert sgd_ops.variant(54, 60_000) == "global"   # a batch past the cap
 
@@ -339,14 +347,81 @@ def test_glm_sgd_accepted_shapes_did_not_shrink():
                                   (140_000, 3)])
 def test_glm_sgd_past_shared_memory_matches_jax(d, mb):
     """Models too wide for a block's shared memory (the cluster kernel's
-    shapes up to its cap, the global kernel's past it; a ragged tail at
+    shapes up to its cap, the grid kernel's past it; a ragged tail at
     micro-batches 10, 16 and 3) against the JAX reference."""
     assert sgd_ops.variant(d, mb) == ("cluster" if d <= 16 * 4_096
-                                      else "global")
+                                      else "grid")
     X, y, w = _dense(23, d, seed=mb)
     ref = jglm_sgd_epoch("lr", *_j(w, X, y), step=0.01, micro_batch=mb,
                          backend="reference")
     out = tk.glm_sgd_epoch("lr", *_t(w, X, y), step=0.01, micro_batch=mb)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
+
+
+@pytest.mark.parametrize("d,mb,n_rep", [(65_537, 1, 1), (100_000, 1, 1),
+                                        (100_000, 16, 1), (100_000, 16, 3),
+                                        (140_000, 3, 1), (200_000, 111, 1),
+                                        (1_355_191, 1, 1), (1_355_191, 10, 1),
+                                        (1_355_191, 64, 1), (100_000, 1, 8),
+                                        (512 * 24 * 132, 1, 1)])
+def test_glm_sgd_grid_plan_gives_every_feature_one_block(d, mb, n_rep):
+    """Block b of a replica's grid owns features [b * slice, (b + 1) *
+    slice): every feature exactly one block, every block at least one, a
+    slice its 512 chain threads hold in at most 24 registers each; the
+    replicas' blocks co-resident on the H100's 132 SMs, one a SM; two
+    stages or more of a whole batch (up to 32 rows) where they fit, else
+    fewer rows a fill; each block's shared memory within 227 KB."""
+    blocks, slice_, stages, rows = sgd_ops.grid_plan(d, mb, n_rep)
+    owners = np.zeros(d, dtype=np.int64)
+    for b in range(blocks):
+        lo, hi = b * slice_, min(d, (b + 1) * slice_)
+        assert hi > lo
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert n_rep * blocks <= 132
+    assert slice_ <= sgd_ops.GRID_CHAIN_THREADS * sgd_ops.GRID_MAX_VALUES
+    assert 2 <= stages <= sgd_ops.GRID_MAX_STAGES
+    assert sgd_ops.grid_smem_bytes(slice_, stages, rows) \
+        <= common.MAX_SMEM_BYTES
+    want = min(mb, sgd_ops.CLUSTER_CHUNK_ROWS)
+    assert 1 <= rows <= want
+    if rows < want:
+        assert sgd_ops.grid_smem_bytes(slice_, 2, rows + 1) \
+            > common.MAX_SMEM_BYTES
+    assert sgd_ops.variant(d, mb, n_rep) == "grid"
+
+
+def test_glm_sgd_grid_plan_at_news_and_where_it_refuses():
+    """news's Table 4 seq epoch takes all 132 SMs, 10,267 features a block
+    (about 20 a chain thread) and a 5-stage ring of single rows; 8
+    replicas of d = 100,000 take 16 blocks each.  The plan refuses (the
+    global kernel keeps the shape) past 132 x 12,288 features on one
+    replica and where the replicas outnumber the SMs."""
+    assert sgd_ops.grid_plan(1_355_191, 1) == (132, 10_267, 5, 1)
+    assert sgd_ops.grid_plan(100_000, 1, 8)[:2] == (16, 6_250)
+    for d, mb, n_rep in ((512 * 24 * 132 + 1, 1, 1), (100_000, 1, 133),
+                         (1_355_191, 1, 2)):
+        assert sgd_ops.grid_plan(d, mb, n_rep) == (0, 0, 0, 0)
+        assert sgd_ops.variant(d, mb, n_rep) == "global"
+    # another card's SM count moves the plan: 114 SMs hold news at 11,888
+    # features a block, 100 do not
+    assert sgd_ops.grid_plan(1_355_191, 1, 1, 114)[:2] == (114, 11_888)
+    assert sgd_ops.grid_plan(1_355_191, 1, 1, 100) == (0, 0, 0, 0)
+    assert sgd_ops.variant(1_355_191, 1, 1, 100) == "global"
+
+
+@pytest.mark.parametrize("d,mb,n", [(65_537, 1, 9), (70_001, 5, 13),
+                                    (140_001, 3, 11)])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_grid_shapes_match_jax(task, d, mb, n):
+    """The grid kernel's shapes (past the cluster's 65,536 features) at
+    micro-batch 1 and ragged ones (13 rows at 5, 11 at 3) against the JAX
+    reference (its Pallas flavor holds no model this wide in VMEM)."""
+    assert sgd_ops.variant(d, mb) == "grid"
+    X, y, w = _dense(n, d, seed=d % 97)
+    ref = jglm_sgd_epoch(task, *_j(w, X, y), step=1.0 / d, micro_batch=mb,
+                         backend="reference")
+    out = tk.glm_sgd_epoch(task, *_t(w, X, y), step=1.0 / d, micro_batch=mb)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
 
 
@@ -547,9 +622,17 @@ def test_glm_sparse_repeated_and_shared_features_match_jax(task):
     (300, 69, 10, "smem"),                    # w8a, async r10 b6470
     (20_958, 307, 8, "smem"),                 # real-sim: the live learner
     (29_024, 1, 1, "smem"),                   # two warps' copies, just
-    (29_025, 1, 1, "atomic"),
-    (47_236, 1_224, 1, "atomic"),             # rcv1
-    (1_355_191, 2_729, 1, "atomic"),          # news
+    # these three ids name the kernel that took the shapes before the hot
+    # kernel did; kept so that the cases keep their names
+    pytest.param(29_025, 1, 1, "hot", id="29025-1-1-atomic"),
+    pytest.param(47_236, 1_224, 1, "hot",     # rcv1, its Table 3 max_nnz
+                 id="47236-1224-1-atomic"),
+    pytest.param(1_355_191, 2_729, 1, "hot",  # news
+                 id="1355191-2729-1-atomic"),
+    (47_236, 438, 1, "hot"),                  # rcv1, paper_dataset's pad
+    (47_236, 438, 10, "hot"),
+    (1_355_191, 16_423, 1, "hot"),            # news's Table 3 max_nnz
+    (1_355_191, 16_897, 1, "atomic"),         # past HOT_MAX_K
 ])
 def test_glm_sparse_variant_is_chosen_from_the_shape(d, k, n_rep, want):
     assert sparse_ops.variant(d, k, n_rep) == want
@@ -592,6 +675,85 @@ def test_glm_sparse_smem_plan_at_w8a():
     assert sparse_ops.smem_plan(300, 69, 1, 64_700, 132) == (8, 8, 123, 527)
     assert sparse_ops.smem_plan(300, 69, 10, 6_470, 132) == (8, 8, 125, 52)
     assert sparse_ops.smem_plan(20_958, 307, 1, 72_309, 132)[:2] == (4, 2)
+
+
+@pytest.mark.parametrize("d,k,n_rep,n", [(47_236, 438, 1, 677_399),
+                                         (47_236, 438, 1, 16_384),
+                                         (1_355_191, 2_729, 1, 19_996),
+                                         (47_236, 438, 10, 1_000),
+                                         (29_025, 69, 1, 31),
+                                         (58_000, 69, 200, 2_003)])
+def test_glm_sparse_hot_plan_covers_every_row_once(d, k, n_rep, n):
+    """A replica's rows in blocks of per_block consecutive rows, every row
+    exactly once, no block with fewer rows than its 32 warps need for one
+    each unless it is the only one; one block a SM over the replicas; the
+    hot features' copy within a block's shared memory."""
+    hot, blocks, per_block = sparse_ops.hot_plan(d, k, n_rep, n, 132)
+    assert (blocks - 1) * per_block < n <= blocks * per_block
+    assert blocks * n_rep <= 132 or blocks == 1
+    assert blocks == 1 or per_block >= sparse_ops.HOT_WARPS
+    assert hot == min(sparse_ops.HOT, d)
+    assert 4 * hot <= common.MAX_SMEM_BYTES
+    assert sparse_ops.hot_entries(k) in sparse_ops.HOT_ENTRIES
+    assert 32 * sparse_ops.hot_entries(k) >= min(k, 32 * 16)
+
+
+def test_glm_sparse_hot_plan_at_the_paper_widths():
+    """rcv1 and news run 132 blocks of 32 warps; rcv1's rows (K = 438) fit
+    the registers at 16 entries a lane, news's (K = 2,729) take 9 chunks of
+    256 more; the plan refuses rows past HOT_MAX_K."""
+    assert sparse_ops.hot_plan(47_236, 438, 1, 677_399, 132) \
+        == (4_096, 132, 5_132)
+    assert sparse_ops.hot_plan(1_355_191, 2_729, 1, 19_996, 132) \
+        == (4_096, 132, 152)
+    assert sparse_ops.hot_entries(438) == 16
+    assert -(-(2_729 - 32 * 16) // 256) == 9 <= sparse_ops.HOT_MARKED_CHUNKS
+    assert sparse_ops.hot_plan(1_355_191, sparse_ops.HOT_MAX_K + 1, 1, 10,
+                               132) == (0, 0, 0)
+
+
+def test_glm_sparse_hot_features_are_the_most_frequent():
+    """The operand's most frequent features, each given its place in the
+    list, every other feature -1; counted once for an operand, again after
+    an in-place write."""
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.zipf(1.5, (200, 30)).clip(max=999).astype(
+        np.int32) - 1)
+    hot_list, slot = sparse_ops.hot_features(idx, 1000, 20)
+    counts = np.bincount(idx.numpy().ravel(), minlength=1000)
+    assert set(hot_list.tolist()) <= set(range(1000))
+    assert len(set(hot_list.tolist())) == 20
+    assert counts[hot_list.numpy()].min() >= np.sort(counts)[-20]
+    assert (slot[hot_list.long()] == torch.arange(20, dtype=torch.int32)).all()
+    assert int((slot >= 0).sum()) == 20
+    assert sparse_ops.hot_features(idx, 1000, 20)[1] is slot
+    idx[0, 0] = 998  # an in-place write: counted again
+    assert sparse_ops.hot_features(idx, 1000, 20)[1] is not slot
+
+
+@pytest.mark.parametrize("d,k", [(29_025, 69), (47_236, 438)])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sparse_past_the_smem_cap_matches_jax(task, d, k):
+    """The hot kernel's widths (one past the smem kernel's and rcv1's) with
+    each row's padding spread through it, rows of all padding and a
+    feature repeated in a row, against the JAX reference (the Pallas
+    flavor routes d past 32,768 to it)."""
+    assert sparse_ops.variant(d, k, 1) == "hot"
+    rng = np.random.default_rng(d)
+    n = 40
+    nnz = rng.integers(1, k + 1, n)
+    live = np.arange(k)[None] < nnz[:, None]
+    values = (rng.normal(0, 1, (n, k)) * live).astype(np.float32)
+    indices = (rng.integers(0, d, (n, k)) * live).astype(np.int32)
+    cols = rng.permutation(k)
+    values, indices = values[:, cols].copy(), indices[:, cols].copy()
+    values[::7], indices[::7] = 0.0, 0
+    values[1, :3], indices[1, :3] = 1.0, 5
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    w = rng.normal(0, 0.1, d).astype(np.float32)
+    ref = jell_glm_grad(task, *_j(w, values, indices, y), backend="reference")
+    out = tk.ell_glm_grad(task, *_t(w, values, indices, y))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------

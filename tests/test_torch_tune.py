@@ -124,7 +124,7 @@ def test_grid_pick_is_each_familys_plan():
     ("glm_score", {"dtype": "float32", "sparse": True, "n": 128, "d": 300,
                    "k": 5000}),                      # the group kernel
     ("glm_sparse", {"dtype": "float32", "sparse": True, "n": 10,
-                    "d": 1_355_191, "k": 16}),       # the atomic kernel
+                    "d": 1_355_191, "k": 16}),       # the hot kernel
     ("flash_attn", {"dtype": "bfloat16", "batch": 1, "heads_q": 32,
                     "heads_kv": 8, "seq_q": 512, "seq_k": 512,
                     "head_dim": 80}),                # the mma kernel

@@ -9,7 +9,7 @@ Imports ``repro_torch`` from ``DIR/src`` (default: the checkout this script
 lies in), so the same script times a parent commit unpacked beside this
 one and this one, each in a process of its own; run them in turns (A, B,
 B, A) inside one chip call.  Needs one card.  ``--only`` runs the named
-sections alone (``decode,prefill,backward,sgd_sparse,grad,lm``;
+sections alone (``decode,prefill,backward,sgd_sparse,grad,lm,wide``;
 ``decode``, ``sgd_sparse`` and ``grad`` by default).
 Prints one JSON line:
 
@@ -47,6 +47,11 @@ Prints one JSON line:
 * ``prefill``: ``flash_attention`` at danube's prefill (B=1, S=8192,
   window 4096, bf16) on plain tensors and through the operator (inputs
   that require grad): ms by CUDA events and device ms;
+* ``wide``: the paper profile's widest shapes: Table 4's ``seq`` epoch on
+  news (its first 1,024 rows densified, 1,024 x 1,355,191, micro-batch 1)
+  and ``ell_glm_grad`` on rcv1 (677,399 x 47,236, K=438) and news (19,996
+  x 1,355,191, K=2,729) at full size, drawn on the card (``wide_ell``):
+  ms by CUDA events, device ms by kernel, the byte bound;
 * ``backward``: the gradient of ``flash_attention`` (``autograd.grad``
   over one forward's graph, so the backward operator alone runs) at
   danube's training layer (B=2, S=8192, window 4096, bf16) and at fp32
@@ -270,6 +275,74 @@ def grad_rows(K, synthetic, sgd) -> tuple[list[dict], list[dict]]:
     return rows, train
 
 
+def wide_ell(n: int, d: int, avg_nnz: float, k: int, seed: int = 0):
+    """Padded-ELL ``(values, indices, y)`` of ``n`` rows drawn on the card
+    as ``chip_smoke.wide_dataset`` draws them (log-normal row lengths,
+    Zipfian features over d, value-0 padding at index 0, planted labels),
+    so both checkouts time the same data."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nnz = torch.exp(np.log(avg_nnz) + 0.8 * torch.randn(
+        n, 1, device="cuda", generator=g)).clamp(1, k).long()
+    live = torch.arange(k, device="cuda")[None] < nnz
+    ranks = torch.arange(1, d + 1, device="cuda", dtype=torch.float64)
+    cdf = torch.cumsum(1.0 / ranks, 0)
+    cdf /= cdf[-1].clone()
+    idx = torch.empty(n, k, device="cuda", dtype=torch.int32)
+    for r0 in range(0, n, 65_536):
+        u = torch.rand(min(65_536, n - r0), k, device="cuda", generator=g,
+                       dtype=torch.float64)
+        idx[r0:r0 + len(u)] = torch.searchsorted(cdf, u).clamp_(max=d - 1)
+        del u
+    idx *= live
+    vals = torch.randn(n, k, device="cuda", generator=g) * live
+    del live
+    w_star = torch.randn(d, device="cuda", generator=g) / ranks.sqrt().float()
+    y = torch.cat([torch.where((vals[r0:r0 + 65_536] * w_star[
+        idx[r0:r0 + 65_536].long()]).sum(1) >= 0, 1.0, -1.0)
+        for r0 in range(0, n, 65_536)])
+    y[torch.rand(n, device="cuda", generator=g) < 0.05] *= -1.0
+    return vals, idx, y
+
+
+#: news and rcv1 at their Table 3 sizes, K paper_dataset's pad width:
+#: (rows, d, nonzeros a row on average, K)
+NEWS = (19_996, 1_355_191, 454.99, 2_729)
+RCV1 = (677_399, 47_236, 73.16, 438)
+
+
+def wide_rows(K, sparse) -> list[dict]:
+    """Table 4's ``seq`` epoch on news (its first 1,024 rows densified,
+    micro-batch 1, step 1e-3 from w = 0) and ``ell_glm_grad`` on rcv1 and
+    news at full size (``SyncSGD()``'s gradient): ms by CUDA events, device
+    ms by kernel from the profiler, the byte bound."""
+    rows = []
+    news = wide_ell(*NEWS)
+    d = NEWS[1]
+    X = sparse.to_dense(sparse.ELLMatrix(news[0][:1_024], news[1][:1_024], d))
+    ys, w0 = news[2][:1_024], torch.zeros(d, device="cuda")
+    seq = lambda: K.glm_sgd_epoch(  # noqa: E731
+        "lr", w0, X, ys, step=1e-3, micro_batch=1)
+    rows.append({"case": "news seq N=1024 MB=1", "ms": events_ms(seq, 3),
+                 **profiler_ms(seq, 3),
+                 "bound_ms": (X.numel() + 1_024 + 2 * d) * 4
+                 / HBM_BYTES_PER_S * 1e3})
+    del X
+    torch.cuda.empty_cache()
+    for label, (v, i, y), nd in (("rcv1", wide_ell(*RCV1), RCV1[1]),
+                                 ("news", news, d)):
+        w = torch.randn(nd, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(3)) * 0.01
+        grad = lambda: K.ell_glm_grad("lr", w, v, i, y)  # noqa: E731
+        rows.append({"case": f"{label} gradient {list(v.shape)}",
+                     "ms": events_ms(grad, 20), **profiler_ms(grad, 20),
+                     "bound_ms": (ell_bytes(v) + 4 * len(y) + 8 * nd)
+                     / HBM_BYTES_PER_S * 1e3})
+    return rows
+
+
 #: phase ``lm``'s serving run (``chip_smoke.LM_ARGV``)
 LM_ARGV = ["--arch", "h2o-danube-1.8b", "--requests", "8", "--slots", "4",
            "--max-new", "16", "--max-len", "128", "--seed", "0"]
@@ -318,7 +391,8 @@ def lm_run() -> dict:
     return out
 
 
-SECTIONS = ("decode", "prefill", "backward", "sgd_sparse", "grad", "lm")
+SECTIONS = ("decode", "prefill", "backward", "sgd_sparse", "grad", "lm",
+            "wide")
 
 
 def main(argv=None) -> int:
@@ -344,7 +418,8 @@ def main(argv=None) -> int:
     _build.build_all(["flash_attn"] + (
         ["flash_attn_bwd"] if "backward" in only else []) + (
         ["glm_grad", "glm_sgd_sparse", "glm_sparse"]
-        if {"sgd_sparse", "grad"} & set(only) else []))
+        if {"sgd_sparse", "grad"} & set(only) else []) + (
+        ["glm_sgd", "glm_sparse"] if "wide" in only else []))
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -368,6 +443,9 @@ def main(argv=None) -> int:
         res["train"] = train
     if "lm" in only:
         res["lm"] = lm_run()
+    if "wide" in only:
+        from repro_torch.core import sparse
+        res["wide"] = wide_rows(K, sparse)
     print(json.dumps(res), flush=True)
     return 0
 
