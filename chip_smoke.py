@@ -281,9 +281,10 @@ import copy
 import dataclasses
 import functools
 import gc
-import importlib
+import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -4169,27 +4170,34 @@ def _mesh_rescale(dev, mesh, state, scratch: Path) -> dict:
     return rec
 
 
-#: the dense sync cell's step on one unsharded rank, for the flops check
+#: a step on one unsharded fake rank (arch, kind, seq, global batch), with
+#: the dry run's counters: the dense sync cell's, for the flops check, and
+#: phase lm_train (a)'s, for the roofline bound
 _UNSHARDED = """
 import json, sys
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch import configs
 from repro_torch.launch import dryrun
-arch, shape = sys.argv[1:3]
-kind, seq, gb = configs.SHAPES[shape]
+arch, kind, seq, gb = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:5])
 with dryrun.fake_world(1):
     mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
     print(json.dumps(dryrun.run_step(configs.get(arch), kind, seq, gb, mesh,
                                      device="cuda")))
 """
+#: phase lm_train (a)'s step, traced for its roofline bound: (arch, batch,
+#: sequence), TRAIN_ARGV's
+DANUBE_STEP = ("h2o-danube-1.8b", 2, 8192)
 
 
 def start_mesh_dryrun() -> dict:
     """(d)'s processes, all started at once: the cells, each ``python -m
-    repro_torch.launch.dryrun`` with cuda fakes, and the dense sync cell's
-    step on one unsharded fake rank.  The full run starts them with phase
-    ``lm_families``, whose work is on the card, so that they trace on the
-    host meanwhile; ``_mesh_dryrun`` reads them."""
+    repro_torch.launch.dryrun`` with cuda fakes, the dense sync cell's step
+    on one unsharded fake rank, and DANUBE_STEP's step on one.  The full
+    run starts them with phase ``lm_families``, whose work is on the card,
+    so that they trace on the host meanwhile; ``_mesh_dryrun`` reads
+    them."""
+    from repro_torch import configs
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
     def start(cmd):
@@ -4207,7 +4215,13 @@ def start_mesh_dryrun() -> dict:
             + (["--multipod"] if multi else []))
     dense = MESH_CELLS[0]
     procs["unsharded"] = start([sys.executable, "-c", _UNSHARDED, dense[0],
-                                dense[1]])
+                                *map(str, configs.SHAPES[dense[1]])])
+    # at the lowest priority: the cells, the longest of them zamba2's,
+    # keep the host's cores, and this trace takes what they leave
+    arch, b, seq = DANUBE_STEP
+    procs["danube_step"] = start(["nice", "-n", "19", sys.executable, "-c",
+                                  _UNSHARDED, arch, "train", str(seq),
+                                  str(b)])
     # a run that stops before phase mesh reads them leaves none behind
     atexit.register(lambda: [proc.kill() for proc, _, _ in procs.values()
                              if proc.poll() is None])
@@ -4221,9 +4235,72 @@ def _read_back(f) -> str:
         return f.read()
 
 
+def _roofline_row(arch: str, shape: str, mesh: str, kind: str, seq: int,
+                  gb: int, res: dict) -> dict:
+    """``roofline.analysis``'s row for one traced step, or the error it
+    raised; ``ok`` where its three terms are finite and positive (a
+    one-rank step's collective term may be 0)."""
+    from repro_torch.roofline import analysis
+    try:
+        row = analysis.analyze({"arch": arch, "shape": shape, "mesh": mesh,
+                                "kind": kind, "seq": seq, "global_batch": gb,
+                                **res, "status": "ok"})
+    except (KeyError, TypeError, ValueError, ZeroDivisionError) as e:
+        return {"arch": arch, "shape": shape, "mesh": mesh,
+                "error": repr(e), "ok": False}
+    terms = [row["compute_s"], row["memory_s"]] + (
+        [row["collective_s"]] if mesh != "1x1" else [])
+    row["ok"] = all(math.isfinite(t) and t > 0 for t in terms)
+    return row
+
+
+#: a dry-run cell's roofline keys in phase mesh's line
+ROOFLINE_KEYS = ("compute_s", "memory_s", "collective_s", "dominant",
+                 "step_time_bound_s", "model_flops_per_dev",
+                 "dot_flops_per_dev", "dot_flops_by_dtype",
+                 "useful_compute_ratio", "hbm_bytes_per_dev", "hbm_top",
+                 "collective_bytes_per_dev", "collective_by_kind",
+                 "collective_by_link", "error", "ok")
+
+
+def _roofline_table(rows: list[dict]) -> None:
+    """(d)'s rows in ``dryrun_results/torch/roofline_mesh_cells.{json,md}``
+    (the dry run's results directory, which ``.gitignore`` lists)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    dryrun.RESULTS_DIR.mkdir(parents=True, exist_ok=True)
+    out = dryrun.RESULTS_DIR / "roofline_mesh_cells"
+    out.with_suffix(".json").write_text(json.dumps(rows, indent=1))
+    out.with_suffix(".md").write_text(analysis.to_markdown(rows))
+
+
+def _danube_bound(row: dict, measured_ms: float, source: str) -> dict:
+    """Phase lm_train (a)'s step against the least time the card could
+    take for the work its trace counted: the larger of its dot flops over
+    the peaks and its traffic over the HBM bandwidth (one rank: no
+    collective).  A bound above the measured step would mean the counts
+    are wrong."""
+    rec = {k: row.get(k) for k in ("compute_s", "memory_s",
+                                   "model_flops_global", "dot_flops_per_dev",
+                                   "dot_flops_by_dtype", "useful_compute_ratio",
+                                   "hbm_bytes_per_dev", "hbm_top", "trace_s",
+                                   "error")}
+    rec.update(measured_ms=measured_ms, measured_by=source,
+               nvidia_smi=nvidia_smi())
+    if "error" in row or not row["ok"]:
+        return {**rec, "ok": False}
+    bound_ms = max(row["compute_s"], row["memory_s"]) * 1e3
+    rec.update(bound_ms=bound_ms, bound_by="operations" if row["compute_s"]
+               >= row["memory_s"] else "bytes",
+               measured_over_bound=measured_ms / bound_ms)
+    rec["ok"] = bool(bound_ms <= measured_ms)
+    return rec
+
+
 def _mesh_dryrun(started: dict) -> dict:
     """(d): the results of ``start_mesh_dryrun``'s processes, each within
-    MESH_CELL_TIMEOUT_S of their start."""
+    MESH_CELL_TIMEOUT_S of their start, and each cell's roofline row."""
+    from repro_torch import configs
     procs, t0 = started["procs"], started["t0"]
     out = {}
     for key, (proc, out_file, err_file) in procs.items():
@@ -4239,7 +4316,7 @@ def _mesh_dryrun(started: dict) -> dict:
         else:
             out[key] = {"status": "fail", "rc": proc.returncode,
                         "stderr": stderr[-2000:]}
-    cells = []
+    cells, roofline = [], []
     for arch, shape, multi, update in MESH_CELLS:
         r = out[(arch, shape, multi, update)]
         row = {"arch": arch, "shape": shape,
@@ -4260,10 +4337,22 @@ def _mesh_dryrun(started: dict) -> dict:
                 # held for MESH_PEAK_HELD's cells, recorded for the others
                 "peak_fits_card": mem["peak_bytes"] <= CARD_BYTES,
                 "peak_held": (arch, shape, multi, update) in MESH_PEAK_HELD})
+            kind, seq, gb = configs.SHAPES[shape]
+            roof = _roofline_row(arch, shape, row["mesh"], kind, seq, gb, r)
+            roofline.append({**roof, "update": update})
+            row["roofline"] = {k: roof.get(k) for k in ROOFLINE_KEYS}
         else:
             row["error"] = r.get("stderr", "")[-600:]
         cells.append(row)
+    _roofline_table(roofline)
     un = out["unsharded"]
+    arch, b, seq = DANUBE_STEP
+    danube = (_roofline_row(arch, f"B={b} S={seq}", "1x1", "train", seq, b,
+                            out["danube_step"])
+              if out["danube_step"].get("status") != "fail" else
+              {"error": out["danube_step"].get("stderr", "")[-600:],
+               "ok": False})
+    danube["trace_s"] = out["danube_step"].get("compile_s")
     first = cells[0]
     ratio = (first["matmul_flops"] * 256 / un["matmul_flops"]
              if first["status"] == "ok" and "matmul_flops" in un else None)
@@ -4275,8 +4364,12 @@ def _mesh_dryrun(started: dict) -> dict:
             "peak_over_card": [f"{c['arch']} {c['shape']} {c['mesh']}"
                                for c in cells
                                if not c.get("peak_fits_card", True)],
+            "trace_s": {f"{c['arch']} {c['shape']} {c['mesh']} "
+                        f"{c['update']}": c.get("trace_s") for c in cells},
+            "danube_step": danube,
             "ok": bool(all(c["status"] == "ok" and c["fits_card"]
                            and (c["peak_fits_card"] or not c["peak_held"])
+                           and c["roofline"]["ok"]
                            for c in cells)
                        and ratio is not None
                        and abs(ratio - 1) <= MESH_FLOPS_TOL)}
@@ -4322,8 +4415,8 @@ def _mesh_family(dev, mesh, name: str, steps: int,
     return out, launches
 
 
-def phase_mesh(dev, scratch: Path, dryrun: dict | None = None
-               ) -> tuple[dict, dict]:
+def phase_mesh(dev, scratch: Path, dryrun: dict | None = None,
+               step_ms: float | None = None) -> tuple[dict, dict]:
     """The port's mesh on the card: (a) two sync steps of full-width
     h2o-danube-1.8b on a one-rank NCCL ``(data=1, model=1)`` mesh with
     DTensor parameters, held to the mesh-less step, and MESH_FAMILIES'
@@ -4331,7 +4424,11 @@ def phase_mesh(dev, scratch: Path, dryrun: dict | None = None
     xlstm's mLSTM on its key dim and sLSTM on its rows) held bit for bit;
     (b) decode ticks on the mesh held to the mesh-less decode, danube's
     and zamba2's; (c) ``elastic_rescale`` and a checkpoint round trip of
-    (a)'s danube state; (d) the dry run's cells on the production meshes.
+    (a)'s danube state; (d) the dry run's cells on the production meshes,
+    each with its roofline row (``roofline.analysis`` on the card's peaks
+    and links), and DANUBE_STEP's trace on one fake rank, whose bound must
+    not exceed phase lm_train (a)'s steady step (``step_ms``; without it,
+    as in ``--mesh``, (a)'s second step on the one-rank mesh).
     (d)'s processes are the ones ``dryrun`` started (``start_mesh_dryrun``),
     else started here; they are read first, so that none holds a CUDA
     context while (a) trains.  Returns the phase line and (a)'s and (b)'s
@@ -4372,14 +4469,18 @@ def phase_mesh(dev, scratch: Path, dryrun: dict | None = None
                 train_launches[key] += launches[key]
             decode_launches += launches["decode"]
     free_memory()
+    source = "phase lm_train (a), steady ms a step"
+    if step_ms is None:
+        step_ms, source = sync["ms_per_step"][-1], "phase mesh (a), step 2"
+    dry["danube_step"] = _danube_bound(dry["danube_step"], step_ms, source)
     return {"phase": "mesh", "arch": cfg.name, "mesh": "(data=1, model=1) "
             "NCCL", "train": sync, "decode": dec, "rescale": rescale,
             "families": families, "dryrun": dry, "nvidia_smi": nvidia_smi(),
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(sync["ok"] and dec["ok"] and rescale["ok"]
                        and all(f["ok"] for f in families.values())
-                       and dry["ok"])}, {**train_launches,
-                                         "decode": decode_launches}
+                       and dry["ok"] and dry["danube_step"]["ok"])}, {
+        **train_launches, "decode": decode_launches}
 
 
 def run_mesh(scratch: Path) -> int:
@@ -4397,6 +4498,46 @@ def run_mesh(scratch: Path) -> int:
     emit(line)
     print(smi, flush=True)
     return 0 if line["ok"] else 1
+
+
+# ---------------------------------------------------------------------------
+# Phase examples: the example twins on the card
+# ---------------------------------------------------------------------------
+
+#: each twin's arguments: its smoke size, on the card (no ``--device``)
+EXAMPLES = (("torch_quickstart", []), ("torch_paper_study", []),
+            ("torch_serve_lm", []), ("torch_train_lm", ["--steps", "10"]))
+
+
+def phase_examples(scratch: Path) -> dict:
+    """``examples/torch_*.py`` in this process (no start-up of their own),
+    each through its ``main`` with no ``--device``: on ``cuda``, the
+    port's kernels.  Their launches join no kernels-line count."""
+    runs, t_phase = [], time.perf_counter()
+    for name, argv in EXAMPLES:
+        if name == "torch_train_lm":
+            argv = argv + ["--ckpt", str(scratch / "train_lm_ckpt")]
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        buf, t0 = io.StringIO(), time.perf_counter()
+        try:
+            spec.loader.exec_module(mod)
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            error = None
+        except (Exception, SystemExit) as e:  # a twin's failure is the row's
+            error = repr(e)
+        torch.cuda.synchronize()
+        runs.append({"example": name, "argv": argv,
+                     "seconds": time.perf_counter() - t0, "error": error,
+                     "printed": buf.getvalue().strip().splitlines()[-6:],
+                     "on_cuda": "cuda" in buf.getvalue()})
+        free_memory()
+    shutil.rmtree(scratch / "train_lm_ckpt", ignore_errors=True)
+    return {"phase": "examples", "runs": runs,
+            "seconds": time.perf_counter() - t_phase,
+            "ok": all(r["error"] is None and r["on_cuda"] for r in runs)}
 
 
 # ---------------------------------------------------------------------------
@@ -5720,6 +5861,7 @@ def run(scratch: Path) -> int:
     launches["flash_attn_mma"] += train_launches["mma"]
     launches["flash_attn_bwd_wgmma"] = train_launches["bwd_wgmma"]
     launches["flash_attn_bwd_simt_tiled"] = train_launches["bwd_simt_tiled"]
+    step_ms = line["sync"]["steady_ms_per_step"]
     del line
     free_memory()
     dryrun = start_mesh_dryrun()   # traced on the host during lm_families
@@ -5734,7 +5876,7 @@ def run(scratch: Path) -> int:
     launches["flash_attn_bwd_wgmma"] += family_launches["backward"]
     torch.cuda.empty_cache()
 
-    line, mesh_launches = phase_mesh(dev, scratch, dryrun)
+    line, mesh_launches = phase_mesh(dev, scratch, dryrun, step_ms)
     emit(line)
     if not line["ok"]:
         return 1
@@ -5743,6 +5885,12 @@ def run(scratch: Path) -> int:
     launches["flash_attn_mma"] += mesh_launches["mma"]
     launches["flash_attn_bwd_wgmma"] += mesh_launches["backward"]
     del line
+    free_memory()
+
+    line = phase_examples(scratch)
+    emit(line)
+    if not line["ok"]:
+        return 1
     free_memory()
 
     line = phase_bench(dev, covtype, w8a, realsim, scratch / "bench")

@@ -35,7 +35,17 @@ tests pass ``cpu``).  A cell's result has the reference's keys:
   it would change what the other modes see);
 * ``lower_s`` the placement, ``compile_s`` the traced step, in seconds.
 
-No HLO is written (``roofline/hlo.py`` has no PyTorch counterpart).
+No HLO is written.  In its place the measured trace also runs
+``roofline/counts.py``'s counters (the counterpart of the reference's
+``roofline/hlo.py``), which ``roofline/analysis.py`` reads, for every
+cell kind: ``dot_flops_by_dtype`` (``cost_analysis.flops`` split by the
+dtype of each op's first operand), ``hbm_bytes`` (the traffic proxy) and
+``hbm_top`` (its largest ops), ``wire_bytes`` and ``wire_bytes_by_kind``
+/ ``_by_link`` (the ring formulas' bytes a device).  Its
+:class:`~repro_torch.roofline.counts.OpCounts` sits below the other two
+modes and lets DTensor desugar each op first, so they see what they saw
+without it: the mini cells' every other key is unchanged
+(``tests/test_torch_roofline_analysis.py``).
 Each cell runs in its own process when swept (``--all``: one subprocess a
 cell, so a failure cannot take the sweep down; ``--jobs`` of them at once,
 each killed past ``--cell-timeout`` seconds and recorded as ``timeout``).  Results land in
@@ -64,7 +74,8 @@ from torch.distributed.tensor.debug import CommDebugMode
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.roofline.counts import LocalFlopCounter, OpCounts
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "dryrun_results" / "torch"
 #: bytes XLA counts for each leaf of a step's output tuple
@@ -84,26 +95,6 @@ def fake_world(size: int):
         yield
     finally:
         dist.destroy_process_group()
-
-
-class LocalFlopCounter(FlopCounterMode):
-    """``FlopCounterMode`` over rank 0's share of DTensor ops.  A mode
-    sees a DTensor op at its global shapes, before DTensor splits it, so
-    each op's count is divided by the ranks that split its work: the mesh
-    dims on which its output is sharded or partial (a replicated dim
-    repeats the work on every rank)."""
-
-    def _count_flops(self, func_packet, out, args, kwargs):
-        split = _split(out)
-        if split == 1:
-            return super()._count_flops(func_packet, out, args, kwargs)
-        parents = set(self.mod_tracker.parents)
-        before = {p: self.flop_counts[p][func_packet] for p in parents}
-        out = super()._count_flops(func_packet, out, args, kwargs)
-        for p, b in before.items():
-            self.flop_counts[p][func_packet] = (
-                b + (self.flop_counts[p][func_packet] - b) // split)
-        return out
 
 
 class LocalMemory(TorchDispatchMode):
@@ -219,14 +210,6 @@ class LocalComms(CommDebugMode):
                 t.numel() * t.element_size() for t in tree_leaves(out)
                 if isinstance(t, torch.Tensor))
         return out
-
-
-def _split(out) -> int:
-    t = out[0] if isinstance(out, (tuple, list)) and out else out
-    if not isinstance(t, DTensor):
-        return 1
-    return math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
-                     if p.is_shard() or p.is_partial())
 
 
 def _leaves(tree) -> list:
@@ -391,7 +374,8 @@ def run_step(cfg, kind: str, seq: int, gb: int, mesh, *,
         memory = LocalMemory()
         memory.track(tensors)
         flops = LocalFlopCounter(display=False)
-        with memory, flops:
+        counts = OpCounts()
+        with counts, memory, flops:
             out = step(*args)
             out = tuple(placed(o, pl, mesh) for o, pl in zip(out, out_pl))
         t_step = time.perf_counter() - t0 - t_lower
@@ -410,7 +394,8 @@ def run_step(cfg, kind: str, seq: int, gb: int, mesh, *,
             "collective_bytes": comms.bytes,
             "matmul_flops": sum(
                 n for op, n in flops.get_flop_counts()["Global"].items()
-                if str(op).split(".")[-1] in MATMUL_OPS)}
+                if str(op).split(".")[-1] in MATMUL_OPS),
+            "dot_flops_by_dtype": flops.by_dtype, **counts.record()}
 
 
 #: the products a dense cell's matmul flops count (attention apart)

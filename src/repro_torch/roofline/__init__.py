@@ -2,8 +2,11 @@
 
 * :mod:`repro_torch.roofline.kernels` — analytic FLOPs and HBM bytes of one
   launch of each kernel family, and the card's bound for them.
-
-The reference's ``analysis.py`` and ``hlo.py`` read XLA's HLO cost
-analysis; they have no PyTorch counterpart here.
+* :mod:`repro_torch.roofline.counts` — the dry run's op counts (dot flops
+  by dtype, collective wire bytes, an HBM-traffic proxy), where the
+  reference parses XLA's HLO (``hlo.py``).
+* :mod:`repro_torch.roofline.analysis` — deliverable (g): each dry-run
+  cell's compute, memory and collective terms on the card's peaks and
+  links.
 """
 from repro_torch.roofline import kernels  # noqa: F401

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
-imports JAX, the reference package ``repro`` or the reference's drivers
-(the root ``benchmarks`` package, which imports ``repro``)."""
+"""The port stands alone: nothing under src/repro_torch/, chip_smoke.py
+nor the example twins (examples/torch_*.py) imports JAX, the reference
+package ``repro`` or the reference's drivers (the root ``benchmarks``
+package, which imports ``repro``)."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
@@ -54,7 +56,10 @@ def test_port_has_the_expected_modules():
             "checkpoint/__init__.py", "checkpoint/checkpoint.py",
             "launch/train.py", "nn/moe.py", "nn/ssm.py", "nn/xlstm.py",
             "data/modality_stubs.py", "launch/mesh.py", "launch/specs.py",
-            "launch/dryrun.py", "nn/local.py"} <= names
+            "launch/dryrun.py", "nn/local.py", "roofline/counts.py",
+            "roofline/analysis.py"} <= names
+    assert [p.name for p in TWINS] == [f"torch_{m}.py" for m in (
+        "paper_study", "quickstart", "serve_lm", "train_lm")]
     assert {f"benchmarks/{m}.py" for m in (
         "common", "table7_async", "table4_sync", "fig22_sync_vs_async",
         "fig11_model_replication", "fig14_data_replication",
