@@ -7,6 +7,7 @@ family) on one NVIDIA card.
     python3 chip_smoke.py --lm-train-probe
     python3 chip_smoke.py --lm-families
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --attn-fwd
     python3 chip_smoke.py --attn-bwd
     python3 chip_smoke.py --wide
 
@@ -19,8 +20,12 @@ initial weights.  The third runs only env, build and phase
 ``lm_families`` in the full run: ``phase_mesh``'s docstring; the placed
 families' sync steps and zamba2's decode ticks bit for bit on a one-rank
 NCCL mesh, and the dry run's cells on the production meshes), the fifth
-only env, build, phase ``kernels``' checks of the attention backward and
-phase ``lm_train``'s (d), the sixth only env, build and the paper profile's
+only env, build, phase ``kernels``' checks of the attention forward in
+every variant, the sweep behind ``WGMMA_MIN_QUERIES``, the forward's
+rows of phase ``lm_train``'s (d) and phase ``lm_train`` (c)'s rules
+against forwards wrong on purpose (``run_attn_fwd``), the sixth only env,
+build, phase ``kernels``' checks of the attention backward and phase
+``lm_train``'s (d), the seventh only env, build and the paper profile's
 widest datasets (``run_wide``: phase ``kernels``' checks of glm_sgd's grid
 and glm_sparse's hot kernels, phase ``news``, phase ``study``'s (c) and
 their timing rows).
@@ -45,12 +50,19 @@ Phases, one JSON line each:
                variant at micro-batches 1, 10 and 64, K = 1, real-sim's
                K = 307, rows of all padding, rows that collide on one
                feature and repeat it, the live learner's shape, and the
-               shared-memory variant near the cap; flash_attn at danube's
+               shared-memory variant near the cap; flash_attn
+               (``attention_forward_checks``: each case in every variant
+               that takes it, bf16's log-sum-exp and output to 16 bits
+               through the operator too) at danube's
                prefill (S=8192, window 4096), a full causal 2048 at
-               minitron's heads, the tensor-core variant's edges (rep 3 with
+               minitron's heads, the tensor-core variants' edges (rep 3 with
                a ragged S, padded head dims, a query chunk over a longer
-               cache, a window inside one key tile, acausal, exactly 16
-               rows, rows that see no key), the decode variant's (Sk = 1,
+               cache and over a cache prefix read in place, a window inside
+               one key tile, acausal, exactly 16 rows, rows that see no
+               key, head dims 64 to 128, the queries around
+               WGMMA_MIN_QUERIES, unmasked cross Sq > Sk, the vlm cross
+               call, three calls of the wgmma kernel giving the same bits),
+               the decode variant's (Sk = 1,
                127, 128 and 4096, a cache prefix read in place, head dims
                64, 72 and 128, B = 64 with no split, a window that leaves
                chunks with no key, two row groups, the same output twice)
@@ -155,7 +167,7 @@ Phases, one JSON line each:
                seeded weights) through ``repro_torch.launch.train``'s
                objects: (a) sync SGD, 8 steps at B=2, S=8192 (past the 4096
                window), launch counts zeroed just before and read just
-               after (``flash_attn_mma_kernel``: a forward and a recompute
+               after (``flash_attn_wgmma_kernel``: a forward and a recompute
                a layer and step), the fresh batches' losses, which must
                fall (the reference's check), ms per step, tokens/s, peak
                memory, the step-0
@@ -169,7 +181,8 @@ Phases, one JSON line each:
                leaf through the kernel, through the plain versions in bf16
                and through the plain versions on an fp32 copy (the
                yardstick; each leaf by RMS and by max distance,
-               ``_held_bf16_grad``), and 2 layers in fp32 on the ``simt``
+               ``_held_bf16_grad``; the loss by ``_held_bf16`` with the
+               floor LOSS_ATOL), and 2 layers in fp32 on the ``simt``
                forward and ``simt_tiled`` backward against the plain
                versions; (d) the attention backward alone at one layer's
                shape against autograd through the plain forward, three
@@ -255,7 +268,9 @@ Phases, one JSON line each:
                redesign replaced, glm_sparse also at R=10, glm_score's flat
                kernel beside the group kernel at w8a N = 128 and 32,
                real-sim N = 128, all of w8a and news N = 512, flash_attn
-               decode also over a full 4096-key window, and an fp32 call;
+               decode also over a full 4096-key window, its prefill and the
+               vlm cross call on the wgmma kernel beside the mma kernel,
+               and an fp32 call;
                ``wide_timing``: glm_sgd's grid variant beside the global one
                at Table 4's news seq epoch and at d = 100,000, glm_sparse's
                hot variant beside the atomic one at rcv1's and news' full
@@ -306,6 +321,8 @@ sys.path.insert(0, str(ROOT / "src"))
 #: (query, key) pairs of an attention call
 from repro_torch.roofline.kernels import (  # noqa: E402
     BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, visible_pairs)
+from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
+    WGMMA_MIN_QUERIES)
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)    # the JAX conformance suite's
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -349,7 +366,8 @@ KERNEL_SYMBOLS = {
                    "atomic": ("ell_grad_kernel",)},
     "glm_score": {"flat": ("glm_score_flat_kernel",),
                   "group": ("glm_score_kernel",)},
-    "flash_attn": {"mma": ("flash_attn_mma_kernel",),
+    "flash_attn": {"wgmma": ("flash_attn_wgmma_kernel",),
+                   "mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
                    "simt": ("flash_attn_kernel",)},
     "flash_attn_bwd": {"wgmma": ("flash_attn_bwd_dq_wgmma_kernel",
@@ -438,6 +456,16 @@ def device_profile(fn, reps: int) -> dict[str, tuple[float, int]]:
         # start a new cycle and clear its records
     return {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def forward_launches() -> dict:
+    """flash_attn's tensor-core forward launches since the last
+    ``reset_launches``, by variant, as the wrapper counted them where it
+    launched each kernel."""
+    from repro_torch.kernels import common
+
+    return {kind: common.LAUNCHES.get(f"flash_attn_{kind}", 0)
+            for kind in ("mma", "wgmma")}
 
 
 def counted(fn, names) -> tuple[object, dict]:
@@ -593,7 +621,31 @@ ATTN_CASES = (
      torch.bfloat16, True, 100),
     ("decode one kv head, 9 rows", (2, 9, 1, 1, 700, 16), torch.bfloat16,
      True, None),
+    # the warpgroup variant's edges (bf16, hd 64 to 128 by 16, at least
+    # WGMMA_MIN_QUERIES queries): each head dim (80 and 128 above), the
+    # queries around the edge over a 900-key cache, ragged query tiles, a
+    # window inside one key tile (above), unmasked cross Sq > Sk
+    ("hd 64, rep 1, causal, Sq 300", (1, 4, 4, 300, 300, 64), torch.bfloat16,
+     True, None),
+    ("hd 96, rep 4, window, Sq 333", (1, 8, 2, 333, 333, 96), torch.bfloat16,
+     True, 100),
+    ("hd 112, rep 8, causal, Sq 200 < Sk 456", (1, 16, 2, 200, 456, 112),
+     torch.bfloat16, True, None),
+    ("Sq one below WGMMA_MIN_QUERIES over 900 keys",
+     (2, 32, 8, WGMMA_MIN_QUERIES - 1, 900, 80), torch.bfloat16, True, None),
+    ("Sq at WGMMA_MIN_QUERIES over 900 keys",
+     (2, 32, 8, WGMMA_MIN_QUERIES, 900, 80), torch.bfloat16, True, None),
+    ("Sq one above WGMMA_MIN_QUERIES over 900 keys",
+     (2, 32, 8, WGMMA_MIN_QUERIES + 1, 900, 80), torch.bfloat16, True, 256),
+    ("cross Sq 300 > Sk 170, hd 128", (1, 8, 2, 300, 170, 128),
+     torch.bfloat16, False, None),
+    ("the vlm cross call, Sq 2048 > Sk 1600", (1, 32, 8, 2048, 1600, 128),
+     torch.bfloat16, False, None),
 )
+#: rows that see no key (Sq > Sk under a causal mask: the first Sq - Sk
+#: queries sit before key 0), called on the cuda flavor directly (the
+#: public wrapper refuses Sq > Sk under a mask): (B, Hq, Hkv, Sq, Sk, hd)
+ATTN_NO_KEY_CASES = ((1, 8, 2, 100, 40, 80), (1, 8, 2, 300, 40, 128))
 
 #: flash_attn_bwd cases of phase ``kernels``, each in fp32 and in bf16:
 #: (label, (B, Hq, Hkv, Sq, Sk, hd), causal, window).  The families train at
@@ -1125,45 +1177,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         cases.append({"kernel": name,
                       "case": f"{label}: five calls give the same bits",
                       "ok": same_bits(fn)})
-    # flash_attn: distinct kv heads throughout (each drawn on its own), so
-    # a kernel that read kv head h % Hkv rather than h // rep would show
-    from repro_torch.kernels.flash_attn import ops as attn_ops
-    from repro_torch.kernels.flash_attn.ref import attention_ref
-    for n, (label, shape, dtype, causal, window) in enumerate(ATTN_CASES):
-        q, k, v = _attn_inputs(shape, dtype, dev, seed=100 + n)
-        tol = ATTN_TOL if dtype == torch.float32 else ATTN_BF16_TOL
-        kind = attn_ops.variant(dtype, shape[3], shape[1] // shape[2])
-        record("flash_attn", f"{label} {list(shape)} {dtype} causal={causal} "
-               f"window={window} {kind}",
-               K.flash_attention(q, k, v, causal=causal, window=window),
-               attention_ref(q, k, v, causal=causal, window=window), tol)
-    # rows that see no key: with Sq > Sk the first Sq - Sk queries sit
-    # before key 0 (the l == 0 guard gives 0).  The public wrapper refuses
-    # Sq > Sk, so the cuda flavor is called directly, in both variants
-    for dtype, tol in ((torch.bfloat16, ATTN_BF16_TOL),
-                       (torch.float32, ATTN_TOL)):
-        q, k, v = _attn_inputs((1, 8, 2, 100, 40, 80), dtype, dev, seed=98)
-        out = attn_ops._flash_attn_cuda(q, k, v, causal=True, window=None)
-        kind = attn_ops.variant(dtype, 100, 4)
-        record("flash_attn", f"rows that see no key, Sq=100 > Sk=40 {dtype} "
-               f"{kind}", out, attention_ref(q, k, v, causal=True,
-                                             window=None), tol)
-        cases.append({"kernel": "flash_attn",
-                      "case": f"the 60 rows before key 0 are 0 ({kind})",
-                      "ok": bool((out[:, :, :60] == 0).all())})
-    # decode's call: the first 77 rows of a 128-row cache, read in place;
-    # and the decode kernel's merge of chunks, in chunk order, gives the
-    # same bits on every call
-    q, kc, vc = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev, 99)
-    record("flash_attn", "decode over a cache prefix, 77 of 128 rows",
-           K.flash_attention(q, kc[:, :, :77], vc[:, :, :77], causal=False),
-           attention_ref(q, kc[:, :, :77], vc[:, :, :77], causal=False),
-           ATTN_BF16_TOL)
-    q, k, v = _attn_inputs((4, 32, 8, 1, 4096, 80), torch.bfloat16, dev, 97)
-    cases.append({"kernel": "flash_attn",
-                  "case": "decode Sk=4096: five calls give the same bits",
-                  "ok": same_bits(lambda: K.flash_attention(q, k, v,
-                                                            causal=False))})
+    attn_cases, worst["flash_attn"] = attention_forward_checks(dev)
+    cases += attn_cases
     bwd_cases, worst["flash_attn_bwd"] = _attention_backward_checks(dev)
     cases += bwd_cases
     # the redesigns past the shapes above: glm_sgd's grid kernel and
@@ -1192,6 +1207,149 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     return {"phase": "kernels", "cases": cases,
             "ok": all(c["ok"] for c in cases)}, worst
+
+
+def attn_variants_taking(dtype, sq, rep, hd) -> list[str]:
+    """The forward variants that take a call, the one ``ops.variant``
+    picks first: fp32 has one; in bf16 ``"mma"`` takes every call,
+    ``"wgmma"`` its WGMMA_HEAD_DIMS at any Sq, ``"decode"`` fewer than 16
+    rows (``Sq * rep``)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+
+    picked = attn_ops.variant(dtype, sq, rep, hd)
+    if dtype == torch.float32:
+        return [picked]
+    kinds = ((["wgmma"] if hd in attn_ops.WGMMA_HEAD_DIMS else []) + ["mma"]
+             + (["decode"] if sq * rep < attn_ops.MMA_MIN_ROWS else []))
+    return [picked] + [k for k in kinds if k != picked]
+
+
+def close_stats(out: torch.Tensor, ref: torch.Tensor,
+                tol: dict) -> tuple[float, bool]:
+    """``close`` for a log-sum-exp: +inf (a row that sees no key) must be
+    +inf in both, and counts 0 to the error."""
+    inf = torch.isinf(ref)
+    same = bool((torch.isinf(out) == inf).all() and (out[inf] == ref[inf]).all())
+    err, ok = close(torch.where(inf, 0.0, out), torch.where(inf, 0.0, ref),
+                    tol)
+    return err, ok and same
+
+
+def attention_forward_checks(dev) -> tuple[list[dict], float]:
+    """flash_attn's forward against its plain version, distinct kv heads
+    throughout (each drawn on its own, so a kernel that read kv head
+    h % Hkv rather than h // rep would show): every ATTN_CASES case in every
+    variant that takes it (``attn_variants_taking``; the others forced by
+    ``forced_variant``), the output at ATTN_TOL (fp32) or ATTN_BF16_TOL
+    (bf16), and for bf16 the training path's statistics through the
+    operator (``repro_torch::flash_attn`` asked for them; ``"decode"``
+    writes none, so such a call runs ``"mma"``): the log-sum-exp
+    (``close_stats``) and the output to 16 bits, ``out + out_lo``, both at
+    ATTN_BF16_TOL; rows that see no key (ATTN_NO_KEY_CASES: 0 and +inf);
+    a query chunk over a prefix of a longer cache (a head stride past
+    Sk * hd), read in place; decode over a cache prefix; and the same bits
+    call after call (the decode kernel's chunk merge five times, the wgmma
+    kernel three).  Returns the cases and the worst output error of a
+    picked variant."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    fwd = torch.ops.repro_torch.flash_attn
+    cases, worst = [], 0.0
+
+    def check(label, kinds, q, k, v, causal, window, call=None):
+        """``label``'s call in each of ``kinds`` against the plain
+        version (``call``: the forward under test, the public wrapper by
+        default)."""
+        nonlocal worst
+        tol = ATTN_TOL if q.dtype == torch.float32 else ATTN_BF16_TOL
+        ref, ref_lse, ref_lo = attention_ref(q, k, v, causal=causal,
+                                             window=window, with_lse=True)
+        for kind in kinds:
+            with forced_variant(attn_ops, kind):
+                out = (call or (lambda: K.flash_attention(
+                    q, k, v, causal=causal, window=window)))()
+                err, ok = close(out, ref, tol)
+                case = {"kernel": "flash_attn", "case": f"{label} {kind}",
+                        "variant": kind, "picked": kind == kinds[0],
+                        "max_abs_err": err, "tol": tol}
+                if q.dtype == torch.bfloat16:
+                    o, lse, lo = fwd(q, k, v, causal, window, None, None,
+                                     True)
+                    lse_err, lse_ok = close_stats(lse, ref_lse, tol)
+                    hi_err, hi_ok = close(o.float() + lo.float(),
+                                          ref.float() + ref_lo.float(), tol)
+                    case.update(lse_max_abs_err=lse_err,
+                                out16_max_abs_err=hi_err)
+                    ok = ok and lse_ok and hi_ok
+            case["ok"] = ok
+            if kind == kinds[0]:
+                worst = max(worst, err)
+            cases.append(case)
+
+    for n, (label, shape, dtype, causal, window) in enumerate(ATTN_CASES):
+        q, k, v = _attn_inputs(shape, dtype, dev, seed=100 + n)
+        b, hq, hkv, sq, sk, hd = shape
+        check(f"{label} {list(shape)} {dtype} causal={causal} "
+              f"window={window}", attn_variants_taking(dtype, sq, hq // hkv,
+                                                       hd),
+              q, k, v, causal, window)
+    # rows that see no key: the l == 0 guard gives 0, and the log-sum-exp
+    # +inf; the cuda flavor called directly, in every variant
+    for n, shape in enumerate(ATTN_NO_KEY_CASES):
+        b, hq, hkv, sq, sk, hd = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _attn_inputs(shape, dtype, dev, seed=98 + n)
+            kinds = [kd for kd in attn_variants_taking(dtype, sq, hq // hkv,
+                                                       hd) if kd != "decode"]
+            check(f"rows that see no key, Sq={sq} > Sk={sk} hd {hd} {dtype}",
+                  kinds, q, k, v, True, None,
+                  call=lambda: attn_ops._flash_attn_cuda(
+                      q, k, v, causal=True, window=None))
+            for kind in kinds:
+                with forced_variant(attn_ops, kind):
+                    out, lse, _ = attn_ops._flash_attn_cuda(
+                        q, k, v, causal=True, window=None, lse=True)
+                cases.append({
+                    "kernel": "flash_attn", "variant": kind,
+                    "case": f"the {sq - sk} rows before key 0 are 0 and "
+                            f"their log-sum-exp +inf, hd {hd} {dtype} ({kind})",
+                    "ok": bool((out[:, :, :sq - sk] == 0).all()
+                               and torch.isinf(lse[:, :, :sq - sk]).all())})
+    # a query chunk over a prefix of a longer cache, read in place: the
+    # kernels get a kv head stride of 1,024 rows for 700 keys
+    q, kc, vc = _attn_inputs((2, 32, 8, 200, 1024, 80), torch.bfloat16, dev,
+                             seed=96)
+    kp, vp = kc[:, :, :700], vc[:, :, :700]
+    assert attn_ops._kv_operand(kp)[1] == 1024 * 80
+    check("query chunk of 200 over the first 700 of 1,024 cached keys",
+          attn_variants_taking(torch.bfloat16, 200, 4, 80), q, kp, vp, True,
+          None)
+    # decode's call: the first 77 rows of a 128-row cache, read in place;
+    # and the decode kernel's merge of chunks, in chunk order, gives the
+    # same bits on every call
+    q, kc, vc = _attn_inputs((4, 32, 8, 1, 128, 80), torch.bfloat16, dev, 99)
+    check("decode over a cache prefix, 77 of 128 rows",
+          attn_variants_taking(torch.bfloat16, 1, 4, 80), q, kc[:, :, :77],
+          vc[:, :, :77], False, None)
+    q, k, v = _attn_inputs((4, 32, 8, 1, 4096, 80), torch.bfloat16, dev, 97)
+    cases.append({"kernel": "flash_attn",
+                  "case": "decode Sk=4096: five calls give the same bits",
+                  "ok": same_bits(lambda: K.flash_attention(q, k, v,
+                                                            causal=False))})
+    # the wgmma kernel has no atomics: the same bits, statistics too
+    q, k, v = _attn_inputs((1, 32, 8, 2048, 1600, 128), torch.bfloat16, dev,
+                           95)
+    with forced_variant(attn_ops, "wgmma"):
+        same = same_bits(lambda: torch.cat(
+            [t.flatten().float() for t in fwd(q, k, v, False, None, None,
+                                              None, True)]), calls=3)
+    cases.append({"kernel": "flash_attn", "variant": "wgmma",
+                  "case": "the vlm cross call: three calls of the wgmma "
+                          "kernel give the same bits (out, lse, out_lo)",
+                  "ok": same})
+    return cases, worst
 
 
 def _grads(fn) -> torch.Tensor:
@@ -2320,7 +2478,7 @@ BF16_MODEL_SLACK = 1.5
 
 
 def _held_bf16(out: torch.Tensor, plain: torch.Tensor,
-               fp32: torch.Tensor) -> dict:
+               fp32: torch.Tensor, atol: float = 0.0) -> dict:
     """A bf16 model output through the kernels against the same output
     through the plain versions, with the same weights run in fp32 as the
     yardstick.  The kernel and plain paths differ by where their fp32
@@ -2333,13 +2491,15 @@ def _held_bf16(out: torch.Tensor, plain: torch.Tensor,
     model than BF16_MODEL_SLACK times the plain bf16 path does (the max of
     two independent roundings varies by tens of percent: measured 0.77-1.04
     in one run).  A wrong mask or head shows as errors of the logits'
-    own size (about 5)."""
+    own size (about 5).  ``atol``: a floor under the limit, for a scalar
+    whose plain path can land on the fp32 value by chance (LOSS_ATOL)."""
     err = float((out.float() - plain.float()).abs().max())
     floor = float((plain.float() - fp32.float()).abs().max())
     mine = float((out.float() - fp32.float()).abs().max())
     return {"max_abs_err": err, "bf16_vs_fp32_max_abs_err": floor,
             "kernel_vs_fp32_max_abs_err": mine, "slack": BF16_MODEL_SLACK,
-            "ok": bool(mine <= BF16_MODEL_SLACK * floor
+            "atol": atol,
+            "ok": bool(mine <= max(BF16_MODEL_SLACK * floor, atol)
                        and torch.isfinite(out).all())}
 
 
@@ -2400,7 +2560,7 @@ def phase_lm(dev) -> tuple[dict, int, int]:
     its logits against the plain versions step by step, a profiled stretch
     of ticks, and one prefill forward against the plain versions.  Returns
     the phase line, the serving run's flash_attn launches (decode: the
-    ``decode`` kernel) and the prefill forward's (the ``mma`` kernel)."""
+    ``decode`` kernel) and the prefill forward's by variant (``wgmma``)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import serve
@@ -2431,7 +2591,8 @@ def phase_lm(dev) -> tuple[dict, int, int]:
            "tokens_per_s": tokens / wall,
            "ms_per_step": wall / engine.steps * 1e3,
            "flash_attn_launches": launches,
-           "flash_attn_variant": attn_ops.variant(cfg.param_dtype, 1, rep),
+           "flash_attn_variant": attn_ops.variant(cfg.param_dtype, 1, rep,
+                                                  cfg.hd),
            "expected_launches": cfg.n_layers * engine.steps,
            "tokens_in_range": all(0 <= t < cfg.vocab
                                   for r in done for t in r.out)}
@@ -2490,6 +2651,7 @@ def phase_lm(dev) -> tuple[dict, int, int]:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = common.LAUNCHES["flash_attn"]
+        by_variant = forward_launches()
         with common.plain_versions():
             t0 = time.perf_counter()
             h_ref, cache_ref = transformer.forward(params, cfg,
@@ -2503,17 +2665,16 @@ def phase_lm(dev) -> tuple[dict, int, int]:
     held = {"hidden": _held_bf16(h, h_ref, h32),
             **{f"cache_{key}": _held_bf16(cache[key], cache_ref[key],
                                           cache32[key]) for key in ("k", "v")}}
-    kind = attn_ops.variant(cfg.param_dtype, LM_PREFILL, rep)
     prefill = {"B": 1, "S": LM_PREFILL, "window": cfg.window,
                "wall_s": prefill_s, "plain_wall_s": plain_s,
                "flash_attn_launches": prefill_launches,
-               "flash_attn_variant": kind,
+               "flash_attn_launches_by_variant": by_variant,
                "hidden_shape": list(h.shape),
                "cache_shape": list(cache["k"].shape),
                "hidden_max_abs": float(h.abs().max()), **held,
                "ok": bool(all(x["ok"] for x in held.values())
                           and prefill_launches == cfg.n_layers
-                          and kind == "mma")}
+                          and by_variant["wgmma"] == cfg.n_layers)}
     ok = bool(run["device"].startswith("cuda") and run["done"] == len(reqs)
               and all(r.done for r in reqs) and run["tokens_in_range"]
               and launches == run["expected_launches"] > 0
@@ -2523,7 +2684,7 @@ def phase_lm(dev) -> tuple[dict, int, int]:
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
             "window": cfg.window, "dtype": str(cfg.param_dtype),
             "serve": run, "prefill": prefill, "ok": ok}, launches, \
-        prefill_launches
+        by_variant
 
 
 # ---------------------------------------------------------------------------
@@ -2557,6 +2718,19 @@ BWD_BF16_REL = 2 ** -6
 #: times the plain bf16 backward's on the same inputs (the worst ratio of
 #: the first design, ``"mma"``, over phase kernels' cases on the card)
 BWD_PLAIN_RATIO = 1.09
+
+
+#: the floor under the training loss's limit (``_held_bf16``'s ``atol``):
+#: the loss is one scalar, the mean over the batch's tokens, and its plain
+#: bf16 path's distance from fp32 lands near 0 at some seeds (9.5e-7, two
+#: of the fp32 loss's ulps, at PROBE_SEEDS' (7, 107)), where 1.5 times it
+#: would hold any bf16 attention to the plain path's roundings.  So the
+#: floor is the largest distance from fp32 that the loss reached over
+#: PROBE_SEEDS through the plain versions (1.945e-4), the first
+#: tensor-core forward ``"mma"`` (2.184e-4) and SDPA's forward (2.232e-4)
+#: on the card (``--lm-train-probe``, PERF.md §6); ``--attn-fwd`` drives
+#: forwards wrong on purpose against it (``_loss_controls``)
+LOSS_ATOL = 2.25e-4
 
 
 #: the max-based rule's slack for one gradient leaf: over four seeded
@@ -2660,6 +2834,7 @@ def _train_run(argv: list, ckpt_dir: Path) -> tuple[dict, object]:
            "tokens_per_s": tokens / steady * 1e3,
            "tokens_per_s_wall": tokens * len(losses) / wall,
            "flash_attn_launches": common.LAUNCHES["flash_attn"],
+           "flash_attn_launches_by_variant": forward_launches(),
            "flash_attn_bwd_launches": common.LAUNCHES["flash_attn_bwd"],
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "ckpt_steps": sorted(p.name for p in ckpt_dir.glob("step_*"))}
@@ -2720,9 +2895,14 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     """One sync step's loss and every gradient leaf three ways at full
     width: through the kernel, through the plain versions in bf16, and
     through the plain versions on an fp32 copy of the weights (the
-    yardstick: ``_held_bf16`` for the loss, ``_held_bf16_grad`` for each
-    leaf); then, on the first TRAIN_FP32_LAYERS layers in fp32, the kernel
-    (``simt``) against the plain versions at ATTN_TOL."""
+    yardstick: ``_held_bf16_grad`` for each leaf); then, on the first
+    TRAIN_FP32_LAYERS layers in fp32, the kernel (``simt``) against the
+    plain versions at ATTN_TOL.  The loss is held by ``_held_bf16`` with
+    the floor LOSS_ATOL under its limit: 1.5 times the plain path's
+    distance alone passes or fails by seed for any bf16 attention
+    (``--lm-train-probe``: over PROBE_SEEDS the first tensor-core forward
+    and the warpgroup one each held it at about half the seeds, with the
+    same per-call error, ``_attention_accuracy``)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.train import trainer
@@ -2740,7 +2920,7 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
             for k in grads}
     worst = max(held, key=lambda k: held[k]["max_ratio"])
     max_ratios = sorted(h["max_ratio"] for h in held.values())
-    loss_held = _held_bf16(loss, loss_p, loss_32)
+    loss_held = _held_bf16(loss, loss_p, loss_32, atol=LOSS_ATOL)
     del grads, grads_p, grads_32
 
     # fp32 at full width, 2 layers: the simt kernel against the plain path
@@ -2756,7 +2936,7 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
         l2p, g2p = trainer.value_and_grad(cfg2, p2, batch)
     fp32 = {"layers": TRAIN_FP32_LAYERS,
             "variant": attn_ops.variant(torch.float32, batch["tokens"].shape[1],
-                                        cfg.n_heads // cfg.n_kv),
+                                        cfg.n_heads // cfg.n_kv, cfg.hd),
             "flash_attn_bwd_launches": bwd_launches,
             "bwd_kernel_launches": ran,
             "loss": float(l2), "loss_plain": float(l2p),
@@ -2782,8 +2962,8 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
             "failing": sorted(k for k, h in held.items() if not h["ok"])[:8],
             "worst_leaf": {"name": worst, **held[worst]},
             "embed": held["embed"], "fp32_2_layers": fp32,
-            "ok": bool(loss_held["ok"] and all(h["ok"] for h in held.values())
-                       and fp32["ok"])}
+            "ok": bool(all(h["ok"] for h in held.values()) and fp32["ok"]
+                       and loss_held["ok"])}
 
 
 #: the fp32 backward's timed call (the kernels line's
@@ -2881,22 +3061,91 @@ def _turns(bwd, kinds, x, out, lse, lo, causal, window) -> dict:
             for kind, r in runs.items()}
 
 
+#: the forward's timed calls, (label, (B, Hq, Hkv, Sq, Sk, hd), causal,
+#: window, reps): danube's prefill (a training layer's forward at B=1),
+#: the vlm cross call (llama-3.2-vision's training shape), and the other
+#: attention families' training layers (phase lm_families (b), B=1)
+FWD_SHAPES = (
+    ("danube_prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
+     20),
+    ("vlm_cross", (1, 32, 8, 2048, 1600, 128), False, None, 50),
+    ("hd64_rep1_musicgen_zamba2", (1, 32, 32, 1024, 1024, 64), True, None,
+     100),
+    ("hd128_rep1_olmoe", (1, 16, 16, 1024, 1024, 128), True, None, 100),
+    ("hd128_rep4_vlm_self", (1, 32, 8, 2048, 2048, 128), True, None, 50))
+#: WGMMA_MIN_QUERIES's sweep: a query chunk of each length over a 900-key
+#: cache at danube's heads (B=2, hd 80, rep 4), causal
+FWD_SWEEP_QUERIES = (16, 37, 64, 128, 256, 512)
+
+
+def _variant_turns(call, kinds, reps: int) -> dict:
+    """``call`` in each forward variant of ``kinds`` (first design, then
+    redesign) in turns (first, re, re, first): per variant the means over
+    its two turns of the call's ms by events and of its kernel's device ms
+    (``kernel_device_time``), with each turn's."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+
+    turns = {kind: [] for kind in kinds}
+    for kind in (*kinds, *kinds[::-1]):
+        with forced_variant(attn_ops, kind):
+            turns[kind].append({"ms": cuda_ms(call, reps),
+                                **kernel_device_time(
+                                    call, reps,
+                                    KERNEL_SYMBOLS["flash_attn"][kind])})
+    return {kind: {"ms": statistics.mean(t["ms"] for t in r),
+                   "device_ms": statistics.mean(t["device_ms"] for t in r),
+                   "turns": r} for kind, r in turns.items()}
+
+
 def _forward_rows(dev) -> dict:
-    """Row 6b's forward (B=1, S=8192, window 4096, the mma kernel; also
-    through the operator, which writes the log-sum-exp) and row 6a's decode
-    (4 slots over 128 and 4,096 keys): ms by events and device ms, to read
+    """The forward at FWD_SHAPES: ``"mma"`` and ``"wgmma"`` in turns
+    (``_variant_turns``) on plain tensors and through the operator asked
+    for the statistics (the training path's forward), beside the variant
+    ``ops.variant`` picks, SDPA's ms (its flash path where the call has no
+    mask), the plain version's, the function's 2-product bound and the
+    design's 3-product one (P.V twice, hi and lo); and row 6a's decode (4
+    slots over 128 and 4,096 keys): ms by events and device ms, to read
     beside the backward in the same call."""
     import repro_torch.kernels as K
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
 
     rows = {}
+    for label, shape, causal, window, reps in FWD_SHAPES:
+        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=7)
+        mask = end_aligned_mask(shape[3], shape[4], causal, window, dev)
+        in_bytes, flops = attn_work(q, k, causal, window)
+
+        def call():
+            return K.flash_attention(q, k, v, causal=causal, window=window)
+
+        def with_lse():
+            return torch.ops.repro_torch.flash_attn(q, k, v, causal, window,
+                                                    None, None, True)
+
+        b2, by2 = bound_ms(in_bytes, flops, BF16_FLOPS_PER_S)
+        b3, by3 = bound_ms(in_bytes, 1.5 * flops, BF16_FLOPS_PER_S)
+        rows[label] = {
+            "shape": list(shape), "causal": causal, "window": window,
+            "picked": attn_ops.variant(torch.bfloat16, shape[3],
+                                       shape[1] // shape[2], shape[5]),
+            "plain": _variant_turns(call, ("mma", "wgmma"), reps),
+            "operator": _variant_turns(with_lse, ("mma", "wgmma"), reps),
+            "sdpa_ms": cuda_ms(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, attn_mask=mask, enable_gqa=True),
+                               reps),
+            "plain_version_ms": cuda_ms(lambda: attention_ref(
+                q, k, v, causal=causal, window=window), 2),
+            "bound_2_products_ms": b2, "bound_2_by": by2,
+            "bound_3_products_ms": b3, "bound_3_by": by3}
+        del q, k, v
     for label, shape, causal, window, reps in (
-            ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
-             20),
             ("decode_sk128", (4, 32, 8, 1, 128, 80), False, None, 200),
             ("decode_sk4096", (4, 32, 8, 1, 4096, 80), False, None, 200)):
         q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=7)
-        kind = attn_ops.variant(torch.bfloat16, shape[3], shape[1] // shape[2])
+        kind = attn_ops.variant(torch.bfloat16, shape[3],
+                                shape[1] // shape[2], shape[5])
 
         def call():
             return K.flash_attention(q, k, v, causal=causal, window=window)
@@ -2905,12 +3154,34 @@ def _forward_rows(dev) -> dict:
                        "ms": cuda_ms(call, reps),
                        **kernel_device_time(call, 20,
                                             KERNEL_SYMBOLS["flash_attn"][kind])}
-        if label == "prefill":
-            rows[label]["with_lse_ms"] = cuda_ms(
-                lambda: torch.ops.repro_torch.flash_attn(
-                    q, k, v, causal, window, None, None, True),
-                reps)
     return rows
+
+
+def _forward_sweep(dev) -> dict:
+    """WGMMA_MIN_QUERIES's evidence: ``"mma"`` and ``"wgmma"`` in turns at
+    each of FWD_SWEEP_QUERIES' chunks over a 900-key cache, and the
+    smallest chunk from which on ``"wgmma"``'s device ms is no more than
+    ``"mma"``'s at every longer chunk of the sweep (None: not at the
+    longest)."""
+    import repro_torch.kernels as K
+
+    rows = []
+    for sq in FWD_SWEEP_QUERIES:
+        shape = (2, 32, 8, sq, 900, 80)
+        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=sq)
+        turns = _variant_turns(
+            lambda: K.flash_attention(q, k, v, causal=True), ("mma", "wgmma"),
+            100)
+        rows.append({"shape": list(shape), **{
+            f"{kind}_{key}": turns[kind][key] for kind in turns
+            for key in ("ms", "device_ms")}})
+    edge = None
+    for r in rows[::-1]:
+        if r["wgmma_device_ms"] > r["mma_device_ms"]:
+            break
+        edge = r["shape"][3]
+    return {"rows": rows, "no_slower_from": edge,
+            "WGMMA_MIN_QUERIES": WGMMA_MIN_QUERIES}
 
 
 def _backward_alone(dev) -> tuple[dict, list]:
@@ -3084,10 +3355,10 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     backward in its place, (c) one step's gradients held three ways, (d)
     the attention backward alone beside SDPA's, (e) a restart at the
     reduced config.  Returns the phase line, the launches of (a)'s kernels
-    (``mma``: flash_attn's, ``bwd_wgmma``: the backward's) and of (c)'s
-    fp32 backward (``bwd_simt_tiled``), and (d)'s kernels-line rows."""
+    (``forward``: flash_attn's by variant, ``bwd_wgmma``: the backward's)
+    and of (c)'s fp32 backward (``bwd_simt_tiled``), and (d)'s
+    kernels-line rows."""
     from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import train
     from repro_torch.optim.sgd import sgd
     from repro_torch.train import trainer
@@ -3095,9 +3366,6 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     t_phase = time.perf_counter()
     start_gb = torch.cuda.memory_allocated() / 1e9
     sync, (cfg, state, batches) = _train_run(TRAIN_ARGV, scratch / "lm_sync")
-    rep = cfg.n_heads // cfg.n_kv
-    sync["flash_attn_variant"] = attn_ops.variant(cfg.param_dtype,
-                                                  sync["seq"], rep)
     sync["expected_launches"] = 2 * cfg.n_layers * len(sync["losses"])
     sync["expected_bwd_launches"] = cfg.n_layers * len(sync["losses"])
     # one step with the backward kernel, with the plain backward in its
@@ -3172,7 +3440,8 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
                 and sync["flash_attn_launches"] == sync["expected_launches"]
                 and sync["flash_attn_bwd_launches"]
                 == sync["expected_bwd_launches"]
-                and sync["flash_attn_variant"] == "mma"
+                and sync["flash_attn_launches_by_variant"]["wgmma"]
+                == sync["expected_launches"]
                 # the profiled step's backward ran the wgmma kernels, a
                 # pair a layer
                 and all(c == cfg.n_layers for c in sync["split"][
@@ -3196,7 +3465,7 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(ok_a and ok_b and grads["ok"] and bwd["ok"]
                        and restart["ok"])}, {
-        "mma": sync["flash_attn_launches"],
+        "forward": sync["flash_attn_launches_by_variant"],
         "bwd_wgmma": sync["flash_attn_bwd_launches"],
         "bwd_simt_tiled": grads["fp32_2_layers"]["flash_attn_bwd_launches"]}, \
         bwd_rows
@@ -3208,20 +3477,84 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
 
 #: (c)'s gradients on other weights and batches: (weight seed, batch seed);
 #: (0, 3) is the main run's
-PROBE_SEEDS = ((0, 3), (1, 11), (2, 12), (4, 14))
+PROBE_SEEDS = ((0, 3), (1, 11), (2, 12), (4, 14)) + tuple(
+    (w, 100 + w) for w in range(5, 17))
 #: fresh-batch runs of the launcher's objects at (a)'s shape: (parameter
 #: dtype, lr, steps)
 PROBE_RUNS = ((torch.bfloat16, 4.0, 16), (torch.bfloat16, 1.0, 16),
               (torch.float32, 4.0, 4), (torch.float32, 1.0, 4))
 
 
+def _sdpa_forward(q, k, v, causal, window):
+    """``scaled_dot_product_attention`` with the end-aligned boolean mask
+    and GQA: a library bf16 attention."""
+    mask = end_aligned_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def _p_bf16_forward(q, k, v, causal, window):
+    """The plain version with P rounded to bf16 before P.V and no lo half
+    (the row sums still from the fp32 P): what the kernels' hi + lo split
+    exists to avoid."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    sq, sk = q.shape[2], k.shape[2]
+    mask = end_aligned_mask(sq, sk, causal, window, q.device)
+    out = []
+    for lo in range(0, sq, 512):
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, lo:lo + 512].float(),
+                         kf) * q.shape[3] ** -0.5
+        if mask is not None:
+            s = s.masked_fill(~mask[lo:lo + 512], float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vf)
+        out.append(o / torch.where(l == 0, 1.0, l))
+    return torch.cat(out, dim=2).to(q.dtype)
+
+
+def _window_short_forward(q, k, v, causal, window):
+    """The plain version with the window one key short."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    return attention_ref(q, k, v, causal=causal,
+                         window=None if window is None else window - 1)
+
+
+def _window_dropped_forward(q, k, v, causal, window):
+    """The plain version with no window."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    return attention_ref(q, k, v, causal=causal, window=None)
+
+
+def _scale_high_forward(q, k, v, causal, window):
+    """The plain version with the scores' scale 2^-8 too large."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    return attention_ref(q.float() * (1 + 2 ** -8), k, v, causal=causal,
+                         window=window).to(q.dtype)
+
+
+#: (c)'s loss rule's controls (``_loss_controls``): forwards wrong on
+#: purpose in the forward kernel's place
+LOSS_CONTROLS = {"p_bf16_without_lo": _p_bf16_forward,
+                 "window_one_short": _window_short_forward,
+                 "scale_2^-8_high": _scale_high_forward,
+                 "window_dropped": _window_dropped_forward}
+
+
 @contextlib.contextmanager
-def library_attention():
-    """flash_attn's forward routed to ``scaled_dot_product_attention`` (an
-    end-aligned boolean mask, GQA) for the block, its backward still the
-    operator's (the backward kernel): a library bf16 attention in the
-    forward kernel's place, the control for the gradient rule."""
+def routed_attention(forward=_sdpa_forward):
+    """flash_attn's forward routed to ``forward(q, k, v, causal, window)``
+    for the block (by default SDPA's, ``_sdpa_forward``), its backward
+    still the operator's (the backward kernel): another attention in the
+    forward kernel's place, a control for the gradient and loss rules."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn.ref import attention_ref
 
     dispatch = common.dispatch
 
@@ -3229,10 +3562,16 @@ def library_attention():
         if kernel != "flash_attn":
             return dispatch(kernel, dev, *args, **kwargs)
         q, k, v = args
-        mask = end_aligned_mask(q.shape[2], k.shape[2], kwargs["causal"],
-                                kwargs["window"], q.device)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True)
+        causal, window = kwargs["causal"], kwargs["window"]
+        out = forward(q, k, v, causal, window)
+        if not kwargs.get("lse"):
+            return out
+        # the backward's statistics, which ``forward`` does not return, from
+        # the plain version: its log-sum-exp, and out_lo such that out +
+        # out_lo is its fp32 output
+        full, lse, lo = attention_ref(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+        return out, lse, (full.float() + lo.float() - out.float()).to(q.dtype)
 
     common.dispatch = routed
     try:
@@ -3243,9 +3582,12 @@ def library_attention():
 
 def _grad_ratios(cfg, dev, weight_seed: int, batch_seed: int) -> dict:
     """(c)'s three ways plus the library control on one seeded model and
-    batch: per leaf, each bf16 path's distance from the fp32 yardstick
-    over the plain bf16 path's, by max and by RMS (``_held_bf16_grad``)."""
+    batch, the kernel path once for each forward variant that takes the
+    model's training shape: per leaf, each bf16 path's distance from the
+    fp32 yardstick over the plain bf16 path's, by max and by RMS
+    (``_held_bf16_grad``), and the loss's (``_held_bf16``)."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import train
     from repro_torch.nn import transformer
     from repro_torch.train import trainer
@@ -3256,8 +3598,13 @@ def _grad_ratios(cfg, dev, weight_seed: int, batch_seed: int) -> dict:
     del lm
     batch = next(train.make_batch_fn(cfg, 2, LM_PREFILL, seed=batch_seed,
                                      device=dev))
-    paths = {"kernel": trainer.value_and_grad(cfg, params, batch)}
-    with library_attention():
+    paths = {}
+    for kind in attn_variants_taking(cfg.param_dtype, LM_PREFILL,
+                                     cfg.n_heads // cfg.n_kv, cfg.hd):
+        with forced_variant(attn_ops, kind):
+            paths[f"kernel_{kind}"] = trainer.value_and_grad(cfg, params,
+                                                             batch)
+    with routed_attention():
         paths["sdpa"] = trainer.value_and_grad(cfg, params, batch)
     with common.plain_versions():
         loss_p, plain = trainer.value_and_grad(cfg, params, batch)
@@ -3272,7 +3619,7 @@ def _grad_ratios(cfg, dev, weight_seed: int, batch_seed: int) -> dict:
         held = {k: _held_bf16_grad(g[k], plain[k], g32[k]) for k in g32}
         ratios = {r: {k: h[r] for k, h in sorted(held.items())}
                   for r in ("max_ratio", "rms_ratio")}
-        out[name] = {"loss": _held_bf16(loss, loss_p, loss_32),
+        out[name] = {"loss": _held_bf16(loss, loss_p, loss_32, LOSS_ATOL),
                      "leaves_ok": sum(h["ok"] for h in held.values())}
         for r, by_leaf in ratios.items():
             ranked = sorted(by_leaf.values())
@@ -3280,6 +3627,77 @@ def _grad_ratios(cfg, dev, weight_seed: int, batch_seed: int) -> dict:
                                            for q in qs]
             out[name][f"{r}_over_1_5"] = {k: v for k, v in by_leaf.items()
                                           if v > BF16_MODEL_SLACK}
+    return out
+
+
+def _loss_controls(dev) -> dict:
+    """(c)'s loss rule (``_held_bf16`` with LOSS_ATOL) and leaf rule
+    (``_held_bf16_grad``) on (c)'s model and batch, with each of
+    LOSS_CONTROLS in the forward kernel's place: what a rule that a wrong
+    forward passes cannot see."""
+    from repro_torch import configs
+    from repro_torch.kernels import common
+    from repro_torch.launch import train
+    from repro_torch.nn import transformer
+    from repro_torch.train import trainer
+
+    t0 = time.perf_counter()
+    cfg = configs.get("h2o-danube-1.8b")
+    lm = transformer.init_params(cfg,
+                                 torch.Generator(device=dev).manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    del lm
+    batch = next(train.make_batch_fn(cfg, 2, LM_PREFILL, seed=3, device=dev))
+    with common.plain_versions():
+        loss_p, plain = trainer.value_and_grad(cfg, params, batch)
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+        loss_32, g32 = trainer.value_and_grad(
+            cfg32, {k: v.float() for k, v in params.items()}, batch)
+    out = {"seeds": [0, 3], "leaves": len(g32)}
+    for name, forward in LOSS_CONTROLS.items():
+        with routed_attention(forward):
+            loss, g = trainer.value_and_grad(cfg, params, batch)
+        held = {k: _held_bf16_grad(g[k], plain[k], g32[k]) for k in g32}
+        del g
+        out[name] = {"loss": float(loss),
+                     **_held_bf16(loss, loss_p, loss_32, LOSS_ATOL),
+                     "leaves_ok": sum(h["ok"] for h in held.values()),
+                     "max_rms_ratio": max(h["rms_ratio"]
+                                          for h in held.values()),
+                     "max_max_ratio": max(h["max_ratio"]
+                                          for h in held.values())}
+        torch.cuda.empty_cache()
+    out.update(loss_plain=float(loss_p), loss_fp32=float(loss_32),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _attention_accuracy(dev) -> dict:
+    """Each bf16 forward variant's error a call at danube's training layer
+    (B=2, S=8192, window 4096) through the operator asked for the
+    statistics: its output to 16 bits (out + out_lo) and its bf16 output
+    against the plain version in fp32 on the same bf16 inputs, and the
+    share of bf16 elements where it differs from the plain bf16 version
+    (whose own bf16 error is beside)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    q, k, v = _attn_inputs(BWD_BF16_SHAPE, torch.bfloat16, dev, seed=5)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                        window=4096)
+    plain = attention_ref(q, k, v, causal=True, window=4096)
+    out = {"shape": list(BWD_BF16_SHAPE),
+           "plain_bf16_err_mean": float((plain.float() - ref).abs().mean())}
+    for kind in attn_variants_taking(torch.bfloat16, LM_PREFILL, 4, 80):
+        with forced_variant(attn_ops, kind):
+            o, _, lo = torch.ops.repro_torch.flash_attn(q, k, v, True, 4096,
+                                                        None, None, True)
+        err16 = (o.float() + lo.float() - ref).abs()
+        out[kind] = {"out16_err_mean": float(err16.mean()),
+                     "out16_err_max": float(err16.max()),
+                     "bf16_err_mean": float((o.float() - ref).abs().mean()),
+                     "bf16_differs_from_plain": float(
+                         (o != plain).float().mean())}
     return out
 
 
@@ -3348,6 +3766,8 @@ def run_lm_train_probe(scratch: Path) -> int:
     emit(phase_env(smi))
     emit(phase_build())
     cfg = configs.get("h2o-danube-1.8b")
+    emit({"phase": "lm_train_probe", "part": "attention_accuracy",
+          **_attention_accuracy(dev)})
     for weight_seed, batch_seed in PROBE_SEEDS:
         t = time.perf_counter()
         line = _grad_ratios(cfg, dev, weight_seed, batch_seed)
@@ -3479,7 +3899,7 @@ def _family_serve(name: str, dev) -> tuple[object, dict, dict]:
         for i in range(4)], 4)
     if cfg.family == "moe":
         out["expert_bytes_per_step"] = _expert_bytes(cfg)
-    return cfg, out, {"decode": launches, "mma": 0, "backward": 0}
+    return cfg, out, {"decode": launches, "backward": 0}
 
 
 def _expert_bytes(cfg) -> dict:
@@ -3519,6 +3939,7 @@ def _family_prefill(name: str, dev) -> tuple[object, dict, dict]:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = common.LAUNCHES["flash_attn"]
+        by_variant = forward_launches()
         cache = decode.init_cache(cfg, b, s + FAMILY_DECODE_STEPS, dev)
         for key, t in pre.items():
             cache[key][..., :s, :].copy_(t)
@@ -3561,7 +3982,8 @@ def _family_prefill(name: str, dev) -> tuple[object, dict, dict]:
                      == _attention_layers(cfg) * FAMILY_DECODE_STEPS
                      and list(logits.shape) == [b, cfg.vocab])
     del params, cache, pre
-    return cfg, out, {"decode": decode_launches, "mma": prefill_launches,
+    out["prefill_flash_attn_launches_by_variant"] = by_variant
+    return cfg, out, {"decode": decode_launches, **by_variant,
                       "backward": 0}
 
 
@@ -3582,7 +4004,6 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
     copy a save; phase lm_train and (e) cover the writes)."""
     from repro_torch.kernels import common
     from repro_torch.launch import train
-
     from repro_torch.train import trainer
 
     seq = FAMILY_TRAIN_SEQ[name]
@@ -3634,6 +4055,7 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
         trainer.value_and_grad = value_and_grad
     wall = time.perf_counter() - t0
     launches = common.LAUNCHES["flash_attn"]
+    by_variant = forward_launches()
     bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     losses = train.losses_of(history)
     out = {"argv": argv, "setup_s": setup_s, "wall_s": wall,
@@ -3653,7 +4075,8 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
                      and all(g["finite"] for g in grads_seen)
                      and launches == out["expected_launches"])
     del state, loop, batches
-    return out, {"decode": 0, "mma": launches, "backward": bwd_launches}
+    out["flash_attn_launches_by_variant"] = by_variant
+    return out, {"decode": 0, **by_variant, "backward": bwd_launches}
 
 
 def _family_held(name: str, dev) -> dict:
@@ -3753,7 +4176,7 @@ def _family_attention(dev) -> dict:
         cases.append({
             "case": label, "shape": list(shape), "causal": causal,
             "variant": attn_ops.variant(torch.bfloat16, shape[3],
-                                        shape[1] // shape[2]),
+                                        shape[1] // shape[2], shape[5]),
             "max_abs_err": err, "tol": ATTN_BF16_TOL, "ok": ok,
             "ms": cuda_ms(lambda: K.flash_attention(q, k, v, causal=causal),
                           10),
@@ -3836,7 +4259,7 @@ def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
     the new flash_attn shapes and (e) ``launch.serve --ckpt``.  Returns
     the phase line and the main paths' flash_attn launches by variant."""
     t_phase = time.perf_counter()
-    runs, launches = {}, {"decode": 0, "mma": 0, "backward": 0}
+    runs, launches = {}, {"decode": 0, "mma": 0, "wgmma": 0, "backward": 0}
     for name in FAMILY_SERVED + FAMILY_PREFILLED:
         free_memory()
         t0 = time.perf_counter()
@@ -3846,7 +4269,7 @@ def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
         free_memory()
         held = _family_held(name, dev)
         for key in launches:
-            launches[key] += counts[key] + train_counts[key]
+            launches[key] += counts.get(key, 0) + train_counts.get(key, 0)
         runs[name] = {"family": cfg.family, "n_layers": cfg.n_layers,
                       "d_model": cfg.d_model,
                       "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
@@ -3978,6 +4401,7 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
     Returns the record, the mesh state and the main path's launches of
     flash_attn and of its backward."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.launch import specs as specs_mod
     from repro_torch.nn import transformer
     from repro_torch.optim.sgd import sgd
@@ -4018,14 +4442,18 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     launches = common.LAUNCHES["flash_attn"]
+    by_variant = forward_launches()
     bwd_launches = common.LAUNCHES["flash_attn_bwd"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     err, held = _trees_err(_full_tree(dp), plain_params)
     placements = {k: [repr(x) for x in v.placements] for k, v in
                   list(dp.items())[:3]}
     attn = _attention_layers(cfg)
-    names = ("flash_attn_mma_kernel",) + KERNEL_SYMBOLS["flash_attn_bwd"][
-        "wgmma"]
+    kind = attn_ops.call_variant(cfg.param_dtype, batches[0]["tokens"]
+                                 .shape[1], cfg.n_heads // cfg.n_kv, cfg.hd,
+                                 lse=True)
+    names = KERNEL_SYMBOLS["flash_attn"][kind] + KERNEL_SYMBOLS[
+        "flash_attn_bwd"]["wgmma"]
     prof = (counted(lambda: step(dp, do, dbatches[0]), names)[1]
             if attn else dict.fromkeys(names, 0))
     loss_err = max(abs(a - b) for a, b in zip(losses, plain_losses))
@@ -4058,11 +4486,13 @@ def _mesh_train(dev, mesh, cfg, params: dict, batches: list, *,
                             for a, b in zip(losses, plain_losses))
     rec["ok"] = bool(held and launches == rec["expected_launches"]
                      and bwd_launches == rec["expected_bwd_launches"]
-                     and prof["flash_attn_mma_kernel"] == 2 * attn
+                     and prof[names[0]] == 2 * attn
                      # one step's backward ran the wgmma pair a layer
                      and all(prof[n] == attn for n in names[1:]))
     del plain_params
-    return rec, state, {"mma": launches, "backward": bwd_launches}
+    rec["flash_attn_variant"] = kind
+    rec["launches_by_variant"] = by_variant
+    return rec, state, {**by_variant, "backward": bwd_launches}
 
 
 def _mesh_decode(dev, mesh, cfg, params: dict, *,
@@ -4465,8 +4895,9 @@ def phase_mesh(dev, scratch: Path, dryrun: dict | None = None,
         for name, steps, depth in MESH_FAMILIES:
             families[name], launches = _mesh_family(dev, mesh, name, steps,
                                                     depth)
-            for key in train_launches:
-                train_launches[key] += launches[key]
+            for key, n in launches.items():
+                if key != "decode":
+                    train_launches[key] = train_launches.get(key, 0) + n
             decode_launches += launches["decode"]
     free_memory()
     source = "phase lm_train (a), steady ms a step"
@@ -5613,31 +6044,48 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
     # the LM path: flash_attn at the decode shape of phase lm's serving run
     # (4 slots over a full 128-entry cache, causal=False as decode calls it:
-    # the decode kernel) and over a full 4096-key window, and at its
-    # prefill (S=8192, window 4096: the mma kernel); the serving shape and
-    # the prefill are in the kernels line.  The yardstick is one
-    # scaled_dot_product_attention with enable_gqa and the end-aligned mask
+    # the decode kernel) and over a full 4096-key window, at its prefill
+    # (S=8192, window 4096: the wgmma kernel, beside the mma kernel it
+    # replaced there) and at the vlm cross call (Sq 2,048 > Sk 1,600, both
+    # kernels); the serving shape and the prefill are in the kernels line
+    # (the mma kernel, which no main path runs now, beside it as a
+    # predecessor with no line).  The yardstick
+    # is one scaled_dot_product_attention with enable_gqa and the
+    # end-aligned mask
     from repro_torch.kernels.flash_attn.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, shape, causal, window, reps, plain_reps, line in (
-            ("decode", (4, 32, 8, 1, 128, 80), False, None, 200, 50,
-             "flash_attn_decode"),
-            ("decode", (4, 32, 8, 1, 4096, 80), False, None, 200, 10, None),
+    for label, shape, causal, window, reps, plain_reps, in_line in (
+            ("decode", (4, 32, 8, 1, 128, 80), False, None, 200, 50, True),
+            ("decode", (4, 32, 8, 1, 4096, 80), False, None, 200, 10, False),
             ("prefill", (1, 32, 8, LM_PREFILL, LM_PREFILL, 80), True, 4096,
-             20, 2, "flash_attn_mma")):
+             20, 2, True),
+            ("vlm cross call", (1, 32, 8, 2048, 1600, 128), False, None, 50,
+             5, False)):
         qa, ka, va = _attn_inputs(shape, torch.bfloat16, X.device, seed=7)
         mask = end_aligned_mask(shape[3], shape[4], causal, window, X.device)
         attn_bytes, attn_flops = attn_work(qa, ka, causal, window)
-        row("flash_attn", f"{label} B,Hq,Hkv,Sq,Sk,hd={list(shape)} bf16 "
-            f"causal={causal} window={window}",
-            lambda: K.flash_attention(qa, ka, va, causal=causal, window=window),
-            lambda: attention_ref(qa, ka, va, causal=causal, window=window),
-            reps, plain_reps, attn_bytes, attn_flops, ATTN_BF16_TOL,
-            library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
-            line=line, flops_per_s=BF16_FLOPS_PER_S,
-            variant=attn_ops.variant(torch.bfloat16, shape[3],
-                                     shape[1] // shape[2]))
-        if line == "flash_attn_decode":
+        chosen = attn_ops.variant(torch.bfloat16, shape[3],
+                                  shape[1] // shape[2], shape[5])
+        kinds = [chosen] + (["mma"] if shape[3] > 1 and chosen != "mma"
+                            else [])
+
+        def plain(qa=qa, ka=ka, va=va, causal=causal, window=window):
+            return attention_ref(qa, ka, va, causal=causal, window=window)
+
+        for kind in kinds:
+            with forced_variant(attn_ops, kind):
+                row("flash_attn", f"{label} B,Hq,Hkv,Sq,Sk,hd={list(shape)} "
+                    f"bf16 causal={causal} window={window} {kind}",
+                    lambda: K.flash_attention(qa, ka, va, causal=causal,
+                                              window=window),
+                    plain, reps, plain_reps, attn_bytes, attn_flops,
+                    ATTN_BF16_TOL,
+                    library=lambda: sdpa(qa, ka, va, attn_mask=mask,
+                                         enable_gqa=True),
+                    line=(f"flash_attn_{kind}" if in_line and kind == chosen
+                          else None),
+                    flops_per_s=BF16_FLOPS_PER_S, variant=kind)
+        if label == "decode" and in_line:
             # the wrapper's host time per call, and the library call's
             rows[-1]["host_us_per_call"] = host_us(
                 lambda: K.flash_attention(qa, ka, va, causal=causal))
@@ -5654,7 +6102,7 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
         lambda: attention_ref(qa, ka, va, causal=True), 20, 5, attn_bytes,
         attn_flops, ATTN_TOL,
         library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
-        variant=attn_ops.variant(torch.float32, 1024, 4))
+        variant=attn_ops.variant(torch.float32, 1024, 4, 80))
 
     checks = []
 
@@ -5676,9 +6124,9 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
-                    ["--mesh"], ["--attn-bwd"], ["--wide"]):
+                    ["--mesh"], ["--attn-fwd"], ["--attn-bwd"], ["--wide"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
-              "--lm-families | --mesh | --attn-bwd | --wide]",
+              "--lm-families | --mesh | --attn-fwd | --attn-bwd | --wide]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5695,6 +6143,8 @@ def main(argv: list[str]) -> int:
             return run_lm_families(Path(scratch))
         if argv == ["--mesh"]:
             return run_mesh(Path(scratch))
+        if argv == ["--attn-fwd"]:
+            return run_attn_fwd()
         if argv == ["--attn-bwd"]:
             return run_attn_bwd()
         if argv == ["--wide"]:
@@ -5741,6 +6191,36 @@ def run_wide() -> int:
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "seconds_total": time.perf_counter() - t_start})
     ok = ok and all(r["ok"] for r in rows)
+    print(smi, flush=True)
+    return 0 if ok else 1
+
+
+def run_attn_fwd() -> int:
+    """``python3 chip_smoke.py --attn-fwd``: the env and build phases, then
+    the attention forward alone: phase kernels' checks of every variant
+    (``attention_forward_checks``), WGMMA_MIN_QUERIES's sweep, the
+    forward rows of phase lm_train's (d), and phase lm_train (c)'s rules
+    against forwards wrong on purpose (``_loss_controls``), the card's
+    name and power limit last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    t0 = time.perf_counter()
+    cases, worst = attention_forward_checks(dev)
+    ok = all(c["ok"] for c in cases)
+    emit({"phase": "attn_fwd", "cases": cases, "worst_picked_err": worst,
+          "seconds": time.perf_counter() - t0, "ok": ok})
+    t0 = time.perf_counter()
+    emit({"phase": "attn_fwd_timing", "sweep": _forward_sweep(dev),
+          "rows": _forward_rows(dev), "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    emit({"phase": "loss_controls", **_loss_controls(dev)})
     print(smi, flush=True)
     return 0 if ok else 1
 
@@ -5845,8 +6325,15 @@ def run(scratch: Path) -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    line, launches["flash_attn_decode"], launches["flash_attn_mma"] = \
-        phase_lm(dev)
+    # flash_attn's forward launches by variant, as the wrapper counts them
+    launches.update(flash_attn_mma=0, flash_attn_wgmma=0)
+
+    def add_forward(counts: dict) -> None:
+        for kind in ("mma", "wgmma"):
+            launches[f"flash_attn_{kind}"] += counts.get(kind, 0)
+
+    line, launches["flash_attn_decode"], prefill_launches = phase_lm(dev)
+    add_forward(prefill_launches)
     emit(line)
     if not line["ok"]:
         return 1
@@ -5856,9 +6343,9 @@ def run(scratch: Path) -> int:
     emit(line)
     if not line["ok"]:
         return 1
-    # the mma kernel's main paths: phase lm's prefill and the training run;
+    # the forward's main paths: phase lm's prefill and the training run;
     # the backward's: the training run (bf16), and (c)'s fp32 layers
-    launches["flash_attn_mma"] += train_launches["mma"]
+    add_forward(train_launches["forward"])
     launches["flash_attn_bwd_wgmma"] = train_launches["bwd_wgmma"]
     launches["flash_attn_bwd_simt_tiled"] = train_launches["bwd_simt_tiled"]
     step_ms = line["sync"]["steady_ms_per_step"]
@@ -5872,7 +6359,7 @@ def run(scratch: Path) -> int:
     # the families' serving and decode steps, and their prefills and
     # training steps
     launches["flash_attn_decode"] += family_launches["decode"]
-    launches["flash_attn_mma"] += family_launches["mma"]
+    add_forward(family_launches)
     launches["flash_attn_bwd_wgmma"] += family_launches["backward"]
     torch.cuda.empty_cache()
 
@@ -5882,7 +6369,7 @@ def run(scratch: Path) -> int:
         return 1
     # the mesh's training steps and decode ticks
     launches["flash_attn_decode"] += mesh_launches["decode"]
-    launches["flash_attn_mma"] += mesh_launches["mma"]
+    add_forward(mesh_launches)
     launches["flash_attn_bwd_wgmma"] += mesh_launches["backward"]
     del line
     free_memory()
@@ -5923,8 +6410,13 @@ def run(scratch: Path) -> int:
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "full_shape_checks": full_checks, "empty_launch": empty,
           "seconds_total": time.perf_counter() - t_start})
+    # every row of the line was launched on a main path, and every
+    # forward variant a main path launched has its row
+    lines = {r["line"] for r in rows if r["line"]}
     if not all(r.get("ok", True) for r in rows + full_checks) or not all(
-            launches[r["line"]] for r in rows if r["line"]):
+            launches[name] for name in lines) or any(
+            launches[f"flash_attn_{kind}"] and f"flash_attn_{kind}" not in lines
+            for kind in ("mma", "wgmma")):
         return 1
 
     print(smi)

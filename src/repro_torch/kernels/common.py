@@ -46,7 +46,8 @@ MAX_SMEM_BYTES = 232_448
 _REGISTRY: dict[str, dict[str, Callable]] = {}
 
 #: launches of each hand-written kernel in this process; a cuda flavor
-#: adds one per kernel launch, nothing else touches it
+#: adds one per kernel launch, nothing else touches it (a family with
+#: variants also counts each under ``<family>_<variant>``)
 LAUNCHES: dict[str, int] = {}
 #: guards LAUNCHES: the live path launches from a learner thread and a
 #: serving thread at once, and ``+=`` on a dict entry is not atomic
@@ -155,7 +156,7 @@ def plain_versions(*kernels: str):
 
 def count_launch(kernel: str) -> None:
     with _LAUNCH_LOCK:
-        LAUNCHES[kernel] += 1
+        LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels (flash_attn.cu, the forward, and
-// flash_attn_bwd.cu, its gradient): cp.async copies, ldmatrix loads and the
+// flash_attn_bwd.cu, its gradient): the visibility of a (query, key) pair
+// and a query tile's key range, cp.async copies, ldmatrix loads and the
 // bf16 mma.sync.m16n8k16 product with fp32 accumulators, and warp maxima.
 #pragma once
 
@@ -13,6 +14,21 @@
 namespace repro {
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// whether the query at position qpos sees key j
+__device__ __forceinline__ bool visible(int qpos, int j, int causal,
+                                        int window) {
+  return (!causal || j <= qpos) && (window <= 0 || qpos - j < window);
+}
+
+// the keys some query of [i_lo, i_hi] can see: [k_begin, k_end), queries
+// end-aligned on the keys (ops.py:bwd_k_range)
+__device__ __forceinline__ void key_range(int i_lo, int i_hi, int off, int Sk,
+                                          int causal, int window, int& k_begin,
+                                          int& k_end) {
+  k_end = causal ? min(Sk, i_hi + off + 1) : Sk;
+  k_begin = window > 0 ? max(0, i_lo + off - window + 1) : 0;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)

@@ -14,7 +14,8 @@
 //   set); scale 1/sqrt(hd); out = acc / l, or acc / 1 where l == 0 (a row
 //   that sees no key gives 0).
 //
-// Rows: a row is a (query position i, query head of the kv head's group)
+// Rows (the mma, decode and fp32 kernels; a wgmma block serves one query
+//   head): a row is a (query position i, query head of the kv head's group)
 //   pair, the head fastest, so the rep = Hq / Hkv query heads that read one
 //   kv head share every K/V row a block reads: query head h reads kv head
 //   h / rep (the reference's jnp.repeat), never materialised.  A block serves
@@ -22,12 +23,44 @@
 //   can see, [k_begin, k_end) from the causal and window bounds of its first
 //   and last row (the Pallas kernel's tile skipping, at key granularity).
 //
-// Three kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep)
-// and passed in as `variant` (the decode kernel has its own entry point):
+// Four kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep,
+// hd) and passed in as `variant` (the decode kernel has its own entry point):
 //
-// flash_attn_mma_kernel (bf16 operands and Sq * rep >= 16 rows: prefill and
-//   any chunk of queries).  Bound on the H100 by bf16 operations: 4 * hd
-//   flops per visible (query, key) pair at 989 TFLOP/s on the tensor cores;
+// flash_attn_wgmma_kernel (bf16 operands at hd 64, 80, 96, 112 or 128 and
+//   Sq >= ops.py:WGMMA_MIN_QUERIES: prefill, training, the cross call).
+//   Bound like the mma kernel by bf16 operations on the tensor cores; the
+//   function's 2 products, 3 as P is kept fp32-grade.  FlashAttention-3's
+//   forward with the Pallas kernel's precision:
+//   - a block is one query head's 128-query tile (grid B * Hq x tiles,
+//     heads fastest so that a kv head's rep query heads read its K/V tiles
+//     from L2 together, the longest walks first) and walks the keys its
+//     rows see (ops.py:bwd_k_range), 64 at a time: the backward's dQ-pass
+//     geometry;
+//   - a producer warpgroup (one thread issues TMA loads of 64 x 16 boxes in
+//     the 32-byte swizzle, hopper.cuh, Q once and the K/V tiles into a ring
+//     of three stages completed by mbarriers; it gives its registers to the
+//     consumers by setmaxnreg) and two consumer warpgroups of 64 rows;
+//   - S = Q K^T by wgmma from shared memory (K-major); the online softmax
+//     in fp32 on the accumulator registers; P split into bf16 hi + lo A
+//     operands straight from the accumulator layout, and O += P_hi V +
+//     P_lo V by wgmma with V read MN-major: 3 products a pair, as the mma
+//     kernel runs;
+//   - the consumers take turns at the tensor cores: a turn issues the last
+//     tile's P V and this tile's S together, and one consumer's softmax
+//     runs under the other's products;
+//   - only a tile on a causal, window or ragged edge masks elementwise;
+//     TMA reads keys past Sk as zeros, whose score 0 the mask turns into
+//     -inf.  hd 80 and 112 rows are 5 and 7 slabs of 16 columns, so no
+//     depth is padded.  No atomics: every call gives the same bits.
+//   The mma kernel keeps the other bf16 head dims and the short query
+//   chunks, where the 128-row tile of one query head would sit mostly idle
+//   (ops.py:WGMMA_MIN_QUERIES, from a same-call sweep on the card).
+//
+// flash_attn_mma_kernel (bf16 operands and Sq * rep >= 16 rows that the
+//   wgmma kernel does not take: other head dims, short query chunks; the
+//   first tensor-core design, for every prefill).  Bound on the H100 by bf16 operations:
+//   4 * hd flops per visible (query, key) pair at 989 TFLOP/s on the tensor
+//   cores;
 //   with danube's window of 4096 a query sees at most 4096 keys, so prefill
 //   costs O(S * window).  Design:
 //   - mma.sync.m16n8k16 with bf16 operands and fp32 accumulators; 4 warps of
@@ -53,11 +86,6 @@
 //   - Head dims: any multiple of 8 up to 128; for hd % 16 == 8 the QK^T
 //     depth is zero-padded to the next 16 in shared memory (exact: the zeros
 //     add nothing); P.V steps by 8 columns and stores only the first hd.
-//   Left for later: wgmma over 64-row warpgroups with TMA loads completing
-//   on mbarriers and producer/consumer warp specialisation (the route to the
-//   card's full tensor-core rate; mma.sync lets the S fragment feed P.V from
-//   registers without a shared-memory layout for wgmma's B operand, and
-//   keeps the hi/lo split simple).
 //
 // flash_attn_decode_kernel (bf16 operands and Sq * rep < 16 rows: decode,
 //   Sq = 1 over a cache prefix read in place).  Bound by bytes: every K and
@@ -117,6 +145,7 @@
 
 #include "attn.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -671,6 +700,318 @@ int mma_by_depth(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// flash_attn_wgmma_kernel: bf16 on Hopper's warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // a producer warpgroup and two consumers
+constexpr int kWgStages = 3;     // K/V tiles in the TMA ring
+constexpr int kWgRows = 128;     // query rows a block, 64 a consumer
+constexpr int kWgKeys = 64;      // keys a staged tile
+
+using repro::kmajor;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_wait;
+using repro::mnmajor;
+using repro::my_turn;
+using repro::slab;
+using repro::tma_load_3d;
+using repro::your_turn;
+
+// the shared memory a block asks for: Q and the ring from a 1,024-byte
+// boundary, then the barriers
+__host__ __device__ constexpr size_t wg_smem(int hd) {
+  return 1024 + kWgRows * hd * 2 + kWgStages * 2 * kWgKeys * hd * 2 +
+         (1 + 2 * kWgStages) * 8;
+}
+
+// O += P V for one staged tile: P as bf16 hi and lo register A operands
+// (16 keys a step), V's rows read MN-major
+template <int HD>
+__device__ __forceinline__ void wg_pv(float (&acc)[HD / 2],
+                                      const uint32_t (&ph)[4][4],
+                                      const uint32_t (&pl)[4][4],
+                                      const bf16* vt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    repro::wgmma_rs<HD>(acc, ph[kk],
+                        mnmajor(vt + slab(0, kWgKeys, 16 * kk), kWgKeys));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    repro::wgmma_rs<HD>(acc, pl[kk],
+                        mnmajor(vt + slab(0, kWgKeys, 16 * kk), kWgKeys));
+}
+
+// Grid: (B * Hq, Sq / 128 rounded up), the heads fastest (the rep query
+// heads of a kv head read its K/V tiles from L2 together) and the last
+// query tiles (under a causal mask, the longest walks) first.  Warpgroup
+// 0's first thread loads the block's 128 Q rows once, then the K and V
+// tiles of its key range (ops.py:bwd_k_range, rows=128) into the ring;
+// each consumer warpgroup takes 64 rows.  A consumer's turn at the tensor
+// cores issues the previous tile's O += P V and this tile's S = Q K^T
+// together; out of its turn it masks (a tile on an edge only), runs the
+// online softmax on the S accumulator and splits P into the bf16 hi + lo
+// A operands of the next turn's P V.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ out,     // [B, Hq, Sq, hd]
+                        float* __restrict__ lse,    // [B, Hq, Sq] or null
+                        bf16* __restrict__ out_lo,  // as out, or null
+                        int Hq, int Hkv, int Sq, int Sk, int causal,
+                        int window, float scale_log2) {
+  constexpr int SLABS = HD / 16;
+  constexpr uint32_t kRowsBytes = kWgRows * HD * 2;  // Q of the block
+  constexpr uint32_t kTileBytes = kWgKeys * HD * 2;  // a K (V) tile
+  extern __shared__ unsigned char raw[];
+  unsigned char* sm = repro::aligned_1024(raw);
+  bf16* qs = reinterpret_cast<bf16*>(sm);
+  unsigned char* ring = sm + kRowsBytes;  // [stage]: K tile, V tile
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(ring + kWgStages * 2 * kTileBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWgStages;
+
+  const int bh = blockIdx.x;  // b * Hq + query head
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const long long row_base = static_cast<long long>(bh) * Sq;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;  // last first
+  const int off = Sk - Sq;
+  int k_begin, k_end;
+  repro::key_range(i0, min(i0 + kWgRows, Sq) - 1, off, Sk, causal, window,
+                   k_begin, k_end);
+  const int ntiles =
+      k_end > k_begin ? (k_end - k_begin + kWgKeys - 1) / kWgKeys : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    repro::mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      repro::mbar_init(&full[s], 1);
+      repro::mbar_init(&empty[s], 2 * 128);
+    }
+    repro::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer
+    repro::regs_dec<repro::kProducerRegs>();
+    if (tid != 0) return;
+    mbar_expect_tx(q_full, kRowsBytes);
+    for (int s = 0; s < SLABS; ++s)
+      for (int r = 0; r < kWgRows; r += repro::kTmaBox)
+        tma_load_3d(qs + slab(s, kWgRows, r), &tq, q_full, 16 * s, i0 + r, bh);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kWgStages;
+      mbar_wait(&empty[st], ((t / kWgStages) & 1) ^ 1);
+      bf16* kd = reinterpret_cast<bf16*>(ring + st * 2 * kTileBytes);
+      bf16* vd = kd + kWgKeys * HD;
+      const int k0 = k_begin + t * kWgKeys;
+      mbar_expect_tx(&full[st], 2 * kTileBytes);
+      for (int s = 0; s < SLABS; ++s) {
+        tma_load_3d(kd + slab(s, kWgKeys, 0), &tk, &full[st], 16 * s, k0, bkv);
+        tma_load_3d(vd + slab(s, kWgKeys, 0), &tv, &full[st], 16 * s, k0, bkv);
+      }
+    }
+    return;
+  }
+  repro::regs_inc<repro::kConsumerRegs>();
+  // the consumer, rows [64 wg, 64 wg + 64), read through a shuffle so that
+  // the compiler knows it is the same on every lane: the branches below
+  // that depend on it are uniform, and no wgmma sits in a divergent path
+  // (ptxas would serialize them all)
+  const int wg = __shfl_sync(repro::kFullMask, tid / 128 - 1, 0);
+  const int t128 = tid % 128, warp = t128 / 32, lane = t128 % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = wg * 64;
+
+  // rows g and g + 8 of the warp's 16; columns 2 t4 + {0, 1} of every
+  // 8-wide n-tile (hopper.cuh's accumulator layout)
+  int qpos[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2)
+    qpos[h2] = i0 + r0 + warp * 16 + g + 8 * h2 + off;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) acc[e] = 0.0f;
+  // the last tile's P for the next turn's P V: 0 before the first tile
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ph[kk][j] = pl[kk][j] = 0u;
+
+  const int iw_lo = i0 + r0, iw_hi = min(iw_lo + 63, Sq - 1);
+  mbar_wait(q_full, 0);
+  if (wg == 1) your_turn(wg);  // consumer 0 goes first
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % kWgStages;
+    const int last = (t + kWgStages - 1) % kWgStages;  // the last tile's
+    mbar_wait(&full[st], (t / kWgStages) & 1);
+    const int k0 = k_begin + t * kWgKeys;
+    const bf16* kt = reinterpret_cast<const bf16*>(ring + st * 2 * kTileBytes);
+    // the turn: this tile's S, then the last tile's P V (P = 0 on the
+    // first tile, whose own V stands in), issued behind the other
+    // consumer's products and handed over at once: the tensor cores run
+    // them in issue order.  Both are issued on every tile, so that no
+    // wgmma sits behind a branch
+    float s[32];
+    my_turn(wg);
+    repro::wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl)
+      repro::wgmma_ss_n64(s, kmajor(qs + slab(sl, kWgRows, r0)),
+                          kmajor(kt + slab(sl, kWgKeys, 0)), sl > 0);
+    repro::wgmma_commit();
+    wg_pv<HD>(acc, ph, pl,
+              reinterpret_cast<const bf16*>(ring + (t > 0 ? last : st) * 2 *
+                                                       kTileBytes) +
+                  kWgKeys * HD);
+    repro::wgmma_commit();
+    your_turn(wg);
+    repro::wgmma_wait<1>();  // S; the P V may still run
+    repro::keep(s);
+
+    // a tile no row of this warpgroup sees (or no row at all) counts as
+    // masked everywhere: p = 0, m and l as they were
+    const bool skip = iw_lo >= Sq || (causal && k0 > iw_hi + off) ||
+                      (window > 0 && iw_lo + off - (k0 + kWgKeys - 1) >= window);
+    // the elementwise mask, only on a tile that straddles an edge
+    if (skip || k0 + kWgKeys > k_end ||
+        (causal && k0 + kWgKeys - 1 > iw_lo + off) ||
+        (window > 0 && k0 <= iw_hi + off - window)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int j = k0 + (e / 4) * 8 + 2 * t4 + (e & 1);
+        if (skip || !(j < k_end && repro::visible(qpos[(e / 2) % 2], j,
+                                                  causal, window)))
+          s[e] = -INFINITY;
+      }
+    }
+    // online softmax in base 2; the four lanes of a quad share a row
+    float corr[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[4 * nt + 2 * h2], s[4 * nt + 2 * h2 + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(repro::kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(repro::kFullMask, mx, 2));
+      const float mn = fmaxf(m[h2], mx * scale_log2);
+      // before the row's first visible key m stays -inf, and p and the
+      // correction are 0 (no -inf - -inf)
+      const float mu = mn == -INFINITY ? 0.0f : mn;
+      corr[h2] = repro::fast_exp2(m[h2] - mu);
+      m[h2] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 4 * nt + 2 * h2; e < 4 * nt + 2 * h2 + 2; ++e) {
+          const float p = repro::fast_exp2(fmaf(s[e], scale_log2, -mu));
+          s[e] = p;
+          sum += p;
+        }
+      l[h2] = l[h2] * corr[h2] + sum;
+    }
+    repro::wgmma_wait<0>();  // the last tile's P V
+    repro::keep(acc);
+    if (t > 0) mbar_arrive(&empty[last]);
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * nt + e] *= corr[e / 2];
+    // P as the A operands of 16-key steps (n-tiles 2 kk and 2 kk + 1), each
+    // split into hi = bf16(P) and lo = bf16(P - hi)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph[kk][j], pl[kk][j]);
+  }
+  if (ntiles > 0) {  // the last tile's P V (the same on the whole block)
+    repro::wgmma_fence();
+    wg_pv<HD>(acc, ph, pl,
+              reinterpret_cast<const bf16*>(
+                  ring + ((ntiles - 1) % kWgStages) * 2 * kTileBytes) +
+                  kWgKeys * HD);
+    repro::wgmma_commit();
+    repro::wgmma_wait<0>();
+    repro::keep(acc);
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float lt = l[h2];
+    lt += __shfl_xor_sync(repro::kFullMask, lt, 1);
+    lt += __shfl_xor_sync(repro::kFullMask, lt, 2);
+    const float div = lt == 0.0f ? 1.0f : lt;
+    const int i = qpos[h2] - off;
+    if (i >= Sq) continue;
+    const long long row = row_base + i;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int col = nt * 8 + 2 * t4;
+      uint32_t hi, lo;  // the output's bf16 and its rounding residual
+      split(acc[4 * nt + 2 * h2] / div, acc[4 * nt + 2 * h2 + 1] / div, hi, lo);
+      *reinterpret_cast<uint32_t*>(out + row * HD + col) = hi;
+      if (out_lo != nullptr)
+        *reinterpret_cast<uint32_t*>(out_lo + row * HD + col) = lo;
+    }
+    // the row's log2-sum-exp2 of the scaled scores (m is in base 2)
+    if (lse != nullptr && t4 == 0)
+      lse[row] = lt == 0.0f ? INFINITY : m[h2] + log2f(lt);
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 float* lse, void* out_lo, int B, int Hq, int Hkv, int Sq,
+                 int Sk, long long kv_head_stride, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  const int tiles = (Sq + kWgRows - 1) / kWgRows;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  if (!repro::rows_map(&tq, q, B * Hq, Sq, HD,
+                       static_cast<long long>(Sq) * HD) ||
+      !repro::rows_map(&tk, k, B * Hkv, Sk, HD, kv_head_stride) ||
+      !repro::rows_map(&tv, v, B * Hkv, Sk, HD, kv_head_stride))
+    return static_cast<int>(cudaErrorNotSupported);
+  auto kernel = flash_attn_wgmma_kernel<HD>;
+  const cudaError_t e = repro::allow_smem(kernel, wg_smem(HD));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(B * Hq, tiles), kWgThreads, wg_smem(HD), stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), lse, static_cast<bf16*>(out_lo),
+      Hq, Hkv, Sq, Sk, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int wgmma_by_depth(const void* q, const void* k, const void* v, void* out,
+                   float* lse, void* out_lo, int B, int Hq, int Hkv, int Sq,
+                   int Sk, int hd, long long kv_head_stride, int causal,
+                   int window, float scale, cudaStream_t s) {
+#define REPRO_WGMMA_CASE(n)                                                  \
+  case n:                                                                    \
+    return launch_wgmma<n>(q, k, v, out, lse, out_lo, B, Hq, Hkv, Sq, Sk,    \
+                           kv_head_stride, causal, window, scale, s);
+  switch (hd) {
+    REPRO_WGMMA_CASE(64)
+    REPRO_WGMMA_CASE(80)
+    REPRO_WGMMA_CASE(96)
+    REPRO_WGMMA_CASE(112)
+    REPRO_WGMMA_CASE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_WGMMA_CASE
+}
+
+// ---------------------------------------------------------------------------
 // flash_attn_decode_kernel: bf16 rows < 16, the keys split across blocks
 // ---------------------------------------------------------------------------
 
@@ -1046,7 +1387,9 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
 // queries would sit before key 0 and see nothing: 0).  window <= 0 means
 // none.  bf16 != 0: bf16 operands, else
 // fp32.  variant: 0 flash_attn_kernel (fp32 only), 1 flash_attn_mma_kernel
-// (bf16 only); bf16 decode has its own entry point, flash_attn_decode.
+// (bf16 only), 3 flash_attn_wgmma_kernel (bf16 at hd 64, 80, 96, 112 or
+// 128; cudaErrorNotSupported where a tensor map does not encode); bf16
+// decode has its own entry point, flash_attn_decode.
 // lse: null, or fp32 [B, Hq, Sq] that gets each row's log-sum-exp of the
 // scaled scores in base 2 (+inf for a row that sees no key), the
 // statistics flash_attn_bwd's "wgmma" and "simt_tiled" kernels read.
@@ -1061,10 +1404,11 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           int variant, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* ls = static_cast<float*>(lse);
-  if (variant == 1) {
+  if (variant == 1 || variant == 3) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return mma_by_depth(q, k, v, out, ls, out_lo, B, Hq, Hkv, Sq, Sk, hd,
-                        kv_head_stride, causal, window, scale, s);
+    return (variant == 1 ? mma_by_depth : wgmma_by_depth)(
+        q, k, v, out, ls, out_lo, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
+        causal, window, scale, s);
   }
   if (variant != 0 || bf16 || out_lo != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);

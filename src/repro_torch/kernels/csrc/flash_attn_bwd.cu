@@ -109,7 +109,6 @@
 //   of K and V are read from shared memory for every tile instead of held.
 #include <cuda.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 
@@ -123,28 +122,16 @@ using repro::bits;
 using repro::copies_commit;
 using repro::copies_wait;
 using repro::copy16;
+using repro::key_range;
 using repro::kLog2e;
 using repro::ldsm4;
 using repro::ldsm4_t;
 using repro::mma;
+using repro::visible;
 using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ bool visible(int qpos, int j, int causal,
-                                        int window) {
-  return (!causal || j <= qpos) && (window <= 0 || qpos - j < window);
-}
-
-// the keys some query of [i_lo, i_hi] can see: [k_begin, k_end)
-// (ops.py:bwd_k_range)
-__device__ __forceinline__ void key_range(int i_lo, int i_hi, int off, int Sk,
-                                          int causal, int window, int& k_begin,
-                                          int& k_end) {
-  k_end = causal ? min(Sk, i_hi + off + 1) : Sk;
-  k_begin = window > 0 ? max(0, i_lo + off - window + 1) : 0;
-}
 
 // the query tiles of `tile` rows with a query that can see a key of
 // [j_lo, j_hi]: [t_lo, t_lo + count) (ops.py:bwd_q_range)
@@ -625,40 +612,24 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
 
 constexpr int kWgThreads = 384;  // a producer warpgroup and two consumers
 constexpr int kWgStages = 3;     // tiles in the TMA ring
-constexpr int kWgBox = 64;       // rows a TMA box (every tensor map's)
 constexpr int kWgRows = 128;     // dQ pass: query rows a block, 64 a consumer
 constexpr int kWgKeys = 64;      // dQ pass: keys a staged tile
 constexpr int kWgKvKeys = 128;   // dK/dV pass: keys a block, 64 a consumer
 constexpr int kWgQTile = 64;     // dK/dV pass: queries a staged tile
-// setmaxnreg: 40 + 2 x 232 = 3 x 168, the launch's 65,536 / 384 rounded
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-// named barriers kTurn + w: consumer w's turn at the tensor cores
-constexpr int kTurn = 3;
 
-// The consumers take turns (FlashAttention-3's ping-pong): consumer w
-// issues a tile's S and dP products when the other has issued its own and
-// they have completed, so one warpgroup's exponentials overlap the other's
-// products instead of both waiting on the tensor cores at once.
-__device__ __forceinline__ void my_turn(int wg) {
-  repro::named_sync(kTurn + wg, 256);
-}
-__device__ __forceinline__ void your_turn(int wg) {
-  repro::named_arrive(kTurn + 1 - wg, 256);
-}
-
+using repro::kConsumerRegs;
 using repro::kmajor;
+using repro::kProducerRegs;
+using repro::kTmaBox;
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_wait;
 using repro::mnmajor;
+using repro::my_turn;
+using repro::rows_map;
+using repro::slab;
 using repro::tma_load_3d;
-
-// a [rows][HD] bf16 tile as HD / 16 swizzled slabs: element offset of
-// (row r, slab s) in a tile of `rows` rows
-__device__ __forceinline__ int slab(int s, int rows, int r) {
-  return (s * rows + r) * 16;
-}
+using repro::your_turn;
 
 // the dot of eight bf16 pairs, fp32
 __device__ __forceinline__ float dot8(const uint4& x, const uint4& y) {
@@ -695,10 +666,6 @@ __host__ __device__ constexpr size_t wg_smem_dkv(int hd) {
          kWgStages * (2 * kWgQTile * hd * 2 + 1024) + (1 + 2 * kWgStages) * 8;
 }
 
-__device__ __forceinline__ unsigned char* aligned_1024(unsigned char* raw) {
-  return raw + ((1024 - repro::smem_u32(raw) % 1024) % 1024);
-}
-
 // The dQ pass.  Grid: (B * Hq, Sq / 128 rounded up), the heads fastest and
 // the last query tiles (under a causal mask, the longest walks) first.  Warpgroup 0's first
 // thread loads the block's 128 Q and dO rows, then the K and V tiles of its
@@ -725,7 +692,7 @@ flash_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr uint32_t kRowsBytes = kWgRows * HD * 2;  // Q (dO) of the block
   constexpr uint32_t kTileBytes = kWgKeys * HD * 2;  // a K (V) tile
   extern __shared__ unsigned char raw[];
-  unsigned char* sm = aligned_1024(raw);
+  unsigned char* sm = repro::aligned_1024(raw);
   bf16* qs = reinterpret_cast<bf16*>(sm);
   bf16* dos = reinterpret_cast<bf16*>(sm + kRowsBytes);
   unsigned char* ring = sm + 2 * kRowsBytes;  // [stage]: K tile, V tile
@@ -762,7 +729,7 @@ flash_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid != 0) return;
     mbar_expect_tx(rows_full, 2 * kRowsBytes);
     for (int s = 0; s < SLABS; ++s)
-      for (int r = 0; r < kWgRows; r += kWgBox) {
+      for (int r = 0; r < kWgRows; r += kTmaBox) {
         tma_load_3d(qs + slab(s, kWgRows, r), &tq, rows_full, 16 * s, i0 + r,
                     bh);
         tma_load_3d(dos + slab(s, kWgRows, r), &tdo, rows_full, 16 * s,
@@ -926,7 +893,7 @@ flash_attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr uint32_t kTileBytes = kWgQTile * HD * 2;   // a Q (dO) tile
   constexpr uint32_t kStageBytes = 2 * kTileBytes + 1024;  // + lse, D
   extern __shared__ unsigned char raw[];
-  unsigned char* sm = aligned_1024(raw);
+  unsigned char* sm = repro::aligned_1024(raw);
   bf16* ks = reinterpret_cast<bf16*>(sm);
   bf16* vs = reinterpret_cast<bf16*>(sm + kKeysBytes);
   unsigned char* ring = sm + 2 * kKeysBytes;  // [stage]: Q, dO, lse, D
@@ -961,7 +928,7 @@ flash_attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0) {
       mbar_expect_tx(keys_full, 2 * kKeysBytes);
       for (int s = 0; s < SLABS; ++s)
-        for (int r = 0; r < kWgKvKeys; r += kWgBox) {
+        for (int r = 0; r < kWgKvKeys; r += kTmaBox) {
           tma_load_3d(ks + slab(s, kWgKvKeys, r), &tk, keys_full, 16 * s,
                       j0 + r, bkv);
           tma_load_3d(vs + slab(s, kWgKvKeys, r), &tv, keys_full, 16 * s,
@@ -1108,45 +1075,6 @@ flash_attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled from the libcuda the process has loaded (no
-// link-time libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// [heads][rows][hd] bf16 as boxes of 64 rows by 16 columns in the 32-byte
-// swizzle; rows past the end read as zeros
-bool rows_map(CUtensorMap* map, const void* base, int heads, int rows, int hd) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(rows) * hd * 2};
-  const cuuint32_t box[3] = {16, kWgBox, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
                  const void* out_lo, const void* dout, const float* lse,
@@ -1154,8 +1082,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
                  int Hkv, int Sq, int Sk, int causal, int window, float scale,
                  cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv;
-  if (!rows_map(&tq, q, B * Hq, Sq, HD) || !rows_map(&tdo, dout, B * Hq, Sq, HD) ||
-      !rows_map(&tk, k, B * Hkv, Sk, HD) || !rows_map(&tv, v, B * Hkv, Sk, HD))
+  const long long q_stride = static_cast<long long>(Sq) * HD;
+  const long long k_stride = static_cast<long long>(Sk) * HD;
+  if (!rows_map(&tq, q, B * Hq, Sq, HD, q_stride) ||
+      !rows_map(&tdo, dout, B * Hq, Sq, HD, q_stride) ||
+      !rows_map(&tk, k, B * Hkv, Sk, HD, k_stride) ||
+      !rows_map(&tv, v, B * Hkv, Sk, HD, k_stride))
     return static_cast<int>(cudaErrorNotSupported);
   auto dq_kernel = flash_attn_bwd_dq_wgmma_kernel<HD>;
   auto dkv_kernel = flash_attn_bwd_dkv_wgmma_kernel<HD>;

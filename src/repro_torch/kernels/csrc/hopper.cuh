@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the attention backward's "wgmma"
-// kernels (flash_attn_bwd.cu): mbarriers, TMA tile loads into shared
-// memory, register moves between warpgroups, named barriers, and the
-// warpgroup products (wgmma) with their shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the attention's "wgmma" kernels (the
+// forward's in flash_attn.cu, the backward's in flash_attn_bwd.cu):
+// mbarriers, TMA tile loads into shared memory and the tensor maps they
+// read, register moves between warpgroups, named barriers and the
+// consumers' turns at the tensor cores, and the warpgroup products (wgmma)
+// with their shared-memory descriptors.
 //
 // Tiles are bf16 [rows][16] slabs in the 32-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_32B, wgmma's layout type 3): row r of a slab at
@@ -15,12 +17,22 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
+#include <dlfcn.h>
 
 #include <cstdint>
 
 #include "attn.cuh"
 
 namespace repro {
+
+constexpr int kTmaBox = 64;  // rows a TMA box (every tensor map's)
+// A block of a producer warpgroup and two consumers (384 threads), one
+// block an SM.  setmaxnreg: 40 + 2 x 232 = 3 x 168, the launch's
+// 65,536 / 384 rounded
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// named barriers kTurn + w: consumer w's turn at the tensor cores
+constexpr int kTurn = 3;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
@@ -93,6 +105,28 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // arrives at barrier `id` without waiting for it
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The consumers take turns (FlashAttention-3's ping-pong): consumer w
+// issues its products when the other has issued its own and they have
+// completed, so one warpgroup's exponentials overlap the other's products
+// instead of both waiting on the tensor cores at once.
+__device__ __forceinline__ void my_turn(int wg) {
+  named_sync(kTurn + wg, 256);
+}
+__device__ __forceinline__ void your_turn(int wg) {
+  named_arrive(kTurn + 1 - wg, 256);
+}
+
+// a [rows][HD] bf16 tile as HD / 16 swizzled slabs: element offset of
+// (row r, slab s) in a tile of `rows` rows
+__device__ __forceinline__ int slab(int s, int rows, int r) {
+  return (s * rows + r) * 16;
+}
+
+// the tiles from a 1,024-byte boundary of dynamic shared memory
+__device__ __forceinline__ unsigned char* aligned_1024(unsigned char* raw) {
+  return raw + ((1024 - smem_u32(raw) % 1024) % 1024);
 }
 
 // 2^x on the special function unit (2 ulp; results below 2^-126 flush to 0)
@@ -286,6 +320,48 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (no
+// link-time libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// `heads` heads of `rows` rows of hd bf16, the heads `head_stride`
+// elements apart (rows * hd for a contiguous tensor; more for a prefix of a
+// longer cache), as boxes of kTmaBox rows by 16 columns in the 32-byte
+// swizzle; rows past the end read as zeros
+inline bool rows_map(CUtensorMap* map, const void* base, int heads, int rows,
+                     int hd, long long head_stride) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(head_stride) * 2};
+  const cuuint32_t box[3] = {16, kTmaBox, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

@@ -7,12 +7,22 @@ see never loaded.  It takes any ``1 <= Sq <= Sk`` (decode calls it at
 for a call with no mask (cross-attention: ``causal=False``, no window,
 where every query sees every key), bf16 or fp32, head dims
 that are multiples of 8 up to 128.  :func:`variant` picks the kernel from
-the dtype and the rows a kv head serves (``Sq * Hq / Hkv``) alone:
+the dtype, the queries, the rows a kv head serves (``Sq * Hq / Hkv``) and
+the head dim alone:
 
-* ``"mma"`` (``flash_attn_mma_kernel``): bf16 with at least 16 rows, which
-  is prefill and any chunk of queries.  QK^T and P.V on the tensor cores
-  (``mma.sync`` m16n8k16, fp32 accumulators), P kept fp32-grade as a bf16
-  hi + lo pair, as the Pallas kernel keeps P in fp32;
+* ``"wgmma"`` (``flash_attn_wgmma_kernel``): bf16 at the head dims of
+  WGMMA_HEAD_DIMS with at least WGMMA_MIN_QUERIES queries, which is
+  prefill, training and the cross call.  Hopper's warpgroup products
+  (``wgmma``) fed by TMA: a block is one query head's 128 queries
+  (WGMMA_TILES), a producer warpgroup loads K/V tiles into a 3-stage
+  mbarrier ring and two consumer warpgroups of 64 rows take turns at the
+  tensor cores; S = QK^T from shared memory, P split into bf16 hi + lo
+  register operands of P.V, so P stays fp32-grade as in ``"mma"``;
+* ``"mma"`` (``flash_attn_mma_kernel``): bf16 with at least 16 rows that
+  ``"wgmma"`` does not take (other head dims, shorter query chunks).  QK^T
+  and P.V on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulators),
+  P kept fp32-grade as a bf16 hi + lo pair, as the Pallas kernel keeps P
+  in fp32;
 * ``"decode"`` (``flash_attn_decode_kernel``): bf16 with fewer than 16 rows,
   which is decode.  The keys are split into chunks (:func:`decode_plan`) so
   that up to two blocks run on each SM of an H100 however few (batch, kv
@@ -37,7 +47,8 @@ plain ones:
   (``[B, Hq, Sq]`` fp32, base 2) and, for bf16, the output's rounding
   residual (``out + out_lo`` is the fp32 output to 16 bits; fp32 gives an
   empty ``[B, Hq, Sq, 0]``), all written by the forward kernel (the bf16
-  decode variant writes no statistics, so such a call runs ``"mma"``), and
+  decode variant writes no statistics, so such a call runs ``"mma"``;
+  ``"wgmma"`` and ``"mma"`` write the same ones), and
   saves q, k, v and the three.  Its gradient is
   ``torch.ops.repro_torch.flash_attn_bwd``, which dispatches the family
   ``"flash_attn_bwd"`` on the device: ``cuda`` runs
@@ -86,7 +97,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: rows an MMA block's warp fills (the m of mma.sync's m16n8k16)
 MMA_MIN_ROWS = 16
 #: the C entry point's code for each variant (``"decode"`` has its own)
-VARIANTS = ("simt", "mma", "decode")
+VARIANTS = ("simt", "mma", "decode", "wgmma")
 
 #: blocks a decode call aims for: two on each of an H100's 132 SMs
 DECODE_TARGET_BLOCKS = 2 * 132
@@ -107,6 +118,16 @@ _BWD_ARGS = (_P,) * 12 + (_I,) * 8 + (_F, _I, _P)
 BWD_VARIANTS = ("mma", "wgmma", "simt_tiled")
 #: bf16 head dims the ``"wgmma"`` kernels take; ``"mma"`` keeps the rest
 WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
+#: the fewest queries a forward call runs ``"wgmma"`` at: its block is one
+#: query head's 128 queries, so a shorter chunk leaves most of it idle where
+#: ``"mma"`` packs the kv head's query heads into its rows.  The Sq from
+#: which on ``"wgmma"`` was no slower than ``"mma"`` at every longer chunk
+#: of a same-call sweep at hd 80, rep 4 over 900 keys on an H100
+#: (``chip_smoke.py --attn-fwd``)
+WGMMA_MIN_QUERIES = 128
+#: the forward ``"wgmma"`` kernel's tiles (csrc/flash_attn.cu): queries a
+#: block serves (one query head's), keys it stages at a time
+WGMMA_TILES = {"q_rows": 128, "k_tile": 64}
 #: the backward's tiles (csrc/flash_attn_bwd.cu), by variant: query rows a
 #: dQ block serves, keys it stages at a time, keys a dK/dV block owns,
 #: queries a dK/dV block stages at a time
@@ -117,13 +138,27 @@ BWD_TILES = {"mma": {"q_rows": 64, "k_tile": 64, "keys": 64, "q_tile": 32},
                             "q_tile": 64}}
 
 
-def variant(dtype: torch.dtype, sq: int, rep: int) -> str:
-    """The kernel that runs a call: for bf16 operands ``"mma"`` when a kv
-    head has at least MMA_MIN_ROWS rows (``sq * rep``), else ``"decode"``;
-    ``"simt"`` for fp32."""
+def variant(dtype: torch.dtype, sq: int, rep: int, hd: int) -> str:
+    """The kernel that runs a call of ``sq`` queries, ``rep`` query heads a
+    kv head and head dim ``hd``: for bf16 operands ``"wgmma"`` at the head
+    dims of WGMMA_HEAD_DIMS with at least WGMMA_MIN_QUERIES queries, else
+    ``"mma"`` when a kv head has at least MMA_MIN_ROWS rows (``sq * rep``),
+    else ``"decode"``; ``"simt"`` for fp32."""
     if dtype != torch.bfloat16:
         return "simt"
+    if hd in WGMMA_HEAD_DIMS and sq >= WGMMA_MIN_QUERIES:
+        return "wgmma"
     return "mma" if sq * rep >= MMA_MIN_ROWS else "decode"
+
+
+def call_variant(dtype: torch.dtype, sq: int, rep: int, hd: int,
+                 lse: bool) -> str:
+    """The kernel a call runs: :func:`variant`'s pick, except that a call
+    asked for the statistics (``lse``: the training path's forward) never
+    runs ``"decode"``, which writes none, but ``"mma"``, which takes any
+    rows."""
+    kind = variant(dtype, sq, rep, hd)
+    return "mma" if lse and kind == "decode" else kind
 
 
 def bwd_variant(dtype: torch.dtype, hd: int) -> str:
@@ -140,9 +175,10 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> str:
 
 def bwd_k_range(q_tile: int, sq: int, sk: int, causal: bool,
                 window: int | None, rows: int = 64) -> tuple[int, int]:
-    """The keys ``[begin, end)`` a dQ block walks: every key some query of
-    its tile of ``rows`` rows (queries ``[q_tile * rows, ...)``) can see,
-    queries end-aligned on the keys (the forward's range)."""
+    """The keys ``[begin, end)`` a dQ block (and a ``"wgmma"`` forward
+    block) walks: every key some query of its tile of ``rows`` rows
+    (queries ``[q_tile * rows, ...)``) can see, queries end-aligned on the
+    keys (the forward's range)."""
     off = sk - sq
     i_hi = min((q_tile + 1) * rows, sq) - 1
     end = min(sk, i_hi + off + 1) if causal else sk
@@ -197,12 +233,14 @@ def decode_plan(b: int, hkv: int, sk: int, groups: int = 1,
 
 def _kv_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     """``t`` [B, Hkv, Sk, hd] as the kernel reads it, with its head stride:
-    rows of hd contiguous and heads evenly spaced (a prefix ``[..., :n, :]``
-    of a contiguous cache qualifies as it is), 16-byte aligned; anything
-    else is copied contiguous first."""
-    b, h, _, hd = t.shape
+    rows of hd contiguous and heads evenly spaced, no closer than a head's
+    rows (a prefix ``[..., :n, :]`` of a contiguous cache qualifies as it
+    is; TMA's tensor maps take no overlapping heads), 16-byte aligned;
+    anything else is copied contiguous first."""
+    _, h, sk, hd = t.shape
     s = t.stride()
     if not (s[3] == 1 and s[2] == hd and s[0] == h * s[1]
+            and s[1] >= sk * hd
             and t.data_ptr() % 16 == 0 and (s[1] * t.element_size()) % 16 == 0):
         t = t.contiguous()
         s = t.stride()
@@ -248,13 +286,12 @@ def _flash_attn_cuda(q, k, v, *, causal, window, splits=None, lse=False):
         k, v = k.contiguous(), v.contiguous()
         k_stride = k.stride(1)
     out = torch.empty_like(q)
-    kind = variant(q.dtype, sq, hq // hkv)
+    kind = call_variant(q.dtype, sq, hq // hkv, hd, lse)
     stats = lo = None
-    if lse:  # the decode kernel writes no statistics; "mma" takes any rows
+    if lse:
         stats = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
         lo = (torch.empty_like(out) if q.dtype == torch.bfloat16
               else _no_out_lo(q))
-        kind = "mma" if kind == "decode" else kind
     stream = common.stream(q)
     with common.on_device(q):
         if kind == "decode":
@@ -270,6 +307,7 @@ def _flash_attn_cuda(q, k, v, *, causal, window, splits=None, lse=False):
                 int(q.dtype == torch.bfloat16), VARIANTS.index(kind), stream)
     _build.check("flash_attn", code)
     common.count_launch("flash_attn")
+    common.count_launch(f"flash_attn_{kind}")
     return out if stats is None else (out, stats, lo)
 
 

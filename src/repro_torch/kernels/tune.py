@@ -254,8 +254,8 @@ def _attn_decode(info: dict) -> tuple[int, int] | None:
     from repro_torch.kernels.flash_attn import ops
 
     rep = info["heads_q"] // info["heads_kv"]
-    if ops.variant(getattr(torch, info["dtype"]), info["seq_q"],
-                   rep) != "decode":
+    if ops.variant(getattr(torch, info["dtype"]), info["seq_q"], rep,
+                   info["head_dim"]) != "decode":
         return None
     groups = ops.decode_rows(info["seq_q"] * rep)[1]
     most = min(ops.DECODE_TARGET_BLOCKS,

@@ -967,24 +967,63 @@ def test_flash_attention_bf16_rounds_only_the_output():
                                rtol=2 ** -7, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype,sq,rep,want", [
-    (torch.bfloat16, 15, 1, "decode"),   # 15 rows: short of an MMA's 16
-    (torch.bfloat16, 16, 1, "mma"),
-    (torch.bfloat16, 4, 4, "mma"),       # danube's rep: 4 positions fill 16
-    (torch.bfloat16, 5, 3, "decode"),    # rep 3 (minitron): 15 rows
-    (torch.bfloat16, 8192, 4, "mma"),    # danube's prefill
-    (torch.bfloat16, 1, 4, "decode"),    # decode
-    (torch.bfloat16, 1, 16, "mma"),      # decode with 16 heads a kv head
-    (torch.float32, 8192, 4, "simt"),    # fp32: its tolerance needs fp32
-    (torch.float32, 1, 4, "simt"),       # fp32 decode stays on the fp32 kernel
+_MIN_Q = attn_ops.WGMMA_MIN_QUERIES
+
+
+@pytest.mark.parametrize("dtype,sq,rep,hd,want", [
+    (torch.bfloat16, 15, 1, 80, "decode"),   # 15 rows: short of an MMA's 16
+    (torch.bfloat16, 16, 1, 80, "mma"),
+    (torch.bfloat16, 4, 4, 80, "mma"),       # danube's rep: 4 positions fill 16
+    (torch.bfloat16, 5, 3, 128, "decode"),   # rep 3 (minitron): 15 rows
+    (torch.bfloat16, 8192, 4, 80, "wgmma"),  # danube's prefill: warpgroups
+    (torch.bfloat16, 1, 4, 80, "decode"),    # decode
+    (torch.bfloat16, 1, 16, 128, "mma"),     # decode with 16 heads a kv head
+    (torch.float32, 8192, 4, 80, "simt"),    # fp32: its tolerance needs fp32
+    (torch.float32, 1, 4, 80, "simt"),       # fp32 decode stays on the fp32 kernel
+    # every head dim "wgmma" takes, at the vlm cross call's 2,048 queries
+    *[(torch.bfloat16, 2048, 4, hd, "wgmma")
+      for hd in attn_ops.WGMMA_HEAD_DIMS],
+    # the WGMMA_MIN_QUERIES edge: a shorter query chunk stays on "mma"
+    (torch.bfloat16, _MIN_Q - 1, 4, 80, "mma"),
+    (torch.bfloat16, _MIN_Q, 4, 80, "wgmma"),
+    (torch.bfloat16, _MIN_Q + 1, 1, 64, "wgmma"),
+    # head dims "wgmma" does not take: 72 (a hd % 16 == 8 depth), 32, 120
+    (torch.bfloat16, 8192, 4, 72, "mma"),
+    (torch.bfloat16, 8192, 4, 32, "mma"),
+    (torch.bfloat16, 8192, 1, 120, "mma"),
+    (torch.float32, 8192, 4, 128, "simt"),   # fp32 at a "wgmma" head dim
 ])
 def test_flash_attention_variant_is_chosen_from_dtype_and_rows(dtype, sq,
-                                                                rep, want):
-    assert attn_ops.variant(dtype, sq, rep) == want
-    # the C entry point's code: 0 flash_attn_kernel, 1 flash_attn_mma_kernel
-    # (the decode kernel has an entry point of its own)
+                                                                rep, hd, want):
+    assert attn_ops.variant(dtype, sq, rep, hd) == want
+    # the C entry point's code: 0 flash_attn_kernel, 1 flash_attn_mma_kernel,
+    # 3 flash_attn_wgmma_kernel (the decode kernel has an entry point of its
+    # own)
     assert attn_ops.VARIANTS.index(want) == {"simt": 0, "mma": 1,
-                                             "decode": 2}[want]
+                                             "decode": 2, "wgmma": 3}[want]
+
+
+@pytest.mark.parametrize("arch", [
+    "minitron-4b", "command-r-35b", "h2o-danube-1.8b", "minitron-8b",
+    "olmoe-1b-7b", "kimi-k2-1t-a32b", "musicgen-large", "zamba2-1.2b",
+    "llama-3.2-vision-11b"])
+def test_flash_attention_training_forward_runs_wgmma(arch):
+    """The training path's forward (the operator asked for the statistics,
+    ``lse=True``) runs ``"wgmma"`` at every attention family's training
+    shapes: ``train_4k``'s 4,096 queries and the single-card runs' 1,024
+    and 2,048 (hd 64, 80, 112 and 128, rep 1 to 8); a decode-sized call
+    with statistics runs ``"mma"``, never ``"decode"``."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    rep = cfg.n_heads // cfg.n_kv
+    for sq in (configs.SHAPES["train_4k"][1], 1024, 2048):
+        assert attn_ops.call_variant(cfg.param_dtype, sq, rep, cfg.hd,
+                                     lse=True) == "wgmma"
+    assert attn_ops.call_variant(cfg.param_dtype, 1, rep, cfg.hd,
+                                 lse=True) == "mma"
+    assert attn_ops.call_variant(cfg.param_dtype, 1, rep, cfg.hd,
+                                 lse=False) in ("decode", "mma")
 
 
 @pytest.mark.parametrize("b,hkv,sk", [
@@ -1130,7 +1169,7 @@ def test_flash_attention_decode_over_a_cache_prefix_matches_jax_kernel(valid):
     interpret mode on the same bf16 values."""
     q, k, v = (torch.from_numpy(a).bfloat16()
                for a in _qkv(2, 8, 2, 1, 128, 80, seed=valid))
-    assert attn_ops.variant(q.dtype, 1, 4) == "decode"
+    assert attn_ops.variant(q.dtype, 1, 4, 80) == "decode"
     kp, vp = k[:, :, :valid], v[:, :, :valid]
     got = tk.flash_attention(q, kp, vp, causal=False)
     want = jflash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
@@ -1339,7 +1378,8 @@ def _visible(sq, sk, causal, window):
     return vis
 
 
-@pytest.mark.parametrize("kind", ["mma", "wgmma", "simt_tiled"])
+@pytest.mark.parametrize("kind", ["mma", "wgmma", "simt_tiled",
+                                  "forward_wgmma"])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (300, 300, True, None),     # causal, a ragged last tile
     (300, 300, True, 64),       # a window
@@ -1354,12 +1394,15 @@ def _visible(sq, sk, causal, window):
 def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
         kind, sq, sk, causal, window):
     """The kernel's walks as ``ops.bwd_k_range`` and ``ops.bwd_q_range``
-    mirror them: in the dQ pass each query tile meets the key tiles of its
-    range, in the dK/dV pass each key tile the query tiles of its range
-    (for every query head).  Over all meetings every visible (query, key)
-    pair falls in exactly one of each pass, none is left out, and every
-    dK/dV meeting holds a visible pair (no tile is walked for nothing)."""
-    t = attn_ops.BWD_TILES[kind]
+    mirror them: in the dQ pass (and the ``"wgmma"`` forward, whose 128-query
+    tiles walk the dQ pass's key range) each query tile meets the key tiles
+    of its range, in the dK/dV pass each key tile the query tiles of its
+    range (for every query head).  Over all meetings every visible (query,
+    key) pair falls in exactly one of each pass, none is left out, no query
+    tile walks a key that none of its queries sees, and every dK/dV meeting
+    holds a visible pair (no tile is walked for nothing)."""
+    t = (attn_ops.WGMMA_TILES if kind == "forward_wgmma"
+         else attn_ops.BWD_TILES[kind])
     vis = _visible(sq, sk, causal, window)
     dq = np.zeros((sq, sk), dtype=int)
     for qt in range(-(-sq // t["q_rows"])):
@@ -1367,19 +1410,24 @@ def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
                                           rows=t["q_rows"])
         assert 0 <= begin and end <= sk
         rows = slice(qt * t["q_rows"], (qt + 1) * t["q_rows"])
+        assert vis[rows, begin:end].any(axis=0).all()
         for k0 in range(begin, end, t["k_tile"]):
             dq[rows, k0:min(k0 + t["k_tile"], end)] += 1
-    dkv = np.zeros((sq, sk), dtype=int)
-    for kt in range(-(-sk // t["keys"])):
-        first, stop = attn_ops.bwd_q_range(kt, sq, sk, causal, window,
-                                           keys=t["keys"], q_tile=t["q_tile"])
-        assert 0 <= first <= stop <= -(-sq // t["q_tile"])
-        cols = slice(kt * t["keys"], (kt + 1) * t["keys"])
-        for qt in range(first, stop):
-            rows = slice(qt * t["q_tile"], (qt + 1) * t["q_tile"])
-            dkv[rows, cols] += 1
-            assert vis[rows, cols].any()
-    for count in (dq, dkv):
+    counts = [dq]
+    if kind != "forward_wgmma":
+        dkv = np.zeros((sq, sk), dtype=int)
+        for kt in range(-(-sk // t["keys"])):
+            first, stop = attn_ops.bwd_q_range(kt, sq, sk, causal, window,
+                                               keys=t["keys"],
+                                               q_tile=t["q_tile"])
+            assert 0 <= first <= stop <= -(-sq // t["q_tile"])
+            cols = slice(kt * t["keys"], (kt + 1) * t["keys"])
+            for qt in range(first, stop):
+                rows = slice(qt * t["q_tile"], (qt + 1) * t["q_tile"])
+                dkv[rows, cols] += 1
+                assert vis[rows, cols].any()
+        counts.append(dkv)
+    for count in counts:
         assert (count[vis] == 1).all()
         assert count.max() == 1
 

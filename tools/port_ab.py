@@ -45,8 +45,10 @@ Prints one JSON line:
   then 16 ticks on 4 live slots (ms a tick) and the device ms of 4
   profiled ticks;
 * ``prefill``: ``flash_attention`` at danube's prefill (B=1, S=8192,
-  window 4096, bf16) on plain tensors and through the operator (inputs
-  that require grad): ms by CUDA events and device ms;
+  window 4096, bf16) and at llama-3.2-vision's cross call (B=1, Hq=32,
+  Hkv=8, Sq=2,048 over Sk=1,600, hd 128, no mask) on plain tensors and
+  through the operator (inputs that require grad): ms by CUDA events,
+  device ms, and the kernels that ran (the profiler's names);
 * ``wide``: the paper profile's widest shapes: Table 4's ``seq`` epoch on
   news (its first 1,024 rows densified, 1,024 x 1,355,191, micro-batch 1)
   and ``ell_glm_grad`` on rcv1 (677,399 x 47,236, K=438) and news (19,996
@@ -142,8 +144,6 @@ def decode_rows(K, ops) -> list[dict]:
         err = float((call().float() - lib().float()).abs().max())
         rows.append({
             "shape": [b, hq, hkv, 1, sk, hd], "dtype": "bf16",
-            "variant": ops.variant(q.dtype, 1, hq // hkv)
-            if hasattr(ops, "variant") else None,
             "ms": events_ms(call, 200), **profiler_ms(call, 200),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "host_us": host_us(call), "host_us_cuda_flavor": host_us(flavor),
@@ -153,26 +153,31 @@ def decode_rows(K, ops) -> list[dict]:
     return rows
 
 
+#: ``prefill``'s calls: (label, (B, Hq, Hkv, Sq, Sk, hd), causal, window)
+PREFILL_SHAPES = (("danube", (1, 32, 8, 8192, 8192, 80), True, 4096),
+                  ("vlm_cross", (1, 32, 8, 2048, 1600, 128), False, None))
+
+
 def prefill_rows(K) -> list[dict]:
-    """``flash_attention`` at danube's prefill (B=1, S=8192, window 4096,
-    bf16): plain tensors (the no-grad path), and inputs that require grad
-    (the training path's forward through the operator, which in a checkout
-    whose backward reads the forward's statistics also writes each row's
-    log-sum-exp and the output's rounding residual); ms by CUDA events over
-    20 calls and the profiler's device ms."""
-    shape = (1, 32, 8, 8192, 8192, 80)
-    b, hq, hkv, s, _, hd = shape
-    g = torch.Generator(device="cuda").manual_seed(7)
-    q = torch.randn(b, hq, s, hd, device="cuda", generator=g).bfloat16()
-    k = torch.randn(b, hkv, s, hd, device="cuda", generator=g).bfloat16()
-    v = torch.randn(b, hkv, s, hd, device="cuda", generator=g).bfloat16()
+    """``flash_attention`` at PREFILL_SHAPES (bf16): plain tensors (the
+    no-grad path), and inputs that require grad (the training path's
+    forward through the operator, which in a checkout whose backward reads
+    the forward's statistics also writes each row's log-sum-exp and the
+    output's rounding residual); ms by CUDA events over 20 calls and the
+    profiler's device ms by kernel."""
     rows = []
-    for label, grad in (("no_grad", False), ("operator", True)):
-        x = [t.detach().requires_grad_(grad) for t in (q, k, v)]
-        call = lambda: K.flash_attention(  # noqa: E731
-            *x, causal=True, window=4096)
-        rows.append({"shape": list(shape), "path": label,
-                     "ms": events_ms(call, 20), **profiler_ms(call, 20)})
+    for name, shape, causal, window in PREFILL_SHAPES:
+        b, hq, hkv, sq, sk, hd = shape
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q = torch.randn(b, hq, sq, hd, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b, hkv, sk, hd, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, hkv, sk, hd, device="cuda", generator=g).bfloat16()
+        for label, grad in (("no_grad", False), ("operator", True)):
+            x = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+            call = lambda: K.flash_attention(  # noqa: E731
+                *x, causal=causal, window=window)
+            rows.append({"call": name, "shape": list(shape), "path": label,
+                         "ms": events_ms(call, 20), **profiler_ms(call, 20)})
     return rows
 
 
