@@ -21,9 +21,11 @@ initial weights.  The third runs only env, build and phase
 families' sync steps and zamba2's decode ticks bit for bit on a one-rank
 NCCL mesh, and the dry run's cells on the production meshes), the fifth
 only env, build, phase ``kernels``' checks of the attention forward in
-every variant, the sweep behind ``WGMMA_MIN_QUERIES``, the forward's
-rows of phase ``lm_train``'s (d) and phase ``lm_train`` (c)'s rules
-against forwards wrong on purpose (``run_attn_fwd``), the sixth only env,
+every variant, the sweeps behind ``WGMMA_MIN_QUERIES`` and
+``TILED_MIN_QUERIES``, the fp32 forward's rows, the forward's rows of
+phase ``lm_train``'s (d) and phase ``lm_train`` (c)'s rules, the layer
+rule among them, on the kernel path and against forwards wrong on purpose
+(``run_attn_fwd``), the sixth only env,
 build, phase ``kernels``' checks of the attention backward and phase
 ``lm_train``'s (d), the seventh only env, build and the paper profile's
 widest datasets (``run_wide``: phase ``kernels``' checks of glm_sgd's grid
@@ -31,7 +33,8 @@ and glm_sparse's hot kernels, phase ``news``, phase ``study``'s (c) and
 their timing rows).
 
 
-Phases, one JSON line each:
+Phases, one JSON line each (with ``phase_seconds``, the host seconds since
+the previous phase line):
 
 1. ``env``     card name and power limit, torch, CUDA, nvcc, triton;
 2. ``build``   compiles the seven sources from src/repro_torch/kernels/csrc
@@ -66,7 +69,11 @@ Phases, one JSON line each:
                127, 128 and 4096, a cache prefix read in place, head dims
                64, 72 and 128, B = 64 with no split, a window that leaves
                chunks with no key, two row groups, the same output twice)
-               and small fp32 cases; the attention backward
+               and fp32 cases in both fp32 variants with their
+               log-sum-exp (ragged tiles, Sq < Sk, cross Sq > Sk, a window
+               inside one key tile, rep 1 to 8, hd 8 to 128, the queries
+               around TILED_MIN_QUERIES, three calls of the tiled kernel
+               giving the same bits); the attention backward
                (``ATTN_BWD_CASES``: head dims 8 to 128, rep 1 and 4,
                causal with and without a window, acausal, cross Sq > Sk,
                ragged lengths) on the forward's output, log-sum-exp and
@@ -182,9 +189,14 @@ Phases, one JSON line each:
                and through the plain versions on an fp32 copy (the
                yardstick; each leaf by RMS and by max distance,
                ``_held_bf16_grad``; the loss by ``_held_bf16`` with the
-               floor LOSS_ATOL), and 2 layers in fp32 on the ``simt``
-               forward and ``simt_tiled`` backward against the plain
-               versions; (d) the attention backward alone at one layer's
+               floor LOSS_ATOL), the kernel path's every attention
+               forward call held layer by layer (``checked_attention``:
+               its bf16 output within 1.5x the plain bf16 version's RMS
+               and max distance from the plain version on fp32 copies of
+               its own q, k, v; a recompute to its forward's bits), and 2
+               layers in fp32 on the ``simt_tiled`` forward and backward
+               against the plain versions, their launches read from the
+               trace; (d) the attention backward alone at one layer's
                shape against autograd through the plain forward, three
                calls' bits, then the first designs and the redesigns in
                turns (``_turns``: the call and each pass by events) at the
@@ -270,7 +282,9 @@ Phases, one JSON line each:
                real-sim N = 128, all of w8a and news N = 512, flash_attn
                decode also over a full 4096-key window, its prefill and the
                vlm cross call on the wgmma kernel beside the mma kernel,
-               and an fp32 call;
+               and the fp32 forward's two kernels in turns at causal
+               1,024², at lm_train (c)'s fp32 layer and at the reduced
+               configs' layer (FP32_TIMED, SDPA fp32 beside);
                ``wide_timing``: glm_sgd's grid variant beside the global one
                at Table 4's news seq epoch and at d = 100,000, glm_sparse's
                hot variant beside the atomic one at rcv1's and news' full
@@ -322,7 +336,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.roofline.kernels import (  # noqa: E402
     BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, visible_pairs)
 from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
-    WGMMA_MIN_QUERIES)
+    TILED_MIN_QUERIES, WGMMA_MIN_QUERIES)
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-3)    # the JAX conformance suite's
 EPOCH_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -369,6 +383,7 @@ KERNEL_SYMBOLS = {
     "flash_attn": {"wgmma": ("flash_attn_wgmma_kernel",),
                    "mma": ("flash_attn_mma_kernel",),
                    "decode": ("flash_attn_decode_kernel",),
+                   "simt_tiled": ("flash_attn_tiled_kernel",),
                    "simt": ("flash_attn_kernel",)},
     "flash_attn_bwd": {"wgmma": ("flash_attn_bwd_dq_wgmma_kernel",
                                  "flash_attn_bwd_dkv_wgmma_kernel"),
@@ -383,7 +398,18 @@ KERNEL_SYMBOLS = {
 SLEEP_CYCLES = 2_000_000
 
 
+#: the host clock at the previous phase line (``emit``)
+_LAST_PHASE = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase line gets ``phase_seconds``,
+    the host seconds since the previous phase line (the first: since the
+    script was loaded), so every phase's share of the call shows."""
+    if isinstance(obj, dict) and "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_seconds": now - _LAST_PHASE[0]}
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -459,13 +485,14 @@ def device_profile(fn, reps: int) -> dict[str, tuple[float, int]]:
 
 
 def forward_launches() -> dict:
-    """flash_attn's tensor-core forward launches since the last
-    ``reset_launches``, by variant, as the wrapper counted them where it
-    launched each kernel."""
+    """flash_attn's forward launches since the last ``reset_launches``, by
+    variant (every one of ``ops.VARIANTS``), as the wrapper counted them
+    where it launched each kernel."""
     from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as attn_ops
 
     return {kind: common.LAUNCHES.get(f"flash_attn_{kind}", 0)
-            for kind in ("mma", "wgmma")}
+            for kind in attn_ops.VARIANTS}
 
 
 def counted(fn, names) -> tuple[object, dict]:
@@ -594,6 +621,27 @@ ATTN_CASES = (
     ("fp32 window, Sq<Sk", (1, 4, 2, 33, 70, 80), torch.float32, True, 9),
     ("fp32 acausal window, hd 128", (1, 4, 1, 20, 50, 128), torch.float32,
      False, 7),
+    # the fp32 register-tiled variant's edges (64-query, 64-key tiles):
+    # ragged last tiles, Sq < Sk end-aligned, unmasked cross Sq > Sk, a
+    # window inside one key tile, rep 1 to 8, hd 8 and hd % 16 == 8, hd 128
+    # (its largest shared memory), the queries around TILED_MIN_QUERIES,
+    # and row 6c's timed call
+    ("fp32 causal 1,024, danube heads", (1, 32, 8, 1024, 1024, 80),
+     torch.float32, True, None),
+    ("fp32 hd 8, rep 8, window 7 inside one key tile",
+     (1, 16, 2, 130, 130, 8), torch.float32, True, 7),
+    ("fp32 hd 72, rep 4, window 20, ragged S", (2, 8, 2, 200, 200, 72),
+     torch.float32, True, 20),
+    ("fp32 hd 128, rep 1, window, Sq 77 < Sk 201", (1, 4, 4, 77, 201, 128),
+     torch.float32, True, 50),
+    ("fp32 hd 112, rep 2, acausal window", (1, 4, 2, 100, 150, 112),
+     torch.float32, False, 20),
+    ("fp32 cross Sq 300 > Sk 170, hd 128", (1, 8, 2, 300, 170, 128),
+     torch.float32, False, None),
+    ("fp32 Sq one below TILED_MIN_QUERIES over 900 keys",
+     (2, 32, 8, TILED_MIN_QUERIES - 1, 900, 80), torch.float32, True, None),
+    ("fp32 Sq at TILED_MIN_QUERIES over 900 keys, window",
+     (2, 32, 8, TILED_MIN_QUERIES, 900, 80), torch.float32, True, 256),
     # the tensor-core variant's edges
     ("rep 3, ragged S", (1, 24, 8, 1000, 1000, 128), torch.bfloat16, True,
      None),
@@ -642,6 +690,22 @@ ATTN_CASES = (
     ("the vlm cross call, Sq 2048 > Sk 1600", (1, 32, 8, 2048, 1600, 128),
      torch.bfloat16, False, None),
 )
+#: the fp32 forward variants: the first port and its register-tiled redesign
+FP32_FORWARDS = ("simt", "simt_tiled")
+#: the forward variants whose main-path launches the run counts by variant
+#: (a main path that launched one needs its row in the kernels line)
+FORWARD_LINES = ("mma", "wgmma") + FP32_FORWARDS
+#: the fp32 forward's timed calls (phase timing; ``--attn-fwd`` times the
+#: first two): (label, (B, Hq, Hkv, Sq, Sk, hd), causal, window, reps,
+#: plain reps, the variant whose kernels-line row it is): row 6c's causal
+#: 1,024 x 1,024 at danube's heads, phase lm_train (c)'s fp32 layer, and a
+#: decode step of the reduced fp32 configs that phase lm_families (e)
+#: serves (4 slots over a full 128-entry cache, hd 16, rep 2)
+FP32_TIMED = (
+    ("causal 1,024", (1, 32, 8, 1024, 1024, 80), True, None, 20, 5, None),
+    ("lm_train (c) layer", (2, 32, 8, 8192, 8192, 80), True, 4096, 3, 2,
+     "simt_tiled"),
+    ("reduced decode", (4, 4, 2, 1, 128, 16), False, None, 200, 20, "simt"))
 #: rows that see no key (Sq > Sk under a causal mask: the first Sq - Sk
 #: queries sit before key 0), called on the cuda flavor directly (the
 #: public wrapper refuses Sq > Sk under a mask): (B, Hq, Hkv, Sq, Sk, hd)
@@ -1211,14 +1275,14 @@ def phase_kernels(dev) -> tuple[dict, dict]:
 
 def attn_variants_taking(dtype, sq, rep, hd) -> list[str]:
     """The forward variants that take a call, the one ``ops.variant``
-    picks first: fp32 has one; in bf16 ``"mma"`` takes every call,
-    ``"wgmma"`` its WGMMA_HEAD_DIMS at any Sq, ``"decode"`` fewer than 16
-    rows (``Sq * rep``)."""
+    picks first: in fp32 ``"simt"`` and ``"simt_tiled"`` take every call;
+    in bf16 ``"mma"`` takes every call, ``"wgmma"`` its WGMMA_HEAD_DIMS at
+    any Sq, ``"decode"`` fewer than 16 rows (``Sq * rep``)."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
 
     picked = attn_ops.variant(dtype, sq, rep, hd)
     if dtype == torch.float32:
-        return [picked]
+        return [picked] + [k for k in FP32_FORWARDS if k != picked]
     kinds = ((["wgmma"] if hd in attn_ops.WGMMA_HEAD_DIMS else []) + ["mma"]
              + (["decode"] if sq * rep < attn_ops.MMA_MIN_ROWS else []))
     return [picked] + [k for k in kinds if k != picked]
@@ -1241,16 +1305,17 @@ def attention_forward_checks(dev) -> tuple[list[dict], float]:
     h % Hkv rather than h // rep would show): every ATTN_CASES case in every
     variant that takes it (``attn_variants_taking``; the others forced by
     ``forced_variant``), the output at ATTN_TOL (fp32) or ATTN_BF16_TOL
-    (bf16), and for bf16 the training path's statistics through the
-    operator (``repro_torch::flash_attn`` asked for them; ``"decode"``
-    writes none, so such a call runs ``"mma"``): the log-sum-exp
-    (``close_stats``) and the output to 16 bits, ``out + out_lo``, both at
-    ATTN_BF16_TOL; rows that see no key (ATTN_NO_KEY_CASES: 0 and +inf);
+    (bf16), and the training path's statistics through the operator
+    (``repro_torch::flash_attn`` asked for them; ``"decode"`` writes none,
+    so such a call runs ``"mma"`` and is not checked again): the
+    log-sum-exp (``close_stats``) and, for bf16, the output to 16 bits,
+    ``out + out_lo`` (fp32: an empty ``out_lo``), at the output's
+    tolerance; rows that see no key (ATTN_NO_KEY_CASES: 0 and +inf);
     a query chunk over a prefix of a longer cache (a head stride past
     Sk * hd), read in place; decode over a cache prefix; and the same bits
     call after call (the decode kernel's chunk merge five times, the wgmma
-    kernel three).  Returns the cases and the worst output error of a
-    picked variant."""
+    and fp32 tiled kernels three).  Returns the cases and the worst output
+    error of a picked variant."""
     import repro_torch.kernels as K
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -1274,15 +1339,17 @@ def attention_forward_checks(dev) -> tuple[list[dict], float]:
                 case = {"kernel": "flash_attn", "case": f"{label} {kind}",
                         "variant": kind, "picked": kind == kinds[0],
                         "max_abs_err": err, "tol": tol}
+                # the training path's forward: the statistics too
+                o, lse, lo = fwd(q, k, v, causal, window, None, None, True)
+                lse_err, lse_ok = close_stats(lse, ref_lse, tol)
+                case["lse_max_abs_err"] = lse_err
                 if q.dtype == torch.bfloat16:
-                    o, lse, lo = fwd(q, k, v, causal, window, None, None,
-                                     True)
-                    lse_err, lse_ok = close_stats(lse, ref_lse, tol)
                     hi_err, hi_ok = close(o.float() + lo.float(),
                                           ref.float() + ref_lo.float(), tol)
-                    case.update(lse_max_abs_err=lse_err,
-                                out16_max_abs_err=hi_err)
-                    ok = ok and lse_ok and hi_ok
+                    case["out16_max_abs_err"] = hi_err
+                else:  # fp32 has no rounding residual
+                    hi_ok = lo.shape == (*q.shape[:3], 0)
+                ok = ok and lse_ok and hi_ok
             case["ok"] = ok
             if kind == kinds[0]:
                 worst = max(worst, err)
@@ -1348,6 +1415,16 @@ def attention_forward_checks(dev) -> tuple[list[dict], float]:
     cases.append({"kernel": "flash_attn", "variant": "wgmma",
                   "case": "the vlm cross call: three calls of the wgmma "
                           "kernel give the same bits (out, lse, out_lo)",
+                  "ok": same})
+    # nor has the fp32 register-tiled kernel: the same bits, lse too
+    q, k, v = _attn_inputs((2, 32, 8, 1000, 1000, 80), torch.float32, dev, 94)
+    with forced_variant(attn_ops, "simt_tiled"):
+        same = same_bits(lambda: torch.cat(
+            [t.flatten() for t in fwd(q, k, v, True, 256, None, None,
+                                      True)[:2]]), calls=3)
+    cases.append({"kernel": "flash_attn", "variant": "simt_tiled",
+                  "case": "fp32 window 256: three calls of the tiled "
+                          "kernel give the same bits (out, lse)",
                   "ok": same})
     return cases, worst
 
@@ -2742,14 +2819,17 @@ BF16_GRAD_MAX_SLACK = 2.0
 
 
 def _held_bf16_grad(out: torch.Tensor, plain: torch.Tensor,
-                    fp32: torch.Tensor) -> dict:
+                    fp32: torch.Tensor,
+                    max_slack: float = BF16_GRAD_MAX_SLACK) -> dict:
     """``_held_bf16``'s rule for one gradient leaf, twice: by root-mean-square
     distance within BF16_MODEL_SLACK times the plain bf16 path's distance
     from the fp32 yardstick, and by max distance within
     BF16_GRAD_MAX_SLACK times it.  A leaf's max is one element of a few
     thousand (a norm weight has 2,560), so its ratio spreads where the RMS
     ratio does not (0.93-1.07 for both bf16 paths over the probe's seeds);
-    a wrong kernel or mask shows as errors of the gradient's own size."""
+    a wrong kernel or mask shows as errors of the gradient's own size.
+    ``max_slack``: the max rule's slack (the layer rule's is
+    BF16_MODEL_SLACK, ``checked_attention``)."""
     def dist(a, b):
         d = a.float() - b.float()
         return float(d.abs().max()), float(d.pow(2).mean().sqrt())
@@ -2759,10 +2839,100 @@ def _held_bf16_grad(out: torch.Tensor, plain: torch.Tensor,
             "kernel_vs_fp32_rms_err": mine,
             "rms_ratio": mine / max(floor, 1e-30),
             "max_ratio": top_k / max(top, 1e-30),
-            "slack": BF16_MODEL_SLACK, "max_slack": BF16_GRAD_MAX_SLACK,
+            "slack": BF16_MODEL_SLACK, "max_slack": max_slack,
             "ok": bool(mine <= BF16_MODEL_SLACK * floor
-                       and top_k <= BF16_GRAD_MAX_SLACK * top
+                       and top_k <= max_slack * top
                        and torch.isfinite(out).all())}
+
+
+def _fingerprint(*tensors: torch.Tensor) -> tuple:
+    """Sums over each tensor's values, squares and two strided subsets:
+    equal for equal bits (the reductions are deterministic), and for
+    different inputs equal only by a chance that a training step's
+    activations do not meet."""
+    out = []
+    for t in tensors:
+        x = t.detach().float().flatten()
+        out += [tuple(t.shape)] + torch.stack(
+            [x.sum(), x.square().sum(), x[::7].sum(),
+             x[3::13].abs().sum()]).tolist()
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def checked_attention():
+    """Every flash_attn forward call inside the block held to the plain
+    version, call by call (phase lm_train (c)): the call runs as it would
+    (the kernel, or a control routed into its place by
+    ``routed_attention``), then its bf16 output (the tensor the next layer
+    reads) meets the layer rule on its own q, k and v, so the layers'
+    inputs are never all held at once: its RMS and max distance from the
+    plain version on fp32 copies of them (the yardstick) each within
+    BF16_MODEL_SLACK times the plain bf16 version's (``_held_bf16_grad``).
+    The plain version computes in fp32 and rounds once
+    (``ref.attention_ref``), so on the call's bf16 inputs it gives the
+    yardstick rounded to bf16, bit for bit: one plain call gives both
+    (``tests/test_torch_kernels.py`` holds that).  The rule judges ``out``
+    alone, never ``out + out_lo``: a
+    routed control's ``out_lo`` makes that sum the plain version's fp32
+    output.  A checkpointed recompute (a call whose q, k and v have the
+    bits of one already checked, ``_fingerprint``) is held to that call's
+    output bits instead of a second plain call.  Yields the list of calls'
+    records, filled as they run (``_layer_summary`` reads it)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    dispatch = common.dispatch
+    calls, seen = [], {}
+
+    def checked(kernel, dev, *args, **kwargs):
+        res = dispatch(kernel, dev, *args, **kwargs)
+        if kernel != "flash_attn":
+            return res
+        q, k, v = args
+        out = res[0] if isinstance(res, tuple) else res
+        key = _fingerprint(q, k, v)
+        if key in seen:
+            first, bits = seen[key]
+            same = _fingerprint(out) == bits
+            calls.append({"recompute_of": first, "ok": same})
+            return res
+        with torch.no_grad():
+            fp32 = attention_ref(q.float(), k.float(), v.float(),
+                                 causal=kwargs["causal"],
+                                 window=kwargs["window"])
+        seen[key] = (len(calls), _fingerprint(out))
+        calls.append({"call": len(calls), **_held_bf16_grad(
+            out, fp32.to(out.dtype), fp32, max_slack=BF16_MODEL_SLACK)})
+        del fp32
+        return res
+
+    common.dispatch = checked
+    try:
+        yield calls
+    finally:
+        common.dispatch = dispatch
+
+
+def _layer_summary(calls: list, layers: int) -> dict:
+    """``checked_attention``'s records of one training step of ``layers``
+    layers: each layer's first call held by the rule (its ratios, in call
+    order), the failing layers, and each recompute's bits.  ``ok``: every
+    call held, at least one checked call a layer, a call a layer for the
+    forward and one for its recompute."""
+    held = [c for c in calls if "call" in c]
+    again = [c for c in calls if "recompute_of" in c]
+    failing = [n for n, c in enumerate(held) if not c["ok"]]
+    return {"calls": len(calls), "checked": len(held),
+            "recomputes_same_bits": sum(c["ok"] for c in again),
+            "recomputes": len(again), "failing_layers": failing,
+            "rms_ratios": [c["rms_ratio"] for c in held],
+            "max_ratios": [c["max_ratio"] for c in held],
+            "max_rms_ratio": max((c["rms_ratio"] for c in held), default=None),
+            "max_max_ratio": max((c["max_ratio"] for c in held), default=None),
+            "ok": bool(not failing and all(c["ok"] for c in again)
+                       and len(held) >= layers
+                       and len(calls) == 2 * layers)}
 
 
 def _timed_loop(loop) -> dict:
@@ -2895,20 +3065,27 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     """One sync step's loss and every gradient leaf three ways at full
     width: through the kernel, through the plain versions in bf16, and
     through the plain versions on an fp32 copy of the weights (the
-    yardstick: ``_held_bf16_grad`` for each leaf); then, on the first
-    TRAIN_FP32_LAYERS layers in fp32, the kernel (``simt``) against the
-    plain versions at ATTN_TOL.  The loss is held by ``_held_bf16`` with
+    yardstick: ``_held_bf16_grad`` for each leaf), the kernel path's every
+    attention forward call held layer by layer (``checked_attention``:
+    the loss and leaf rules cannot see a window one key short); then, on
+    the first TRAIN_FP32_LAYERS layers in fp32, the kernels
+    (``simt_tiled``'s forward, as the card ran it, and backward) against
+    the plain versions at ATTN_TOL.  The loss is held by ``_held_bf16`` with
     the floor LOSS_ATOL under its limit: 1.5 times the plain path's
     distance alone passes or fails by seed for any bf16 attention
     (``--lm-train-probe``: over PROBE_SEEDS the first tensor-core forward
     and the warpgroup one each held it at about half the seeds, with the
     same per-call error, ``_attention_accuracy``)."""
     from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.train import trainer
 
     t0 = time.perf_counter()
-    loss, grads = trainer.value_and_grad(cfg, params, batch)
+    with checked_attention() as calls:
+        loss, grads = trainer.value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    layers = {**_layer_summary(calls, cfg.n_layers),
+              "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     with common.plain_versions():
         loss_p, grads_p = trainer.value_and_grad(cfg, params, batch)
         cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
@@ -2929,16 +3106,20 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     p2 = {k: v for k, v in p32.items() if k.startswith(keep)}
     cfg2 = dataclasses.replace(cfg32, n_layers=TRAIN_FP32_LAYERS)
     common.reset_launches()
+    fwd_names = KERNEL_SYMBOLS["flash_attn"]["simt_tiled"]
     (l2, g2), ran = counted(lambda: trainer.value_and_grad(cfg2, p2, batch),
-                            KERNEL_SYMBOLS["flash_attn_bwd"]["simt_tiled"])
+                            fwd_names
+                            + KERNEL_SYMBOLS["flash_attn_bwd"]["simt_tiled"])
     bwd_launches = common.LAUNCHES["flash_attn_bwd"]
+    by_variant = forward_launches()
     with common.plain_versions():
         l2p, g2p = trainer.value_and_grad(cfg2, p2, batch)
+    # a forward and a checkpointed recompute a layer, a backward a layer
+    want = {n: (2 if n in fwd_names else 1) * TRAIN_FP32_LAYERS for n in ran}
     fp32 = {"layers": TRAIN_FP32_LAYERS,
-            "variant": attn_ops.variant(torch.float32, batch["tokens"].shape[1],
-                                        cfg.n_heads // cfg.n_kv, cfg.hd),
+            "flash_attn_launches_by_variant": by_variant,
             "flash_attn_bwd_launches": bwd_launches,
-            "bwd_kernel_launches": ran,
+            "kernel_launches": ran, "expected_kernel_launches": want,
             "loss": float(l2), "loss_plain": float(l2p),
             "loss_ok": close(l2, l2p, ATTN_TOL)[1], "tol": ATTN_TOL}
     errs = {k: close(g2[k], g2p[k], ATTN_TOL) for k in g2}
@@ -2946,10 +3127,11 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
     fp32["grads_ok"] = all(ok for _, ok in errs.values())
     fp32["failing"] = sorted(k for k, (_, ok) in errs.items() if not ok)[:8]
     fp32["ok"] = bool(fp32["loss_ok"] and fp32["grads_ok"]
-                      and fp32["variant"] == "simt"
                       and bwd_launches == TRAIN_FP32_LAYERS
-                      and all(c == TRAIN_FP32_LAYERS for c in ran.values()))
-    return {"seconds_three_ways": seconds, "leaves": len(held),
+                      and by_variant["simt_tiled"] == 2 * TRAIN_FP32_LAYERS
+                      and ran == want)
+    return {"seconds_plain_ways": seconds, "leaves": len(held),
+            "layers": layers,
             "loss": {"kernel": float(loss), "plain": float(loss_p),
                      "fp32": float(loss_32), **loss_held},
             "leaves_ok": sum(h["ok"] for h in held.values()),
@@ -2963,7 +3145,7 @@ def _grads_held(cfg, params: dict, batch: dict) -> dict:
             "worst_leaf": {"name": worst, **held[worst]},
             "embed": held["embed"], "fp32_2_layers": fp32,
             "ok": bool(all(h["ok"] for h in held.values()) and fp32["ok"]
-                       and loss_held["ok"])}
+                       and loss_held["ok"] and layers["ok"])}
 
 
 #: the fp32 backward's timed call (the kernels line's
@@ -3073,9 +3255,40 @@ FWD_SHAPES = (
      100),
     ("hd128_rep1_olmoe", (1, 16, 16, 1024, 1024, 128), True, None, 100),
     ("hd128_rep4_vlm_self", (1, 32, 8, 2048, 2048, 128), True, None, 50))
-#: WGMMA_MIN_QUERIES's sweep: a query chunk of each length over a 900-key
-#: cache at danube's heads (B=2, hd 80, rep 4), causal
-FWD_SWEEP_QUERIES = (16, 37, 64, 128, 256, 512)
+#: the sweeps behind ``ops.variant``'s query thresholds, by dtype: the
+#: first design and its redesign, a query chunk of each length over a
+#: cache at danube's heads (hd 80, rep 4), causal, as (batch, keys), the
+#: reps, and the threshold: WGMMA_MIN_QUERIES over 900 keys at B=2;
+#: TILED_MIN_QUERIES over 1,024 keys at B=1 (the longest chunk is row
+#: 6c's timed call)
+FWD_SWEEPS = {
+    torch.bfloat16: (("mma", "wgmma"), (16, 37, 64, 128, 256, 512), (2, 900),
+                     100, "WGMMA_MIN_QUERIES", WGMMA_MIN_QUERIES),
+    torch.float32: (FP32_FORWARDS, (1, 16, 64, 128, 256, 1024), (1, 1024), 50,
+                    "TILED_MIN_QUERIES", TILED_MIN_QUERIES)}
+
+
+def sdpa_fp32(q, k, v, causal, window) -> tuple[object, str]:
+    """One ``scaled_dot_product_attention`` call on fp32 operands, the
+    library's yardstick beside the fp32 kernels, and its form: the
+    end-aligned mask with ``enable_gqa``, or, where its math path's
+    [B, Hq, Sq, Sk] fp32 scores would pass 4 GB (17 GB at phase lm_train
+    (c)'s layer), K and V repeated to the query heads once beforehand (the
+    memory-efficient path then takes the mask), named with the backend
+    SDPA picks."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, hq, sq, _ = q.shape
+    mask = end_aligned_mask(sq, k.shape[2], causal, window, q.device)
+    if 4 * b * hq * sq * k.shape[2] <= 4e9:
+        args, kw = (q, k, v), {"attn_mask": mask, "enable_gqa": True}
+        form = "enable_gqa"
+    else:
+        rep = hq // k.shape[1]
+        args = (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1))
+        kw, form = {"attn_mask": mask}, "K, V repeated"
+    from torch.nn.attention import SDPBackend
+    backend = SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    return (lambda: sdpa(*args, **kw)), f"{form}, {backend}"
 
 
 def _variant_turns(call, kinds, reps: int) -> dict:
@@ -3157,31 +3370,70 @@ def _forward_rows(dev) -> dict:
     return rows
 
 
-def _forward_sweep(dev) -> dict:
-    """WGMMA_MIN_QUERIES's evidence: ``"mma"`` and ``"wgmma"`` in turns at
-    each of FWD_SWEEP_QUERIES' chunks over a 900-key cache, and the
-    smallest chunk from which on ``"wgmma"``'s device ms is no more than
-    ``"mma"``'s at every longer chunk of the sweep (None: not at the
-    longest)."""
+def _forward_sweep(dev, dtype) -> dict:
+    """The evidence for ``dtype``'s threshold in ``ops.variant``
+    (FWD_SWEEPS): its first design and redesign in turns at each query
+    chunk of the sweep, and the smallest chunk from which on the
+    redesign's device ms is no more than the first design's at every
+    longer chunk (None: not at the longest)."""
     import repro_torch.kernels as K
 
+    (old, new), queries, (b, sk), reps, name, value = FWD_SWEEPS[dtype]
     rows = []
-    for sq in FWD_SWEEP_QUERIES:
-        shape = (2, 32, 8, sq, 900, 80)
-        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, seed=sq)
+    for sq in queries:
+        shape = (b, 32, 8, sq, sk, 80)
+        q, k, v = _attn_inputs(shape, dtype, dev, seed=sq)
         turns = _variant_turns(
-            lambda: K.flash_attention(q, k, v, causal=True), ("mma", "wgmma"),
-            100)
+            lambda: K.flash_attention(q, k, v, causal=True), (old, new), reps)
         rows.append({"shape": list(shape), **{
             f"{kind}_{key}": turns[kind][key] for kind in turns
             for key in ("ms", "device_ms")}})
     edge = None
     for r in rows[::-1]:
-        if r["wgmma_device_ms"] > r["mma_device_ms"]:
+        if r[f"{new}_device_ms"] > r[f"{old}_device_ms"]:
             break
         edge = r["shape"][3]
-    return {"rows": rows, "no_slower_from": edge,
-            "WGMMA_MIN_QUERIES": WGMMA_MIN_QUERIES}
+    return {"rows": rows, "no_slower_from": edge, name: value}
+
+
+def _fp32_rows(dev) -> dict:
+    """The fp32 forward at the first two of FP32_TIMED (row 6c's causal
+    1,024 x 1,024 and phase lm_train (c)'s layer): ``"simt"`` and
+    ``"simt_tiled"`` in turns (``_variant_turns``) on plain tensors and
+    through the operator asked for the statistics (the training path's
+    forward), beside the variant ``ops.variant`` picks, SDPA's ms
+    (``sdpa_fp32``), the plain version's and the fp32 bound."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+
+    rows = {}
+    for label, shape, causal, window, reps, plain_reps, _ in FP32_TIMED[:2]:
+        q, k, v = _attn_inputs(shape, torch.float32, dev, seed=8)
+        in_bytes, flops = attn_work(q, k, causal, window)
+
+        def call():
+            return K.flash_attention(q, k, v, causal=causal, window=window)
+
+        def with_lse():
+            return torch.ops.repro_torch.flash_attn(q, k, v, causal, window,
+                                                    None, None, True)
+
+        library, form = sdpa_fp32(q, k, v, causal, window)
+        bound, by = bound_ms(in_bytes, flops)
+        rows[label] = {
+            "shape": list(shape), "causal": causal, "window": window,
+            "picked": attn_ops.variant(torch.float32, shape[3],
+                                       shape[1] // shape[2], shape[5]),
+            "plain": _variant_turns(call, FP32_FORWARDS, reps),
+            "operator": _variant_turns(with_lse, FP32_FORWARDS, reps),
+            "sdpa_ms": cuda_ms(library, reps), "sdpa_form": form,
+            "plain_version_ms": cuda_ms(lambda: attention_ref(
+                q, k, v, causal=causal, window=window), plain_reps),
+            "bound_ms": bound, "bound_by": by}
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _backward_alone(dev) -> tuple[dict, list]:
@@ -3354,10 +3606,10 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     one sync step timed with the backward kernel and with the plain
     backward in its place, (c) one step's gradients held three ways, (d)
     the attention backward alone beside SDPA's, (e) a restart at the
-    reduced config.  Returns the phase line, the launches of (a)'s kernels
-    (``forward``: flash_attn's by variant, ``bwd_wgmma``: the backward's)
-    and of (c)'s fp32 backward (``bwd_simt_tiled``), and (d)'s
-    kernels-line rows."""
+    reduced config.  Returns the phase line, the launches of the main
+    paths' kernels (``forward``: flash_attn's by variant in (a), (c)'s fp32
+    layers and (e); ``bwd_wgmma``: (a)'s backward; ``bwd_simt_tiled``:
+    (c)'s fp32 backward), and (d)'s kernels-line rows."""
     from repro_torch.kernels import common
     from repro_torch.launch import train
     from repro_torch.optim.sgd import sgd
@@ -3421,15 +3673,18 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
     bwd, bwd_rows = _backward_alone(dev)
     torch.cuda.empty_cache()
 
-    # (e) a restart at the reduced config, through the launcher's main
+    # (e) a restart at the reduced config (fp32), through the launcher's
+    # main
     buf = io.StringIO()
     t0 = time.perf_counter()
+    common.reset_launches()
     with contextlib.redirect_stdout(buf):
         losses = train.main(TRAIN_RESTART + ["--device", str(dev),
                                              "--ckpt-dir",
                                              str(scratch / "lm_restart")])
     restart = {"argv": TRAIN_RESTART, "seconds": time.perf_counter() - t0,
                "printed": buf.getvalue().strip(), "losses": losses,
+               "flash_attn_launches_by_variant": forward_launches(),
                "restarts": int(re.search(r"restarts=(\d+)",
                                          buf.getvalue()).group(1))}
     restart["ok"] = bool(restart["restarts"] == 1 and losses[-1] < losses[0]
@@ -3465,7 +3720,11 @@ def phase_lm_train(dev, scratch: Path) -> tuple[dict, dict, list]:
             "seconds": time.perf_counter() - t_phase,
             "ok": bool(ok_a and ok_b and grads["ok"] and bwd["ok"]
                        and restart["ok"])}, {
-        "forward": sync["flash_attn_launches_by_variant"],
+        "forward": {kind: sum(run[kind] for run in (
+            sync["flash_attn_launches_by_variant"],
+            grads["fp32_2_layers"]["flash_attn_launches_by_variant"],
+            restart["flash_attn_launches_by_variant"]))
+            for kind in sync["flash_attn_launches_by_variant"]},
         "bwd_wgmma": sync["flash_attn_bwd_launches"],
         "bwd_simt_tiled": grads["fp32_2_layers"]["flash_attn_bwd_launches"]}, \
         bwd_rows
@@ -3631,10 +3890,13 @@ def _grad_ratios(cfg, dev, weight_seed: int, batch_seed: int) -> dict:
 
 
 def _loss_controls(dev) -> dict:
-    """(c)'s loss rule (``_held_bf16`` with LOSS_ATOL) and leaf rule
-    (``_held_bf16_grad``) on (c)'s model and batch, with each of
-    LOSS_CONTROLS in the forward kernel's place: what a rule that a wrong
-    forward passes cannot see."""
+    """(c)'s loss rule (``_held_bf16`` with LOSS_ATOL), leaf rule
+    (``_held_bf16_grad``) and layer rule (``checked_attention``) on (c)'s
+    model and batch, with each of LOSS_CONTROLS in the forward kernel's
+    place: what each rule sees of a wrong forward, beside the layer rule
+    on the kernel path.  ``ok``: the kernel path holds the layer rule at
+    every call, and the rule fails the window one key short and the window
+    dropped at one layer at least."""
     from repro_torch import configs
     from repro_torch.kernels import common
     from repro_torch.launch import train
@@ -3654,8 +3916,11 @@ def _loss_controls(dev) -> dict:
         loss_32, g32 = trainer.value_and_grad(
             cfg32, {k: v.float() for k, v in params.items()}, batch)
     out = {"seeds": [0, 3], "leaves": len(g32)}
+    with checked_attention() as calls:
+        trainer.value_and_grad(cfg, params, batch)
+    out["kernel"] = {"layers": _layer_summary(calls, cfg.n_layers)}
     for name, forward in LOSS_CONTROLS.items():
-        with routed_attention(forward):
+        with routed_attention(forward), checked_attention() as calls:
             loss, g = trainer.value_and_grad(cfg, params, batch)
         held = {k: _held_bf16_grad(g[k], plain[k], g32[k]) for k in g32}
         del g
@@ -3665,10 +3930,14 @@ def _loss_controls(dev) -> dict:
                      "max_rms_ratio": max(h["rms_ratio"]
                                           for h in held.values()),
                      "max_max_ratio": max(h["max_ratio"]
-                                          for h in held.values())}
+                                          for h in held.values()),
+                     "layers": _layer_summary(calls, cfg.n_layers)}
         torch.cuda.empty_cache()
     out.update(loss_plain=float(loss_p), loss_fp32=float(loss_32),
-               seconds=time.perf_counter() - t0)
+               seconds=time.perf_counter() - t0,
+               ok=bool(out["kernel"]["layers"]["ok"] and all(
+                   out[name]["layers"]["failing_layers"]
+                   for name in ("window_one_short", "window_dropped"))))
     return out
 
 
@@ -3983,7 +4252,7 @@ def _family_prefill(name: str, dev) -> tuple[object, dict, dict]:
                      and list(logits.shape) == [b, cfg.vocab])
     del params, cache, pre
     out["prefill_flash_attn_launches_by_variant"] = by_variant
-    return cfg, out, {"decode": decode_launches, **by_variant,
+    return cfg, out, {**by_variant, "decode": decode_launches,
                       "backward": 0}
 
 
@@ -4076,7 +4345,7 @@ def _family_train(name: str, dev, scratch: Path) -> tuple[dict, dict]:
                      and launches == out["expected_launches"])
     del state, loop, batches
     out["flash_attn_launches_by_variant"] = by_variant
-    return out, {"decode": 0, **by_variant, "backward": bwd_launches}
+    return out, {**by_variant, "decode": 0, "backward": bwd_launches}
 
 
 def _family_held(name: str, dev) -> dict:
@@ -4217,12 +4486,15 @@ def _family_ckpt(dev, scratch: Path) -> dict:
     """(e): ``launch.train --smoke --ckpt-dir D`` (a checkpoint every
     step, so the last holds the final weights), then ``launch.serve
     --smoke --ckpt D``: its engine serves the same tokens as an engine on
-    the trainer's final parameters."""
+    the trainer's final parameters; flash_attn's launches by variant over
+    both (the reduced configs are fp32)."""
+    from repro_torch.kernels import common
     from repro_torch.launch import serve, train
     from repro_torch.nn import transformer
     from repro_torch.serve.engine import Request, ServeEngine
 
     out = []
+    common.reset_launches()
     for name in FAMILY_CKPT:
         d = scratch / f"ckpt-{name}"
         args = train.parse_args(["--arch", name, "--smoke", "--steps", "4",
@@ -4249,7 +4521,8 @@ def _family_ckpt(dev, scratch: Path) -> dict:
                                f"restored checkpoint step {args.steps - 1}"
                                in buf.getvalue())})
         shutil.rmtree(d)
-    return {"runs": out, "ok": all(r["ok"] for r in out)}
+    return {"runs": out, "flash_attn_launches_by_variant": forward_launches(),
+            "ok": all(r["ok"] for r in out)}
 
 
 def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
@@ -4259,7 +4532,8 @@ def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
     the new flash_attn shapes and (e) ``launch.serve --ckpt``.  Returns
     the phase line and the main paths' flash_attn launches by variant."""
     t_phase = time.perf_counter()
-    runs, launches = {}, {"decode": 0, "mma": 0, "wgmma": 0, "backward": 0}
+    runs, launches = {}, {"decode": 0, "mma": 0, "wgmma": 0, "simt": 0,
+                          "simt_tiled": 0, "backward": 0}
     for name in FAMILY_SERVED + FAMILY_PREFILLED:
         free_memory()
         t0 = time.perf_counter()
@@ -4282,6 +4556,8 @@ def phase_lm_families(dev, scratch: Path) -> tuple[dict, dict]:
     attn = _family_attention(dev)
     free_memory()
     ckpt = _family_ckpt(dev, scratch)
+    for kind in ("simt", "simt_tiled"):  # the reduced fp32 configs'
+        launches[kind] += ckpt["flash_attn_launches_by_variant"][kind]
     return {"phase": "lm_families", "runs": runs, "flash_attn": attn,
             "ckpt": ckpt, "launches": launches,
             "seconds": time.perf_counter() - t_phase,
@@ -6091,18 +6367,43 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
                 lambda: K.flash_attention(qa, ka, va, causal=causal))
             rows[-1]["library_host_us_per_call"] = host_us(
                 lambda: sdpa(qa, ka, va, enable_gqa=True))
-    # the fp32 variant (no main path runs it): a causal 1024 x 1024 call at
-    # danube's heads, bound by fp32 operations outside the tensor cores
-    shape = (1, 32, 8, 1024, 1024, 80)
-    qa, ka, va = _attn_inputs(shape, torch.float32, X.device, seed=8)
-    mask = end_aligned_mask(1024, 1024, True, None, X.device)
-    attn_bytes, attn_flops = attn_work(qa, ka, True, None)
-    row("flash_attn", f"fp32 B,Hq,Hkv,Sq,Sk,hd={list(shape)} causal=True",
-        lambda: K.flash_attention(qa, ka, va, causal=True),
-        lambda: attention_ref(qa, ka, va, causal=True), 20, 5, attn_bytes,
-        attn_flops, ATTN_TOL,
-        library=lambda: sdpa(qa, ka, va, attn_mask=mask, enable_gqa=True),
-        variant=attn_ops.variant(torch.float32, 1024, 4, 80))
+    # the fp32 variants, bound by fp32 operations outside the tensor cores:
+    # each of FP32_TIMED in both, the variant ``ops.variant`` picks first,
+    # then both device times again in the other order (A, B, B, A); the
+    # kernels line's rows are the main paths' shapes, each on the variant
+    # it picks (phase lm_train (c)'s fp32 layers on "simt_tiled", the
+    # reduced fp32 configs' decode in lm_families (e) on "simt")
+    for label, shape, causal, window, reps, plain_reps, line in FP32_TIMED:
+        qa, ka, va = _attn_inputs(shape, torch.float32, X.device, seed=8)
+        attn_bytes, attn_flops = attn_work(qa, ka, causal, window)
+        chosen = attn_ops.variant(torch.float32, shape[3],
+                                  shape[1] // shape[2], shape[5])
+        kinds = [chosen] + [k for k in FP32_FORWARDS if k != chosen]
+
+        def plain(qa=qa, ka=ka, va=va, causal=causal, window=window):
+            return attention_ref(qa, ka, va, causal=causal, window=window)
+
+        def call(qa=qa, ka=ka, va=va, causal=causal, window=window):
+            return K.flash_attention(qa, ka, va, causal=causal, window=window)
+
+        library, form = sdpa_fp32(qa, ka, va, causal, window)
+        for kind in kinds:
+            with forced_variant(attn_ops, kind):
+                row("flash_attn", f"fp32 {label} B,Hq,Hkv,Sq,Sk,hd="
+                    f"{list(shape)} causal={causal} window={window} {kind}",
+                    call, plain, reps, plain_reps, attn_bytes, attn_flops,
+                    ATTN_TOL, library=library,
+                    line=(f"flash_attn_{kind}" if kind == chosen == line
+                          else None), variant=kind)
+            rows[-1]["library_form"] = form
+        for kind, timed in zip(kinds[::-1], rows[-1:-3:-1]):
+            with forced_variant(attn_ops, kind):
+                again = kernel_device_time(
+                    call, reps, KERNEL_SYMBOLS["flash_attn"][kind])["device_ms"]
+            timed["device_ms_runs"] = [timed["device_ms"], again]
+            timed["device_ms"] = (timed["device_ms"] + again) / 2
+        del qa, ka, va, library
+        torch.cuda.empty_cache()
 
     checks = []
 
@@ -6198,10 +6499,12 @@ def run_wide() -> int:
 def run_attn_fwd() -> int:
     """``python3 chip_smoke.py --attn-fwd``: the env and build phases, then
     the attention forward alone: phase kernels' checks of every variant
-    (``attention_forward_checks``), WGMMA_MIN_QUERIES's sweep, the
+    (``attention_forward_checks``), WGMMA_MIN_QUERIES's and
+    TILED_MIN_QUERIES's sweeps, the fp32 rows (``_fp32_rows``), the
     forward rows of phase lm_train's (d), and phase lm_train (c)'s rules
-    against forwards wrong on purpose (``_loss_controls``), the card's
-    name and power limit last."""
+    against forwards wrong on purpose (``_loss_controls``: it fails unless
+    the layer rule fails a window one key short and a window dropped), the
+    card's name and power limit last."""
     from repro_torch.kernels import common
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6216,13 +6519,17 @@ def run_attn_fwd() -> int:
     emit({"phase": "attn_fwd", "cases": cases, "worst_picked_err": worst,
           "seconds": time.perf_counter() - t0, "ok": ok})
     t0 = time.perf_counter()
-    emit({"phase": "attn_fwd_timing", "sweep": _forward_sweep(dev),
+    emit({"phase": "attn_fwd_timing",
+          "sweep": _forward_sweep(dev, torch.bfloat16),
+          "fp32_sweep": _forward_sweep(dev, torch.float32),
+          "fp32_rows": _fp32_rows(dev),
           "rows": _forward_rows(dev), "nvidia_smi": smi,
           "seconds": time.perf_counter() - t0})
     torch.cuda.empty_cache()
-    emit({"phase": "loss_controls", **_loss_controls(dev)})
+    controls = _loss_controls(dev)
+    emit({"phase": "loss_controls", **controls})
     print(smi, flush=True)
-    return 0 if ok else 1
+    return 0 if ok and controls["ok"] else 1
 
 
 def run_attn_bwd() -> int:
@@ -6326,10 +6633,12 @@ def run(scratch: Path) -> int:
     if not line["ok"]:
         return 1
     # flash_attn's forward launches by variant, as the wrapper counts them
-    launches.update(flash_attn_mma=0, flash_attn_wgmma=0)
+    # (the decode variant's line counts phase lm's and the families'
+    # serving calls)
+    launches.update({f"flash_attn_{kind}": 0 for kind in FORWARD_LINES})
 
     def add_forward(counts: dict) -> None:
-        for kind in ("mma", "wgmma"):
+        for kind in FORWARD_LINES:
             launches[f"flash_attn_{kind}"] += counts.get(kind, 0)
 
     line, launches["flash_attn_decode"], prefill_launches = phase_lm(dev)
@@ -6416,7 +6725,7 @@ def run(scratch: Path) -> int:
     if not all(r.get("ok", True) for r in rows + full_checks) or not all(
             launches[name] for name in lines) or any(
             launches[f"flash_attn_{kind}"] and f"flash_attn_{kind}" not in lines
-            for kind in ("mma", "wgmma")):
+            for kind in FORWARD_LINES):
         return 1
 
     print(smi)

@@ -23,7 +23,7 @@
 //   can see, [k_begin, k_end) from the causal and window bounds of its first
 //   and last row (the Pallas kernel's tile skipping, at key granularity).
 //
-// Four kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep,
+// Five kernels, chosen by kernels/flash_attn/ops.py:variant(dtype, Sq, rep,
 // hd) and passed in as `variant` (the decode kernel has its own entry point):
 //
 // flash_attn_wgmma_kernel (bf16 operands at hd 64, 80, 96, 112 or 128 and
@@ -122,8 +122,39 @@
 //   Left for later: reading the cache length from the card (a CUDA graph
 //   over the decode step).
 //
-// flash_attn_kernel (fp32 operands, whose 1e-5 tolerance bf16 products
-//   cannot meet).  fp32 on the CUDA cores.  Design:
+// flash_attn_tiled_kernel (fp32 operands with Sq >= ops.py:
+//   TILED_MIN_QUERIES: training, prefill and the fp32 benches).  Bound by
+//   fp32 operations outside the tensor cores: 4 * hd flops a visible pair
+//   at 67 TFLOP/s (no TF32: the 1e-5 tolerance needs fp32 products).  The
+//   dQ pass of flash_attn_bwd's "simt_tiled" with two products in place of
+//   three, on its helpers (attn.cuh):
+//   - a block is one query head's 64 queries (grid B * Hq x tiles, heads
+//     fastest so a kv head's rep query heads read its K/V tiles from L2
+//     together, the longest walks first); Q stays in shared memory and the
+//     64-key K/V tiles of ops.py:bwd_k_range stream through a two-stage
+//     cp.async ring, so the next tile's copy overlaps this tile's products;
+//   - 256 threads each own a 4 x 4 micro-tile of S (float4 operands, 8
+//     FMAs a shared-memory load, where flash_attn_kernel re-reads Q every 4
+//     FMAs); the online softmax in base 2 (scale * log2 e folded in, exp2f)
+//     takes a row's max and its rescale once every 64 keys, by 4 shuffles
+//     among the row's 16 lanes (flash_attn_kernel: 5 shuffles and a
+//     rescale every 32), and each lane keeps a partial row sum;
+//   - P goes to shared memory, then O += P V as 4 rows x hd / 16 columns
+//     micro-tiles (columns past hd skipped: every hd that is a multiple of
+//     8), each tile's sum taken apart and then added (one running sum
+//     drifted 4e-5 from the plain version in the backward);
+//   - only a tile on a causal, window or ragged edge masks elementwise;
+//     rows past Sq and keys past the range read zeros.  It writes the
+//     log-sum-exp as flash_attn_kernel does (base 2, +inf for a row that
+//     sees no key), the statistics the fp32 backward reads.  No atomics:
+//     every call gives the same bits.  Shared memory: Q, two stages of K
+//     and V, and P, 186,368 bytes at hd 128 (opted in above 48 KB).
+//   flash_attn_kernel keeps decode, where a 64-row tile of one query head
+//   would hold one row (ops.py:TILED_MIN_QUERIES, from a same-call sweep
+//   on the card).
+//
+// flash_attn_kernel (fp32 operands with fewer than TILED_MIN_QUERIES
+//   queries; the first port).  fp32 on the CUDA cores.  Design:
 //   - Four warps; each owns RPW rows.  The tile height follows the work:
 //     RPW = 1 when the block's rows fit one per warp (decode: Sq = 1 gives
 //     rep rows, so a block per (batch, kv head) with no idle row slots),
@@ -412,6 +443,198 @@ int by_rows(const void* q, const void* k, const void* v, void* out, float* lse,
                             kv_head_stride, causal, window, scale, s);
   return by_columns<T, 8>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
                           kv_head_stride, causal, window, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// flash_attn_tiled_kernel: fp32 register-tiled on the CUDA cores
+// ---------------------------------------------------------------------------
+
+using repro::kPLd;
+using repro::kTile;
+using repro::kTileThreads;
+
+// Q's tile, two stages of K and V, and the P tile (fp32; rows of hd + 4
+// floats): 186,368 bytes at hd 128 (ops.py:fwd_tiled_smem mirrors it)
+__host__ __device__ constexpr size_t tiled_smem(int hd) {
+  return sizeof(float) * (5 * kTile * (hd + 4) + kTile * kPLd);
+}
+
+// the max (max) or sum over the 16 lanes that share a row of micro-tiles
+__device__ __forceinline__ float row_max16(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(repro::kFullMask, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum16(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(repro::kFullMask, v, o);
+  return v;
+}
+
+// Grid: (B * Hq, Sq / 64 rounded up), the last query tiles first (a
+// causal walk is longest there).  A block keeps one query head's 64 rows
+// of Q in shared memory and walks the 64-key tiles of its kv head that its
+// rows see (ops.py:bwd_k_range), double-buffered by cp.async: S = Q K^T as
+// 4 x 4 micro-tiles a thread (rows ty + 16 a, keys tx + 16 c), the online
+// softmax in base 2 on its registers (a row's max by shuffles among its 16
+// lanes; each lane keeps a partial l, summed at the end), P to shared
+// memory, then O += P V as 4 rows x NC columns micro-tiles, each tile's
+// sum taken apart and then added (micro_product).  Only a tile on a
+// causal, window or ragged edge masks elementwise.  out = O / l (0 where
+// l == 0); lse (or null) the row's log2-sum-exp2 of the scaled scores,
+// +inf for a row that sees no key.
+template <int NC>
+__global__ void __launch_bounds__(kTileThreads)
+flash_attn_tiled_kernel(const float* __restrict__ q,  // [B, Hq, Sq, hd]
+                        const float* __restrict__ k,  // [B, Hkv] heads
+                        const float* __restrict__ v,  // as k
+                        float* __restrict__ out,      // [B, Hq, Sq, hd]
+                        float* __restrict__ lse,      // [B, Hq, Sq] or null
+                        int Hq, int Hkv, int Sq, int Sk, int hd,
+                        long long kv_head_stride, int causal, int window,
+                        float scale_log2) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = hd + 4;
+  float* qs = smem;                  // [64][ld]
+  float* kvs = qs + kTile * ld;      // [stage][K, V][64][ld]
+  float* ps = kvs + 4 * kTile * ld;  // [64][kPLd]: P
+
+  const int bh = blockIdx.x;  // b * Hq + query head
+  const int b = bh / Hq, h = bh - b * Hq;
+  const long long kv_base =
+      (static_cast<long long>(b) * Hkv + h / (Hq / Hkv)) * kv_head_stride;
+  const long long row_base = static_cast<long long>(bh) * Sq;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // last first
+  const int off = Sk - Sq;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int i_hi = min(i0 + kTile, Sq) - 1;
+  int k_begin, k_end;
+  repro::key_range(i0, i_hi, off, Sk, causal, window, k_begin, k_end);
+  const int ntiles =
+      k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;
+
+  repro::stage_rows(qs, ld, q + row_base * hd, i0, Sq, hd);
+  auto load_tile = [&](int t) {
+    float* kd = kvs + (t % 2) * 2 * kTile * ld;
+    const int k0 = k_begin + t * kTile;
+    repro::stage_rows(kd, ld, k + kv_base, k0, k_end, hd);
+    repro::stage_rows(kd + kTile * ld, ld, v + kv_base, k0, k_end, hd);
+  };
+  if (ntiles > 0) load_tile(0);
+  copies_commit();
+
+  float m[4], l[4], acc[4][NC];
+  int qpos[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    qpos[a] = i0 + ty + 16 * a + off;
+    m[a] = -INFINITY;
+    l[a] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.0f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_tile(t + 1);
+    copies_commit();
+    copies_wait<1>();  // all but the newest group: this tile (and Q)
+    __syncthreads();
+    const float* kt = kvs + (t % 2) * 2 * kTile * ld;
+    const float* vt = kt + kTile * ld;
+    const int k0 = k_begin + t * kTile;
+    float s[4][4];
+    repro::micro_dot(s, qs, kt, ld, hd, ty, tx);
+    const bool edge = k0 + kTile > k_end ||
+                      (causal && k0 + kTile - 1 > i0 + off) ||
+                      (window > 0 && k0 <= i_hi + off - window);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float top = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + tx + 16 * c;
+        const bool vis =
+            !edge || (j < k_end && repro::visible(qpos[a], j, causal, window));
+        s[a][c] = vis ? s[a][c] * scale_log2 : -INFINITY;
+        top = fmaxf(top, s[a][c]);
+      }
+      const float mn = fmaxf(m[a], row_max16(top));
+      // a row that has seen no key yet keeps l and acc at 0: its p are 0
+      const float base = mn == -INFINITY ? 0.0f : mn;
+      const float corr = exp2f(m[a] - base);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f(s[a][c] - base);
+        sum += p;
+        ps[(ty + 16 * a) * kPLd + tx + 16 * c] = p;
+      }
+      m[a] = mn;
+      l[a] = fmaf(l[a], corr, sum);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[a][c] *= corr;
+    }
+    __syncthreads();
+    repro::micro_product<NC>(acc, ps, vt, ld, hd, ty, tx);
+    __syncthreads();  // the stage and the P tile are read before reuse
+  }
+  copies_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float lt = row_sum16(l[a]);  // every lane of the row takes part
+    const int i = i0 + ty + 16 * a;
+    if (i >= Sq) continue;
+    const float div = lt == 0.0f ? 1.0f : lt;
+    float* dst = out + (row_base + i) * hd;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tx + 16 * c;
+      if (col < hd) dst[col] = acc[a][c] / div;
+    }
+    if (lse != nullptr && tx == 0)  // base 2, as the backward reads it
+      lse[row_base + i] = lt == 0.0f ? INFINITY : m[a] + log2f(lt);
+  }
+}
+
+template <int NC>
+int launch_tiled(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int hd,
+                 long long kv_head_stride, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  const size_t smem = tiled_smem(hd);
+  auto kernel = flash_attn_tiled_kernel<NC>;
+  const cudaError_t e = repro::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(B * Hq, (Sq + kTile - 1) / kTile), kTileThreads, smem,
+           stream>>>(static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(out),
+                     lse, Hq, Hkv, Sq, Sk, hd, kv_head_stride, causal, window,
+                     scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tiled_by_columns(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                     int hd, long long kv_head_stride, int causal, int window,
+                     float scale, cudaStream_t s) {
+#define REPRO_TILED_CASE(n)                                                  \
+  case n:                                                                    \
+    return launch_tiled<n>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,        \
+                           kv_head_stride, causal, window, scale, s);
+  switch ((hd + 15) / 16) {  // a thread's columns
+    REPRO_TILED_CASE(1)
+    REPRO_TILED_CASE(2)
+    REPRO_TILED_CASE(3)
+    REPRO_TILED_CASE(4)
+    REPRO_TILED_CASE(5)
+    REPRO_TILED_CASE(6)
+    REPRO_TILED_CASE(7)
+    default:
+      return launch_tiled<8>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd,
+                             kv_head_stride, causal, window, scale, s);
+  }
+#undef REPRO_TILED_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -1386,10 +1609,11 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
 // sees every key: cross-attention; under a mask with Sq > Sk the first
 // queries would sit before key 0 and see nothing: 0).  window <= 0 means
 // none.  bf16 != 0: bf16 operands, else
-// fp32.  variant: 0 flash_attn_kernel (fp32 only), 1 flash_attn_mma_kernel
-// (bf16 only), 3 flash_attn_wgmma_kernel (bf16 at hd 64, 80, 96, 112 or
-// 128; cudaErrorNotSupported where a tensor map does not encode); bf16
-// decode has its own entry point, flash_attn_decode.
+// fp32.  variant (ops.py:VARIANTS): 0 flash_attn_kernel (fp32 only), 1
+// flash_attn_mma_kernel (bf16 only), 3 flash_attn_wgmma_kernel (bf16 at hd
+// 64, 80, 96, 112 or 128; cudaErrorNotSupported where a tensor map does not
+// encode), 4 flash_attn_tiled_kernel (fp32 only); bf16 decode has its own
+// entry point, flash_attn_decode.
 // lse: null, or fp32 [B, Hq, Sq] that gets each row's log-sum-exp of the
 // scaled scores in base 2 (+inf for a row that sees no key), the
 // statistics flash_attn_bwd's "wgmma" and "simt_tiled" kernels read.
@@ -1410,8 +1634,11 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
         q, k, v, out, ls, out_lo, B, Hq, Hkv, Sq, Sk, hd, kv_head_stride,
         causal, window, scale, s);
   }
-  if (variant != 0 || bf16 || out_lo != nullptr)
+  if ((variant != 0 && variant != 4) || bf16 || out_lo != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 4)
+    return tiled_by_columns(q, k, v, out, ls, B, Hq, Hkv, Sq, Sk, hd,
+                            kv_head_stride, causal, window, scale, s);
   return by_rows<float>(q, k, v, out, ls, B, Hq, Hkv, Sq, Sk, hd,
                         kv_head_stride, causal, window, scale, s);
 }

@@ -29,8 +29,14 @@ the head dim alone:
   head) pairs there are; each chunk's softmax state goes to scratch, and
   the last block of a kv head merges the chunks in order.  fp32 on the CUDA
   cores;
+* ``"simt_tiled"`` (``flash_attn_tiled_kernel``): fp32 operands, whose
+  1e-5 tolerance bf16 products cannot meet, with at least TILED_MIN_QUERIES
+  queries.  Register-tiled on the CUDA cores, the fp32 backward's dQ pass
+  with two products: a block is one query head's 64 queries
+  (FWD_TILED_TILES), 64-key K/V tiles double-buffered by ``cp.async``,
+  4 x 4 micro-tiles of S a thread, P through shared memory into O += P.V;
 * ``"simt"`` (``flash_attn_kernel``, the first port, fp32 on the CUDA
-  cores) for fp32 operands, whose 1e-5 tolerance bf16 products cannot meet.
+  cores): fp32 with fewer queries (decode, short chunks).
 
 ``torch-reference`` runs ref.py.  The flavor follows the tensors' device.
 Prefill's tiles are constants of the kernels; decode's key splits are a
@@ -97,7 +103,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: rows an MMA block's warp fills (the m of mma.sync's m16n8k16)
 MMA_MIN_ROWS = 16
 #: the C entry point's code for each variant (``"decode"`` has its own)
-VARIANTS = ("simt", "mma", "decode", "wgmma")
+VARIANTS = ("simt", "mma", "decode", "wgmma", "simt_tiled")
 
 #: blocks a decode call aims for: two on each of an H100's 132 SMs
 DECODE_TARGET_BLOCKS = 2 * 132
@@ -128,6 +134,17 @@ WGMMA_MIN_QUERIES = 128
 #: the forward ``"wgmma"`` kernel's tiles (csrc/flash_attn.cu): queries a
 #: block serves (one query head's), keys it stages at a time
 WGMMA_TILES = {"q_rows": 128, "k_tile": 64}
+#: the fewest queries an fp32 call runs ``"simt_tiled"`` at: its block is
+#: one query head's 64 queries, so a decode call leaves all but one of its
+#: rows idle where ``"simt"`` packs the kv head's query heads into its
+#: rows.  The Sq from which on ``"simt_tiled"`` was no slower than
+#: ``"simt"`` at every longer chunk of a same-call sweep at hd 80, rep 4
+#: over 1,024 keys on an H100 (``chip_smoke.py --attn-fwd``: Sq 1, 16,
+#: 64, 128, 256, 1,024; ``"simt"`` won at Sq 1 only)
+TILED_MIN_QUERIES = 16
+#: the forward ``"simt_tiled"`` kernel's tiles (csrc/flash_attn.cu): queries
+#: a block serves (one query head's), keys it stages at a time
+FWD_TILED_TILES = {"q_rows": 64, "k_tile": 64}
 #: the backward's tiles (csrc/flash_attn_bwd.cu), by variant: query rows a
 #: dQ block serves, keys it stages at a time, keys a dK/dV block owns,
 #: queries a dK/dV block stages at a time
@@ -143,9 +160,10 @@ def variant(dtype: torch.dtype, sq: int, rep: int, hd: int) -> str:
     kv head and head dim ``hd``: for bf16 operands ``"wgmma"`` at the head
     dims of WGMMA_HEAD_DIMS with at least WGMMA_MIN_QUERIES queries, else
     ``"mma"`` when a kv head has at least MMA_MIN_ROWS rows (``sq * rep``),
-    else ``"decode"``; ``"simt"`` for fp32."""
+    else ``"decode"``; for fp32 ``"simt_tiled"`` with at least
+    TILED_MIN_QUERIES queries, else ``"simt"``."""
     if dtype != torch.bfloat16:
-        return "simt"
+        return "simt_tiled" if sq >= TILED_MIN_QUERIES else "simt"
     if hd in WGMMA_HEAD_DIMS and sq >= WGMMA_MIN_QUERIES:
         return "wgmma"
     return "mma" if sq * rep >= MMA_MIN_ROWS else "decode"
@@ -159,6 +177,14 @@ def call_variant(dtype: torch.dtype, sq: int, rep: int, hd: int,
     rows."""
     kind = variant(dtype, sq, rep, hd)
     return "mma" if lse and kind == "decode" else kind
+
+
+def fwd_tiled_smem(hd: int) -> int:
+    """Bytes of shared memory a ``"simt_tiled"`` forward block takes at head
+    dim ``hd`` (csrc/flash_attn.cu:tiled_smem): Q's tile and two stages of K
+    and V, rows of ``hd + 4`` floats, and the P tile, rows of 68."""
+    rows = FWD_TILED_TILES["q_rows"]
+    return 4 * (5 * rows * (hd + 4) + rows * (FWD_TILED_TILES["k_tile"] + 4))
 
 
 def bwd_variant(dtype: torch.dtype, hd: int) -> str:

@@ -4,7 +4,7 @@ Each kernel family's useful work is priced analytically — the FLOPs the
 math requires and the least HBM traffic of one launch — and held against
 the peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at its 700 W power
 limit): HBM3 at 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s
-(the GLM kernels and ``flash_attn_kernel``), bf16 dense on the tensor
+(the GLM kernels and the fp32 ``flash_attn`` kernels), bf16 dense on the tensor
 cores at 989 TFLOP/s (``flash_attn`` at bf16).  A card set below 700 W
 runs slower than these peaks allow, so a share read against them names the
 card's power limit beside it.

@@ -978,8 +978,13 @@ _MIN_Q = attn_ops.WGMMA_MIN_QUERIES
     (torch.bfloat16, 8192, 4, 80, "wgmma"),  # danube's prefill: warpgroups
     (torch.bfloat16, 1, 4, 80, "decode"),    # decode
     (torch.bfloat16, 1, 16, 128, "mma"),     # decode with 16 heads a kv head
-    (torch.float32, 8192, 4, 80, "simt"),    # fp32: its tolerance needs fp32
+    (torch.float32, 8192, 4, 80, "simt_tiled"),  # fp32: its tolerance needs
+                                                 # fp32, register-tiled
     (torch.float32, 1, 4, 80, "simt"),       # fp32 decode stays on the fp32 kernel
+    # the TILED_MIN_QUERIES edge: a shorter fp32 chunk stays on "simt"
+    (torch.float32, attn_ops.TILED_MIN_QUERIES - 1, 4, 80, "simt"),
+    (torch.float32, attn_ops.TILED_MIN_QUERIES, 4, 80, "simt_tiled"),
+    (torch.float32, 1024, 8, 8, "simt_tiled"),   # hd 8, rep 8
     # every head dim "wgmma" takes, at the vlm cross call's 2,048 queries
     *[(torch.bfloat16, 2048, 4, hd, "wgmma")
       for hd in attn_ops.WGMMA_HEAD_DIMS],
@@ -991,16 +996,17 @@ _MIN_Q = attn_ops.WGMMA_MIN_QUERIES
     (torch.bfloat16, 8192, 4, 72, "mma"),
     (torch.bfloat16, 8192, 4, 32, "mma"),
     (torch.bfloat16, 8192, 1, 120, "mma"),
-    (torch.float32, 8192, 4, 128, "simt"),   # fp32 at a "wgmma" head dim
+    (torch.float32, 8192, 4, 128, "simt_tiled"),  # fp32 at a "wgmma" head dim
 ])
 def test_flash_attention_variant_is_chosen_from_dtype_and_rows(dtype, sq,
                                                                 rep, hd, want):
     assert attn_ops.variant(dtype, sq, rep, hd) == want
     # the C entry point's code: 0 flash_attn_kernel, 1 flash_attn_mma_kernel,
-    # 3 flash_attn_wgmma_kernel (the decode kernel has an entry point of its
-    # own)
+    # 3 flash_attn_wgmma_kernel, 4 flash_attn_tiled_kernel (the decode
+    # kernel has an entry point of its own)
     assert attn_ops.VARIANTS.index(want) == {"simt": 0, "mma": 1,
-                                             "decode": 2, "wgmma": 3}[want]
+                                             "decode": 2, "wgmma": 3,
+                                             "simt_tiled": 4}[want]
 
 
 @pytest.mark.parametrize("arch", [
@@ -1379,7 +1385,7 @@ def _visible(sq, sk, causal, window):
 
 
 @pytest.mark.parametrize("kind", ["mma", "wgmma", "simt_tiled",
-                                  "forward_wgmma"])
+                                  "forward_wgmma", "forward_simt_tiled"])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (300, 300, True, None),     # causal, a ragged last tile
     (300, 300, True, 64),       # a window
@@ -1400,9 +1406,11 @@ def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
     range (for every query head).  Over all meetings every visible (query,
     key) pair falls in exactly one of each pass, none is left out, no query
     tile walks a key that none of its queries sees, and every dK/dV meeting
-    holds a visible pair (no tile is walked for nothing)."""
-    t = (attn_ops.WGMMA_TILES if kind == "forward_wgmma"
-         else attn_ops.BWD_TILES[kind])
+    holds a visible pair (no tile is walked for nothing).  The fp32
+    ``"simt_tiled"`` forward's 64-query tiles walk it too."""
+    t = {"forward_wgmma": attn_ops.WGMMA_TILES,
+         "forward_simt_tiled": attn_ops.FWD_TILED_TILES}.get(
+        kind) or attn_ops.BWD_TILES[kind]
     vis = _visible(sq, sk, causal, window)
     dq = np.zeros((sq, sk), dtype=int)
     for qt in range(-(-sq // t["q_rows"])):
@@ -1414,7 +1422,7 @@ def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
         for k0 in range(begin, end, t["k_tile"]):
             dq[rows, k0:min(k0 + t["k_tile"], end)] += 1
     counts = [dq]
-    if kind != "forward_wgmma":
+    if not kind.startswith("forward_"):
         dkv = np.zeros((sq, sk), dtype=int)
         for kt in range(-(-sk // t["keys"])):
             first, stop = attn_ops.bwd_q_range(kt, sq, sk, causal, window,
@@ -1430,6 +1438,109 @@ def test_flash_attention_backward_tiles_meet_every_visible_pair_once(
     for count in counts:
         assert (count[vis] == 1).all()
         assert count.max() == 1
+
+
+#: the shared memory an H100 block may use (bytes)
+H100_BLOCK_SMEM = 232_448
+
+
+@pytest.mark.parametrize("hd", range(attn_ops.HEAD_DIM_MULTIPLE,
+                                     attn_ops.MAX_HEAD_DIM + 1,
+                                     attn_ops.HEAD_DIM_MULTIPLE))
+def test_flash_attention_tiled_forward_fits_a_block_at_every_head_dim(hd):
+    """``fwd_tiled_smem`` mirrors csrc/flash_attn.cu's ``tiled_smem``: Q's
+    64-row tile, two stages of 64-key K and V tiles (rows of hd + 4
+    floats) and the 64 x 68 P tile fit an H100 block's 227 KB at every
+    head dim the kernel takes (186,368 bytes at hd 128), and a row's
+    stride keeps the 16 lanes' float4 reads on distinct banks (hd + 4
+    floats an odd number of float4s)."""
+    t = attn_ops.FWD_TILED_TILES
+    ld = hd + 4
+    smem = attn_ops.fwd_tiled_smem(hd)
+    assert smem == 4 * (5 * t["q_rows"] * ld + t["q_rows"] * (t["k_tile"] + 4))
+    assert smem <= H100_BLOCK_SMEM
+    assert (ld // 4) % 2 == 1 and ld % 4 == 0
+    if hd == attn_ops.MAX_HEAD_DIM:
+        assert smem == 186_368
+
+
+def test_flash_attention_window_inside_one_key_tile_matches_jax_kernel():
+    """The fp32 plain version against the Pallas kernel (interpret mode)
+    at the register-tiled forward's awkward edges: a window of 20 inside
+    its 64-key tiles, rep 4, hd 72 (a hd % 16 == 8 depth) and two 64-query
+    tiles."""
+    q, k, v = _qkv(1, 8, 2, 128, 128, 72, seed=72)
+    want = jflash_attention(*_j(q, k, v), causal=True, window=20,
+                            block_q=64, block_k=64,
+                            backend="pallas-interpret")
+    got = tk.flash_attention(*_t(q, k, v), causal=True, window=20)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 16), (True, None),
+                                           (False, None)])
+def test_flash_attention_plain_bf16_is_the_fp32_plain_version_rounded(
+        causal, window):
+    """The plain version on bf16 q, k, v computes in fp32 and rounds once:
+    it is the plain version on fp32 copies of them rounded to bf16, bit
+    for bit, so one plain call gives chip_smoke's layer rule both its
+    yardstick and the plain bf16 output (``checked_attention``)."""
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _t(*_qkv(2, 8, 2, 40, 40, 16, seed=3)))
+    bf16 = attn_ref.attention_ref(q, k, v, causal=causal, window=window)
+    fp32 = attn_ref.attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal, window=window)
+    assert torch.equal(bf16, fp32.to(torch.bfloat16))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports torch and the port
+    alone)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_layer_rule_holds_the_plain_forward_and_fails_a_window_one_short():
+    """chip_smoke.py's layer-by-layer attention rule (phase lm_train (c),
+    ``checked_attention``) on the reduced danube config in bf16 (2 layers,
+    window 16, S=64) through one training step: the plain forward (the
+    kernel's place on the CPU) passes at every call, each layer's
+    checkpointed recompute held to its forward's bits; the window one key
+    short (``_window_short_forward``, routed into the forward's place)
+    fails at every layer, where the loss alone barely moves."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.nn import transformer
+    from repro_torch.train import trainer
+
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(configs.reduced(configs.get("h2o-danube-1.8b")),
+                              param_dtype=torch.bfloat16)
+    lm = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    batch = next(train.make_batch_fn(cfg, 2, 64, seed=3, device="cpu"))
+    assert cfg.window < 64
+    with smoke.checked_attention() as calls:
+        trainer.value_and_grad(cfg, params, batch)
+    held = smoke._layer_summary(calls, cfg.n_layers)
+    assert held["ok"], held
+    assert held["checked"] == held["recomputes"] == cfg.n_layers
+    assert held["rms_ratios"] == [1.0] * cfg.n_layers
+    with smoke.routed_attention(smoke._window_short_forward), \
+            smoke.checked_attention() as calls:
+        trainer.value_and_grad(cfg, params, batch)
+    short = smoke._layer_summary(calls, cfg.n_layers)
+    assert not short["ok"]
+    assert short["failing_layers"] == list(range(cfg.n_layers))
+    assert min(short["max_ratios"]) > smoke.BF16_MODEL_SLACK
 
 
 # ---------------------------------------------------------------------------
