@@ -10,6 +10,7 @@ family) on one NVIDIA card.
     python3 chip_smoke.py --attn-fwd
     python3 chip_smoke.py --attn-bwd
     python3 chip_smoke.py --wide
+    python3 chip_smoke.py --dense
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
@@ -30,7 +31,13 @@ build, phase ``kernels``' checks of the attention backward and phase
 ``lm_train``'s (d), the seventh only env, build and the paper profile's
 widest datasets (``run_wide``: phase ``kernels``' checks of glm_sgd's grid
 and glm_sparse's hot kernels, phase ``news``, phase ``study``'s (c) and
-their timing rows).
+their timing rows), the eighth only env, build and the dense paths past
+the Hopper designs' first shapes (``run_dense``: phase ``kernels``' checks
+of glm_sgd's rows and glm_grad's wide kernels, covtype's ``SyncSGD(batch
+=1024)`` and ``AsyncLocalSGD(10, 58,101)`` and ``SyncSGD()`` on the dense
+wide set as phase ``train`` runs them and as phase ``parity`` holds them,
+their timing rows, the sweep behind ``ROWS_MIN_BATCH`` and the wide
+kernel's sweep of tiles).
 
 
 Phases, one JSON line each (with ``phase_seconds``, the host seconds since
@@ -47,7 +54,7 @@ the previous phase line):
                news widths, rows of 3 words in a batch of 5, and values at
                another 16-byte offset than their indices, with filler rows
                that must score link(0) exactly; glm_sgd at d = 3, 54, 300,
-               1024 and 1025 (warp, smem and cluster variants),
+               1024 and 1025 (warp, rows and cluster variants),
                micro-batches 1 to 64 with ragged tails, 1, 8 and 10
                replicas; glm_sgd_sparse's warp
                variant at micro-batches 1, 10 and 64, K = 1, real-sim's
@@ -103,15 +110,27 @@ the previous phase line):
                glm_sparse's hot variant at rcv1's and news' widths and past
                the smem cap (padding spread through the rows, rows of all
                padding, a feature thrice a row, 3 replicas, an index
-               outside [0, d) refused);
+               outside [0, d) refused); ``dense_kernel_checks``: glm_sgd's
+               rows variant at ROWS_CASES (batches just past the warp
+               ring, covtype's 1,024 and 4,096, tails shorter than the
+               cluster, 8 and 10 replicas, full partitions) and glm_grad's
+               wide variant at WIDE_CASES (clusters of 1 to 16 blocks,
+               slices at every 16-byte offset, tiles of 1 to 8 rows), each
+               variant's five calls' bits, and the row kernel forced at
+               d = 60,000;
 4. ``train``   ``repro_torch.core.sgd.run`` at the full size of the paper's
                covtype (581,012 x 54, dense) and w8a (64,700 x 300, K=69,
-               padded ELL) stand-ins, six strategies; launch counts are zeroed
-               just before and read just after, and the variants the path's
-               shapes pick are checked (glm_grad's ring, glm_sparse's smem,
-               glm_sgd_sparse's warp); then the same strategies at
-               N=4,100 through the kernels and through the plain versions on
-               the card, loss for loss;
+               padded ELL) stand-ins, eight strategies (covtype's
+               ``SyncSGD(batch=1024)`` and ``AsyncLocalSGD(replicas=10,
+               local_batch=58,101)`` since PR 32), and ``SyncSGD()`` on the
+               dense wide set (16,384 x 20,958 drawn on the card,
+               ``dense_wide_dataset``); launch counts are zeroed just
+               before each run and read just after, by the variant its
+               shapes pick, which is checked (glm_grad's ring and wide,
+               glm_sgd's warp and rows, glm_sparse's smem,
+               glm_sgd_sparse's warp); then the nine runs at N=4,100
+               through the kernels and through the plain versions on the
+               card, loss for loss (phase ``parity``);
 5. ``news``    the paper's news at full size (19,996 x 1,355,191, K =
                2,729: a 437 MB padded ELL drawn on the card,
                ``news_dataset``) through ``sgd.run`` under Table 7's
@@ -126,7 +145,8 @@ the previous phase line):
 6. ``study``   the paper's study layer (``repro_torch.study`` and the
                drivers in ``repro_torch.benchmarks``): (a) the Table 7,
                Table 4 and Fig. 22 drivers on the ci profile (covtype, w8a,
-               real-sim at 2,048 rows, LR and SVM, 12 epochs, grid 1e-3,
+               real-sim cut to STUDY_CI_ROWS = 1,024 rows since PR 32,
+               LR and SVM, 12 epochs, grid 1e-3,
                1e-2, 1e-1) on a fresh runner through the kernels and again
                through the plain versions, every trial's losses held
                loss for loss and every row's best step and epochs to 1%
@@ -275,7 +295,11 @@ the previous phase line):
                col layout, glm_sgd_sparse also on its shared-memory variant
                at w8a R=10 B=10, at w8a R=10 B=1 and at news
                R=8 and R=64 B=1 on its stream variant and on the global
-               variant,
+               variant, ``dense_timing``: glm_sgd's rows variant beside
+               the smem one at covtype B=1,024 and 4,096 and beside the
+               global one at R=10 x 58,101, glm_grad's wide variant beside
+               the row one at 2,003 x 60,000, 16,384 x 20,958 and 16,384 x
+               2,048, each pair's device times taken twice in turns,
                glm_grad and glm_sparse each beside the kernel their
                redesign replaced, glm_sparse also at R=10, glm_score's flat
                kernel beside the group kernel at w8a N = 128 and 32,
@@ -364,11 +388,13 @@ REPLACES = {
 #: variant its ops.variant() picks (None: the family has one)
 KERNEL_SYMBOLS = {
     "glm_sgd": {"warp": ("glm_sgd_warp_kernel",),
+                "rows": ("glm_sgd_rows_kernel",),
                 "cluster": ("glm_sgd_cluster_kernel",),
                 "grid": ("glm_sgd_grid_kernel",),
                 "smem": ("glm_sgd_kernel",),
                 "global": ("glm_sgd_global_kernel",)},
     "glm_grad": {"ring": ("glm_grad_ring_kernel", "glm_grad_reduce_kernel"),
+                 "wide": ("glm_grad_wide_kernel", "glm_grad_sum_kernel"),
                  "row": ("glm_grad_row_kernel", "glm_grad_reduce_kernel"),
                  "col": ("glm_grad_col_kernel", "glm_grad_reduce_kernel")},
     "glm_sgd_sparse": {"warp": ("ell_sgd_warp_kernel",),
@@ -988,6 +1014,109 @@ def wide_kernel_checks(dev) -> tuple[list[dict], dict]:
     return cases, worst
 
 
+#: glm_sgd's rows variant cases of ``dense_kernel_checks``: (d, micro-batch,
+#: rows a replica, replicas).  Batches just past the warp kernel's ring at
+#: d = 54, 300 and 1,024 (C = 2, 16, 32 values a lane), covtype's 1,024 and
+#: 4,096 (fills of a block's run streamed twice), a ragged tail shorter
+#: than the cluster (some blocks' runs empty), a width that is no power of
+#: two (1,000), d = 3 and 1 (32-row tiles a chain warp), 8 and 10
+#: replicas, and full partitions (one batch a replica: R = 10 x 410 and x
+#: 5,810, a run streamed in 6 fills)
+ROWS_CASES = ((54, 600, 4100, 1), (54, 1024, 4100, 1), (54, 4096, 9000, 1),
+              (54, 600, 605, 1), (300, 128, 1037, 1), (300, 95, 203, 8),
+              (1024, 28, 203, 8), (1024, 64, 130, 10), (1000, 100, 1037, 1),
+              (3, 1024, 5000, 1), (1, 4096, 9000, 1), (54, 410, 410, 10),
+              (54, 5810, 5810, 10))
+#: glm_grad's wide variant cases: (d, N, block_rows).  Clusters of 1, 2, 8
+#: and 16 blocks, slices that are no multiple of 4 (rows at every offset
+#: from a 16-byte boundary), a ragged last tile, fewer rows than a tile,
+#: tiles of 1, 2 and 3 rows (a butterfly of 1, 2 and 4), the widest slice
+#: (4,096)
+WIDE_CASES = ((1_025, 4_099, None), (2_048, 1_000, None), (2_049, 777, 1),
+              (4_097, 517, None), (4_097, 517, 3), (20_958, 2_003, None),
+              (20_958, 300, 2),
+              (50_001, 333, None), (60_000, 2_003, None), (65_536, 300, None),
+              (30_000, 3, None))
+
+
+def dense_kernel_checks(dev) -> tuple[list[dict], dict]:
+    """glm_sgd's rows variant and glm_grad's wide variant against their
+    plain versions on the card, LR and SVM: the rows kernel at ROWS_CASES
+    within EPOCH_TOL, the wide kernel at WIDE_CASES within GRAD_TOL, each
+    variant's five calls giving the same bits (the rows kernel at
+    covtype's width, mini-batch 1,024 and at 10 replicas; the wide kernel
+    at d = 60,000), and the wide kernel's predecessor (the row kernel) at
+    d = 60,000 forced.  Returns the cases and the worst error by family."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+    from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+
+    cases, worst = [], {"glm_sgd": 0.0, "glm_grad": 0.0}
+
+    def record(kernel, label, out, ref, tol):
+        err, ok = close(out, ref, tol)
+        cases.append({"kernel": kernel, "case": label, "max_abs_err": err,
+                      "tol": tol, "ok": ok})
+        worst[kernel] = max(worst[kernel], err)
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    for d, mb, n, reps in ROWS_CASES:
+        X = torch.randn(reps, n, d, device=dev, generator=g)
+        y = torch.where(torch.rand(reps, n, device=dev, generator=g) < 0.5,
+                        -1.0, 1.0)
+        W = torch.randn(reps, d, device=dev, generator=g) * 0.1
+        kind = sgd_ops.variant(d, mb, reps)
+        plan = sgd_ops.rows_plan(d, mb, reps)
+        for task in ("lr", "svm"):
+            record("glm_sgd", f"{task} d={d} mb={mb} R={reps} per={n} {kind} "
+                   f"plan={list(plan)}",
+                   K.glm_sgd_epoch(task, W, X, y, step=0.05, micro_batch=mb),
+                   glm_sgd_epoch_ref(task, W, X, y, 0.05, mb), EPOCH_TOL)
+        cases.append({"kernel": "glm_sgd", "case": f"d={d} mb={mb} R={reps} "
+                      f"{kind}", "ok": kind == "rows"})
+    for reps, n, mb in ((1, 20_000, 1024), (10, 5_810, 5_810)):
+        X = torch.randn(reps, n, 54, device=dev, generator=g)
+        y = torch.where(torch.rand(reps, n, device=dev, generator=g) < 0.5,
+                        -1.0, 1.0)
+        W = torch.randn(reps, 54, device=dev, generator=g) * 0.1
+        cases.append({"kernel": "glm_sgd",
+                      "case": f"d=54 mb={mb} R={reps} per={n} "
+                              f"{sgd_ops.variant(54, mb, reps)}: five calls "
+                              "give the same bits",
+                      "ok": same_bits(lambda: K.glm_sgd_epoch(
+                          "lr", W, X, y, step=0.05, micro_batch=mb))})
+    for d, n, tile in WIDE_CASES:
+        X = torch.randn(n, d, device=dev, generator=g)
+        y = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, -1.0,
+                        1.0)
+        w = torch.randn(d, device=dev, generator=g) * 0.1
+        kind = grad_ops.variant(d, "row")
+        plan = grad_ops.wide_plan(d, tile)
+        for task in ("lr", "svm"):
+            record("glm_grad", f"{task} n={n} d={d} block_rows={tile} {kind} "
+                   f"plan={list(plan)}",
+                   K.glm_grad(task, w, X, y, block_rows=tile),
+                   glm_grad_ref(task, w, X, y), GRAD_TOL)
+        cases.append({"kernel": "glm_grad", "case": f"d={d} {kind}",
+                      "ok": kind == "wide"})
+        if d == 60_000:
+            cases.append({"kernel": "glm_grad",
+                          "case": f"n={n} d={d} {kind}: five calls give the "
+                                  "same bits",
+                          "ok": same_bits(lambda: K.glm_grad("lr", w, X,
+                                                             y))})
+            with forced_variant(grad_ops, "row"):
+                for task in ("lr", "svm"):
+                    record("glm_grad", f"{task} n={n} d={d} row (forced)",
+                           K.glm_grad(task, w, X, y),
+                           glm_grad_ref(task, w, X, y), GRAD_TOL)
+        del X
+    torch.cuda.synchronize()
+    return cases, worst
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Every kernel against its plain version on the card, small shapes."""
     import repro_torch.kernels as K
@@ -1248,8 +1377,9 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     # the redesigns past the shapes above: glm_sgd's grid kernel and
     # glm_sparse's hot kernel
     wide_cases, wide_worst = wide_kernel_checks(dev)
-    cases += wide_cases
-    for name, err in wide_worst.items():
+    dense_cases, dense_worst = dense_kernel_checks(dev)
+    cases += wide_cases + dense_cases
+    for name, err in [*wide_worst.items(), *dense_worst.items()]:
         worst[name] = max(worst.get(name, 0.0), err)
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
@@ -1531,9 +1661,17 @@ def _attention_backward_checks(dev) -> tuple[list[dict], float]:
     return cases, worst
 
 
+#: the step of covtype's dense mini-batch paths past the warp kernel's ring
+#: (``SyncSGD(batch=1024)``, ``AsyncLocalSGD(replicas=10, local_batch=per)``:
+#: glm_sgd's rows variant), from the study's grid (1e-3, 1e-2, 1e-1); both
+#: take the batch's mean gradient, and their losses fall under each
+COVTYPE_BATCH_STEP = 0.1
+
+
 def main_path(covtype, w8a, n: int | None = None):
-    """The six strategies of the training path, as (label, problem, strategy,
-    sparse_data).  ``n`` cuts both datasets to their first n rows."""
+    """The eight strategies of the training path, as (label, problem,
+    strategy, sparse_data).  ``n`` cuts both datasets to their first n
+    rows."""
     from repro_torch.core import glm, sgd, sparse
 
     X, yd = covtype
@@ -1554,7 +1692,91 @@ def main_path(covtype, w8a, n: int | None = None):
          True),
         ("w8a", ("lr", m, ys, 2.0),
          sgd.AsyncLocalSGD(replicas=10, local_batch=per), True),
+        *dense_batch_paths(X, yd),
     ]
+
+
+def dense_batch_paths(X, yd):
+    """covtype's two dense paths past the warp kernel's ring, as main_path's
+    entries: ``SyncSGD(batch=1024)`` (568 updates an epoch, the last over
+    the 404-row tail) and ``AsyncLocalSGD(replicas=10, local_batch=per)``
+    (one mean update a replica an epoch, then the merge)."""
+    from repro_torch.core import glm, sgd
+
+    problem = glm.GLMProblem("lr", X, yd, COVTYPE_BATCH_STEP)
+    return [("covtype", problem, sgd.SyncSGD(batch=1024), False),
+            ("covtype", problem, sgd.AsyncLocalSGD(
+                replicas=10, local_batch=X.shape[0] // 10), False)]
+
+
+def path_variants(problem, strat, sparse_data) -> dict[str, str]:
+    """The variant each kernel family runs on a training path's shapes (the
+    wrappers' own ``ops.variant``)."""
+    from repro_torch.core import sgd
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
+
+    if sparse_data:
+        m = problem[1]
+        n, d, k = m.shape[0], m.d, m.values.shape[1]
+    else:
+        (n, d), k = problem.X.shape, None
+    reps = getattr(strat, "replicas", 1)
+    per = n // reps
+    batch = (strat.batch or n) if isinstance(strat, sgd.SyncSGD) \
+        else strat.local_batch
+    if batch >= per:
+        return ({"glm_sparse": sparse_grad_ops.variant(d, k, reps)}
+                if sparse_data else
+                {"glm_grad": grad_ops.variant(d, "row")} if reps == 1 else
+                {"glm_sgd": sgd_ops.variant(d, batch, reps)})
+    return ({"glm_sgd_sparse": sparse_ops.variant(d, k, batch)} if sparse_data
+            else {"glm_sgd": sgd_ops.variant(d, batch, reps)})
+
+
+def path_line(family: str, kind: str) -> str:
+    """The kernels line's name of a family's variant."""
+    return STUDY_LINE.get((family, kind), f"{family}_{kind}")
+
+
+#: real-sim's Table 3 width stored dense, at the ``paper`` profile's
+#: 16,384-row cap (1.373 GB of fp32): ``SyncSGD()`` past the ring kernel's
+#: 1,024 features, on glm_grad's wide variant
+DENSE_WIDE = dict(n=PAPER_ROWS, d=20_958)
+#: ``SyncSGD()``'s full-batch step on it, over N (it multiplies the sum
+#: gradient): X^T X / N of unit-normal rows peaks near (1 + sqrt(d / N))^2
+#: = 4.54, so the mean-gradient step 0.5 stays under the LR loss's 1 / L
+DENSE_WIDE_STEP = 0.5
+
+
+def dense_wide_dataset(dev, n: int = DENSE_WIDE["n"],
+                       d: int = DENSE_WIDE["d"], seed: int = 0):
+    """``(X, y)``: ``n`` unit-normal rows of ``d`` features drawn on the
+    card from a seeded generator, labels planted as
+    ``synthetic.make_dense`` plants them (the sign of X w* with w* ~ N(0,
+    1), 5% flipped); a host draw of 343 M normals would take a minute."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn(n, d, device=dev, generator=g)
+    w_star = torch.randn(d, device=dev, generator=g)
+    y = torch.where(X @ w_star >= 0, 1.0, -1.0)
+    y[torch.rand(n, device=dev, generator=g) < 0.05] *= -1.0
+    return X, y
+
+
+def dense_wide_path(X, y):
+    """``SyncSGD()`` on the dense wide set (or its first rows), as
+    ``main_path``'s entries: the full-batch step DENSE_WIDE_STEP / N."""
+    from repro_torch.core import glm, sgd
+
+    return [("dense wide", glm.GLMProblem("lr", X, y,
+                                          DENSE_WIDE_STEP / X.shape[0]),
+             sgd.SyncSGD(), False)]
+
+
+#: the rows phase parity cuts the main paths' datasets to
+PARITY_ROWS = 4_100
 
 
 def falling(losses: np.ndarray) -> bool:
@@ -1568,41 +1790,53 @@ def falling(losses: np.ndarray) -> bool:
 TRAIN_KERNELS = ("glm_grad", "glm_sgd", "glm_sgd_sparse", "glm_sparse")
 
 
-def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
-    """The main path at full size; returns the phase line, the launches and
-    the runs' results."""
-    from repro_torch.core import convergence, sgd
+def train_runs(paths, epochs: int) -> tuple[list, list, dict]:
+    """Each of ``paths`` (``main_path``'s entries) through ``sgd.run``,
+    launch counts zeroed just before each run and read just after, by the
+    variant the run's shapes pick.  Returns the runs' lines, their results
+    and the launches by kernels-line name."""
+    from repro_torch.core import sgd
     from repro_torch.kernels import common
-    from repro_torch.kernels.glm_grad import ops as grad_ops
-    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
-    from repro_torch.kernels.glm_sparse import ops as sparse_grad_ops
 
-    runs, results = [], []
-    common.reset_launches()
-    for data, problem, strat, sparse_data in main_path(covtype, w8a):
+    runs, results, launches = [], [], {}
+    for data, problem, strat, sparse_data in paths:
+        common.reset_launches()
         res = sgd.run(problem, strat, epochs, sparse_data=sparse_data)
+        variants = path_variants(problem, strat, sparse_data)
+        for family, kind in variants.items():
+            _count(launches, path_line(family, kind),
+                   common.LAUNCHES.get(family, 0))
         results.append(res)
         runs.append({"data": data, "strategy": res.strategy,
                      "n": (problem[1].shape if sparse_data else problem.X.shape)[0],
                      "step": problem[3], "losses": res.losses.tolist(),
                      "ms_per_epoch": res.time_per_epoch * 1e3,
                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
-                     "falling": falling(res.losses)})
-    launches = dict(common.LAUNCHES)
-    # the one sparse epoch shape of the path (w8a, AsyncLocalSGD r10 b10)
-    # runs glm_sgd_sparse's warp variant, its gradients (w8a at R = 1 and
-    # 10) glm_sparse's smem variant, and covtype's gradient glm_grad's ring
-    # variant, so each family's launches are that kernel's
-    ell = w8a[0]
-    k = ell.values.shape[1]
-    variants = {
-        "glm_sgd_sparse": sparse_ops.variant(ell.d, k, 10),
-        "glm_sparse": {sparse_grad_ops.variant(ell.d, k, r) for r in (1, 10)},
-        "glm_grad": grad_ops.variant(covtype[0].shape[1], "row")}
-    ok = all(r["falling"] for r in runs) and all(
-        launches[k] > 0 for k in TRAIN_KERNELS) and variants == {
-            "glm_sgd_sparse": "warp", "glm_sparse": {"smem"},
-            "glm_grad": "ring"}
+                     "variants": variants, "falling": falling(res.losses)})
+    return runs, results, launches
+
+
+def phase_train(covtype, w8a, epochs: int, dense_wide
+                ) -> tuple[dict, dict, list]:
+    """The main path at full size and ``SyncSGD()`` on the dense wide set
+    (``train_runs``: launch counts zeroed just before each run and read
+    just after, by the variant the run's shapes pick).  Returns the phase
+    line, the launches by kernels-line name and the runs' results."""
+    from repro_torch.core import convergence, sgd
+
+    paths = main_path(covtype, w8a) + dense_wide_path(*dense_wide)
+    runs, results, launches = train_runs(paths, epochs)
+    # every kernel of the path ran on the variant its shapes pick: covtype's
+    # gradient on glm_grad's ring variant, its B=16 and r8 b1 epochs on
+    # glm_sgd's warp variant, its B=1,024 and r10 full-partition epochs on
+    # the rows variant, the dense wide gradient on glm_grad's wide variant,
+    # w8a's sparse epoch on glm_sgd_sparse's warp variant and its gradients
+    # (R = 1 and 10) on glm_sparse's smem variant
+    want = {"glm_grad_ring", "glm_grad_wide", "glm_sgd", "glm_sgd_rows",
+            "glm_sgd_sparse_warp", "glm_sparse_smem"}
+    ok = all(r["falling"] for r in runs) and set(launches) == want and \
+        all(launches.values()) and [r["variants"] for r in runs[-3:]] == [
+            {"glm_sgd": "rows"}, {"glm_sgd": "rows"}, {"glm_grad": "wide"}]
     # the paper's statistical and end-to-end axes: epochs and time to 1% of
     # the lowest loss any strategy reached on the same dataset
     for data in {r["data"] for r in runs}:
@@ -1618,7 +1852,7 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
     # kernel of the path, the device time of the epoch from an event pair
     symbols = [n for k in TRAIN_KERNELS for v in KERNEL_SYMBOLS[k].values()
                for n in v]
-    for run, (_, problem, strat, sparse_data) in zip(runs, main_path(covtype, w8a)):
+    for run, (_, problem, strat, sparse_data) in zip(runs, paths):
         init, epoch_fn, _, _ = sgd.make_epoch_fn(problem, strat,
                                                   sparse_data=sparse_data)
         prof = device_profile(lambda: epoch_fn(init), 1)
@@ -1633,19 +1867,17 @@ def phase_train(covtype, w8a, epochs: int) -> tuple[dict, dict, list]:
             short_name(key): ms for key, (ms, _) in
             sorted(prof.items(), key=lambda kv: -kv[1][0])[:4]}
     return {"phase": "train", "epochs": epochs, "runs": runs,
-            "launches": launches,
-            "variants": {f: sorted(v) if isinstance(v, set) else v
-                         for f, v in variants.items()},
-            "ok": ok}, launches, results
+            "launches": launches, "ok": ok}, launches, results
 
 
-def phase_parity(covtype, w8a, n: int, epochs: int) -> dict:
-    """The same strategies at n rows: kernels vs plain versions on the card."""
+def phase_parity(paths, n: int, epochs: int) -> dict:
+    """The strategies of ``paths`` (``main_path``'s entries at ``n`` rows):
+    kernels vs plain versions on the card."""
     from repro_torch.core import sgd
     from repro_torch.kernels import common
 
     runs = []
-    for data, problem, strat, sparse_data in main_path(covtype, w8a, n):
+    for data, problem, strat, sparse_data in paths:
         kern = sgd.run(problem, strat, epochs, sparse_data=sparse_data)
         with common.plain_versions():
             plain = sgd.run(problem, strat, epochs, sparse_data=sparse_data)
@@ -1751,11 +1983,16 @@ STUDY_DRIVERS = ("table7_async", "table4_sync", "fig22_sync_vs_async")
 STUDY_DATASETS = ("covtype", "w8a", "real-sim")
 STUDY_STEPS = (1e-3, 1e-2, 1e-1)
 STUDY_EPOCHS = 12
+#: rows of each dataset of the ci profile in (a): its 2,048 cut to 1,024
+#: to hold the full call within its time (the plain pass took 129 s of
+#: 1,083 in PR 32's first full call); the claim checks pass at both
+STUDY_CI_ROWS = 1_024
 
 
 def _study_drivers(dev, plain: bool) -> tuple[dict, dict, dict]:
-    """The ci profile's drivers on a fresh runner with a store that records
-    every trial and a trial cache of the pass's own, empty at its start (as
+    """The ci profile's drivers, its datasets cut to STUDY_CI_ROWS rows, on a
+    fresh runner with a store that records every trial and a trial cache
+    of the pass's own, empty at its start (as
     the drivers run with one: Fig. 22's trials are Table 7's and Table 4's,
     so they run once a pass); returns the rows by driver, the store's
     trials and the wall seconds by driver."""
@@ -1766,15 +2003,21 @@ def _study_drivers(dev, plain: bool) -> tuple[dict, dict, dict]:
 
     store = StudyStore()            # never written: held in memory
     rows, seconds = {}, {}
-    with tempfile.TemporaryDirectory(prefix="study-cache-") as cache, \
-            common.plain_versions() if plain else contextlib.nullcontext():
-        bcommon.RUNNER = Runner(cache_dir=cache, store=store, device=dev)
-        for name in STUDY_DRIVERS:
-            t0 = time.perf_counter()
-            rows[name] = importlib.import_module(
-                f"repro_torch.benchmarks.{name}").run("ci")
-            torch.cuda.synchronize()
-            seconds[name] = time.perf_counter() - t0
+    profile = bcommon.PROFILES["ci"]
+    bcommon.PROFILES["ci"] = {**profile, "max_n": STUDY_CI_ROWS}
+    try:
+        with tempfile.TemporaryDirectory(prefix="study-cache-") as cache, \
+                common.plain_versions() if plain else \
+                contextlib.nullcontext():
+            bcommon.RUNNER = Runner(cache_dir=cache, store=store, device=dev)
+            for name in STUDY_DRIVERS:
+                t0 = time.perf_counter()
+                rows[name] = importlib.import_module(
+                    f"repro_torch.benchmarks.{name}").run("ci")
+                torch.cuda.synchronize()
+                seconds[name] = time.perf_counter() - t0
+    finally:
+        bcommon.PROFILES["ci"] = profile
     return rows, store.trials, seconds
 
 
@@ -1806,7 +2049,9 @@ def _study_variants(ds) -> dict[str, str]:
 
 #: kernel-line name of each (family, variant) phase study runs
 STUDY_LINE = {("glm_grad", "ring"): "glm_grad_ring",
+              ("glm_grad", "wide"): "glm_grad_wide",
               ("glm_sgd", "warp"): "glm_sgd",
+              ("glm_sgd", "rows"): "glm_sgd_rows",
               ("glm_sgd", "cluster"): "glm_sgd_cluster",
               ("glm_sgd", "grid"): "glm_sgd_grid",
               ("glm_sgd_sparse", "warp"): "glm_sgd_sparse_warp",
@@ -6076,11 +6321,193 @@ def wide_timing(row, news, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _again_in_turns(rows: list, ops, calls: list) -> None:
+    """The device times of the last ``len(calls)`` rows taken once more, in
+    the other order (A, B, then B, A), each call's variant forced on the
+    family's ``ops``: a row's device time is the mean of its two, so
+    neither kernel gains from running second.  ``calls``: ``(call, kind,
+    family, reps)`` in the rows' order."""
+    for timed, (call, kind, family, reps) in zip(rows[-1:-len(calls) - 1:-1],
+                                                 calls[::-1]):
+        with forced_variant(ops, kind):
+            again = kernel_device_time(call, reps,
+                                       KERNEL_SYMBOLS[family][kind])
+        timed["device_ms_runs"] = [timed["device_ms"], again["device_ms"]]
+        timed["device_ms"] = (timed["device_ms"] + again["device_ms"]) / 2
+        if "updates" in timed:
+            timed["device_us_per_update"] = \
+                timed["device_ms"] * 1e3 / timed["updates"]
+
+
+def dense_timing(row, rows: list, covtype, dev) -> None:
+    """The timing rows of this slice's dense shapes, each redesign beside
+    the kernel it replaced there, in turns (``_again_in_turns``): glm_sgd's
+    rows kernel beside the smem kernel at covtype's ``SyncSGD(batch=1024)``
+    epoch (the kernels line's row) and at mini-batch 4,096, and beside the
+    global kernel at ``AsyncLocalSGD(replicas=10, local_batch=58,101)``'s
+    replica epochs; glm_grad's wide kernel beside the row kernel at 2,003 x
+    60,000, at the dense wide set (16,384 x 20,958: the kernels line's row)
+    and at 16,384 x 2,048 (Fig. 25's widest point in the ``paper``
+    profile)."""
+    import repro_torch.kernels as K
+    from repro_torch.core import sgd
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+    from repro_torch.kernels.glm_grad.ref import glm_grad_ref
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+    from repro_torch.kernels.glm_sgd.ref import glm_sgd_epoch_ref
+
+    X, yd = covtype
+    n, d = X.shape
+    g = torch.Generator(device=dev).manual_seed(54)
+    w = torch.randn(d, device=dev, generator=g) * 0.1
+    step = COVTYPE_BATCH_STEP
+    parts = torch.from_numpy(sgd.partition_indices(n, 10)).to(dev).long()
+    Xp, yp = X[parts], yd[parts]
+    W = w[None] * torch.linspace(-1.0, 1.0, 10, device=dev)[:, None]
+    per = Xp.shape[1]
+    for label, Xe, ye, we, mb, other, line, reps in (
+            (f"covtype N={n} d={d} MB=1024 R=1", X[None], yd[None], w[None],
+             1024, "smem", "glm_sgd_rows", (5, 1)),
+            (f"covtype N={n} d={d} MB=4096 R=1", X[None], yd[None], w[None],
+             4096, "smem", None, (10, 1)),
+            (f"covtype R=10 per={per} d={d} MB={per}", Xp, yp, W, per,
+             "global", None, (20, 1))):
+        updates = -(-Xe.shape[1] // mb)
+
+        def plain(Xe=Xe, ye=ye, we=we, mb=mb):
+            return glm_sgd_epoch_ref("lr", we, Xe, ye, step, mb)
+
+        def call(Xe=Xe, ye=ye, we=we, mb=mb):
+            return K.glm_sgd_epoch("lr", we, Xe, ye, step=step,
+                                   micro_batch=mb)
+
+        calls = []
+        for kind, r in zip(("rows", other), reps):
+            with forced_variant(sgd_ops, kind):
+                row("glm_sgd", f"{label} {kind}", call, plain, r, 1,
+                    nbytes(Xe, ye, we, we),
+                    4.0 * Xe.numel() + 8.0 * ye.numel(), EPOCH_TOL,
+                    line=line if kind == "rows" else None, variant=kind,
+                    updates=updates)
+            rows[-1]["updates"] = updates
+            if kind == "rows":
+                rows[-1]["plan"] = list(sgd_ops.rows_plan(d, mb,
+                                                          Xe.shape[0]))
+            calls.append((call, kind, "glm_sgd", r))
+        _again_in_turns(rows, sgd_ops, calls)
+    del Xp, yp
+    torch.cuda.empty_cache()
+    for label, nw, dw, line in (
+            ("N=2003 d=60000", 2_003, 60_000, None),
+            (f"dense wide N={DENSE_WIDE['n']} d={DENSE_WIDE['d']}",
+             DENSE_WIDE["n"], DENSE_WIDE["d"], "glm_grad_wide"),
+            (f"Fig. 25 N={PAPER_ROWS} d=2048", PAPER_ROWS, 2_048, None)):
+        Xw, yw = dense_wide_dataset(dev, nw, dw, seed=dw)
+        ww = torch.randn(dw, device=dev, generator=g) * 0.01
+
+        def plain(Xw=Xw, yw=yw, ww=ww):
+            return glm_grad_ref("lr", ww, Xw, yw)
+
+        def call(Xw=Xw, yw=yw, ww=ww):
+            return K.glm_grad("lr", ww, Xw, yw)
+
+        calls = []
+        for kind in ("wide", "row"):
+            with forced_variant(grad_ops, kind):
+                row("glm_grad", f"{label} {kind}", call, plain, 20, 20,
+                    nbytes(Xw, yw, ww, ww), 4.0 * Xw.numel() + 8.0 * nw,
+                    GRAD_TOL, line=line if kind == "wide" else None,
+                    variant=kind)
+            if kind == "wide":
+                rows[-1]["plan"] = list(grad_ops.wide_plan(dw))
+            calls.append((call, kind, "glm_grad", 20))
+        _again_in_turns(rows, grad_ops, calls)
+        del Xw
+        torch.cuda.empty_cache()
+
+
+#: the shapes of ``wide_sweep``: (N, d) of ``dense_timing``'s wide rows
+WIDE_SWEEP_SHAPES = ((2_003, 60_000), (PAPER_ROWS, 20_958),
+                     (PAPER_ROWS, 2_048))
+
+
+def wide_sweep(dev) -> list[dict]:
+    """glm_grad's wide kernel at each of WIDE_SWEEP_SHAPES with every tile
+    its plan takes as given (``block_rows``: rows of a stage, one exchange
+    each), device ms and the clusters the card holds at once: what
+    WIDE_STAGE_BYTES is set from."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+
+    out = []
+    for n, d in WIDE_SWEEP_SHAPES:
+        X, y = dense_wide_dataset(dev, n, d, seed=d)
+        w = torch.full((d,), 0.01, device=dev)
+        cluster, slice_ = grad_ops.wide_plan(d)[:2]
+        for tile in range(1, grad_ops.WIDE_MAX_ROWS + 1):
+            plan = grad_ops.wide_plan(d, tile)
+            if plan[2] != tile:
+                continue
+            ms = kernel_device_time(
+                lambda: K.glm_grad("lr", w, X, y, block_rows=tile), 10,
+                KERNEL_SYMBOLS["glm_grad"]["wide"])["device_ms"]
+            out.append({"n": n, "d": d, "plan": list(plan),
+                        "clusters_at_once": grad_ops._wide_clusters(
+                            plan, dev.index or 0),
+                        "picked": plan == grad_ops.wide_plan(d),
+                        "device_ms": ms})
+        del X
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the micro-batches of ``rows_sweep`` (covtype's width): where the warp
+#: kernel's ring holds a batch (up to 522 rows at d = 54) the rows kernel
+#: runs beside it, past that beside the smem kernel
+SWEEP_BATCHES = (16, 32, 48, 64, 96, 128, 256, 512, 600, 1024, 4096)
+
+
+def rows_sweep(covtype) -> list[dict]:
+    """glm_sgd's rows kernel beside the kernel each covtype micro-batch of
+    SWEEP_BATCHES ran on before it (the warp kernel where its ring holds
+    the batch, else the smem kernel), one epoch each, device ms in turns
+    (A, B, B, A) and us an update: what ROWS_MIN_BATCH is set from."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.glm_sgd import ops as sgd_ops
+
+    X, yd = covtype
+    n, d = X.shape
+    w = torch.zeros(d, device=X.device)
+    out = []
+    for mb in SWEEP_BATCHES:
+        other = "warp" if sgd_ops.warp_plan(d, mb)[0] else "smem"
+
+        def call(mb=mb):
+            return K.glm_sgd_epoch("lr", w, X, yd, step=COVTYPE_BATCH_STEP,
+                                   micro_batch=mb)
+
+        times = {}
+        for kind in ("rows", other, other, "rows"):
+            with forced_variant(sgd_ops, kind):
+                ms = kernel_device_time(call, 2, KERNEL_SYMBOLS["glm_sgd"][
+                    kind])["device_ms"]
+            times.setdefault(kind, []).append(ms)
+        updates = -(-n // mb)
+        out.append({"micro_batch": mb, "updates": updates,
+                    "picked": sgd_ops.variant(d, mb),
+                    **{f"{kind}_device_ms": statistics.mean(t)
+                       for kind, t in times.items()},
+                    **{f"{kind}_us_per_update": statistics.mean(t) * 1e3
+                       / updates for kind, t in times.items()},
+                    "runs": times})
+    return out
+
+
 def phase_timing(covtype, w8a, news, realsim, worst: dict
                  ) -> tuple[list[dict], list[dict], dict]:
     """Each kernel and its plain version at the main path's shapes: one
     timed row per kernel and variant (glm_grad: covtype on the ring kernel
-    and on the two-pass row kernel it replaced, and d = 60,000; glm_score:
+    and on the two-pass row kernel it replaced; glm_score:
     the serving flushes' shapes (w8a at max_batch 128 and 32, real-sim at
     128), all of w8a and news' first 512 rows, on the flat kernel and on the
     group kernel it replaced, their device times taken twice in turns;
@@ -6094,8 +6521,9 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
     glm_sparse: w8a at R=1 and R=10 x 6,470 on the smem kernel, on the
     atomic kernel it replaced and on the hot kernel; flash_attn: decode over
     the serving run's 128 keys and a full 4096-key window, prefill, and an
-    fp32 call; ``wide_timing``'s rows; the kernels line takes the rows
-    marked ``line``), the decode wrapper's host us per call, a check of
+    fp32 call; ``wide_timing``'s and ``dense_timing``'s rows (glm_grad's
+    wide kernel past 1,024 features, glm_sgd's rows kernel past the warp
+    kernel's batches); the kernels line takes the rows marked ``line``), the decode wrapper's host us per call, a check of
     w8a's R=10 full-partition gradient, and the device time of a launch
     that does nothing (``torch.cuda._sleep(0)``)."""
     import repro_torch.kernels as K
@@ -6139,12 +6567,8 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
         lambda: glm_grad_ref("lr", w, X, yd), 20, 20,
         nbytes(X, yd, w) + 4 * d, 4.0 * n * d + 8.0 * n, GRAD_TOL,
         variant=grad_ops.variant(d, "col"))
-    # the row layout past the ring kernel and past w in shared memory
+    # (the row layout past the ring kernel: ``dense_timing``)
     Xw, yw, ww = _dense_inputs(rng, 2003, 60_000, X.device)
-    row("glm_grad", "N=2003 d=60000 row", lambda: K.glm_grad("lr", ww, Xw, yw),
-        lambda: glm_grad_ref("lr", ww, Xw, yw), 20, 20,
-        nbytes(Xw, yw, ww, ww), 4.0 * Xw.numel() + 8.0 * 2003, GRAD_TOL,
-        variant=grad_ops.variant(60_000, "row"))
     # d = 58,112 at micro-batch 10, 201 updates: the cluster kernel (16
     # blocks, each batch streamed twice in fills of 7 rows) and the global
     # kernel it replaced
@@ -6270,6 +6694,7 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
                     line=line, variant=kind, updates=vn.shape[1])
         del vn, i_n
     wide_timing(row, news, X.device)
+    dense_timing(row, rows, covtype, X.device)
 
     # the serving path: glm_score at the flushes' shapes (w8a at max_batch
     # 128, the kernels line's row, and 32; real-sim at 128), on all of w8a
@@ -6425,10 +6850,11 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
-                    ["--mesh"], ["--attn-fwd"], ["--attn-bwd"], ["--wide"]):
+                    ["--mesh"], ["--attn-fwd"], ["--attn-bwd"], ["--wide"],
+                    ["--dense"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
-              "--lm-families | --mesh | --attn-fwd | --attn-bwd | --wide]",
-              file=sys.stderr)
+              "--lm-families | --mesh | --attn-fwd | --attn-bwd | --wide | "
+              "--dense]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -6450,6 +6876,8 @@ def main(argv: list[str]) -> int:
             return run_attn_bwd()
         if argv == ["--wide"]:
             return run_wide()
+        if argv == ["--dense"]:
+            return run_dense()
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
@@ -6490,6 +6918,58 @@ def run_wide() -> int:
         r["launches"] = launches.get(r["line"]) if r["line"] else None
         r["study_launches"] = paper_launches.get(r["line"])
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
+          "seconds_total": time.perf_counter() - t_start})
+    ok = ok and all(r["ok"] for r in rows)
+    print(smi, flush=True)
+    return 0 if ok else 1
+
+
+def run_dense() -> int:
+    """``python3 chip_smoke.py --dense``: the env and build phases, then the
+    dense paths past the Hopper designs' first shapes alone:
+    ``dense_kernel_checks``, covtype's two paths past the warp kernel's
+    ring and ``SyncSGD()`` on the dense wide set at full size (phase
+    train's runs, launch counts read around each), the three at
+    PARITY_ROWS rows against the plain versions (phase parity's),
+    ``dense_timing``'s rows and ``rows_sweep``, the card's name and power
+    limit last."""
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    cases, worst = dense_kernel_checks(dev)
+    ok = all(c["ok"] for c in cases)
+    emit({"phase": "kernels", "cases": cases, "ok": ok})
+    cov = synthetic.paper_dataset("covtype", seed=0, device=dev)
+    X, yd = cov.X, cov.y
+    dense_wide = dense_wide_dataset(dev)
+    runs, _, launches = train_runs(dense_batch_paths(X, yd)
+                                   + dense_wide_path(*dense_wide), 4)
+    train_ok = all(r["falling"] for r in runs) and [
+        r["variants"] for r in runs] == [{"glm_sgd": "rows"}] * 2 + [
+        {"glm_grad": "wide"}] and all(launches.values())
+    emit({"phase": "train", "runs": runs, "launches": launches,
+          "ok": train_ok})
+    line = phase_parity(dense_batch_paths(X[:PARITY_ROWS], yd[:PARITY_ROWS])
+                        + dense_wide_path(*(t[:PARITY_ROWS]
+                                            for t in dense_wide)),
+                        PARITY_ROWS, epochs=3)
+    del dense_wide
+    torch.cuda.empty_cache()
+    emit(line)
+    ok = ok and train_ok and line["ok"]
+    rows = []
+    dense_timing(make_row(rows, worst), rows, (X, yd), dev)
+    for r in rows:
+        r["launches"] = launches.get(r["line"]) if r["line"] else None
+    emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
+          "sweep": rows_sweep((X, yd)), "wide_sweep": wide_sweep(dev),
           "seconds_total": time.perf_counter() - t_start})
     ok = ok and all(r["ok"] for r in rows)
     print(smi, flush=True)
@@ -6579,18 +7059,20 @@ def run(scratch: Path) -> int:
           "covtype": list(cov.X.shape), "w8a": [w8.n, w8.d, w8.ell.max_nnz],
           "w8a_nnz": int((w8.ell.values != 0).sum())})
 
-    line, launches, results = phase_train(covtype, w8a, epochs=4)
+    dense_wide = dense_wide_dataset(dev)
+    line, launches, results = phase_train(covtype, w8a, 4, dense_wide)
     emit(line)
     if not line["ok"]:
         return 1
-    launches = {"glm_grad_ring": launches["glm_grad"],
-                "glm_sgd": launches["glm_sgd"],
-                "glm_sgd_sparse_warp": launches["glm_sgd_sparse"],
-                "glm_sparse_smem": launches["glm_sparse"]}
-    line = phase_parity(covtype, w8a, n=4100, epochs=3)
+    line = phase_parity(main_path(covtype, w8a, PARITY_ROWS)
+                        + dense_wide_path(*(t[:PARITY_ROWS]
+                                            for t in dense_wide)),
+                        PARITY_ROWS, epochs=3)
     emit(line)
     if not line["ok"]:
         return 1
+    del dense_wide
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     news = news_dataset(dev)

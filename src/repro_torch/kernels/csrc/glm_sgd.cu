@@ -11,11 +11,12 @@
 //   at MB=16: 36,314 steps on one SM; the bytes alone, 125.5 MB of X, would
 //   take about 38 us at 3.35 TB/s).  The time per update is the target.
 //
-// Five kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch,
+// Six kernels, chosen by kernels/glm_sgd/ops.py:variant(d, micro_batch,
 // replicas, SMs); the wrapper passes the warp kernel's ring as `stages` and
 // `group` (ops.py:warp_plan), and stages = 0 for the shared-memory kernel;
-// the cluster, grid and global-memory kernels have their own entry points
-// (glm_sgd_epoch_cluster, glm_sgd_epoch_grid, glm_sgd_epoch_global):
+// the rows, cluster, grid and global-memory kernels have their own entry
+// points (glm_sgd_epoch_rows, glm_sgd_epoch_cluster, glm_sgd_epoch_grid,
+// glm_sgd_epoch_global):
 //
 // glm_sgd_warp_kernel (d <= WARP_MAX_D = 1024, and a ring of at least two
 //   stages fits in shared memory).  The chain is one warp's alone:
@@ -44,6 +45,42 @@
 //   d * 4-byte offsets, not 16-byte aligned in general: covtype's 216);
 //   overlapping the next batch's pull with this batch's update.  The ring
 //   (ring.cuh) is shared with glm_sgd_sparse's warp kernel.
+//
+// glm_sgd_rows_kernel (d <= WARP_MAX_D where the warp kernel's ring does
+//   not fit a batch, or from ops.py:ROWS_MIN_BATCH = 48 rows a batch:
+//   SyncSGD(batch=1024) and AsyncLocalSGD's full-partition batches on
+//   covtype).  The first port ran these on one block of one SM, its update
+//   pass busying d of 256 threads, each walking the batch's rows from
+//   global memory, X read twice (126 ms a covtype epoch at B=1,024, 222 us
+//   an update), or, past shared memory, on the global kernel (40.5 ms for
+//   10 replicas of 58,101 rows).  Bound by bytes where a batch is long
+//   (one update a replica: 125.5 MB, 38 us), else by the update's chain of
+//   latencies.  Here:
+//   - a replica is a thread-block cluster of `cluster` blocks (grid
+//     R x cluster, ops.py:rows_plan: up to 16, a power of two, no more than
+//     the SMs a replica's share of the card allows); each batch's rows are
+//     split over the cluster in contiguous runs, and every block holds the
+//     whole model in the lanes of each of its 8 chain warps, as the warp
+//     kernel's chain warp does;
+//   - 4 copy warps keep a ring of the block's next rows as they lie in
+//     memory (16-byte cp.async, ring.cuh; covtype's 216-byte rows start at
+//     4-byte offsets, so no TMA), a run longer than a fill streamed through
+//     it;
+//   - each chain warp takes tiles of RB rows of a fill: their margins (the
+//     warp kernel's transposed butterfly), pulls, and x_i * pull_i into a
+//     partial gradient in registers from the values the margins read, so
+//     X leaves HBM once; the partial stays in registers across a run's
+//     fills;
+//   - once a batch: the warps' partials summed in warp order, the block's
+//     stored into every peer's slot of the batch's parity with st.async
+//     (16 bytes a store), and each block sums the slots in rank order and
+//     applies the same update bit for bit (one exchange barrier a batch,
+//     slots double-buffered by parity, as the cluster kernel's);
+//   - a final barrier.cluster: no block leaves while a peer may still
+//     write into its shared memory.
+//   What it leaves for later: the update is a chain of latencies (a chain
+//   barrier, a round trip through distributed shared memory, a second
+//   chain barrier) each batch.
 //
 // glm_sgd_cluster_kernel (WARP_MAX_D < d <= 16 x 4,096 = 65,536, any
 //   micro-batch: ops.py:cluster_plan).  A replica's model is split over a
@@ -127,17 +164,18 @@
 //   the slots); the chain re-reads X from shared memory for the update.
 //
 // glm_sgd_kernel (the first port; d + micro_batch floats within a block's
-//   shared memory): what is left of it is d <= WARP_MAX_D with batches too
-//   long for the warp kernel's ring.  One block of 256 threads per
+//   shared memory): since the rows kernel took d <= WARP_MAX_D's batches
+//   past the warp kernel's ring, no shape picks it; it stays as the rows
+//   kernel's predecessor, timed beside it.  One block of 256 threads per
 //   replica, the model in dynamic shared memory; per micro-batch a warp per
 //   row computes the margin with a shuffle sum and writes the pull into
 //   shared memory; after a barrier each thread updates its features with
 //   the tile's X^T pull.
 //
 // glm_sgd_global_kernel (what the others refuse: a wide model past the grid
-//   plan, such as many replicas past 65,536 features, or a batch past
-//   shared memory at d <= WARP_MAX_D): glm_sgd_kernel's loop with the
-//   replica's model left in the output tensor in global memory.  A row's
+//   plan, such as many replicas past 65,536 features): glm_sgd_kernel's
+//   loop with the replica's model left in the output tensor in global
+//   memory.  A row's
 //   margin is split over the whole block (a thread per feature), summed
 //   with shuffles and then across the warps in warp order; the batch's
 //   pulls go to a global scratch the wrapper allocates (a batch may hold
@@ -147,14 +185,14 @@
 //   L1-bypassing __ldcg / __stcg (L1 is not coherent), and __syncthreads
 //   orders the passes.
 //
-// All: one block (a cluster for glm_sgd_cluster_kernel, `blocks` for
-//   glm_sgd_grid_kernel) per replica (R = 1 for SyncSGD), fp32 throughout, no fast math (the LR pull's expf over 36k updates); a ragged
+// All: one block (a cluster for glm_sgd_rows_kernel and
+//   glm_sgd_cluster_kernel, `blocks` for glm_sgd_grid_kernel) per replica (R = 1 for SyncSGD), fp32 throughout, no fast math (the LR pull's expf over 36k updates); a ragged
 //   tail is one final smaller batch at its own scale alpha/|tail|
 //   (glm_sgd/ref.py); the step arrives as a runtime float (scale = alpha/MB
 //   computed by the caller).
 #include <cstdint>
 
-#include "ring.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -495,51 +533,6 @@ constexpr int kClusterThreads = kChainThreads + 32 * kClusterCopyWarps;
 constexpr int kChunkRows = 32;  // most rows a fill (and an exchange) holds
 constexpr int kMaxCluster = 16;
 
-// The address of `p`'s twin in the shared memory of block `rank` of the
-// cluster (a shared::cluster address).
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(smem_u32(p)), "r"(rank));
-  return out;
-}
-
-// Store v at a shared::cluster address of a peer block and count its 4
-// bytes on the peer's mbarrier at `bar` (complete_tx): the peer sees the
-// value once that barrier's phase completes, with no fence on either side.
-__device__ __forceinline__ void peer_store(uint32_t addr, float v,
-                                           uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-// This thread's arrival on a local mbarrier, and `bytes` more that the
-// phase waits for (expect_tx).
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
 // The chain warps' barrier (the copy warps do not take part).
 __device__ __forceinline__ void chain_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kChainThreads) : "memory");
@@ -782,38 +775,10 @@ int launch_cluster(const float* X, const float* y, float* W, float* P, int R,
                    int n, int d, int mb, int task, float scale,
                    float tail_scale, int cluster, int slice, int stages,
                    int crows, cudaStream_t stream) {
-  auto kernel = glm_sgd_cluster_kernel<V, RB>;
-  const size_t smem = cluster_smem_bytes(cluster, slice, stages, crows);
-  cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(R * cluster);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (cluster > 8) {
-    // past the portable 8 blocks: allowed per kernel, and a cluster that
-    // asks this much shared memory of each SM must still find its SMs
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // (the code the runtime gives a cluster it cannot place)
-    if (clusters < 1) return static_cast<int>(cudaErrorInvalidClusterSize);
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, X, y, W, P, n, d, mb, task, scale,
-                           tail_scale, cluster, slice, stages, crows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_clustered(
+      glm_sgd_cluster_kernel<V, RB>, R * cluster, kClusterThreads, cluster,
+      cluster_smem_bytes(cluster, slice, stages, crows), stream, X, y, W, P,
+      n, d, mb, task, scale, tail_scale, cluster, slice, stages, crows));
 }
 
 // RB: the smallest power of two >= a fill's rows, at most 64 / V, so a
@@ -831,6 +796,267 @@ int cluster_rows(const float* X, const float* y, float* W, float* P, int R,
   }
   return launch_cluster<V, RB>(X, y, W, P, R, n, d, mb, task, scale,
                                tail_scale, cluster, slice, stages, crows, s);
+}
+
+// ---------------------------------------------------------------------------
+// The rows kernel: one replica's micro-batches split by rows over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsChainWarps = 8;
+constexpr int kRowsChainThreads = 32 * kRowsChainWarps;
+constexpr int kRowsCopyWarps = 4;
+constexpr int kRowsThreads = kRowsChainThreads + 32 * kRowsCopyWarps;
+constexpr int kRowsMaxCluster = 16;
+constexpr int kRowsTileValues = 32;  // RB x C values a lane keeps of a tile
+static_assert(kRowsChainThreads == kChainThreads, "chain_sync's count");
+
+// The rows a block takes of a batch and the fills they stream in: batch
+// b's `batch_rows` rows are split over the cluster in contiguous runs,
+// block `rank` taking [rank * rows / cluster, (rank + 1) * rows / cluster)
+// (a run may be empty when a ragged tail is shorter than the cluster), and
+// a run is streamed in fills of at most `frows` rows, at least one fill a
+// batch.  The chain walks the fills one by one, a copy warp every
+// `copiers`-th (next() that many times).  kernels/glm_sgd/ops.py:rows_split
+// computes the same runs.
+struct RowsWalk {
+  int n, mb, cluster, rank, frows;
+  int batch_start, batch_rows;  // the batch
+  int lo, run;                  // this block's run of it
+  int f, fills;                 // the fill of the run, and their number
+
+  __device__ __forceinline__ RowsWalk(int n_, int mb_, int cluster_,
+                                      int rank_, int frows_)
+      : n(n_), mb(mb_), cluster(cluster_), rank(rank_), frows(frows_) {
+    batch(0);
+  }
+  __device__ __forceinline__ void batch(int start) {
+    batch_start = start;
+    batch_rows = min(mb, n - start);
+    lo = rank * batch_rows / cluster;
+    run = (rank + 1) * batch_rows / cluster - lo;
+    f = 0;
+    fills = max(1, (run + frows - 1) / frows);
+  }
+  __device__ __forceinline__ bool done() const { return batch_start >= n; }
+  __device__ __forceinline__ int start() const {
+    return batch_start + lo + f * frows;
+  }
+  __device__ __forceinline__ int rows() const {
+    return min(frows, run - f * frows);
+  }
+  __device__ __forceinline__ bool last() const { return f == fills - 1; }
+  __device__ __forceinline__ void next() {
+    if (++f == fills) batch(batch_start + batch_rows);
+  }
+};
+
+// Shared memory of a rows block (kernels/glm_sgd/ops.py:rows_smem_bytes
+// computes the same layout): [2 * stages + 2 mbarriers][the chain warps'
+// partial gradients, 8 x 32 C][the gradient, pad4(d)][the exchange slots
+// of both parities, 2 x cluster x pad4(d)][stages x stage_floats(C, d,
+// frows): the warp kernel's stage, `frows` rows as they lie in memory, 32 C
+// floats of slack, the labels]
+size_t rows_smem_bytes(int C, int d, int cluster, int stages, int frows) {
+  return 16 * static_cast<size_t>(stages + 1) +
+         4 * static_cast<size_t>(kRowsChainWarps * 32 * C +
+                                 (1 + 2 * cluster) * pad4(d)) +
+         4 * static_cast<size_t>(stages) * stage_floats(C, d, frows);
+}
+
+// C: model values a lane holds (feature j on lane j % 32, as the warp
+// kernel); RB: rows a chain warp takes of a fill at once, RB * C <=
+// kRowsTileValues.
+template <int C, int RB>
+__global__ void __launch_bounds__(kRowsThreads, 1)
+glm_sgd_rows_kernel(const float* __restrict__ X,  // [R, n, d]
+                    const float* __restrict__ y,  // [R, n]
+                    float* __restrict__ W,        // [R, d] in/out
+                    int n, int d, int mb, int task, float scale,
+                    float tail_scale, int cluster, int frows, int stages) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);  // [stages]
+  uint64_t* empty = full + stages;                     // [stages]
+  uint64_t* xbar = empty + stages;                     // [2] exchanges
+  float* red = reinterpret_cast<float*>(xbar + 2);     // [8][32 C]
+  const int dp = pad4(d);
+  float* gs = red + kRowsChainWarps * 32 * C;  // [dp]
+  float* slots = gs + dp;                      // [2][cluster][dp]
+  float* ring = slots + 2 * cluster * dp;      // [stages][stage_floats]
+  const int sf = stage_floats(C, d, frows), xf = x_floats(C, d, frows);
+
+  const int rank = static_cast<int>(cluster_rank());
+  const int r = blockIdx.x / cluster;
+  const float* Xr = X + static_cast<size_t>(r) * n * d;
+  const float* yr = y + static_cast<size_t>(r) * n;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 32);  // one copy warp fills a stage
+      mbar_init(&empty[s], kRowsChainWarps);
+    }
+    mbar_init(&xbar[0], 1);  // the block's own arrival, and the peers'
+    mbar_init(&xbar[1], 1);  // bytes (expect_tx / complete_tx)
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // what a lane past d may read before any copy wrote it is finite
+  for (int e = threadIdx.x; e < stages * sf; e += kRowsThreads) ring[e] = 0.0f;
+  cluster_sync();  // no peer arrives on a barrier before it is made
+
+  if (warp >= kRowsChainWarps) {
+    // copy warp cw fills f = cw, cw + copiers, ... into stage f % stages
+    // once the chain has released the stage's previous fill; no more copy
+    // warps than stages (a parity wait tells apart only adjacent phases)
+    const int copiers = min(kRowsCopyWarps, stages);
+    const int cw = warp - kRowsChainWarps;
+    RowsWalk walk(n, mb, cluster, rank, frows);
+    for (int k = 0; k < cw; ++k) walk.next();
+    for (int f = cw; cw < copiers && !walk.done(); f += copiers) {
+      const int s = f % stages, use = f / stages;
+      if (use > 0) mbar_wait_or_trap(&empty[s], (use - 1) & 1);
+      const int start = walk.start(), rows = walk.rows();
+      const float* src = Xr + static_cast<size_t>(start) * d;
+      copy_words(reinterpret_cast<uint32_t*>(ring + s * sf + misalign(src)),
+                 reinterpret_cast<const uint32_t*>(src), rows * d, lane);
+      float* ys = ring + s * sf + xf;
+      for (int e = lane; e < rows; e += 32) copy4(ys + e, yr + start + e);
+      // with no copies (an empty run) the arrival is at once
+      mbar_arrive_on_copies(&full[s]);
+      for (int k = 0; k < copiers; ++k) walk.next();
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    // a chain warp: the whole model in its lanes' registers (every chain
+    // warp of every block of the cluster holds the same values), the
+    // partial gradient of its rows of the batch beside it
+    constexpr int kShift = 5 - log2i(RB);
+    const int t = threadIdx.x;
+    float w[C], g[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = c * 32 + lane;
+      w[c] = j < d ? Wr[j] : 0.0f;
+      g[c] = 0.0f;
+    }
+    int s = 0;            // stage of the fill
+    uint32_t parity = 0;  // of that fill: flips each lap of the ring
+    int xe = 0;           // exchanges so far
+    for (RowsWalk walk(n, mb, cluster, rank, frows); !walk.done();
+         walk.next()) {
+      mbar_wait_or_trap(&full[s], parity);
+      const int start = walk.start(), rows = walk.rows();
+      const float* xs = ring + s * sf +
+                        misalign(Xr + static_cast<size_t>(start) * d) + lane;
+      const float* ys = ring + s * sf + xf;
+      // the fill's rows in tiles of RB, tile k to warp k % 8: their
+      // margins against the batch's model (pulls(): a transposed
+      // butterfly, rows past the fill with pull 0), then x_i * pull_i into
+      // the partial gradient from the values the margins read
+      for (int r0 = warp * RB; r0 < rows; r0 += kRowsChainWarps * RB) {
+        float xr[RB][C];
+        const float p = pulls<C, RB>(xs, ys, w, xr, r0, rows, d, lane, task);
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const float pi =
+              RB == 1 ? p : __shfl_sync(kFullMask, p, i << kShift);
+#pragma unroll
+          for (int c = 0; c < C; ++c) g[c] = fmaf(xr[i][c], pi, g[c]);
+        }
+      }
+      __syncwarp();  // every lane has read the stage
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == stages) {
+        s = 0;
+        parity ^= 1;
+      }
+      if (!walk.last()) continue;
+
+      // The batch's update.  The chain warps' partial gradients into
+      // shared memory; after a chain barrier thread t adds features 4t ..
+      // 4t + 3 over the warps in warp order and stores the block's four
+      // into slot [parity][rank] of every block of the cluster with
+      // st.async, which counts their bytes on that block's exchange barrier
+      // of the batch's parity; thread 0 arrives on this block's own,
+      // expecting every block's pad4(d) floats.  After the wait each
+      // feature's gradient is the blocks' partials in rank order, so every
+      // block computes the same bits and applies the same update: the
+      // blocks' models stay one, and an epoch gives the same bits on every
+      // call.  Slots of parity p are written again two exchanges later,
+      // which a block reaches only after every peer's stores of the
+      // exchange between, each stored after that peer summed its slots of
+      // this one (the cluster kernel's argument).
+#pragma unroll
+      for (int c = 0; c < C; ++c) red[warp * 32 * C + c * 32 + lane] = g[c];
+      chain_sync();
+      const int xp = xe & 1;
+      float* got = slots + xp * cluster * dp;
+      for (int v = t; 4 * v < dp; v += kRowsChainThreads) {
+        float sum[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * v + e;
+          float a = 0.0f;
+          for (int q = 0; q < kRowsChainWarps; ++q) a += red[q * 32 * C + j];
+          sum[e] = j < d ? a : 0.0f;
+        }
+        const float4 mine = make_float4(sum[0], sum[1], sum[2], sum[3]);
+        for (int q = 0; q < cluster; ++q)
+          peer_store4(peer_addr(got + rank * dp + 4 * v, q), mine,
+                      peer_addr(&xbar[xp], q));
+      }
+      if (t == 0) mbar_expect(&xbar[xp], 4 * cluster * dp);
+      mbar_wait_or_trap(&xbar[xp], (xe >> 1) & 1);
+      for (int j = t; j < d; j += kRowsChainThreads) {
+        float a = 0.0f;
+        for (int q = 0; q < cluster; ++q) a += got[q * dp + j];
+        gs[j] = a;
+      }
+      chain_sync();  // the gradient is in (and red is read)
+      const float step = walk.batch_rows == mb ? scale : tail_scale;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = c * 32 + lane;
+        w[c] = j < d ? w[c] - step * gs[j] : 0.0f;
+        g[c] = 0.0f;
+      }
+      ++xe;
+    }
+    if (rank == 0 && warp == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = c * 32 + lane;
+        if (j < d) Wr[j] = w[c];
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while a peer may write to its memory
+}
+
+template <int C, int RB>
+int launch_rows(const float* X, const float* y, float* W, int R, int n, int d,
+                int mb, int task, float scale, float tail_scale, int cluster,
+                int frows, int stages, cudaStream_t stream) {
+  return static_cast<int>(launch_clustered(
+      glm_sgd_rows_kernel<C, RB>, R * cluster, kRowsThreads, cluster,
+      rows_smem_bytes(C, d, cluster, stages, frows), stream, X, y, W, n, d,
+      mb, task, scale, tail_scale, cluster, frows, stages));
+}
+
+// RB: the plan's rows a tile (a power of two, RB * C <= kRowsTileValues)
+template <int C, int RB = (kRowsTileValues / C < 32 ? kRowsTileValues / C : 32)>
+int rows_by_tile(const float* X, const float* y, float* W, int R, int n,
+                 int d, int mb, int task, float scale, float tail_scale,
+                 int cluster, int rb, int frows, int stages, cudaStream_t s) {
+  if constexpr (RB > 1) {
+    if (rb <= RB / 2)
+      return rows_by_tile<C, RB / 2>(X, y, W, R, n, d, mb, task, scale,
+                                     tail_scale, cluster, rb, frows, stages,
+                                     s);
+  }
+  if (rb != RB) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<C, RB>(X, y, W, R, n, d, mb, task, scale, tail_scale,
+                            cluster, frows, stages, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1200,6 +1426,38 @@ extern "C" int glm_sgd_epoch_grid(const void* X, const void* y, void* W,
   REPRO_GRID_CASE(16)
   REPRO_GRID_CASE(24)
 #undef REPRO_GRID_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// glm_sgd_rows_kernel: a cluster of `cluster` blocks per replica, each
+// batch's rows split over it in runs, streamed in fills of at most `frows`
+// rows through `stages` stages, `rb` rows a chain warp's tile
+// (kernels/glm_sgd/ops.py:rows_plan checks that it fits).  X, y contiguous
+// fp32 [R, n, d] and [R, n], d <= 1,024; W [R, d] updated in place.
+extern "C" int glm_sgd_epoch_rows(const void* X, const void* y, void* W,
+                                  int R, int n, int d, int mb, int task,
+                                  float scale, float tail_scale, int cluster,
+                                  int rb, int frows, int stages,
+                                  void* stream) {
+  if (d < 1 || d > 32 * 32 || cluster < 1 || cluster > kRowsMaxCluster ||
+      stages < 2 || frows < 1 || rb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* Xf = static_cast<const float*>(X);
+  const auto* yf = static_cast<const float*>(y);
+  auto* Wf = static_cast<float*>(W);
+  const int cn = (d + 31) / 32;
+#define REPRO_ROWS_CASE(c)                                                   \
+  if (cn <= c)                                                               \
+    return rows_by_tile<c>(Xf, yf, Wf, R, n, d, mb, task, scale, tail_scale, \
+                           cluster, rb, frows, stages, s);
+  REPRO_ROWS_CASE(1)
+  REPRO_ROWS_CASE(2)
+  REPRO_ROWS_CASE(4)
+  REPRO_ROWS_CASE(8)
+  REPRO_ROWS_CASE(16)
+  REPRO_ROWS_CASE(32)
+#undef REPRO_ROWS_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

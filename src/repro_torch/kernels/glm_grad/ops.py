@@ -10,9 +10,17 @@ sums and a second launch that reduces them in a fixed order.
   shared-memory stages that a copy warp fills with ``cp.async``; margins
   and partials both read the staged tile, so X leaves HBM once, and each
   block writes one partial row (:func:`ring_plan` sizes the tiles);
-* ``"row"`` (``glm_grad_row_kernel``, the first port), the row layout at
-  any wider d: a block per tile of up to 256 rows (:func:`row_tile`),
-  which it reads twice;
+* ``"wide"`` (``glm_grad_wide_kernel``), the row layout past RING_MAX_D
+  up to :data:`WIDE_MAX_CLUSTER` x 4,096 features (:func:`wide_plan`): a
+  thread-block cluster splits the features, each block streaming its slice
+  of the rows through a ring; a tile's partial margins are summed across
+  the cluster through distributed shared memory while the chain finishes
+  the tile before, and the same staged rows feed the gradient, so X leaves
+  HBM once; each cluster writes one partial row, which a second launch
+  adds a thread a feature;
+* ``"row"`` (``glm_grad_row_kernel``, the first port), the row layout past
+  that: a block per tile of up to 256 rows (:func:`row_tile`), which it
+  reads twice;
 * ``"col"`` (``glm_grad_col_kernel``): a warp per 32 examples of the
   materialised ``[d, N]`` transpose.
 
@@ -46,13 +54,103 @@ RING_BLOCKS_PER_SM = 3
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+#: threads of a wide block that hold the block's slice (4 copy warps
+#: beside), most features each, and most blocks a cluster
+WIDE_CHAIN_THREADS = 256
+WIDE_MAX_VALUES = 16
+WIDE_MAX_CLUSTER = 16
+#: the wide kernel's widest model
+WIDE_MAX_D = WIDE_MAX_CLUSTER * WIDE_CHAIN_THREADS * WIDE_MAX_VALUES
+#: a wide stage's most rows (one exchange), and the ring's fewest and most
+#: stages: the chain holds two stages at once (it sums a tile's margins
+#: while the next tile's exchange is in flight), so a third lets the copy
+#: warps run ahead.  ``chip_smoke.py --dense``'s sweep of every tile found
+#: the most rows with three stages fastest at 60,000 and 20,958 features
+#: (4 and 7 rows) and a two-stage ring 1.4-1.9x slower; past 8 rows a
+#: tile's butterflies carry 16 rows (PERF.md, PR 32)
+WIDE_MAX_ROWS = 8
+WIDE_MIN_STAGES = 3
+WIDE_MAX_STAGES = 8
+
+
 def variant(d: int, layout: str) -> str:
     """The kernel that runs ``(d, layout)``: ``"ring"`` for the row layout
-    up to RING_MAX_D, ``"row"`` for it past that, ``"col"`` for the col
-    layout."""
+    up to RING_MAX_D, ``"wide"`` past that up to WIDE_MAX_D, ``"row"``
+    past that, ``"col"`` for the col layout."""
     if layout == "col":
         return "col"
-    return "ring" if d <= RING_MAX_D else "row"
+    if d <= RING_MAX_D:
+        return "ring"
+    return "wide" if d <= WIDE_MAX_D else "row"
+
+
+#: exchanges a wide block keeps in flight (slot buffers and their barriers)
+WIDE_SLOTS = 4
+
+
+def wide_smem_bytes(cluster: int, slice_: int, stages: int, tile: int) -> int:
+    """Shared memory of one ``"wide"`` block (csrc/glm_grad.cu lays it out
+    the same way): two mbarriers a stage and one a slot buffer, the
+    WIDE_SLOTS slot buffers (a tile's rows from each chain warp of each
+    block of the cluster), and ``stages`` stages of ``tile`` rows of the
+    block's slice (each after up to 3 floats of alignment) and their
+    labels."""
+    pad = common.padded
+    return (8 * (2 * stages + WIDE_SLOTS) + 4 * WIDE_SLOTS * cluster * 8 * tile
+            + 4 * stages * (tile * pad(slice_ + 3, 4) + pad(tile, 4)))
+
+
+def _wide_stages(cluster: int, slice_: int, tile: int) -> int:
+    """Stages of ``tile`` rows that fit beside the rest (0 below
+    WIDE_MIN_STAGES)."""
+    return next((s for s in range(WIDE_MAX_STAGES, WIDE_MIN_STAGES - 1, -1)
+                 if wide_smem_bytes(cluster, slice_, s, tile)
+                 <= common.MAX_SMEM_BYTES), 0)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(d: int, tile: int | None = None) -> tuple[int, int, int, int]:
+    """The wide kernel's ``(cluster, slice, T, stages)``: block ``b`` of a
+    cluster owns features ``[b * slice, (b + 1) * slice)`` (every block at
+    least one), the cluster the smallest power of two of blocks whose
+    slices take at most WIDE_MAX_VALUES features a chain thread (a power of
+    two packs the card's GPCs); tiles of T rows (``tile``, else the most,
+    up to WIDE_MAX_ROWS, that leave WIDE_MIN_STAGES stages) through the
+    most stages that fit, fewer rows where ``tile``'s do not fit.
+    ``(0, 0, 0, 0)`` past WIDE_MAX_D."""
+    cluster = 1
+    while -(-d // cluster) > WIDE_CHAIN_THREADS * WIDE_MAX_VALUES:
+        cluster *= 2
+        if cluster > WIDE_MAX_CLUSTER:
+            return 0, 0, 0, 0
+    slice_ = -(-d // cluster)
+    tile = next((t for t in range(min(tile or WIDE_MAX_ROWS, WIDE_MAX_ROWS),
+                                  0, -1)
+                 if _wide_stages(cluster, slice_, t)), 0)
+    if not tile:
+        return 0, 0, 0, 0
+    return cluster, slice_, tile, _wide_stages(cluster, slice_, tile)
+
+
+def wide_split(n: int, tile: int, clusters: int) -> tuple[int, int]:
+    """``(per_cluster, nparts)``: cluster c walks tiles ``[c *
+    per_cluster, (c + 1) * per_cluster)`` of the ``ceil(n / tile)``, the
+    ``nparts`` clusters each at least one, at most ``clusters``."""
+    tiles = -(-n // tile)
+    per = -(-tiles // max(1, min(clusters, tiles)))
+    return per, -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=64)
+def _wide_clusters(plan: tuple[int, int, int, int], device_index: int) -> int:
+    """How many clusters of ``plan`` card ``device_index`` holds at once
+    (cudaOccupancyMaxActiveClusters), so a launch runs in one wave."""
+    with torch.cuda.device(device_index):
+        got = _lib("glm_grad_wide_clusters", _I, _I, _I, _I)(*plan)
+    if got < 1:
+        raise RuntimeError(f"glm_grad wide plan {plan}: no cluster fits "
+                           f"the card ({got})")
+    return got
 
 
 def ring_lanes(tile: int) -> int:
@@ -138,6 +236,13 @@ def _glm_grad_cuda(task, w, X, y, *, layout, block_rows=None):
                 nparts)
         launch = _lib("glm_grad_ring", _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _P)
+    elif kind == "wide":
+        plan = wide_plan(d, block_rows)
+        per, nparts = wide_split(n, plan[2],
+                                 _wide_clusters(plan, X.device.index))
+        plan = (*plan, per, nparts)
+        launch = _lib("glm_grad_wide", _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _P)
     elif kind == "col":
         X = X.T.contiguous()  # materialised transpose: the col access path
         launch = _lib("glm_grad_col", _P, _P, _P, _P, _I, _I, _I, _P)
@@ -147,7 +252,9 @@ def _glm_grad_cuda(task, w, X, y, *, layout, block_rows=None):
         tile = block_rows or row_tile(n, common.sm_count(X.device))
         plan = (tile,)
         nparts = common.padded(n, tile) // tile
-    reduce = _lib("glm_grad_reduce", _P, _P, _I, _I, _P)
+    # the wide kernel's few partial rows: a thread a feature
+    reduce = _lib("glm_grad_sum" if kind == "wide" else "glm_grad_reduce",
+                  _P, _P, _I, _I, _P)
     partial = torch.empty((nparts, d), dtype=torch.float32, device=X.device)
     g = torch.empty(d, dtype=torch.float32, device=X.device)
     with common.on_device(X):
@@ -180,8 +287,8 @@ def glm_grad(
 ) -> torch.Tensor:
     """Sum GLM gradient ``X^T pull(y * Xw)``.  Returns [d] fp32.
 
-    ``block_rows`` sets the rows of the row layout's tiles (a ring stage
-    or a row block); None runs the tuner's cached pick for this call
+    ``block_rows`` sets the rows of the row layout's tiles (a ring or wide
+    stage, or a row block); None runs the tuner's cached pick for this call
     (:mod:`repro_torch.kernels.tune`), else the plan's.  The col layout
     has no tiles to set.
     """

@@ -10,18 +10,22 @@ replica count and the card's SMs:
   updates with the model in its registers, while the block's other warps
   prefetch the tiles.  The chain is the algorithm's, so this kernel shortens
   each update;
+* ``"rows"`` (``glm_sgd_rows_kernel``) for the rest of d up to
+  :data:`WARP_MAX_D`: batches the warp kernel's ring does not hold, and
+  every batch of :data:`ROWS_MIN_BATCH` rows or more (:func:`rows_plan`): a
+  thread-block cluster a replica, each batch's rows split over its blocks
+  in contiguous runs, every block holding the whole model and streaming its
+  run through a ring, its partial gradient summed across the cluster
+  through distributed shared memory, in rank order, once a batch;
 * ``"cluster"`` (``glm_sgd_cluster_kernel``) for every wider model up to
   :data:`CLUSTER_MAX` x 4,096 features (:func:`cluster_plan`): a
   thread-block cluster a replica, each block holding a slice of the model in
   its chain threads' registers and streaming its slice of the next rows
   through a ring; a batch's margins are summed across the cluster through
   distributed shared memory, in rank order, once an exchange;
-* ``"smem"`` (``glm_sgd_kernel``, the first port) for what is left where
-  ``d + micro_batch`` floats fit a block's 227 KB of shared memory: d up to
-  :data:`WARP_MAX_D` with batches too long for the warp kernel's ring.  The
-  cluster kernel takes any batch too, but there it sums each row's margin
-  over a whole block where this kernel gives a warp whole rows, and ran up
-  to 3.9x slower (``tools/cluster_sweep.py``);
+* ``"smem"`` (``glm_sgd_kernel``, the first port): one block a replica,
+  the model in shared memory; no shape picks it since the rows kernel took
+  its batches, and it stays to be timed beside the rows kernel;
 * ``"grid"`` (``glm_sgd_grid_kernel``) past the cluster's cap where
   :func:`grid_plan` fits (news's Table 4 seq epoch): the cluster kernel
   stretched over co-resident blocks, one a SM, each holding a slice of the
@@ -31,10 +35,9 @@ replica count and the card's SMs:
   order;
 * ``"global"`` (``glm_sgd_global_kernel``) for what the others refuse (a
   wide model of many replicas, or past :data:`GRID_MAX_VALUES` x 512
-  features a SM; a batch past shared memory at d <= WARP_MAX_D): the model
-  stays in the output tensor in global memory, a row's margin is summed by
-  the whole block, the batch's pulls go to a global scratch, and each
-  feature's update belongs to one thread.
+  features a SM): the model stays in the output tensor in global memory,
+  a row's margin is summed by the whole block, the batch's pulls go to a
+  global scratch, and each feature's update belongs to one thread.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -96,6 +99,96 @@ def warp_plan(d: int, micro_batch: int) -> tuple[int, int]:
     return common.ring_plan(
         lambda stages, group: warp_smem_bytes(d, micro_batch, stages, group),
         micro_batch, WARP_MAX_STAGES, WARP_STAGE_ROWS)
+
+
+#: chain warps of a rows kernel block (4 more warps copy)
+ROWS_CHAIN_WARPS = 8
+#: most blocks a replica's cluster of the rows kernel
+ROWS_MAX_CLUSTER = 16
+#: rows of a batch a block of the rows kernel takes at least, where the
+#: batch has them: two a chain warp
+ROWS_MIN_SHARE = 16
+#: values a chain lane of the rows kernel keeps of a tile (RB rows of its
+#: warp_columns(d) values)
+ROWS_TILE_VALUES = 32
+#: bytes of X a fill of the rows kernel's ring aims to hold, and its most
+#: stages
+ROWS_STAGE_BYTES = 16 * 1024
+ROWS_MAX_STAGES = 4
+#: from this many rows a batch the rows kernel takes d <= WARP_MAX_D from
+#: the warp kernel, whose update is one warp's walk over the batch: the
+#: sweep of ``chip_smoke.py --dense`` at covtype's width (device us an
+#: update, warp against rows: 0.74 against 1.14 at 32 rows, 1.46 against
+#: 1.16 at 48, 10.6 against 1.39 at 512; PERF.md, PR 32)
+ROWS_MIN_BATCH = 48
+
+
+def rows_smem_bytes(d: int, cluster: int, stages: int, frows: int) -> int:
+    """Shared memory of one ``"rows"`` block (csrc/glm_sgd.cu lays it out
+    the same way): two mbarriers a stage and two for the exchanges, the
+    chain warps' partial gradients, the summed gradient, the exchange slots
+    of both parities, and ``stages`` of the warp kernel's stages of
+    ``frows`` rows."""
+    c = warp_columns(d)
+    dp = common.padded(d, 4)
+    stage = (common.padded(frows * d + 3, 4) + 32 * c
+             + common.padded(frows, 4))
+    return (16 * (stages + 1)
+            + 4 * (ROWS_CHAIN_WARPS * 32 * c + (1 + 2 * cluster) * dp)
+            + 4 * stages * stage)
+
+
+def _rows_fit(d: int, micro_batch: int, cluster: int
+              ) -> tuple[int, int, int, int]:
+    """The plan at a cluster size: a chain warp's tile of ``rb`` rows (the
+    smallest power of two that covers a warp's share of a block's run,
+    ``rb * warp_columns(d) <= ROWS_TILE_VALUES``), fills of the whole run
+    or of whole tiles near ROWS_STAGE_BYTES, and the most stages that fit
+    (0 below two)."""
+    share = -(-micro_batch // cluster)
+    per_warp = -(-share // ROWS_CHAIN_WARPS)
+    c = warp_columns(d)
+    rb = 1
+    while rb < per_warp and 2 * rb * c <= ROWS_TILE_VALUES:
+        rb *= 2
+    tile = ROWS_CHAIN_WARPS * rb
+    frows = min(share, max(tile, ROWS_STAGE_BYTES // (4 * d) // tile * tile))
+    stages = next((s for s in range(ROWS_MAX_STAGES, 1, -1)
+                   if rows_smem_bytes(d, cluster, s, frows)
+                   <= common.MAX_SMEM_BYTES), 0)
+    return cluster, rb, frows, stages
+
+
+def rows_plan(d: int, micro_batch: int, n_rep: int = 1,
+              sms: int = tune.H100_SMS) -> tuple[int, int, int, int]:
+    """The rows kernel's plan as ``(cluster, rb, frows, stages)`` for
+    ``n_rep`` replicas on ``sms`` SMs: each replica a cluster of the largest
+    power of two of blocks up to ROWS_MAX_CLUSTER that leaves every block
+    at least ROWS_MIN_SHARE rows of a batch and the replicas' clusters
+    within the card (a power of two, so that clusters pack the card's
+    GPCs), fewer where a ring of two stages does not fit beside the
+    exchange; block ``k`` takes the run :func:`rows_split` gives it of each
+    batch, in fills of at most ``frows`` rows through ``stages`` stages.
+    ``(0, 0, 0, 0)`` past WARP_MAX_D."""
+    if d > WARP_MAX_D:
+        return 0, 0, 0, 0
+    cap = max(1, min(ROWS_MAX_CLUSTER, sms // n_rep,
+                     -(-micro_batch // ROWS_MIN_SHARE)))
+    cluster = 1 << (cap.bit_length() - 1)
+    while True:
+        plan = _rows_fit(d, micro_batch, cluster)
+        if plan[3] or cluster == 1:
+            return plan
+        cluster //= 2
+
+
+def rows_split(batch_rows: int, cluster: int) -> list[tuple[int, int]]:
+    """The run ``[lo, hi)`` of a batch of ``batch_rows`` rows each block of
+    a rows cluster takes (csrc/glm_sgd.cu:RowsWalk): contiguous, in rank
+    order, their lengths at most one apart, some empty where the batch is
+    shorter than the cluster."""
+    return [(k * batch_rows // cluster, (k + 1) * batch_rows // cluster)
+            for k in range(cluster)]
 
 
 #: chain threads of a cluster kernel block (8 warps; 4 more warps copy)
@@ -241,20 +334,18 @@ def grid_plan(d: int, micro_batch: int, n_rep: int = 1,
 def variant(d: int, micro_batch: int, n_rep: int = 1,
             sms: int = tune.H100_SMS) -> str:
     """The kernel that runs ``(d, micro_batch)`` for ``n_rep`` replicas on
-    ``sms`` SMs: ``"warp"`` up to WARP_MAX_D where a two-stage ring fits,
-    ``"cluster"`` past WARP_MAX_D where :func:`cluster_plan` fits,
-    ``"grid"`` past that where :func:`grid_plan` fits, else ``"smem"``
-    where the model and the batch's pulls fit a block's shared memory,
-    else ``"global"``."""
+    ``sms`` SMs: up to WARP_MAX_D ``"warp"`` below ROWS_MIN_BATCH rows a
+    batch where a two-stage ring fits, else ``"rows"``; ``"cluster"`` past
+    WARP_MAX_D where :func:`cluster_plan` fits, ``"grid"`` past that where
+    :func:`grid_plan` fits, else ``"global"``."""
     if d <= WARP_MAX_D:
-        if warp_plan(d, micro_batch)[0]:
+        if micro_batch < ROWS_MIN_BATCH and warp_plan(d, micro_batch)[0]:
             return "warp"
-    elif cluster_plan(d, micro_batch)[0]:
+        return "rows"
+    if cluster_plan(d, micro_batch)[0]:
         return "cluster"
-    elif grid_plan(d, micro_batch, n_rep, sms)[0]:
+    if grid_plan(d, micro_batch, n_rep, sms)[0]:
         return "grid"
-    if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
-        return "smem"
     return "global"
 
 
@@ -268,7 +359,15 @@ def _glm_sgd_cuda(task, W, X, y, *, step, micro_batch):
     tail = n % micro_batch
     scales = (step / micro_batch, step / tail if tail else 0.0)
     with common.on_device(X):
-        if kind == "grid":
+        if kind == "rows":
+            plan = rows_plan(d, micro_batch, n_rep, sms)
+            fn = _build.function("glm_sgd", "glm_sgd_epoch_rows", _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                                 _P)
+            code = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(), n_rep, n,
+                      d, micro_batch, common.task_code(task), *scales, *plan,
+                      common.stream(X))
+        elif kind == "grid":
             plan = grid_plan(d, micro_batch, n_rep, sms)
             blocks, rows = plan[0], plan[3]
             # one zeroed allocation: the exchange's tagged slots (8 bytes

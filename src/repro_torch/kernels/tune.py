@@ -186,17 +186,27 @@ def _micro_batch_ok(info: dict, cfg: dict) -> bool:
 
 
 def _grad_pick(info: dict) -> dict:
-    """Rows of a ring stage (d <= 1,024) or of a row block (wider d), for
-    the row layout (the col layout has no tiles to set)."""
+    """Rows of a ring stage (d <= 1,024), of a wide stage (up to 65,536)
+    or of a row block (wider d), for the row layout (the col layout has no
+    tiles to set)."""
     from repro_torch.kernels.glm_grad import ops
 
     n, d = info["n"], info["d"]
-    if ops.variant(d, "row") == "ring":
+    kind = ops.variant(d, "row")
+    if kind == "ring":
         return {"block_rows": ops.ring_plan(d, n, _sms())[0]}
+    if kind == "wide":
+        return {"block_rows": ops.wide_plan(d)[2]}
     return {"block_rows": ops.row_tile(n, _sms())}
 
 
 def _grad_sizes(info: dict) -> list[int]:
+    """A wide stage's rows (one exchange each, at most WIDE_MAX_ROWS);
+    the ring's and the row kernel's tiles."""
+    from repro_torch.kernels.glm_grad import ops
+
+    if ops.variant(info["d"], "row") == "wide":
+        return [b for b in (1, 2, 4, 8, 16, 32) if b <= ops.WIDE_MAX_ROWS]
     return [b for b in (8, 16, 32, 64, 128, 256) if b <= max(8, info["n"])]
 
 
@@ -204,10 +214,14 @@ def _grad_ok(info: dict, cfg: dict) -> bool:
     from repro_torch.kernels.glm_grad import ops
 
     t, d = cfg["block_rows"], info["d"]
-    if ops.variant(d, "row") == "ring":
+    kind = ops.variant(d, "row")
+    if kind == "ring":
         return (1 <= t <= ops.RING_MAX_TILE
                 and t * ops.ring_lanes(t) <= ops.RING_CONSUMERS
                 and ops.ring_smem_bytes(d, t) <= common.MAX_SMEM_BYTES)
+    if kind == "wide":
+        # the plan takes the rows as given only where two stages fit
+        return 1 <= t <= ops.WIDE_MAX_ROWS and ops.wide_plan(d, t)[2] == t
     return 1 <= t <= ops.ROW_MAX_TILE
 
 

@@ -25,7 +25,7 @@ from repro.kernels.glm_sgd_sparse import ell_sgd_epoch as jell_sgd_epoch
 from repro.kernels.glm_sparse import ell_glm_grad as jell_glm_grad
 
 import repro_torch.kernels as tk
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, tune
 from repro_torch.kernels.flash_attn import ops as attn_ops
 from repro_torch.kernels.flash_attn import ref as attn_ref
 from repro_torch.kernels.glm_grad import ops as grad_ops
@@ -102,8 +102,9 @@ def test_glm_grad_rejects_bad_layout_and_shapes():
 @pytest.mark.parametrize("task", TASKS)
 def test_glm_grad_row_past_shared_memory_matches_jax(task):
     """d = 60,000: past the ring kernel and past w in shared memory (the
-    first port refused it), against the JAX reference."""
-    assert grad_ops.variant(60_000, "row") == "row"
+    first port refused it; the wide kernel's shape), against the JAX
+    reference."""
+    assert grad_ops.variant(60_000, "row") == "wide"
     X, y, w = _dense(19, 60_000, seed=4)
     ref = jglm_grad(task, *_j(w, X, y), backend="reference")
     out = tk.glm_grad(task, *_t(w, X, y))
@@ -115,8 +116,13 @@ def test_glm_grad_row_past_shared_memory_matches_jax(task):
     (54, "row", "ring"),                       # covtype
     (300, "row", "ring"),
     (grad_ops.RING_MAX_D, "row", "ring"),
-    (grad_ops.RING_MAX_D + 1, "row", "row"),
-    (60_000, "row", "row"),
+    # these two ids name the kernel that took the shapes before the wide
+    # kernel did; kept so that the cases keep their names
+    pytest.param(grad_ops.RING_MAX_D + 1, "row", "wide", id="1025-row-row"),
+    pytest.param(60_000, "row", "wide", id="60000-row-row"),
+    (20_958, "row", "wide"),                   # real-sim's width, dense
+    (grad_ops.WIDE_MAX_D, "row", "wide"),      # the wide kernel's widest
+    (grad_ops.WIDE_MAX_D + 1, "row", "row"),
     (54, "col", "col"),
     (60_000, "col", "col"),
 ])
@@ -185,6 +191,77 @@ def test_glm_grad_ring_plan_at_covtype():
     assert grad_ops.ring_plan(1_024, 1_000, 132)[:2] == (8, 32)
 
 
+@pytest.mark.parametrize("d", [1_025, 2_048, 2_049, 4_097, 20_958, 50_001,
+                               60_000, grad_ops.WIDE_MAX_D])
+def test_glm_grad_wide_plan_gives_every_feature_one_block(d):
+    """Block b of a cluster owns features [b * slice, (b + 1) * slice):
+    every feature exactly one block, every block at least one, a slice its
+    256 chain threads hold in at most 16 values each; the cluster the
+    smallest power of two of blocks that allows that, at most 16; tiles of
+    at most WIDE_MAX_ROWS rows (one exchange each) through at least three
+    stages (the chain holds two), each block's shared memory within the
+    card's 227 KB."""
+    cluster, slice_, tile, stages = grad_ops.wide_plan(d)
+    owners = np.zeros(d, dtype=np.int64)
+    for b in range(cluster):
+        lo, hi = b * slice_, min(d, (b + 1) * slice_)
+        assert hi > lo
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert cluster & (cluster - 1) == 0 and cluster <= grad_ops.WIDE_MAX_CLUSTER
+    assert slice_ <= grad_ops.WIDE_CHAIN_THREADS * grad_ops.WIDE_MAX_VALUES
+    assert cluster == 1 or -(-d // (cluster // 2)) > \
+        grad_ops.WIDE_CHAIN_THREADS * grad_ops.WIDE_MAX_VALUES
+    assert 1 <= tile <= grad_ops.WIDE_MAX_ROWS
+    assert grad_ops.WIDE_MIN_STAGES <= stages <= grad_ops.WIDE_MAX_STAGES
+    assert grad_ops.WIDE_MIN_STAGES == 3
+    assert grad_ops.wide_smem_bytes(cluster, slice_, stages, tile) \
+        <= common.MAX_SMEM_BYTES
+    assert grad_ops.wide_plan(d, tile) == (cluster, slice_, tile, stages)
+
+
+@pytest.mark.parametrize("n", [1, 3, 300, 2_003, 16_384])
+@pytest.mark.parametrize("clusters", [1, 8, 10, 64])
+def test_glm_grad_wide_split_gives_every_row_one_cluster(n, clusters):
+    """Cluster c walks tiles [c * per, (c + 1) * per) of the ceil(n / T):
+    every tile exactly one cluster, every cluster of the launch at least
+    one, no more clusters than the card holds at once (one wave)."""
+    tile = grad_ops.wide_plan(20_958)[2]
+    per, nparts = grad_ops.wide_split(n, tile, clusters)
+    tiles = -(-n // tile)
+    owners = np.zeros(tiles, dtype=np.int64)
+    for c in range(nparts):
+        lo, hi = c * per, min(tiles, (c + 1) * per)
+        assert hi > lo
+        owners[lo:hi] += 1
+    assert (owners == 1).all() and 1 <= nparts <= clusters
+
+
+def test_glm_grad_wide_plan_at_the_paths_widths():
+    """The dense wide set (real-sim's 20,958 features) takes 8 blocks of
+    2,620 and 7-row tiles through 3 stages; 60,000 the cap's 16 blocks of
+    3,750 and 4-row tiles; Fig. 25's 2,048 one block and 8-row tiles: the
+    most rows that leave three stages, the fastest tiles of the sweep on
+    the card; past 16 x 4,096 the plan refuses (the row kernel keeps the
+    shape)."""
+    assert grad_ops.wide_plan(20_958) == (8, 2_620, 7, 3)
+    assert grad_ops.wide_plan(60_000) == (16, 3_750, 4, 3)
+    assert grad_ops.wide_plan(2_048) == (1, 2_048, 8, 3)
+    assert grad_ops.wide_plan(grad_ops.WIDE_MAX_D + 1) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("d,n", [(2_048, 300), (20_958, 200)])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_grad_wide_shapes_match_jax(task, d, n):
+    """The wide kernel's shapes (a cluster of 1 and of 8 blocks) against the
+    JAX reference (its Pallas flavor holds no model this wide in VMEM)."""
+    assert grad_ops.variant(d, "row") == "wide"
+    X, y, w = _dense(n, d, seed=d % 89)
+    ref = jglm_grad(task, *_j(w, X, y), backend="reference")
+    out = tk.glm_grad(task, *_t(w, X, y))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **GRAD_TOL)
+
+
 # ---------------------------------------------------------------------------
 # glm_sgd
 # ---------------------------------------------------------------------------
@@ -225,10 +302,16 @@ def test_glm_sgd_replica_axis_matches_per_replica_jax():
     (3, 1, "warp"),                           # skin
     (54, 16, "warp"),                         # covtype, SyncSGD(batch=16)
     (54, 1, "warp"),                          # covtype, AsyncLocalSGD b1
-    (300, 64, "warp"),
+    # past ROWS_MIN_BATCH; the id names the kernel that took the shape
+    # before the rows kernel did, kept so that the case keeps its name
+    pytest.param(300, 64, "rows", id="300-64-warp"),
+    (300, sgd_ops.ROWS_MIN_BATCH - 1, "warp"),
     (sgd_ops.WARP_MAX_D, 1, "warp"),
     (sgd_ops.WARP_MAX_D, 27, "warp"),         # the widest two-stage ring
-    (sgd_ops.WARP_MAX_D, 28, "smem"),         # two stages no longer fit
+    # two stages no longer fit; the id names the kernel that took the shape
+    # before the rows kernel did, kept so that the case keeps its name
+    pytest.param(sgd_ops.WARP_MAX_D, 28, "rows", id="1024-28-smem"),
+    (54, 1024, "rows"),                       # covtype, SyncSGD(batch=1024)
     # these two ids name the kernel that took the shapes before the cluster
     # kernel did; kept so that the cases keep their names
     pytest.param(sgd_ops.WARP_MAX_D + 1, 1, "cluster", id="1025-1-smem"),
@@ -317,8 +400,9 @@ def test_glm_sgd_warp_ring_holds_about_32_rows_a_stage():
 
 def test_glm_sgd_accepted_shapes_did_not_shrink():
     """Every (d, micro_batch) some variant took still runs: the shared-memory
-    kernel's shapes up to WARP_MAX_D stay on the warp or shared-memory
-    kernels and every wider one goes to the cluster kernel, as do the
+    kernel's shapes up to WARP_MAX_D stay on the warp kernel or go to the
+    rows kernel (which also takes the global kernel's batches past shared
+    memory there), every wider one goes to the cluster kernel, as do the
     global kernel's up to the cluster's cap; past it the grid kernel takes
     what its plan fits, and the global kernel keeps the rest."""
     for d in (1, 3, 54, 300, 1023, 1024, 1025, 4096, 58_000, 58_111,
@@ -327,7 +411,7 @@ def test_glm_sgd_accepted_shapes_did_not_shrink():
             kind = sgd_ops.variant(d, mb)
             if d <= sgd_ops.WARP_MAX_D and \
                     sgd_ops.smem_bytes(d, mb) <= common.MAX_SMEM_BYTES:
-                assert kind in ("warp", "smem")
+                assert kind in ("warp", "rows")
             elif d <= 16 * 4_096:
                 assert kind == "cluster"
             else:
@@ -340,7 +424,106 @@ def test_glm_sgd_accepted_shapes_did_not_shrink():
     assert sgd_ops.variant(100_000, 16) == "grid"
     assert sgd_ops.variant(100_000, 16, 200) == "global"  # too many replicas
     assert sgd_ops.variant(1_025, 57_087) == "cluster"  # smem's longest batch
-    assert sgd_ops.variant(54, 60_000) == "global"   # a batch past the cap
+    assert sgd_ops.variant(54, 60_000) == "rows"   # a batch past the cap
+
+
+def _last_warp_batch(d):
+    return max(mb for mb in range(1, 2_048) if sgd_ops.warp_plan(d, mb)[0])
+
+
+@pytest.mark.parametrize("d", [1, 3, 54, 300, 1_000, sgd_ops.WARP_MAX_D])
+def test_glm_sgd_rows_takes_the_batches_past_the_warp_ring(d):
+    """Up to WARP_MAX_D the warp kernel keeps the batches its ring holds
+    below ROWS_MIN_BATCH rows; the rows kernel takes every other batch,
+    the ring's first refused one, ROWS_MIN_BATCH and a whole covtype
+    partition among them, at any replica count."""
+    last = _last_warp_batch(d)
+    cut = min(last + 1, sgd_ops.ROWS_MIN_BATCH)
+    assert sgd_ops.variant(d, cut - 1) == "warp"
+    for mb in (cut, last + 1, sgd_ops.ROWS_MIN_BATCH, 58_101):
+        for n_rep in (1, 8, 10, 64):
+            assert sgd_ops.variant(d, mb, n_rep) == "rows"
+    assert sgd_ops.variant(d + sgd_ops.WARP_MAX_D, 58_101) == "cluster"
+
+
+def test_glm_sgd_rows_edges_at_the_paths_widths():
+    """The warp kernel's ring holds 522 covtype rows a batch, 94 at d =
+    300 and 27 at 1,024; covtype's SyncSGD(batch=1024) and its
+    AsyncLocalSGD(10, 58,101) partitions run on the rows kernel, the first
+    in clusters of 16 blocks of 64 rows, the second in 10 clusters of 8
+    whose runs stream through 128-row fills."""
+    assert [_last_warp_batch(d) for d in (54, 300, 1_024)] == [522, 94, 27]
+    assert sgd_ops.variant(54, 1_024) == "rows"
+    assert sgd_ops.variant(54, 58_101, 10) == "rows"
+    assert sgd_ops.rows_plan(54, 1_024) == (16, 8, 64, 4)
+    assert sgd_ops.rows_plan(54, 58_101, 10) == (8, 16, 128, 4)
+    assert sgd_ops.rows_plan(1_025, 64) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("n_rep", [1, 8, 10, 64])
+@pytest.mark.parametrize("d,mb,n", [(54, 1_024, 581_012), (54, 58_101, 58_101),
+                                    (54, 600, 605), (300, 128, 1_037),
+                                    (1_024, 28, 203), (1_000, 100, 1_037),
+                                    (3, 1_024, 5_000), (54, 4_096, 9_000)])
+def test_glm_sgd_rows_plan_gives_every_row_one_block(d, mb, n, n_rep):
+    """Each batch's rows go to the cluster's blocks in contiguous runs,
+    every row exactly one block (a ragged tail shorter than the cluster
+    leaves some runs empty); a cluster is a power of two of blocks up to
+    16, so that the replicas' clusters fit the H100's 132 SMs in one wave;
+    a chain warp's tile of rb rows keeps rb x C <= 32 values a lane; each
+    block's fills and at least two stages fit its 227 KB."""
+    cluster, rb, frows, stages = sgd_ops.rows_plan(d, mb, n_rep)
+    assert cluster & (cluster - 1) == 0 and cluster <= sgd_ops.ROWS_MAX_CLUSTER
+    assert n_rep * cluster <= tune.H100_SMS
+    assert rb & (rb - 1) == 0
+    assert rb * sgd_ops.warp_columns(d) <= sgd_ops.ROWS_TILE_VALUES
+    assert 2 <= stages <= sgd_ops.ROWS_MAX_STAGES and frows >= 1
+    assert sgd_ops.rows_smem_bytes(d, cluster, stages, frows) \
+        <= common.MAX_SMEM_BYTES
+    for start in range(0, n, mb):
+        rows = min(mb, n - start)
+        runs = sgd_ops.rows_split(rows, cluster)
+        owners = np.zeros(rows, dtype=np.int64)
+        for lo, hi in runs:
+            owners[lo:hi] += 1
+        assert (owners == 1).all()
+        assert max(h - lo for lo, h in runs) - min(h - lo for lo, h in runs) \
+            <= 1
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_batches_past_the_warp_ring_match_jax(task):
+    """The rows kernel's shapes: covtype's width at micro-batch 600 (past
+    the warp kernel's 522-row ring) against the Pallas kernel (interpret
+    mode, two whole batches), and with a ragged 37-row tail against the JAX
+    reference."""
+    assert sgd_ops.variant(54, 600) == "rows"
+    X, y, w = _dense(1_237, 54, seed=600)
+    ref = jglm_sgd_epoch(task, *_j(w, X[:1_200], y[:1_200]), step=0.05,
+                         micro_batch=600, backend="pallas-interpret")
+    out = tk.glm_sgd_epoch(task, *_t(w, X[:1_200], y[:1_200]), step=0.05,
+                           micro_batch=600)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
+    ref = jglm_sgd_epoch(task, *_j(w, X, y), step=0.05, micro_batch=600,
+                         backend="reference")
+    out = tk.glm_sgd_epoch(task, *_t(w, X, y), step=0.05, micro_batch=600)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EPOCH_TOL)
+
+
+def test_glm_sgd_full_partitions_match_per_replica_jax():
+    """AsyncLocalSGD(replicas=10, local_batch=per)'s replica epochs: one
+    mean update a replica (the rows kernel's shape), each replica against
+    the Pallas kernel on its own partition."""
+    X, y, w = _dense(10 * 60, 54, seed=10)
+    Xr, yr = X.reshape(10, 60, 54), y.reshape(10, 60)
+    W = w[None] * np.linspace(-1.0, 1.0, 10, dtype=np.float32)[:, None]
+    assert sgd_ops.variant(54, 5_810, 10) == "rows"
+    out = tk.glm_sgd_epoch("lr", *_t(W, Xr, yr), step=0.1, micro_batch=60)
+    for r in range(10):
+        ref = jglm_sgd_epoch("lr", *_j(W[r], Xr[r], yr[r]), step=0.1,
+                             micro_batch=60, backend="pallas-interpret")
+        np.testing.assert_allclose(out[r].numpy(), np.asarray(ref),
+                                   **EPOCH_TOL)
 
 
 @pytest.mark.parametrize("d,mb", [(58_112, 1), (58_112, 10), (100_000, 16),

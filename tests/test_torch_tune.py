@@ -90,6 +90,8 @@ PLANS = (
                     "head_dim": 80}),
     ("glm_sgd", {"dtype": "float32", "n": 581_012, "d": 54,
                  "micro_batch": 16}),
+    ("glm_grad", {"dtype": "float32", "n": 16_384, "d": 20_958}),
+    ("glm_grad", {"dtype": "float32", "n": 2003, "d": 70_000}),
 )
 
 
@@ -118,6 +120,27 @@ def test_grid_pick_is_each_familys_plan():
         "lanes": sparse_ops.smem_lanes(69)}
     assert tune.TUNABLES["flash_attn"].pick(PLANS[8][1]) == {
         "splits": attn_ops.decode_plan(4, 8, 4096)[0]}
+
+
+@pytest.mark.parametrize("d", [1_025, 20_958, 60_000, 65_536])
+def test_glm_grad_wide_candidates_are_rows_of_a_stage_its_plan_takes(d):
+    """Past the ring kernel's 1,024 features the wide kernel's block_rows
+    are the rows of a stage (one exchange each, at most WIDE_MAX_ROWS): the
+    pick is its plan's, and every candidate is a stage its plan takes as
+    given (three stages fit beside the exchange), so no candidate lands on
+    another tiling than the one it names; past the wide kernel's cap the
+    row kernel's block sizes come back."""
+    from repro_torch.kernels.glm_grad import ops as grad_ops
+
+    info = {"dtype": "float32", "n": 2003, "d": d}
+    tunable = tune.TUNABLES["glm_grad"]
+    assert tunable.pick(info) == {"block_rows": grad_ops.wide_plan(d)[2]}
+    sizes = [c["block_rows"] for c in tunable.candidates(info)]
+    assert sizes and max(sizes) <= grad_ops.WIDE_MAX_ROWS
+    assert all(grad_ops.wide_plan(d, t)[2] == t for t in sizes)
+    past = {**info, "d": grad_ops.WIDE_MAX_D + 1}
+    assert [c["block_rows"] for c in tunable.candidates(past)] == \
+        [8, 16, 32, 64, 128, 256]
 
 
 @pytest.mark.parametrize("kernel,info", [

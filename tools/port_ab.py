@@ -9,7 +9,7 @@ Imports ``repro_torch`` from ``DIR/src`` (default: the checkout this script
 lies in), so the same script times a parent commit unpacked beside this
 one and this one, each in a process of its own; run them in turns (A, B,
 B, A) inside one chip call.  Needs one card.  ``--only`` runs the named
-sections alone (``decode,prefill,backward,sgd_sparse,grad,lm,wide``;
+sections alone (``decode,prefill,backward,sgd_sparse,grad,lm,wide,dense_grad``;
 ``decode``, ``sgd_sparse`` and ``grad`` by default).
 Prints one JSON line:
 
@@ -54,6 +54,11 @@ Prints one JSON line:
   and ``ell_glm_grad`` on rcv1 (677,399 x 47,236, K=438) and news (19,996
   x 1,355,191, K=2,729) at full size, drawn on the card (``wide_ell``):
   ms by CUDA events, device ms by kernel, the byte bound;
+* ``dense_grad``: ``glm_grad`` in the row layout past 1,024 features, on
+  dense unit-normal rows drawn on the card: 2,003 x 60,000, the dense
+  wide set 16,384 x 20,958 and 16,384 x 2,048 (``chip_smoke.py``'s
+  ``WIDE_SWEEP_SHAPES``): ms by CUDA events over 20 calls, device ms from
+  the profiler, the byte bound;
 * ``backward``: the gradient of ``flash_attention`` (``autograd.grad``
   over one forward's graph, so the backward operator alone runs) at
   danube's training layer (B=2, S=8192, window 4096, bf16) and at fp32
@@ -353,6 +358,27 @@ LM_ARGV = ["--arch", "h2o-danube-1.8b", "--requests", "8", "--slots", "4",
            "--max-new", "16", "--max-len", "128", "--seed", "0"]
 
 
+#: ``dense_grad``'s (N, d)
+DENSE_GRAD_SHAPES = ((2_003, 60_000), (16_384, 20_958), (16_384, 2_048))
+
+
+def dense_grad_rows(K) -> list[dict]:
+    rows = []
+    for n, d in DENSE_GRAD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(d)
+        X = torch.randn(n, d, device="cuda", generator=g)
+        y = torch.where(torch.rand(n, device="cuda", generator=g) < 0.5,
+                        -1.0, 1.0)
+        w = torch.randn(d, device="cuda", generator=g) * 0.01
+        fn = lambda: K.glm_grad("lr", w, X, y)  # noqa: E731
+        rows.append({"case": f"glm_grad N={n} d={d}",
+                     "ms": events_ms(fn, 20), **profiler_ms(fn, 20),
+                     "bound_ms": (X.numel() + n + 2 * d) * 4
+                     / HBM_BYTES_PER_S * 1e3})
+        del X
+    return rows
+
+
 def lm_run() -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -397,7 +423,7 @@ def lm_run() -> dict:
 
 
 SECTIONS = ("decode", "prefill", "backward", "sgd_sparse", "grad", "lm",
-            "wide")
+            "wide", "dense_grad")
 
 
 def main(argv=None) -> int:
@@ -420,8 +446,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attn import ops
 
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn"] + (
+    _build.build_all((["flash_attn"] if {"decode", "prefill", "backward",
+                                         "lm"} & set(only) else []) + (
         ["flash_attn_bwd"] if "backward" in only else []) + (
+        ["glm_grad"] if "dense_grad" in only else []) + (
         ["glm_grad", "glm_sgd_sparse", "glm_sparse"]
         if {"sgd_sparse", "grad"} & set(only) else []) + (
         ["glm_sgd", "glm_sparse"] if "wide" in only else []))
@@ -451,6 +479,8 @@ def main(argv=None) -> int:
     if "wide" in only:
         from repro_torch.core import sparse
         res["wide"] = wide_rows(K, sparse)
+    if "dense_grad" in only:
+        res["dense_grad"] = dense_grad_rows(K)
     print(json.dumps(res), flush=True)
     return 0
 
