@@ -11,6 +11,7 @@ family) on one NVIDIA card.
     python3 chip_smoke.py --attn-bwd
     python3 chip_smoke.py --wide
     python3 chip_smoke.py --dense
+    python3 chip_smoke.py --long-rows
 
 The second runs only env, build and the probe of phase ``lm_train``'s
 rules (``run_lm_train_probe``): the gradient check on four seeded models
@@ -37,7 +38,10 @@ of glm_sgd's rows and glm_grad's wide kernels, covtype's ``SyncSGD(batch
 =1024)`` and ``AsyncLocalSGD(10, 58,101)`` and ``SyncSGD()`` on the dense
 wide set as phase ``train`` runs them and as phase ``parity`` holds them,
 their timing rows, the sweep behind ``ROWS_MIN_BATCH`` and the wide
-kernel's sweep of tiles).
+kernel's sweep of tiles), the ninth only env, build and the paper's
+sparse sets at their Table 3 row widths (``run_long_rows``:
+``live_kernel_checks``, phase ``long_rows`` and ``long_rows_timing``'s
+rows, each live-prefix kernel and the kernel it replaced in turns).
 
 
 Phases, one JSON line each (with ``phase_seconds``, the host seconds since
@@ -100,7 +104,8 @@ the previous phase line):
                glm_grad's row layout at 60,000, glm_sgd_sparse's stream
                variant at news' width with K = 2,729, micro-batches 1 and
                10, several replicas, also with the padding spread through
-               the rows, and its global variant past the stream's K); five
+               the rows, and its live_global variant past the stream's K);
+               five
                calls of glm_grad, glm_sparse, glm_sgd's cluster variant and
                both glm_score kernels at the serving flushes' shapes giving
                the same bits; and that the sparse kernels refuse an index
@@ -110,7 +115,14 @@ the previous phase line):
                glm_sparse's hot variant at rcv1's and news' widths and past
                the smem cap (padding spread through the rows, rows of all
                padding, a feature thrice a row, 3 replicas, an index
-               outside [0, d) refused); ``dense_kernel_checks``: glm_sgd's
+               outside [0, d) refused); ``live_kernel_checks``:
+               glm_sgd_sparse's live-prefix variants at both Table 3 widths
+               (LIVE_CASES: micro-batches 1, 10, 16 and 512 with ragged
+               tails, 3 replicas, rows split over fills; each as drawn,
+               with its padding spread through the rows, every 7th row all
+               padding and a feature thrice a row), the kernels they
+               replaced forced at two of them, and the length pass alone;
+               ``dense_kernel_checks``: glm_sgd's
                rows variant at ROWS_CASES (batches just past the warp
                ring, covtype's 1,024 and 4,096, tails shorter than the
                cluster, 8 and 10 replicas, full partitions) and glm_grad's
@@ -142,7 +154,21 @@ the previous phase line):
                hot variant); ms per epoch and us per update; then each on
                the first 1,600 rows through the kernels and through the
                plain versions, loss for loss;
-6. ``study``   the paper's study layer (``repro_torch.study`` and the
+6. ``long_rows`` real-sim (72,309 x 20,958) and news (19,996 x
+               1,355,191) padded to their Table 3 row widths, K = 3,484 and
+               16,423 (``long_rows_dataset``: ``wide_dataset``'s draw on
+               the card, the first row at full width), through ``sgd.run``:
+               real-sim under ``SyncSGD()``, ``SyncSGD(batch=16)``,
+               ``AsyncLocalSGD(8, 1)`` and ``AsyncLocalSGD(10, 10)`` (4
+               epochs), news under ``AsyncLocalSGD(8, 1)`` and ``(64, 1)``
+               and ``SyncSGD()`` (3 epochs), launch counts zeroed just
+               before each run and read just after (glm_sgd_sparse's
+               live_smem and live_global variants, one launch an epoch;
+               glm_sparse's smem and hot), ms an epoch and us an update;
+               then each path on the first 4,100 and 1,600 rows through the
+               kernels and the plain versions, loss for loss; and
+               ``long_rows_timing``'s rows;
+7. ``study``   the paper's study layer (``repro_torch.study`` and the
                drivers in ``repro_torch.benchmarks``): (a) the Table 7,
                Table 4 and Fig. 22 drivers on the ci profile (covtype, w8a,
                real-sim cut to STUDY_CI_ROWS = 1,024 rows since PR 32,
@@ -165,7 +191,7 @@ the previous phase line):
                hot variant), launches by family read around each run, each
                run held epoch by epoch to the plain versions on its first
                1,600 rows;
-7. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
+8. ``serve``   ``GLMScoreEngine`` on the card: all 64,700 w8a rows as
                requests under the model phase ``train``'s SyncSGD run ended
                with (max_batch 128, with a swap_model halfway, and 32), and
                8,192 real-sim-width requests; launch counts zeroed just
@@ -173,7 +199,7 @@ the previous phase line):
                the variant each run's line names); every response held
                against the plain version under the snapshot version it
                carries;
-8. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
+9. ``live``    train-while-serving: ``LiveLearner`` on a real-sim-width
                stream publishing into an engine that a second thread
                serves, exact and int8-compressed, with replicas killed and
                revived; each configuration also run in lockstep through the
@@ -181,7 +207,7 @@ the previous phase line):
                merge (int8: also with the plain learner resynced after each
                merge, and its codes compared); short glm_sparse and dense
                runs;
-9. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
+10. ``lm``      the LM serving path on full-width h2o-danube-1.8b (random
                weights from a seeded generator on the card): the serving
                run of ``repro_torch.launch.serve`` (8 requests, 4 slots,
                max_new 16, max_len 128) with launch counts zeroed just
@@ -190,7 +216,7 @@ the previous phase line):
                versions, with the same weights in fp32 as the yardstick
                (``_held_bf16``); a profiled stretch of ticks; and one
                prefill forward at S=8192 held the same way;
-10. ``lm_train`` LM training on full-width h2o-danube-1.8b (bf16, random
+11. ``lm_train`` LM training on full-width h2o-danube-1.8b (bf16, random
                seeded weights) through ``repro_torch.launch.train``'s
                objects: (a) sync SGD, 8 steps at B=2, S=8192 (past the 4096
                window), launch counts zeroed just before and read just
@@ -225,7 +251,7 @@ the previous phase line):
                backward and backend, and the forward's rows 6a and 6b; (e) a
                restart at the reduced config through the launcher's
                ``main``;
-11. ``lm_families`` the moe, hybrid, ssm, audio and vlm families at full
+12. ``lm_families`` the moe, hybrid, ssm, audio and vlm families at full
                width (bf16, seeded random weights, stub frontends), one
                architecture at a time, each freed before the next: (a)
                olmoe-1b-7b, zamba2-1.2b and xlstm-1.3b served through
@@ -248,7 +274,7 @@ the previous phase line):
                beside SDPA; (e) ``launch.train --smoke --ckpt-dir`` then
                ``launch.serve --smoke --ckpt`` serving the same tokens as
                an engine on the trainer's final weights;
-12. ``bench``  the port's benchmark producers and the tuner, in a temporary
+13. ``bench``  the port's benchmark producers and the tuner, in a temporary
                results and tune directory: (a) ``bench_kernels.run("paper")``
                (every row checked on the card and true, roofline shares at
                most 1.05, the gate clean, a warm re-run byte-identical;
@@ -271,7 +297,7 @@ the previous phase line):
                ``bench_serve`` and one traced ``bench_live`` drive, then
                ``python -m repro_torch.obs.report --check`` over their
                trace dir (exit 0, the kernel, serve and live layers);
-13. ``sweep``  the multi-worker sweep, traced, with the profiler capture
+14. ``sweep``  the multi-worker sweep, traced, with the profiler capture
                on (``REPRO_TRACE_XPROF=1``): the ci profile's Table 7 and
                Fig. 22 trials in this process from no cache, then through
                a ``Runner`` with a 2-worker ``LocalProcessExecutor`` on the
@@ -287,7 +313,7 @@ the previous phase line):
                capture a worker attempt naming a port kernel; wall seconds
                of the serial run and of the sweep, recorded (the workers
                share the card);
-14. ``timing`` each kernel and its plain version at the main path's shapes
+15. ``timing`` each kernel and its plain version at the main path's shapes
                (glm_sgd also at covtype R=8 B=1, on its shared-memory
                variant at covtype B=16, on its cluster variant beside the
                shared-memory one at phase study's real-sim seq epoch and
@@ -295,9 +321,14 @@ the previous phase line):
                col layout, glm_sgd_sparse also on its shared-memory variant
                at w8a R=10 B=10, at w8a R=10 B=1 and at news
                R=8 and R=64 B=1 on its stream variant and on the global
-               variant, ``dense_timing``: glm_sgd's rows variant beside
-               the smem one at covtype B=1,024 and 4,096 and beside the
-               global one at R=10 x 58,101, glm_grad's wide variant beside
+               variant, ``long_rows_timing``: glm_sgd_sparse's
+               live_smem variant beside the smem one at real-sim's r8 b1,
+               r10 b10 and B=16 epochs and its live_global variant beside
+               the global one at news's r8 and r64 b1 epochs, at their
+               Table 3 widths, in turns; ``dense_timing``: glm_sgd's rows
+               variant beside the smem one at covtype B=1,024 and 4,096
+               and beside the global one at R=10 x 58,101, glm_grad's wide
+               variant beside
                the row one at 2,003 x 60,000, 16,384 x 20,958 and 16,384 x
                2,048, each pair's device times taken twice in turns,
                glm_grad and glm_sparse each beside the kernel their
@@ -321,8 +352,9 @@ the previous phase line):
 
 It then prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (launches on the main paths and on phase study's full-size run, error,
-times, bound, variant: a row for each kernel the main paths run, named by
-its variant where a family has more than one) and, last,
+times, device ms and us an update of a fused epoch's chain, bound, variant:
+a row for each kernel the main paths run, named by its variant where a
+family has more than one) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without a card, or without the repository beside it, it fails.
 """
@@ -399,7 +431,11 @@ KERNEL_SYMBOLS = {
                  "col": ("glm_grad_col_kernel", "glm_grad_reduce_kernel")},
     "glm_sgd_sparse": {"warp": ("ell_sgd_warp_kernel",),
                        "smem": ("ell_sgd_kernel",),
+                       "live_smem": ("ell_live_length_kernel",
+                                     "ell_sgd_live_smem_kernel"),
                        "stream": ("ell_sgd_stream_kernel",),
+                       "live_global": ("ell_live_length_kernel",
+                                       "ell_sgd_live_global_kernel"),
                        "global": ("ell_sgd_global_kernel",)},
     "glm_sparse": {"smem": ("ell_grad_smem_kernel", "ell_grad_reduce_kernel"),
                    "hot": ("ell_grad_hot_kernel", "ell_grad_hot_sum_kernel"),
@@ -572,7 +608,11 @@ def kernel_device_time(fn, reps: int, names: tuple[str, ...]) -> dict:
            "profiler_launches": sum(count for _, count in hits)}
     if hits:
         return {"device_ms": sum(ms / count for ms, count in hits),
-                "device_ms_from": "profiler", **out}
+                "device_ms_from": "profiler",
+                "device_ms_by_kernel": {
+                    short_name(key): ms / count
+                    for key, (ms, count) in prof.items()
+                    if any(n in key for n in names)}, **out}
     return {"device_ms": event_device_ms(fn), "device_ms_from": "events",
             **out}
 
@@ -872,7 +912,7 @@ PAPER_ROWS = 16_384
 
 
 def wide_dataset(dev, n: int, d: int, avg_nnz: float, k: int,
-                 seed: int = 0):
+                 seed: int = 0, full_first: bool = False):
     """A padded-ELL ``(ELLMatrix, y)`` of ``n`` rows drawn on the card with
     ``synthetic.make_sparse``'s profile: log-normal row lengths around
     ``avg_nnz`` nonzeros clipped to [1, k], Zipfian feature popularity over
@@ -880,12 +920,15 @@ def wide_dataset(dev, n: int, d: int, avg_nnz: float, k: int,
     at index 0, and labels planted by w* ~ N(0, 1/rank) with 5% flipped.
     ``make_sparse`` draws row by row on the host, which takes hours at
     news's width; here a feature may repeat within a row.  Rows are drawn
-    in blocks, so the float64 draws stay small."""
+    in blocks, so the float64 draws stay small.  ``full_first``: the first
+    row holds exactly k entries."""
     from repro_torch.core import sparse
 
     g = torch.Generator(device=dev).manual_seed(seed)
     nnz = torch.exp(np.log(avg_nnz) + 0.8 * torch.randn(
         n, 1, device=dev, generator=g)).clamp(1, k).long()
+    if full_first:
+        nnz[0] = k
     live = torch.arange(k, device=dev)[None] < nnz
     ranks = torch.arange(1, d + 1, device=dev, dtype=torch.float64)
     cdf = torch.cumsum(1.0 / ranks, 0)
@@ -911,6 +954,24 @@ def news_dataset(dev, seed: int = 0, n: int = NEWS["n"]):
     """news (full size unless ``n`` cuts it) drawn on the card
     (``wide_dataset``)."""
     return wide_dataset(dev, n, NEWS["d"], NEWS["avg_nnz"], NEWS["k"], seed)
+
+
+#: the paper's sparse sets at their Table 3 row widths (K = max_nnz, the
+#: real files' longest row, as ``data/ingest`` pads them): real-sim and news
+LONG_ROWS = ("real-sim", "news")
+
+
+def long_rows_dataset(dev, name: str, n: int | None = None, seed: int = 0):
+    """real-sim or news (``LONG_ROWS``) at its Table 3 size, or its first
+    ``n`` rows, padded to its Table 3 ``max_nnz`` (3,484 and 16,423):
+    ``wide_dataset``'s draw on the card with the first row at exactly
+    max_nnz entries, so the ELL is as wide as the real file's.  A draw, not
+    the real file (which the repository does not hold)."""
+    from repro_torch.data import synthetic
+
+    rows, d, avg_nnz, max_nnz, _ = synthetic.PAPER_DATASETS[name]
+    return wide_dataset(dev, rows if n is None else n, d, avg_nnz, max_nnz,
+                        seed, full_first=True)
 
 
 def rcv1_dataset(dev, seed: int = 0):
@@ -1117,6 +1178,105 @@ def dense_kernel_checks(dev) -> tuple[list[dict], dict]:
     return cases, worst
 
 
+#: glm_sgd_sparse's live-prefix cases of ``live_kernel_checks``: (label, d,
+#: K, micro-batch, rows a replica, replicas, draw).  Both Table 3 widths
+#: (real-sim's K = 3,484 with the model in shared memory, news's K = 16,423
+#: in global memory) and the first row past the stream kernel's; micro-
+#: batches 1, 10 and 16 with ragged tails (203 at 10, 1,037 at 16, 1,100 at
+#: 512), 3 replicas, a batch past a fill (512 rows: its margins and its
+#: scatter staged in turns); row lengths uniform in [1, K] ("uniform":
+#: ``_wide_ell_inputs``, most news rows split over fills) or drawn as the
+#: paths draw them ("drawn": ``long_rows_dataset``'s profile)
+LIVE_CASES = (("real-sim width", 20_958, 3_484, 1, 203, 1, "uniform"),
+              ("real-sim width", 20_958, 3_484, 10, 203, 3, "uniform"),
+              ("real-sim width", 20_958, 3_484, 16, 1_037, 1, "drawn"),
+              ("real-sim width, a batch past a fill", 20_958, 3_484, 512,
+               1_100, 1, "uniform"),
+              ("news width", 1_355_191, 16_423, 1, 120, 3, "uniform"),
+              ("news width", 1_355_191, 16_423, 10, 203, 1, "uniform"),
+              ("news width", 1_355_191, 16_423, 1, 500, 2, "drawn"),
+              ("past the stream's rows", 1_355_191, 8_200, 10, 61, 2,
+               "uniform"))
+#: the kernels the live-prefix kernels replaced, forced at LIVE_CASES' rows
+#: of these indices
+LIVE_REPLACED = {1: "smem", 4: "global"}
+#: the edges each case runs: as drawn, each row's padding spread through
+#: it, every 7th row all padding, one feature thrice in every row
+LIVE_EDGES = ("", "padding spread", "rows of all padding",
+              "a feature thrice a row")
+
+
+def live_kernel_checks(dev) -> tuple[list[dict], dict]:
+    """glm_sgd_sparse's live-prefix kernels against the plain version on
+    the card, LR and SVM, at LIVE_CASES with each of LIVE_EDGES, within
+    EPOCH_TOL; the variant each case picks; the kernels they replaced,
+    forced, at LIVE_REPLACED's cases; and the length pass alone
+    (``ops.live_lengths``) against its plain version on every case's
+    operand.  Returns the cases and the worst error by family."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sgd_sparse.ref import (ell_sgd_epoch_ref,
+                                                        live_lengths_ref)
+
+    cases, worst = [], {"glm_sgd_sparse": 0.0}
+    g = torch.Generator(device=dev).manual_seed(33)
+    for at, (label, d, k, mb, n, reps, draw) in enumerate(LIVE_CASES):
+        if draw == "drawn":
+            m, _ = long_rows_dataset(
+                dev, "real-sim" if d == 20_958 else "news", n * reps, seed=k)
+            v, i = m.values, m.indices
+        else:
+            v, i, _ = _wide_ell_inputs(n * reps, d, k, dev, seed=k + mb)
+        w = torch.randn(d, device=dev, generator=g) * 0.1
+        y = torch.where(torch.arange(n * reps, device=dev) % 3 == 0, -1.0, 1.0)
+        W = w[None] * torch.linspace(-1.0, 1.0, reps, device=dev)[:, None]
+        kind = sparse_ops.variant(d, k, mb)
+        want = "live_smem" if d == 20_958 else "live_global"
+        cases.append({"kernel": "glm_sgd_sparse",
+                      "case": f"{label} d={d} K={k} mb={mb}: {kind}",
+                      "ok": kind == want})
+        for edge in LIVE_EDGES:
+            ve, ie = v, i
+            if edge == "padding spread":
+                cols = torch.randperm(k, device=dev, generator=g)
+                ve, ie = v[:, cols].contiguous(), i[:, cols].contiguous()
+            elif edge == "rows of all padding":
+                ve, ie = v.clone(), i.clone()
+                ve[::7], ie[::7] = 0.0, 0
+            elif edge:
+                ve, ie = v.clone(), i.clone()
+                ve[:, :3], ie[:, :3] = 1.0, 5
+            vr, ir, yr = (ve.reshape(reps, n, k), ie.reshape(reps, n, k),
+                          y.reshape(reps, n))
+            kinds = [kind] + ([LIVE_REPLACED[at]] if at in LIVE_REPLACED
+                              and not edge else [])
+            for forced in kinds:
+                with forced_variant(sparse_ops, forced):
+                    for task in ("lr", "svm"):
+                        out = K.ell_sgd_epoch(task, W, vr, ir, yr, step=0.05,
+                                              micro_batch=mb)
+                        ref = ell_sgd_epoch_ref(task, W, vr, ir, yr, 0.05, mb)
+                        err, ok = close(out, ref, EPOCH_TOL)
+                        cases.append({
+                            "kernel": "glm_sgd_sparse",
+                            "case": f"{task} {label} n={n} d={d} K={k} "
+                                    f"mb={mb} R={reps} {draw} "
+                                    f"{edge or 'as drawn'} {forced}"
+                                    f"{'' if forced == kind else ' (forced)'}",
+                            "max_abs_err": err, "tol": EPOCH_TOL, "ok": ok})
+                        worst["glm_sgd_sparse"] = max(
+                            worst["glm_sgd_sparse"], err)
+            lengths = sparse_ops.live_lengths(vr)
+            cases.append({"kernel": "glm_sgd_sparse",
+                          "case": f"{label} K={k} {draw} {edge or 'as drawn'}:"
+                                  " live lengths",
+                          "mean_live": float(lengths.float().mean()),
+                          "ok": torch.equal(lengths, live_lengths_ref(vr))})
+        del v, i
+    torch.cuda.synchronize()
+    return cases, worst
+
+
 def phase_kernels(dev) -> tuple[dict, dict]:
     """Every kernel against its plain version on the card, small shapes."""
     import repro_torch.kernels as K
@@ -1306,7 +1466,8 @@ def phase_kernels(dev) -> tuple[dict, dict]:
                GRAD_TOL)
     # news' width: the stream variant (also with each row's padding spread
     # through it: the kernel must not take it to sit at the end), and the
-    # global variant past the stream's longest row
+    # live_global variant past the stream's longest row (more of its cases:
+    # ``live_kernel_checks``)
     d = NEWS["d"]
     for k, mb, n, reps, spread in ((NEWS["k"], 1, 120, 4, False),
                                    (NEWS["k"], 10, 203, 3, False),
@@ -1378,8 +1539,10 @@ def phase_kernels(dev) -> tuple[dict, dict]:
     # glm_sparse's hot kernel
     wide_cases, wide_worst = wide_kernel_checks(dev)
     dense_cases, dense_worst = dense_kernel_checks(dev)
-    cases += wide_cases + dense_cases
-    for name, err in [*wide_worst.items(), *dense_worst.items()]:
+    live_cases, live_worst = live_kernel_checks(dev)
+    cases += wide_cases + dense_cases + live_cases
+    for name, err in [*wide_worst.items(), *dense_worst.items(),
+                      *live_worst.items()]:
         worst[name] = max(worst.get(name, 0.0), err)
     # an index outside [0, d) is refused before the kernel would read it
     v, i, y, w = _ell_inputs(rng, 64, 300, 11.65, 69, dev, seed=3)
@@ -1803,16 +1966,18 @@ def train_runs(paths, epochs: int) -> tuple[list, list, dict]:
         common.reset_launches()
         res = sgd.run(problem, strat, epochs, sparse_data=sparse_data)
         variants = path_variants(problem, strat, sparse_data)
-        for family, kind in variants.items():
-            _count(launches, path_line(family, kind),
-                   common.LAUNCHES.get(family, 0))
+        counts = {path_line(family, kind): common.LAUNCHES.get(family, 0)
+                  for family, kind in variants.items()}
+        for name, count in counts.items():
+            _count(launches, name, count)
         results.append(res)
         runs.append({"data": data, "strategy": res.strategy,
                      "n": (problem[1].shape if sparse_data else problem.X.shape)[0],
                      "step": problem[3], "losses": res.losses.tolist(),
                      "ms_per_epoch": res.time_per_epoch * 1e3,
                      "epoch_ms": (res.epoch_times * 1e3).tolist(),
-                     "variants": variants, "falling": falling(res.losses)})
+                     "variants": variants, "launches": counts,
+                     "falling": falling(res.losses)})
     return runs, results, launches
 
 
@@ -1970,6 +2135,102 @@ def phase_news(news, rcv1, epochs: int) -> tuple[dict, dict]:
                        "rcv1": nbytes(rcv1[0].values, rcv1[0].indices) / 1e6},
             "epochs": epochs, "runs": runs, "launches": launches,
             "parity_cut": NEWS_CUT, "parity": parity, "ok": ok}, launches
+
+
+#: real-sim's step on its mini-batch and async paths at its Table 3 row
+#: width (``SyncSGD(batch=16)``, ``AsyncLocalSGD(8, 1)`` and ``(10, 10)``):
+#: news's NEWS_STEP; each takes the batch's mean gradient, and the plain
+#: versions' losses fell under it (and under 0.05) on the CPU on the first
+#: 2,000 and 8,000 rows of ``long_rows_dataset``'s draw
+REALSIM_STEP = 0.01
+#: ``SyncSGD()``'s full-batch step on it, over N: under 4 / lambda_max(X^T
+#: X) / N of the Zipfian draw, whose hottest feature holds about 6.7
+#: entries of a row (1 / H(20,958) of about 71)
+REALSIM_SYNC_STEP = 0.2
+#: the epochs of each set's paths, and the rows the plain versions rerun
+#: them on (a cut holds every variant: the first row keeps K)
+LONG_ROWS_EPOCHS = {"real-sim": 4, "news": 3}
+LONG_ROWS_CUT = {"real-sim": PARITY_ROWS, "news": NEWS_CUT}
+
+
+def long_rows_paths(name: str, data) -> list:
+    """The paths of one set of ``LONG_ROWS`` (``long_rows_dataset``) as
+    ``main_path``'s entries: real-sim under ``SyncSGD()`` (glm_sparse's smem
+    variant), ``SyncSGD(batch=16)``, ``AsyncLocalSGD(8, 1)`` and
+    ``AsyncLocalSGD(10, 10)`` (glm_sgd_sparse's live_smem variant); news
+    under Table 7's ``AsyncLocalSGD(8, 1)`` and ``(64, 1)`` (live_global)
+    and ``SyncSGD()`` (glm_sparse's hot variant)."""
+    from repro_torch.core import sgd
+
+    m, y = data
+    n = m.shape[0]
+    if name == "real-sim":
+        return [(name, ("lr", m, y, REALSIM_SYNC_STEP / n), sgd.SyncSGD(),
+                 True),
+                (name, ("lr", m, y, REALSIM_STEP), sgd.SyncSGD(batch=16),
+                 True),
+                *[(name, ("lr", m, y, REALSIM_STEP),
+                   sgd.AsyncLocalSGD(replicas=r, local_batch=b), True)
+                  for r, b in ((8, 1), (10, 10))]]
+    return [*[(name, ("lr", m, y, NEWS_STEP),
+               sgd.AsyncLocalSGD(replicas=r, local_batch=1), True)
+              for r in NEWS_REPLICAS],
+            (name, ("lr", m, y, NEWS_SYNC_STEP / n), sgd.SyncSGD(), True)]
+
+
+#: the variant each path of ``long_rows_paths`` runs, in order
+LONG_ROWS_VARIANTS = {
+    "real-sim": [{"glm_sparse": "smem"}]
+    + [{"glm_sgd_sparse": "live_smem"}] * 3,
+    "news": [{"glm_sgd_sparse": "live_global"}] * 2 + [{"glm_sparse": "hot"}]}
+
+
+def phase_long_rows(sets: dict) -> tuple[dict, dict]:
+    """real-sim and news at their Table 3 row widths (``sets``: name ->
+    ``long_rows_dataset``) through ``sgd.run``, ``long_rows_paths`` with
+    LONG_ROWS_EPOCHS, launch counts zeroed just before each run and read
+    just after (``train_runs``: one launch an epoch), with us per update;
+    then each path on its set's first LONG_ROWS_CUT rows through the
+    kernels and through the plain versions on the card, loss for loss
+    (``phase_parity``).  Returns the phase line and the launches by
+    kernels-line name."""
+    from repro_torch.core import sgd, sparse
+
+    runs, parity, launches = [], [], {}
+    ok = True
+    for name, (m, y) in sets.items():
+        epochs = LONG_ROWS_EPOCHS[name]
+        got, _, counts = train_runs(long_rows_paths(name, (m, y)), epochs)
+        for r, (_, problem, strat, _) in zip(
+                got, long_rows_paths(name, (m, y))):
+            if isinstance(strat, sgd.SyncSGD) and strat.batch is None:
+                continue
+            reps = getattr(strat, "replicas", 1)
+            batch = strat.batch if isinstance(strat, sgd.SyncSGD) \
+                else strat.local_batch
+            r["updates_per_epoch"] = -(-(r["n"] // reps) // batch)
+            r["us_per_update"] = r["ms_per_epoch"] * 1e3 / \
+                r["updates_per_epoch"]
+        for line, count in counts.items():
+            _count(launches, line, count)
+        ok = ok and [r["variants"] for r in got] == LONG_ROWS_VARIANTS[name] \
+            and all(r["falling"] for r in got) and all(
+                c == epochs for r in got for c in r["launches"].values())
+        runs += got
+        cut = LONG_ROWS_CUT[name]
+        line = phase_parity(long_rows_paths(name, (sparse.ELLMatrix(
+            m.values[:cut], m.indices[:cut], m.d), y[:cut])), cut, epochs)
+        parity += [{**r, "rows": cut} for r in line["runs"]]
+        ok = ok and line["ok"]
+    return {"phase": "long_rows",
+            "shapes": {name: [m.shape[0], m.d, m.values.shape[1]]
+                       for name, (m, _) in sets.items()},
+            "live_entries": {name: int((m.values != 0).sum())
+                             for name, (m, _) in sets.items()},
+            "ell_gb": {name: nbytes(m.values, m.indices) / 1e9
+                       for name, (m, _) in sets.items()},
+            "runs": runs, "launches": launches, "parity_cut": LONG_ROWS_CUT,
+            "parity": parity, "ok": ok}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -6426,6 +6687,66 @@ def dense_timing(row, rows: list, covtype, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def long_rows_timing(row, rows: list, sets: dict, dev) -> None:
+    """The timing rows of the sparse sets at their Table 3 row widths
+    (``sets``: ``phase_long_rows``'), each live-prefix kernel beside the
+    kernel it replaced there, in turns (``_again_in_turns``): real-sim's
+    replica epochs of ``AsyncLocalSGD(8, 1)`` (the kernels line's
+    live_smem row) and ``(10, 10)`` and its ``SyncSGD(batch=16)`` epoch on
+    live_smem and smem; news's ``AsyncLocalSGD(8, 1)`` (the kernels line's
+    live_global row) and ``(64, 1)`` replica epochs on live_global and
+    global.  Bound: ``ell_bytes`` (every value, 4 bytes an index of a
+    nonzero), the labels and the model read and written."""
+    import repro_torch.kernels as K
+    from repro_torch.core import sgd
+    from repro_torch.kernels.glm_sgd_sparse import ops as sparse_ops
+    from repro_torch.kernels.glm_sgd_sparse.ref import ell_sgd_epoch_ref
+
+    shapes = {"real-sim": ((8, 1, "glm_sgd_sparse_live_smem", (3, 1)),
+                           (10, 10, None, (3, 1)), (1, 16, None, (3, 1))),
+              "news": ((NEWS_REPLICAS[0], 1, "glm_sgd_sparse_live_global",
+                        (3, 1)), (NEWS_REPLICAS[1], 1, None, (3, 1)))}
+    for name, (m, y) in sets.items():
+        n, k = m.values.shape
+        step = REALSIM_STEP if name == "real-sim" else NEWS_STEP
+        for reps, mb, line, times in shapes[name]:
+            parts = torch.from_numpy(sgd.partition_indices(n, reps)).to(
+                dev).long()
+            vp, ip, yp = m.values[parts], m.indices[parts], y[parts]
+            Wp = torch.zeros(reps, m.d, device=dev)
+            updates = -(-vp.shape[1] // mb)
+            nnz = int((vp != 0).sum())
+
+            def plain(vp=vp, ip=ip, yp=yp, Wp=Wp, mb=mb):
+                return ell_sgd_epoch_ref("lr", Wp, vp, ip, yp, step, mb)
+
+            def call(vp=vp, ip=ip, yp=yp, Wp=Wp, mb=mb):
+                return K.ell_sgd_epoch("lr", Wp, vp, ip, yp, step=step,
+                                       micro_batch=mb)
+
+            new = sparse_ops.variant(m.d, k, mb)
+            calls = []
+            for kind, r in zip((new, "smem" if new == "live_smem"
+                                else "global"), times):
+                with forced_variant(sparse_ops, kind):
+                    row("glm_sgd_sparse", f"{name} R={reps} per="
+                        f"{vp.shape[1]} K={k} d={m.d} MB={mb} {kind}", call,
+                        plain, r, 1, ell_bytes(vp) + nbytes(yp, Wp, Wp),
+                        4.0 * nnz + 8.0 * yp.numel(), EPOCH_TOL,
+                        line=line if kind == new else None, variant=kind,
+                        updates=updates)
+                rows[-1]["updates"] = updates
+                if kind == new:
+                    rows[-1]["plan"] = list(sparse_ops.live_plan(
+                        m.d, mb, kind == "live_smem"))
+                    rows[-1]["mean_live"] = float(sparse_ops.live_lengths(
+                        vp).float().mean())
+                calls.append((call, kind, "glm_sgd_sparse", r))
+            _again_in_turns(rows, sparse_ops, calls)
+            del vp, ip
+            torch.cuda.empty_cache()
+
+
 #: the shapes of ``wide_sweep``: (N, d) of ``dense_timing``'s wide rows
 WIDE_SWEEP_SHAPES = ((2_003, 60_000), (PAPER_ROWS, 20_958),
                      (PAPER_ROWS, 2_048))
@@ -6851,10 +7172,10 @@ def phase_timing(covtype, w8a, news, realsim, worst: dict
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--lm-train-probe"], ["--lm-families"],
                     ["--mesh"], ["--attn-fwd"], ["--attn-bwd"], ["--wide"],
-                    ["--dense"]):
+                    ["--dense"], ["--long-rows"]):
         print("usage: python3 chip_smoke.py [--lm-train-probe | "
               "--lm-families | --mesh | --attn-fwd | --attn-bwd | --wide | "
-              "--dense]", file=sys.stderr)
+              "--dense | --long-rows]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -6878,6 +7199,8 @@ def main(argv: list[str]) -> int:
             return run_wide()
         if argv == ["--dense"]:
             return run_dense()
+        if argv == ["--long-rows"]:
+            return run_long_rows()
         if argv:
             return run_lm_train_probe(Path(scratch))
         return run(Path(scratch))
@@ -6970,6 +7293,50 @@ def run_dense() -> int:
         r["launches"] = launches.get(r["line"]) if r["line"] else None
     emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "sweep": rows_sweep((X, yd)), "wide_sweep": wide_sweep(dev),
+          "seconds_total": time.perf_counter() - t_start})
+    ok = ok and all(r["ok"] for r in rows)
+    print(smi, flush=True)
+    return 0 if ok else 1
+
+
+def long_rows_sets(dev) -> tuple[dict, float]:
+    """``LONG_ROWS`` at full size drawn on the card (``long_rows_dataset``),
+    and the seconds the draws took."""
+    t0 = time.perf_counter()
+    sets = {name: long_rows_dataset(dev, name) for name in LONG_ROWS}
+    torch.cuda.synchronize()
+    return sets, time.perf_counter() - t0
+
+
+def run_long_rows() -> int:
+    """``python3 chip_smoke.py --long-rows``: the env and build phases, then
+    the paper's sparse sets at their Table 3 row widths alone:
+    ``live_kernel_checks``, phase long_rows (real-sim and news at full size
+    through their paths, and at a cut against the plain versions),
+    ``long_rows_timing``'s rows (each live-prefix kernel and the kernel it
+    replaced in turns), the card's name and power limit last."""
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = common.device()
+    smi = nvidia_smi()
+    emit(phase_env(smi))
+    emit(phase_build())
+    cases, worst = live_kernel_checks(dev)
+    ok = all(c["ok"] for c in cases)
+    emit({"phase": "kernels", "cases": cases, "ok": ok})
+    sets, data_seconds = long_rows_sets(dev)
+    line, launches = phase_long_rows(sets)
+    line["data_seconds"] = data_seconds
+    emit(line)
+    ok = ok and line["ok"]
+    rows = []
+    long_rows_timing(make_row(rows, worst), rows, sets, dev)
+    for r in rows:
+        r["launches"] = launches.get(r["line"]) if r["line"] else None
+    emit({"phase": "timing", "nvidia_smi": smi, "rows": rows,
           "seconds_total": time.perf_counter() - t_start})
     ok = ok and all(r["ok"] for r in rows)
     print(smi, flush=True)
@@ -7087,6 +7454,21 @@ def run(scratch: Path) -> int:
     del rcv1
     launches.update(news_launches)
 
+    # the sparse sets at their Table 3 row widths, and their timing rows
+    # now, so that their 4.6 GB is free before the LM phases
+    sets, data_seconds = long_rows_sets(dev)
+    line, long_launches = phase_long_rows(sets)
+    line["data_seconds"] = data_seconds
+    emit(line)
+    if not line["ok"]:
+        return 1
+    for name, count in long_launches.items():
+        _count(launches, name, count)
+    long_rows = []
+    long_rows_timing(make_row(long_rows, worst), long_rows, sets, dev)
+    del sets
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     line, study_launches = phase_study(dev)
     line["seconds"] = time.perf_counter() - t0
@@ -7185,6 +7567,7 @@ def run(scratch: Path) -> int:
 
     rows, full_checks, empty = phase_timing(covtype, w8a, news, realsim,
                                             worst)
+    rows += long_rows
     checks += full_checks
     # a kernels-line row's error: the worst of its kernel's rows and checks
     # (the backward's rows: phase lm_train (d)'s)
@@ -7214,7 +7597,11 @@ def run(scratch: Path) -> int:
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "variant",
             "study_launches")
-    emit({"kernels": [{"name": r["line"], **{k: r[k] for k in keys}}
+    # device times where the row took them (the backward's rows time each
+    # pass instead), us an update where the kernel runs a chain
+    emit({"kernels": [{"name": r["line"], **{k: r[k] for k in keys},
+                       **{k: r.get(k) for k in ("device_ms",
+                                                "device_us_per_update")}}
                       for r in rows if r["line"]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

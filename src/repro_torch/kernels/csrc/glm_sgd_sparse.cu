@@ -20,12 +20,12 @@
 //   would otherwise pile atomics onto w[0].  A ragged tail is one final
 //   smaller batch at alpha/|tail|; the step arrives as a runtime float.
 //   Indices are not range-checked here: the wrapper has checked the operand
-//   once before its first launch.  Four kernels, chosen by
+//   once before its first launch.  Six kernels, chosen by
 //   kernels/glm_sgd_sparse/ops.py:variant(d, K, micro_batch); the wrapper
 //   passes the warp kernel's ring as `stages` and `group`
 //   (ops.py:warp_plan), and stages = 0 for the shared-memory kernel; the
-//   stream and global-memory kernels have their own entry points
-//   (ell_sgd_epoch_stream, ell_sgd_epoch_global):
+//   stream, global-memory and live-prefix kernels have their own entry
+//   points (ell_sgd_epoch_stream, ell_sgd_epoch_global, ell_sgd_epoch_live):
 //
 // ell_sgd_warp_kernel (K <= 512, and a ring of at least two stages fits next
 //   to the model).  glm_sgd_warp_kernel's design, for ELL rows:
@@ -112,9 +112,49 @@
 //   - the block reads back, in its next margin pass, what its own atomics
 //     wrote to L2, so the model is gathered with L1-bypassing __ldcg (L1 is
 //     not coherent with L2 atomics) and __syncthreads orders the passes.
+//
+// ell_sgd_live_smem_kernel and ell_sgd_live_global_kernel (rows past the
+//   warp kernel's 512 entries with the model in shared memory, ops.py:
+//   live_plan: real-sim's Table 3 width, K = 3,484; rows past the stream
+//   kernel's 8,192 with the model in global memory: news's K = 16,423).
+//   Replace ell_sgd_kernel and ell_sgd_global_kernel there, which walk
+//   every padded entry from HBM on one SM a replica, twice a batch, with
+//   no prefetch: at these widths 96-98% of a row is padding (real-sim about
+//   71 live entries of 3,484, news about 630 of 16,423).  Here:
+//   - ell_live_length_kernel first reads every value once, a warp a row
+//     over every SM at 16 bytes a lane, and writes the position after each
+//     row's last nonzero (a value-0 entry before it still counts: the
+//     chain skips it, as every variant does);
+//   - one producer warp a replica stages only those live prefixes, values
+//     and indices as they lie in memory (ring.cuh's up to 3 words of
+//     alignment; news's odd K starts rows at any word), into a ring of
+//     stages sized in entries, not rows: a fill is a batch's rows while
+//     they fit, placed 32 at a time by a warp scan of their footprints
+//     (a lane copies each of many short rows, a warp each of a few long
+//     ones), a row longer than the room left split into pieces; a batch
+//     that fits one fill is staged once (margins and scatter), a longer one
+//     twice (margins, then scatter), its margins summed piece by piece in
+//     the batch's pulls in shared memory;
+//   - the chain reads each staged entry once for the margin and once for
+//     the scatter, from shared memory.  With the model in shared memory (8
+//     chain warps) a fill also takes the whole batches of up to 32 rows
+//     that follow while they fit (real-sim at micro-batch 1: about 28 a
+//     fill); a one-row batch is warp 0's alone, with no block barrier; a
+//     longer one is a piece a warp, one warp_sum a piece, then the scatter
+//     by shared-memory atomicAdd.  With the model in global memory (16
+//     chain warps, 3c's chain) every chain thread takes entries of each
+//     piece, its gathers issued four at a time from L2, the partial margins
+//     meet in shared memory, and the scatter is RED.ADD.F32 in L2.
+//   Named barriers over the chain warps order a batch's margins before its
+//   scatter and its scatter before the next batch's gathers; a ring wait
+//   past 4 s traps (a launch error, not a hang:
+//   cluster.cuh:mbar_wait_or_trap).  Bound: the length pass's bytes (every
+//   value) plus the chain's dependent updates; at real-sim's rows the
+//   scatter's compare-and-swap loops on the draw's repeated popular
+//   features take most of an update.
 #include <cstdint>
 
-#include "ring.cuh"
+#include "cluster.cuh"  // ring.cuh, and mbar_wait_or_trap
 
 namespace {
 
@@ -763,6 +803,648 @@ int launch_stream(const float* vals, const int* idx, const float* y, float* W,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The live-prefix kernels: each row read up to its last nonzero
+// ---------------------------------------------------------------------------
+
+constexpr int kLiveLengthWarps = 8;  // rows a block of the length pass
+constexpr int kLivePieces = 32;      // most row pieces a fill holds
+constexpr int kLiveSmemChain = 8;    // chain warps, model in shared memory
+constexpr int kLiveGlobalChain = 16;  // chain warps, model in global memory
+// a fill's pass: a batch's margins, its scatter, both, or the end
+constexpr int kPassMargins = 0, kPassScatter = 1, kPassBoth = 2, kPassDone = 3;
+// a piece holds its row's first entries, its last; its batch is the ragged
+// tail
+constexpr int kFirst = 1, kLast = 2, kTail = 4;
+
+// Entries [e0, e0 + count) of row `row` of batch `batch`, staged at words
+// vofs (values) and iofs (indices) of its fill.
+struct Piece {
+  int batch;
+  int row;
+  int count;
+  int vofs;
+  int iofs;
+  float y;
+  int flags;
+};
+
+// A stage: a header (pieces, pass, 0, 0), the pieces, then `words` words of
+// values and `words` of indices, each piece's run at the offset from a
+// 16-byte boundary it has in memory.
+// kernels/glm_sgd_sparse/ops.py:live_smem_bytes computes the same layout:
+// [2 * stages mbarriers][the model: pad4(d) floats | the chain's partials]
+// [pad4(mb) pulls][stages x stage]
+__host__ __device__ constexpr size_t live_stage_bytes(int words) {
+  return 16 + sizeof(Piece) * kLivePieces + 8 * static_cast<size_t>(words);
+}
+size_t live_smem_bytes(int d, int mb, int stages, int words, bool smem_model) {
+  const size_t fixed = smem_model
+                           ? 4 * static_cast<size_t>(pad4(d))
+                           : 4 * static_cast<size_t>(kLivePieces) *
+                                 kLiveGlobalChain;
+  return 16 * static_cast<size_t>(stages) + fixed +
+         4 * static_cast<size_t>(pad4(mb)) + stages * live_stage_bytes(words);
+}
+
+// The position after each row's last nonzero value (0 for a row of
+// padding), a warp a row over every SM: every value is read once, 16 bytes
+// a lane, four loads in flight before any is used.
+__global__ void __launch_bounds__(32 * kLiveLengthWarps)
+ell_live_length_kernel(const float* __restrict__ vals,  // [rows, K]
+                       int rows, int K, int* __restrict__ len) {
+  const int row = blockIdx.x * kLiveLengthWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float* v = vals + static_cast<size_t>(row) * K;
+  const int head = min((4 - misalign(v)) & 3, K);
+  const int runs = (K - head) >> 2;
+  const float4* v4 = reinterpret_cast<const float4*>(v + head);
+  int last = lane < head && v[lane] != 0.0f ? lane : -1;
+  // a lane's entries grow with e, so each hit is its largest so far
+  for (int e0 = lane; e0 < runs; e0 += 4 * 32) {
+    float4 q[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int e = e0 + 32 * c;
+      q[c] = e < runs ? __ldcs(v4 + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = head + 4 * (e0 + 32 * c);
+      if (q[c].w != 0.0f) last = k + 3;
+      else if (q[c].z != 0.0f) last = k + 2;
+      else if (q[c].y != 0.0f) last = k + 1;
+      else if (q[c].x != 0.0f) last = k;
+    }
+  }
+  const int tail = head + 4 * runs + lane;  // at most 3 entries
+  if (tail < K && v[tail] != 0.0f) last = max(last, tail);
+  for (int o = 16; o > 0; o >>= 1)
+    last = max(last, __shfl_xor_sync(repro::kFullMask, last, o));
+  if (lane == 0) len[row] = last + 1;
+}
+
+// One thread copies `count` 4-byte words from src to dst (dst at src's
+// offset from a 16-byte boundary): copy_words' pattern for one lane.
+__device__ __forceinline__ void copy_run(uint32_t* dst, const uint32_t* src,
+                                         int count) {
+  const int head = min((4 - misalign(src)) & 3, count);
+  const int runs = (count - head) >> 2;
+  for (int e = 0; e < head; ++e) copy4(dst + e, src + e);
+  for (int e = 0; e < runs; ++e)
+    copy16(dst + head + 4 * e, src + head + 4 * e);
+  for (int e = head + 4 * runs; e < count; ++e) copy4(dst + e, src + e);
+}
+
+// The producer's window onto the live lengths and labels of one replica:
+// lane l holds rows base + l and base + 32 + l, the second loaded a window
+// ahead of the walk.
+struct LiveRows {
+  const int* len;
+  const float* y;
+  int n, base, l0, l1;
+  float y0, y1;
+
+  __device__ __forceinline__ void load(int b, int lane) {
+    base = b;
+    l0 = b + lane < n ? len[b + lane] : 0;
+    y0 = b + lane < n ? y[b + lane] : 0.0f;
+    l1 = b + 32 + lane < n ? len[b + 32 + lane] : 0;
+    y1 = b + 32 + lane < n ? y[b + 32 + lane] : 0.0f;
+  }
+  // Until row pos lies in the first half of the window.
+  __device__ __forceinline__ void reach(int pos, int lane) {
+    if (pos >= base + 64) {
+      load(pos, lane);
+      return;
+    }
+    if (pos >= base + 32) {
+      base += 32;
+      l0 = l1;
+      y0 = y1;
+      const int r = base + 32 + lane;
+      l1 = r < n ? len[r] : 0;
+      y1 = r < n ? y[r] : 0.0f;
+    }
+  }
+  // Row base + i (0 <= i < 64, any i on each lane).
+  __device__ __forceinline__ int length(int i) const {
+    const int a = __shfl_sync(repro::kFullMask, l0, i & 31);
+    const int b = __shfl_sync(repro::kFullMask, l1, i & 31);
+    return i < 32 ? a : b;
+  }
+  __device__ __forceinline__ float label(int i) const {
+    const float a = __shfl_sync(repro::kFullMask, y0, i & 31);
+    const float b = __shfl_sync(repro::kFullMask, y1, i & 31);
+    return i < 32 ? a : b;
+  }
+};
+
+// Stage the pieces of a batch's rows [pos, b1) that fit a fill, from entry
+// `done` of row pos: whole rows while they fit (placed 32 at a time by a
+// scan of their footprints), then as much of the next row as the fill has
+// room for.  Rows of padding take no piece.  Moves pos, done and the fill's
+// `free` words and `pieces` past what it placed.
+__device__ void live_fill(unsigned char* st, const float* Vr, const int* Ir,
+                          LiveRows& rows, int K, int mb, int b0, int b1,
+                          int tail, int words, int& pos, int& done,
+                          int& free, int& pieces, int lane) {
+  Piece* pc = reinterpret_cast<Piece*>(st + 16);
+  float* sv = reinterpret_cast<float*>(pc + kLivePieces);
+  int* si = reinterpret_cast<int*>(sv + words);
+  const int batch = b0 / mb;
+  while (pos < b1 && pieces < kLivePieces && free >= 4) {
+    rows.reach(pos, lane);
+    const int r = pos + lane;
+    const int e0 = lane == 0 ? done : 0;
+    const int whole = rows.length(r - rows.base);
+    const float yl = rows.label(r - rows.base);
+    const int left = r < b1 ? max(whole - e0, 0) : 0;
+    const int need = left > 0 ? pad4(left + 3) : 0;
+    int words_to = need, pieces_to = left > 0;  // inclusive scans
+    for (int o = 1; o < 32; o <<= 1) {
+      const int a = __shfl_up_sync(repro::kFullMask, words_to, o);
+      const int b = __shfl_up_sync(repro::kFullMask, pieces_to, o);
+      if (lane >= o) {
+        words_to += a;
+        pieces_to += b;
+      }
+    }
+    const bool fit =
+        r < b1 && words_to <= free && pieces_to <= kLivePieces - pieces;
+    const unsigned miss = __ballot_sync(repro::kFullMask, !fit);
+    const int k = miss ? __ffs(miss) - 1 : 32;  // rows placed whole
+    const bool mine = lane < k && left > 0;
+    const size_t src = static_cast<size_t>(r) * K + e0;
+    const int at = words - free + words_to - need;
+    const int vo = at + misalign(Vr + src), io = at + misalign(Ir + src);
+    if (mine)
+      pc[pieces + pieces_to - 1] =
+          Piece{batch, r - b0, left, vo, io, yl,
+                (e0 == 0 ? kFirst : 0) | kLast | tail};
+    // a few long rows: a warp copies each; many short ones: a lane each
+    const unsigned placed = __ballot_sync(repro::kFullMask, mine);
+    if (__popc(placed) <= 2) {
+      for (unsigned m = placed; m; m &= m - 1) {
+        const int l = __ffs(m) - 1;
+        const int rl = __shfl_sync(repro::kFullMask, r, l);
+        const int el = __shfl_sync(repro::kFullMask, e0, l);
+        const int cl = __shfl_sync(repro::kFullMask, left, l);
+        const int vl = __shfl_sync(repro::kFullMask, vo, l);
+        const int il = __shfl_sync(repro::kFullMask, io, l);
+        const size_t sl = static_cast<size_t>(rl) * K + el;
+        copy_words(reinterpret_cast<uint32_t*>(sv + vl),
+                   reinterpret_cast<const uint32_t*>(Vr + sl), cl, lane);
+        copy_words(reinterpret_cast<uint32_t*>(si + il),
+                   reinterpret_cast<const uint32_t*>(Ir + sl), cl, lane);
+      }
+    } else if (mine) {
+      copy_run(reinterpret_cast<uint32_t*>(sv + vo),
+               reinterpret_cast<const uint32_t*>(Vr + src), left);
+      copy_run(reinterpret_cast<uint32_t*>(si + io),
+               reinterpret_cast<const uint32_t*>(Ir + src), left);
+    }
+    if (k > 0) {
+      free -= __shfl_sync(repro::kFullMask, words_to, k - 1);
+      pieces += __shfl_sync(repro::kFullMask, pieces_to, k - 1);
+      pos += k;
+      done = 0;
+    }
+    if (k == 32) continue;
+    // row pos (lane k's) does not fit whole, or the batch has ended: the
+    // part of it the fill has room for, and the fill is full
+    if (pos < b1 && pieces < kLivePieces && free >= 4) {
+      const float yk = __shfl_sync(repro::kFullMask, yl, k);
+      const int c = free - 3;  // fewer than left: pad4(left + 3) > free
+      const size_t sp = static_cast<size_t>(pos) * K + done;
+      const int at = words - free;
+      const int vp = at + misalign(Vr + sp), ip = at + misalign(Ir + sp);
+      if (lane == 0)
+        pc[pieces] = Piece{batch, pos - b0, c,  vp,
+                           ip,    yk,       (done == 0 ? kFirst : 0) | tail};
+      copy_words(reinterpret_cast<uint32_t*>(sv + vp),
+                 reinterpret_cast<const uint32_t*>(Vr + sp), c, lane);
+      copy_words(reinterpret_cast<uint32_t*>(si + ip),
+                 reinterpret_cast<const uint32_t*>(Ir + sp), c, lane);
+      ++pieces;
+      done += c;
+      free = 0;
+    }
+    break;
+  }
+}
+
+// Stage whole batches of at most 32 rows from row pos (a batch's first) on
+// while they fit the fill's room, 32 rows a scan: the rows that fit, cut
+// back to the last batch they complete.  Returns the end of the last batch
+// placed.
+__device__ int live_group(unsigned char* st, const float* Vr, const int* Ir,
+                          LiveRows& rows, int n, int K, int mb, int words,
+                          int pos, int& free, int& pieces, int lane) {
+  Piece* pc = reinterpret_cast<Piece*>(st + 16);
+  float* sv = reinterpret_cast<float*>(pc + kLivePieces);
+  int* si = reinterpret_cast<int*>(sv + words);
+  const int tail_batch = n % mb ? n / mb : -1;
+  while (pos < n && pieces < kLivePieces && free >= 4) {
+    rows.reach(pos, lane);
+    const int r = pos + lane;
+    const int whole = rows.length(r - rows.base);  // on every lane: shuffles
+    const float yl = rows.label(r - rows.base);
+    const int left = r < n ? whole : 0;
+    const int need = left > 0 ? pad4(left + 3) : 0;
+    int words_to = need, pieces_to = left > 0;  // inclusive scans
+    for (int o = 1; o < 32; o <<= 1) {
+      const int a = __shfl_up_sync(repro::kFullMask, words_to, o);
+      const int b = __shfl_up_sync(repro::kFullMask, pieces_to, o);
+      if (lane >= o) {
+        words_to += a;
+        pieces_to += b;
+      }
+    }
+    const bool fit =
+        r < n && words_to <= free && pieces_to <= kLivePieces - pieces;
+    const unsigned miss = __ballot_sync(repro::kFullMask, !fit);
+    const int k = miss ? __ffs(miss) - 1 : 32;  // rows that fit
+    // ... cut back to the end of the last batch they complete
+    const unsigned ends = __ballot_sync(
+        repro::kFullMask, lane < k && ((r + 1) % mb == 0 || r == n - 1));
+    if (!ends) break;
+    const int kk = 32 - __clz(ends);
+    const bool mine = lane < kk && left > 0;
+    const size_t src = static_cast<size_t>(r) * K;
+    const int at = words - free + words_to - need;
+    const int vo = at + misalign(Vr + src), io = at + misalign(Ir + src);
+    const int batch = r / mb;
+    if (mine)
+      pc[pieces + pieces_to - 1] =
+          Piece{batch, r - batch * mb, left, vo, io, yl,
+                kFirst | kLast | (batch == tail_batch ? kTail : 0)};
+    if (mine) {
+      copy_run(reinterpret_cast<uint32_t*>(sv + vo),
+               reinterpret_cast<const uint32_t*>(Vr + src), left);
+      copy_run(reinterpret_cast<uint32_t*>(si + io),
+               reinterpret_cast<const uint32_t*>(Ir + src), left);
+    }
+    free -= __shfl_sync(repro::kFullMask, words_to, kk - 1);
+    pieces += __shfl_sync(repro::kFullMask, pieces_to, kk - 1);
+    pos += kk;
+    if (kk < 32) break;  // the next batch does not fit
+  }
+  return pos;
+}
+
+// The producer warp: every batch of the replica as fills of the ring, in
+// order.  A batch whose pieces fit one fill is one fill (pass both), and
+// with `group` the whole batches of at most 32 rows after it that fit join
+// it (live_group); a longer batch is its fills twice, first for its
+// margins, then, walked again from its first row, for its scatter.  A last
+// fill marks the end.  Each fill completes on its full mbarrier once its
+// copies have landed and each lane's stores of the pieces are released
+// (32 + 32 arrivals).
+__device__ void live_produce(const float* Vr, const int* Ir, LiveRows& rows,
+                             int n, int K, int mb, bool group,
+                             unsigned char* ring, uint64_t* full,
+                             uint64_t* empty, int stages, int words,
+                             int lane) {
+  const size_t sb = live_stage_bytes(words);
+  int f = 0;  // fills published
+  auto begin = [&]() {
+    const int s = f % stages, use = f / stages;
+    if (use > 0) mbar_wait_or_trap(&empty[s], (use - 1) & 1);
+    return ring + s * sb;
+  };
+  auto publish = [&](unsigned char* st, int pieces, int pass) {
+    if (lane == 0) *reinterpret_cast<int4*>(st) = make_int4(pieces, pass, 0, 0);
+    mbar_arrive_on_copies(&full[f % stages]);
+    mbar_arrive(&full[f % stages]);
+    ++f;
+  };
+  rows.load(0, lane);
+  for (int b0 = 0; b0 < n;) {
+    const int b1 = min(n, b0 + mb), tail = b1 - b0 < mb ? kTail : 0;
+    int pos = b0, done = 0, free = words, pieces = 0;
+    unsigned char* st = begin();
+    live_fill(st, Vr, Ir, rows, K, mb, b0, b1, tail, words, pos, done, free,
+              pieces, lane);
+    if (pos >= b1) {
+      b0 = group && mb <= 32 ? live_group(st, Vr, Ir, rows, n, K, mb, words,
+                                          b1, free, pieces, lane)
+                             : b1;
+      __syncwarp();  // every lane's pieces before the arrivals
+      publish(st, pieces, kPassBoth);
+      continue;
+    }
+    publish(st, pieces, kPassMargins);
+    while (pos < b1) {
+      st = begin();
+      free = words;
+      pieces = 0;
+      live_fill(st, Vr, Ir, rows, K, mb, b0, b1, tail, words, pos, done, free,
+                pieces, lane);
+      publish(st, pieces, kPassMargins);
+    }
+    rows.load(b0, lane);
+    pos = b0;
+    done = 0;
+    while (pos < b1) {
+      st = begin();
+      free = words;
+      pieces = 0;
+      live_fill(st, Vr, Ir, rows, K, mb, b0, b1, tail, words, pos, done, free,
+                pieces, lane);
+      publish(st, pieces, kPassScatter);
+    }
+    b0 = b1;
+  }
+  publish(begin(), 0, kPassDone);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The chain warps' barrier (the producer warp does not take part).
+template <int CW>
+__device__ __forceinline__ void live_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(32 * CW) : "memory");
+}
+
+__device__ __forceinline__ void live_init(uint64_t* full, uint64_t* empty,
+                                          int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 64);  // the producer's 32 copy and 32 plain arrivals
+      mbar_init(&empty[s], 1);  // the chain's, after its last barrier
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+}
+
+// A piece's scatter, w[j] += g * v for its nonzero entries: a
+// shared-memory atomicAdd an entry (a compare-and-swap loop), four passes'
+// values and indices loaded before the first.  Grouping a pass's lanes by
+// feature (__match_any_sync) or issuing a lane's compare-and-swaps together
+// (add_row) both measured slower here: the draw's rows repeat their
+// Zipf-popular features (about 7 copies of the hottest in a real-sim row).
+__device__ __forceinline__ void live_scatter(float* w, const float* sv,
+                                             const int* si, const Piece& q,
+                                             float g, int lane) {
+  for (int k0 = lane; k0 < q.count; k0 += 4 * 32) {
+    float v[4];
+    int j[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + 32 * c;
+      v[c] = k < q.count ? sv[q.vofs + k] : 0.0f;
+      j[c] = k < q.count ? si[q.iofs + k] : 0;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (v[c] != 0.0f) atomicAdd(&w[j[c]], g * v[c]);
+  }
+}
+
+// A piece's margin against the model in shared memory, on every lane: four
+// passes' values and indices loaded before any gather, so a row of up to
+// 128 entries costs one round of dependent loads.
+__device__ __forceinline__ float live_margin(const float* w, const float* sv,
+                                            const int* si, const Piece& q,
+                                            int lane) {
+  float acc = 0.0f;
+  for (int k0 = lane; k0 < q.count; k0 += 4 * 32) {
+    float v[4];
+    int j[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + 32 * c;
+      v[c] = k < q.count ? sv[q.vofs + k] : 0.0f;
+      j[c] = k < q.count ? si[q.iofs + k] : 0;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc = fmaf(v[c], v[c] != 0.0f ? w[j[c]] : 0.0f, acc);
+  }
+  return repro::warp_sum(acc);
+}
+
+// The model in shared memory (real-sim's rows past the warp kernel's 512
+// entries).  A fill holds whole batches one after another (or part of one
+// batch); a batch of one row is warp 0's alone, its margin, pull and
+// scatter with no block barrier; a longer batch is a piece a chain warp,
+// its margins, a barrier, its scatter, a barrier (live_scatter).
+__global__ void __launch_bounds__(32 * (kLiveSmemChain + 1), 1)
+ell_sgd_live_smem_kernel(const float* __restrict__ vals,  // [R, n, K]
+                         const int* __restrict__ idx,     // [R, n, K]
+                         const float* __restrict__ y,     // [R, n]
+                         float* __restrict__ W,           // [R, d] in/out
+                         const int* __restrict__ len,     // [R, n]
+                         int n, int K, int d, int mb, int task, float scale,
+                         float tail_scale, int stages, int words) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);
+  uint64_t* empty = full + stages;
+  float* w = reinterpret_cast<float*>(empty + stages);  // [pad4(d)]
+  float* pl = w + pad4(d);  // [pad4(mb)]: a batch's margins, then pulls
+  unsigned char* ring = reinterpret_cast<unsigned char*>(pl + pad4(mb));
+  const size_t sb = live_stage_bytes(words);
+
+  const int r = blockIdx.x;
+  const float* Vr = vals + static_cast<size_t>(r) * n * K;
+  const int* Ir = idx + static_cast<size_t>(r) * n * K;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  live_init(full, empty, stages);
+  for (int j = threadIdx.x; j < d; j += blockDim.x) w[j] = Wr[j];
+  __syncthreads();
+
+  if (warp == kLiveSmemChain) {
+    LiveRows rows{len + static_cast<size_t>(r) * n,
+                  y + static_cast<size_t>(r) * n, n};
+    live_produce(Vr, Ir, rows, n, K, mb, true, ring, full, empty, stages,
+                 words, lane);
+  } else {
+    int s = 0;
+    uint32_t parity = 0;
+    for (;;) {
+      mbar_wait_or_trap(&full[s], parity);
+      const unsigned char* st = ring + s * sb;
+      const int4 h = *reinterpret_cast<const int4*>(st);
+      if (h.y == kPassDone) break;
+      const Piece* pc = reinterpret_cast<const Piece*>(st + 16);
+      const float* sv = reinterpret_cast<const float*>(pc + kLivePieces);
+      const int* si = reinterpret_cast<const int*>(sv + words);
+      // the chain's last step was a barrier (as every fill's is)
+      bool synced = true;
+      for (int p0 = 0; p0 < h.x;) {
+        // the batch's pieces [p0, p1): up to the first of another batch
+        const int id = p0 + lane < h.x ? pc[p0 + lane].batch : -1;
+        const unsigned other = __ballot_sync(
+            repro::kFullMask, id != __shfl_sync(repro::kFullMask, id, 0));
+        // (lanes past h.x differ; all 32 of one batch: the fill's end)
+        const int p1 = other ? p0 + __ffs(other) - 1 : h.x;
+        const float step = pc[p0].flags & kTail ? tail_scale : scale;
+        if (p1 - p0 == 1 && h.y == kPassBoth) {
+          if (warp == 0) {
+            const Piece q = pc[p0];
+            const float m = live_margin(w, sv, si, q, lane);
+            const float g = -step * repro::pull(task, q.y * m, q.y);
+            if (g != 0.0f) live_scatter(w, sv, si, q, g, lane);
+            __syncwarp();  // the scatter before the next batch's gathers
+          }
+          synced = false;
+        } else {
+          if (!synced) live_sync<kLiveSmemChain>();  // warp 0's batches land
+          if (h.y != kPassScatter) {
+            for (int p = p0 + warp; p < p1; p += kLiveSmemChain) {
+              const Piece q = pc[p];
+              const float acc = live_margin(w, sv, si, q, lane);
+              if (lane == 0) {
+                const float m = (q.flags & kFirst ? 0.0f : pl[q.row]) + acc;
+                pl[q.row] = q.flags & kLast
+                                ? -step * repro::pull(task, q.y * m, q.y)
+                                : m;
+              }
+            }
+            live_sync<kLiveSmemChain>();  // every margin before any scatter
+          }
+          if (h.y != kPassMargins) {
+            for (int p = p0 + warp; p < p1; p += kLiveSmemChain) {
+              const Piece q = pc[p];
+              const float g = pl[q.row];
+              if (g != 0.0f) live_scatter(w, sv, si, q, g, lane);
+            }
+            live_sync<kLiveSmemChain>();  // the scatter before the next gathers
+          }
+          synced = true;
+        }
+        p0 = p1;
+      }
+      if (!synced) live_sync<kLiveSmemChain>();  // every warp is done with it
+      if (threadIdx.x == 0) mbar_arrive(&empty[s]);
+      if (++s == stages) {
+        s = 0;
+        parity ^= 1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < d; j += blockDim.x) Wr[j] = w[j];
+}
+
+// Entries a chain thread of the global-memory kernel gathers before it
+// uses any: one trip to L2 for up to this many of a piece's entries.
+constexpr int kLiveGather = 4;
+
+// The model in global memory (news): every chain thread takes entries t,
+// t + 512, ... of each piece, gathers them from L2 (__ldcg: L1 does not see
+// the scatter's atomics), the pieces' partial margins meet in shared
+// memory, every warp sums them in warp order (lane p: piece p), and the
+// scatter is RED.ADD.F32 in L2.
+__global__ void __launch_bounds__(32 * (kLiveGlobalChain + 1), 1)
+ell_sgd_live_global_kernel(const float* __restrict__ vals,  // [R, n, K]
+                           const int* __restrict__ idx,     // [R, n, K]
+                           const float* __restrict__ y,     // [R, n]
+                           float* __restrict__ W,           // [R, d] in/out
+                           const int* __restrict__ len,     // [R, n]
+                           int n, int K, int d, int mb, int task, float scale,
+                           float tail_scale, int stages, int words) {
+  constexpr int T = 32 * kLiveGlobalChain;
+  extern __shared__ __align__(16) unsigned char raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw);
+  uint64_t* empty = full + stages;
+  float* part = reinterpret_cast<float*>(empty + stages);  // [32][16]
+  float* pl = part + kLivePieces * kLiveGlobalChain;        // [pad4(mb)]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(pl + pad4(mb));
+  const size_t sb = live_stage_bytes(words);
+
+  const int r = blockIdx.x;
+  const float* Vr = vals + static_cast<size_t>(r) * n * K;
+  const int* Ir = idx + static_cast<size_t>(r) * n * K;
+  float* Wr = W + static_cast<size_t>(r) * d;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+
+  live_init(full, empty, stages);
+  __syncthreads();
+
+  if (warp == kLiveGlobalChain) {
+    LiveRows rows{len + static_cast<size_t>(r) * n,
+                  y + static_cast<size_t>(r) * n, n};
+    live_produce(Vr, Ir, rows, n, K, mb, false, ring, full, empty, stages,
+                 words, lane);
+    return;
+  }
+  int s = 0;
+  uint32_t parity = 0;
+  for (;;) {
+    mbar_wait_or_trap(&full[s], parity);
+    const unsigned char* st = ring + s * sb;
+    const int4 h = *reinterpret_cast<const int4*>(st);
+    if (h.y == kPassDone) break;
+    const Piece* pc = reinterpret_cast<const Piece*>(st + 16);
+    const float* sv = reinterpret_cast<const float*>(pc + kLivePieces);
+    const int* si = reinterpret_cast<const int*>(sv + words);
+    // a fill holds one batch, or part of one
+    const float step = h.x && pc[0].flags & kTail ? tail_scale : scale;
+    float g = 0.0f;  // lane p: -step * the pull of piece p (a row's last)
+    if (h.y != kPassScatter) {
+      for (int p = 0; p < h.x; ++p) {
+        const Piece q = pc[p];
+        float acc = 0.0f;
+        for (int k0 = t; k0 < q.count; k0 += kLiveGather * T) {
+          float v[kLiveGather], wv[kLiveGather];
+          int j[kLiveGather];
+#pragma unroll
+          for (int c = 0; c < kLiveGather; ++c) {
+            const int k = k0 + c * T;
+            v[c] = k < q.count ? sv[q.vofs + k] : 0.0f;
+            j[c] = k < q.count ? si[q.iofs + k] : 0;
+          }
+#pragma unroll
+          for (int c = 0; c < kLiveGather; ++c)
+            wv[c] = v[c] != 0.0f ? __ldcg(Wr + j[c]) : 0.0f;
+#pragma unroll
+          for (int c = 0; c < kLiveGather; ++c) acc = fmaf(v[c], wv[c], acc);
+        }
+        acc = repro::warp_sum(acc);
+        if (lane == 0) part[p * kLiveGlobalChain + warp] = acc;
+      }
+      live_sync<kLiveGlobalChain>();
+      // a fill of whole rows: every warp sums every piece (lane p) and
+      // keeps its pull; a batch's margins over several fills: warp 0 adds
+      // them up in the batch's pulls
+      if (lane < h.x && (h.y == kPassBoth || warp == 0)) {
+        const Piece q = pc[lane];
+        float m = q.flags & kFirst ? 0.0f : pl[q.row];
+#pragma unroll
+        for (int c = 0; c < kLiveGlobalChain; ++c)
+          m += part[lane * kLiveGlobalChain + c];
+        if (q.flags & kLast) g = -step * repro::pull(task, q.y * m, q.y);
+        if (h.y == kPassMargins) pl[q.row] = q.flags & kLast ? g : m;
+      }
+    }
+    if (h.y != kPassMargins) {
+      for (int p = 0; p < h.x; ++p) {
+        const float gp = h.y == kPassBoth
+                             ? __shfl_sync(repro::kFullMask, g, p)
+                             : pl[pc[p].row];
+        if (gp == 0.0f) continue;
+        const Piece q = pc[p];
+        for (int k = t; k < q.count; k += T) {
+          const float v = sv[q.vofs + k];
+          if (v != 0.0f) atomicAdd(Wr + si[q.iofs + k], gp * v);
+        }
+      }
+    }
+    // the scatter lands before the next gathers; the partials and the
+    // stage are free again
+    live_sync<kLiveGlobalChain>();
+    if (t == 0) mbar_arrive(&empty[s]);
+    if (++s == stages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+}
+
 }  // namespace
 
 // ell_sgd_stream_kernel: a ring of `stages` fills of at most `crows` rows
@@ -799,6 +1481,51 @@ extern "C" int ell_sgd_epoch_stream(const void* vals, const void* idx,
   REPRO_STREAM_CASE(16)
 #undef REPRO_STREAM_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ell_live_length_kernel alone: len[i] = 1 + the position of row i's last
+// nonzero value (0 for a row of padding); vals contiguous [rows, K] fp32,
+// len int32 [rows].
+extern "C" int ell_live_lengths(const void* vals, int rows, int K, void* len,
+                                void* stream) {
+  if (rows < 1) return static_cast<int>(cudaSuccess);
+  ell_live_length_kernel<<<(rows + kLiveLengthWarps - 1) / kLiveLengthWarps,
+                           32 * kLiveLengthWarps, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), rows, K, static_cast<int*>(len));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The live-prefix epoch: the length pass over every row of every replica
+// into `len` (int32 [R, n] scratch), then ell_sgd_live_smem_kernel
+// (smem_model != 0: the model and the batch's pulls in shared memory) or
+// ell_sgd_live_global_kernel, with a ring of `stages` stages of `words`
+// words (kernels/glm_sgd_sparse/ops.py:live_plan checks that it fits).
+// vals, idx, y contiguous [R, n, K] fp32, [R, n, K] int32 and [R, n] fp32;
+// W [R, d] updated in place.
+extern "C" int ell_sgd_epoch_live(const void* vals, const void* idx,
+                                  const void* y, void* W, void* len, int R,
+                                  int n, int K, int d, int mb, int task,
+                                  float scale, float tail_scale, int stages,
+                                  int words, int smem_model, void* stream) {
+  if (stages < 2 || words < 4 || words % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int code = ell_live_lengths(vals, R * n, K, len, stream);
+  if (code != 0) return code;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto kernel = smem_model ? ell_sgd_live_smem_kernel
+                           : ell_sgd_live_global_kernel;
+  const int threads =
+      32 * ((smem_model ? kLiveSmemChain : kLiveGlobalChain) + 1);
+  const size_t smem = live_smem_bytes(d, mb, stages, words, smem_model);
+  const cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<R, threads, smem, s>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(idx),
+      static_cast<const float*>(y), static_cast<float*>(W),
+      static_cast<const int*>(len), n, K, d, mb, task, scale, tail_scale,
+      stages, words);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ell_sgd_global_kernel: vals, idx, y contiguous [R, n, K] fp32, [R, n, K]

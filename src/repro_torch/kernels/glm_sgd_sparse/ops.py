@@ -12,7 +12,8 @@ shared-memory atomics), else in global memory (global atomics).
   from the margin to the scatter, while the block's other warps prefetch
   the batches into the ring;
 * ``"smem"`` (``ell_sgd_kernel``, the first port) where ``d + micro_batch``
-  floats fit a block's 227 KB of shared memory: the model there;
+  floats fit a block's 227 KB of shared memory and neither the warp kernel
+  nor the live-prefix one below takes the shape: the model there;
 * ``"stream"`` (``ell_sgd_stream_kernel``) for every wider model (news, d =
   1,355,191) whose rows :func:`stream_plan` can ring: the model stays in the
   output tensor in global memory, copy warps stream the next rows through a
@@ -20,9 +21,19 @@ shared-memory atomics), else in global memory (global atomics).
   gather a row's model values with one trip to L2, sum the margin over the
   block (every warp the same pull, in a register), and scatter with global
   ``atomicAdd`` from the values in registers;
+* ``"live_smem"`` (``ell_sgd_live_smem_kernel``) in ``"smem"``'s place for
+  rows past :data:`WARP_MAX_K` entries where :func:`live_plan` fits
+  (real-sim at its Table 3 width, K = 3,484), and ``"live_global"``
+  (``ell_sgd_live_global_kernel``) for rows past :data:`STREAM_MAX_K`
+  entries with the model in global memory (news, K = 16,423): a length
+  pass over every SM (``ell_live_length_kernel``) finds the position after
+  each row's last nonzero, and one producer warp a replica stages only those
+  live prefixes in a ring sized in entries, for a chain of warps (model in
+  shared memory: a warp a row; in global memory: 3c's chain);
 * ``"global"`` (``ell_sgd_global_kernel``) for what is left (rows past
-  :data:`STREAM_MAX_K` entries): the model in global memory, each row read
-  from it twice, the batch's pulls through a global scratch.
+  :data:`STREAM_MAX_K` entries whose batch's pulls do not fit beside a
+  ring): the model in global memory, each row read from it twice, the
+  batch's pulls through a global scratch.
 
 ``torch-reference`` runs ref.py.  All take any ``n`` (a ragged tail is one
 final smaller batch) and update in fp32.
@@ -57,10 +68,27 @@ STREAM_MAX_STAGES = 8
 #: most rows a fill of its ring holds
 STREAM_ROWS = 32
 
+#: most row pieces a fill of a live-prefix kernel's ring holds
+LIVE_PIECES = 32
+#: most stages a live-prefix ring holds ahead of the chain
+LIVE_MAX_STAGES = 8
+#: the least ring a live-prefix kernel takes: LIVE_MIN_STAGES stages of
+#: LIVE_MIN_WORDS entries, so that a batch at the paths' shapes is one fill
+#: (real-sim at micro-batch 16: about 1,200 words with alignment; a news
+#: row: about 630) and several are in flight; a model that leaves less
+#: (rcv1's 47,236 features at K = 1,224) stays on ``"smem"``
+LIVE_MIN_STAGES = 4
+LIVE_MIN_WORDS = 2_048
+#: chain warps of the global-memory live-prefix kernel (one more warp
+#: produces), whose partial margins of LIVE_PIECES pieces it keeps
+LIVE_GLOBAL_CHAIN_WARPS = 16
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P)
 _GLOBAL_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)
 _STREAM_ARGS = _GLOBAL_ARGS[:-1] + (_I, _I, _P)
+_LIVE_ARGS = _GLOBAL_ARGS[:-1] + (_I, _I, _I, _P)
+_LENGTH_ARGS = (_P, _I, _I, _P, _P)
 
 
 def smem_bytes(d: int, micro_batch: int) -> int:
@@ -130,18 +158,77 @@ def stream_plan(k: int, micro_batch: int) -> tuple[int, int]:
     return 0, 0
 
 
+def live_stage_bytes(words: int) -> int:
+    """One stage of a live-prefix ring: a 16-byte header, LIVE_PIECES
+    pieces of 28 bytes, and ``words`` words each of values and indices."""
+    return 16 + 28 * LIVE_PIECES + 8 * words
+
+
+def live_smem_bytes(d: int, micro_batch: int, stages: int, words: int,
+                    smem_model: bool) -> int:
+    """Shared memory of one live-prefix block (csrc/glm_sgd_sparse.cu lays
+    it out the same way): two mbarriers a stage, the model
+    (``"live_smem"``) or the chain warps' partials of LIVE_PIECES pieces
+    (``"live_global"``), the batch's pulls, and the ring."""
+    fixed = 4 * common.padded(d, 4) if smem_model \
+        else 4 * LIVE_PIECES * LIVE_GLOBAL_CHAIN_WARPS
+    return (16 * stages + fixed + 4 * common.padded(micro_batch, 4)
+            + stages * live_stage_bytes(words))
+
+
+def live_plan(d: int, micro_batch: int, smem_model: bool = True
+              ) -> tuple[int, int]:
+    """A live-prefix kernel's ring as ``(stages, words)``: the most stages,
+    up to LIVE_MAX_STAGES, whose stages of the most words (a multiple of 4)
+    that fit hold at least LIVE_MIN_WORDS each; ``(0, 0)`` where fewer than
+    LIVE_MIN_STAGES such stages fit."""
+    for stages in range(LIVE_MAX_STAGES, LIVE_MIN_STAGES - 1, -1):
+        room = common.MAX_SMEM_BYTES - live_smem_bytes(
+            d, micro_batch, stages, 0, smem_model)
+        words = room // stages // 8 // 4 * 4
+        if words >= LIVE_MIN_WORDS:
+            return stages, words
+    return 0, 0
+
+
 def variant(d: int, k: int, micro_batch: int) -> str:
     """The kernel that runs ``(d, K, micro_batch)``: ``"warp"`` for K up to
-    WARP_MAX_K where a two-stage ring fits, else ``"smem"`` where the model
-    and the batch's pulls fit a block's shared memory, else ``"stream"``
-    where :func:`stream_plan` fits, else ``"global"``."""
+    WARP_MAX_K where a two-stage ring fits; where the model and the batch's
+    pulls fit a block's shared memory, ``"live_smem"`` for longer rows where
+    :func:`live_plan` fits, else ``"smem"``; else ``"stream"`` where
+    :func:`stream_plan` fits, ``"live_global"`` where the global-memory
+    :func:`live_plan` does, else ``"global"``."""
     if k <= WARP_MAX_K and warp_plan(d, k, micro_batch)[0]:
         return "warp"
     if smem_bytes(d, micro_batch) <= common.MAX_SMEM_BYTES:
+        if k > WARP_MAX_K and live_plan(d, micro_batch)[0]:
+            return "live_smem"
         return "smem"
     if stream_plan(k, micro_batch)[0]:
         return "stream"
+    if live_plan(d, micro_batch, smem_model=False)[0]:
+        return "live_global"
     return "global"
+
+
+def live_lengths(values: torch.Tensor) -> torch.Tensor:
+    """The position after each row's last nonzero value (0 for a row of
+    padding), int32 over the leading axes of ``values`` ([..., K]): on the
+    card ``ell_live_length_kernel`` alone, the live-prefix kernels' first
+    pass (the epoch wrapper counts their launches, this check of the pass
+    counts none); on the CPU its plain version."""
+    if not values.is_cuda:
+        return R.live_lengths_ref(values)
+    v = common.cuda_operand(values)
+    k = v.shape[-1]
+    out = torch.empty(v.shape[:-1], dtype=torch.int32, device=v.device)
+    with common.on_device(v):
+        fn = _build.function("glm_sgd_sparse", "ell_live_lengths",
+                             *_LENGTH_ARGS)
+        code = fn(v.data_ptr(), v.numel() // max(k, 1), k, out.data_ptr(),
+                  common.stream(v))
+    _build.check("glm_sgd_sparse", code)
+    return out
 
 
 @common.register_kernel("glm_sgd_sparse", common.CUDA)
@@ -157,7 +244,17 @@ def _ell_sgd_cuda(task, W, values, indices, y, *, step, micro_batch):
     ptrs = (values.data_ptr(), indices.data_ptr(), y.data_ptr(),
             out.data_ptr())
     with common.on_device(values):
-        if kind in ("stream", "global"):
+        if kind in ("live_smem", "live_global"):
+            lens = torch.empty((n_rep, n), dtype=torch.int32,
+                               device=values.device)
+            smem_model = kind == "live_smem"
+            fn = _build.function("glm_sgd_sparse", "ell_sgd_epoch_live",
+                                 *_LIVE_ARGS)
+            code = fn(*ptrs, lens.data_ptr(), n_rep, n, k, d, micro_batch,
+                      common.task_code(task), *scales,
+                      *live_plan(d, micro_batch, smem_model), int(smem_model),
+                      common.stream(values))
+        elif kind in ("stream", "global"):
             pulls = torch.empty((n_rep, micro_batch), dtype=torch.float32,
                                 device=values.device)
             args = (*ptrs, pulls.data_ptr(), n_rep, n, k, d, micro_batch,

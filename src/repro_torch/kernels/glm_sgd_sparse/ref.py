@@ -38,3 +38,17 @@ def ell_sgd_epoch_ref(
         W = update(W, values[:, s:s + batch], idx[:, s:s + batch],
                    y[:, s:s + batch])
     return W
+
+
+def live_lengths_ref(values: torch.Tensor) -> torch.Tensor:
+    """The position after each row's last nonzero value, int32 over the
+    leading axes of ``values`` ([..., K]); 0 for a row of padding.  The
+    live-prefix kernels' length pass: a row's entries past it are padding,
+    and a value-0 entry before it is skipped where it is read."""
+    k = values.shape[-1]
+    if k == 0:
+        return torch.zeros(values.shape[:-1], dtype=torch.int32,
+                           device=values.device)
+    pos = torch.arange(1, k + 1, dtype=torch.int32, device=values.device)
+    zero = torch.zeros((), dtype=torch.int32, device=values.device)
+    return torch.where(values != 0, pos, zero).amax(-1)

@@ -642,8 +642,13 @@ def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
     assert sgd_sparse_ops.smem_bytes(d, 8) > common.MAX_SMEM_BYTES
     for k, mb in ((2_729, 1), (2_729, 10), (4, 8)):
         assert sgd_sparse_ops.variant(d, k, mb) == "stream"
+    # rows past the stream kernel's go to the live-prefix kernel in global
+    # memory; the global kernel keeps the batches whose pulls leave it no
+    # ring
     assert sgd_sparse_ops.variant(d, sgd_sparse_ops.STREAM_MAX_K + 1, 1) \
-        == "global"
+        == "live_global"
+    assert sgd_sparse_ops.variant(d, sgd_sparse_ops.STREAM_MAX_K + 1,
+                                  60_000) == "global"
     W, values, y = torch.zeros((1, d)), torch.ones((1, 8, 4)), torch.ones((1, 8))
     indices = torch.zeros((1, 8, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="takes CUDA tensors"):
@@ -663,7 +668,17 @@ def test_glm_sgd_sparse_over_shared_memory_raises_naming_the_limit():
     (58_000, 69, 1, "smem"),                  # no ring fits beside the model
     (1_355_191, 2_729, 1, "stream"),          # news: Table 7's async b1
     (1_355_191, 2_729, 10, "stream"),         # batches streamed in chunks
-    (1_355_191, 8_193, 1, "global"),          # rows past the stream's
+    # rows past the stream's: the global kernel's until the live-prefix
+    # kernel took them; the id names the kernel that took the shape first
+    pytest.param(1_355_191, 8_193, 1, "live_global",
+                 id="1355191-8193-1-global"),
+    (20_958, 3_484, 1, "live_smem"),          # real-sim at Table 3's K
+    (20_958, 3_484, 10, "live_smem"),
+    (20_958, 3_484, 16, "live_smem"),
+    (20_958, 3_484, 7_231, "live_smem"),      # a batch past a fill
+    (1_355_191, 16_423, 1, "live_global"),    # news at Table 3's K
+    (1_355_191, 16_423, 10, "live_global"),
+    (1_355_191, 16_423, 60_000, "global"),    # pulls that leave no ring
 ])
 def test_glm_sgd_sparse_variant_is_chosen_from_the_shape(d, k, mb, want):
     assert sgd_sparse_ops.variant(d, k, mb) == want
@@ -673,6 +688,14 @@ def test_glm_sgd_sparse_variant_is_chosen_from_the_shape(d, k, mb, want):
         assert sgd_sparse_ops.warp_smem_bytes(d, k, mb, stages, group) \
             <= common.MAX_SMEM_BYTES
         assert 32 * sgd_sparse_ops.warp_columns(k) >= k
+    if want.startswith("live"):
+        smem_model = want == "live_smem"
+        stages, words = sgd_sparse_ops.live_plan(d, mb, smem_model)
+        assert stages >= sgd_sparse_ops.LIVE_MIN_STAGES
+        assert words >= sgd_sparse_ops.LIVE_MIN_WORDS and words % 4 == 0
+        assert sgd_sparse_ops.live_smem_bytes(d, mb, stages, words,
+                                              smem_model) \
+            <= common.MAX_SMEM_BYTES
 
 
 def test_glm_sgd_sparse_warp_ring_plans():
@@ -726,6 +749,339 @@ def test_glm_sgd_sparse_stream_plan_at_news():
     assert sgd_sparse_ops.stream_plan(2_729, 10) == (2, 5)
     assert sgd_sparse_ops.stream_plan(sgd_sparse_ops.STREAM_MAX_K + 1, 1) \
         == (0, 0)
+
+
+@pytest.mark.parametrize("d,mb,smem_model,want", [
+    (20_958, 1, True, (8, 2_204)),        # real-sim's model: 84 KB
+    (20_958, 16, True, (8, 2_204)),
+    (20_958, 7_231, True, (6, 2_376)),    # its pulls take 29 KB more
+    (1_355_191, 1, False, (8, 3_480)),    # news: the model in global memory
+    (1_355_191, 10, False, (8, 3_480)),
+    (47_236, 10, True, (0, 0)),           # rcv1's 189 KB model: no ring
+    (1_355_191, 60_000, False, (0, 0)),
+])
+def test_glm_sgd_sparse_live_plan_fits_a_block(d, mb, smem_model, want):
+    """The most stages, up to eight, of the most words that fit beside the
+    model (or the chain's partials) and the batch's pulls; none where four
+    stages of 2,048 words do not fit; one more stage or four more words
+    would not fit."""
+    plan = sgd_sparse_ops.live_plan(d, mb, smem_model)
+    assert plan == want
+    stages, words = plan
+    if stages:
+        nbytes = lambda s, w: sgd_sparse_ops.live_smem_bytes(  # noqa: E731
+            d, mb, s, w, smem_model)
+        assert nbytes(stages, words) <= common.MAX_SMEM_BYTES
+        assert nbytes(stages, words + 4) > common.MAX_SMEM_BYTES
+        assert stages == sgd_sparse_ops.LIVE_MAX_STAGES or nbytes(
+            stages + 1, sgd_sparse_ops.LIVE_MIN_WORDS) > common.MAX_SMEM_BYTES
+
+
+def _live_rows(n, k, seed, spread=False):
+    """Row lengths a live-prefix ring stages: log-normal around k / 40 in
+    [1, k] (the first row at k), every 7th row all padding, and, with
+    ``spread``, each row's live entries anywhere in its K slots."""
+    rng = np.random.default_rng(seed)
+    nnz = np.clip(np.exp(np.log(k / 40) + 0.8 * rng.normal(size=n)), 1,
+                  k).astype(np.int64)
+    nnz[0] = k
+    live = np.arange(k)[None] < nnz[:, None]
+    if spread:
+        live = np.stack([rng.permutation(row) for row in live])
+    live[::7] = False
+    return live
+
+
+#: a fill's pass in the live-prefix kernels (csrc/glm_sgd_sparse.cu): a
+#: batch's margins, its scatter, or both (whole batches in one fill)
+LIVE_MARGINS, LIVE_SCATTER, LIVE_BOTH = 0, 1, 2
+#: a piece holds its row's first entries, its last; its batch is the
+#: ragged tail
+LIVE_FIRST, LIVE_LAST, LIVE_TAIL = 1, 2, 4
+
+
+def _live_fills(lengths, micro_batch: int, words: int, group: bool = True,
+                k: int = 0, first: int = 0) -> list[tuple[int, list]]:
+    """The fills the live-prefix kernels' producer stages for one replica
+    whose rows' live lengths (``ops.live_lengths``) are ``lengths``, in
+    order, as ``(pass, pieces)``; a piece is ``(row, first entry, entries,
+    word of its first value in the stage, flags)``.
+    csrc/glm_sgd_sparse.cu:live_produce's walk: a batch's rows while they
+    fit the stage's ``words`` and LIVE_PIECES (a row of padding takes no
+    piece), each at a 4-word boundary plus its offset from a 16-byte
+    boundary in memory (the replica's values start ``first`` words past one,
+    rows ``k`` apart), then as much of the next row as the room left holds.
+    A batch in one fill is LIVE_BOTH, and with ``group`` (the model in
+    shared memory) the whole batches of up to 32 rows after it join it while
+    each fits (``live_group``); a longer batch is its fills with
+    LIVE_MARGINS, then again with LIVE_SCATTER."""
+    n = len(lengths)
+    tail_batch = n // micro_batch if n % micro_batch else -1
+
+    def flags(r, done):
+        return ((LIVE_FIRST if done == 0 else 0)
+                | (LIVE_TAIL if r // micro_batch == tail_batch else 0))
+
+    def fill(b1, pos, done, free, pieces):
+        while (pos < b1 and len(pieces) < sgd_sparse_ops.LIVE_PIECES
+               and free >= 4):
+            left = int(lengths[pos]) - done
+            if left <= 0:
+                pos, done = pos + 1, 0
+                continue
+            at = words - free + (first + pos * k + done) % 4
+            need = common.padded(left + 3, 4)
+            if need <= free:
+                pieces.append((pos, done, left, at,
+                               flags(pos, done) | LIVE_LAST))
+                free -= need
+                pos, done = pos + 1, 0
+                continue
+            pieces.append((pos, done, free - 3, at, flags(pos, done)))
+            done += free - 3
+            free = 0
+        return pos, done, free
+
+    def batch_fits(b0, b1, free, pieces):
+        rows = [int(x) for x in lengths[b0:b1] if x > 0]
+        return (sum(common.padded(x + 3, 4) for x in rows) <= free
+                and len(pieces) + len(rows) <= sgd_sparse_ops.LIVE_PIECES)
+
+    fills = []
+    b0 = 0
+    while b0 < n:
+        b1 = min(n, b0 + micro_batch)
+        pieces = []
+        pos, done, free = fill(b1, b0, 0, words, pieces)
+        if pos >= b1:
+            while (group and micro_batch <= 32 and b1 < n
+                   and len(pieces) < sgd_sparse_ops.LIVE_PIECES and free >= 4
+                   and batch_fits(b1, min(n, b1 + micro_batch), free,
+                                  pieces)):
+                c0, b1 = b1, min(n, b1 + micro_batch)
+                pos, done, free = fill(b1, c0, 0, free, pieces)
+            fills.append((LIVE_BOTH, pieces))
+            b0 = b1
+            continue
+        fills.append((LIVE_MARGINS, pieces))
+        while pos < b1:
+            pieces = []
+            pos, done, free = fill(b1, pos, done, words, pieces)
+            fills.append((LIVE_MARGINS, pieces))
+        pos, done = b0, 0
+        while pos < b1:
+            pieces = []
+            pos, done, free = fill(b1, pos, done, words, pieces)
+            fills.append((LIVE_SCATTER, pieces))
+        b0 = b1
+    return fills
+
+
+@pytest.mark.parametrize("group", [True, False])
+@pytest.mark.parametrize("k,mb,words", [(3_484, 1, 2_204), (3_484, 16, 2_204),
+                                        (3_484, 7_231, 2_376),
+                                        (16_423, 1, 3_480), (16_423, 10, 3_480),
+                                        (69, 40, 2_048), (1, 3, 2_048)])
+def test_glm_sgd_sparse_live_fills_give_every_entry_one_owner(k, mb, words,
+                                                              group):
+    """Each live entry of a replica lies in exactly one piece of its batch's
+    margins (a LIVE_BOTH or LIVE_MARGINS fill) and one of its scatter
+    (LIVE_BOTH or LIVE_SCATTER); the pieces of a fill lie apart within its
+    words at their rows' offsets from a 16-byte boundary, at most
+    LIVE_PIECES of them, a batch's pieces consecutive; a row is pieces in
+    order, the first flagged first and the last last, the ragged tail's
+    flagged; a grouped fill holds whole batches only, and a batch that is
+    not whole in one fill has its fills to itself."""
+    n = 300 if mb < 1_000 else 2 * mb + 13
+    live = _live_rows(n, k, seed=k + mb)
+    lengths = sgd_sparse_ops.live_lengths(torch.from_numpy(
+        live.astype(np.float32))).numpy()
+    assert (lengths == np.where(live.any(1), k - np.argmax(live[:, ::-1], 1),
+                                0)).all()
+    first = 3
+    fills = _live_fills(lengths, mb, words, group=group, k=k,
+                                      first=first)
+    for margins in (True, False):
+        owned = np.zeros((n, k), dtype=np.int64)
+        for kind, pieces in fills:
+            if kind == (LIVE_SCATTER if margins
+                        else LIVE_MARGINS):
+                continue
+            assert len(pieces) <= sgd_sparse_ops.LIVE_PIECES
+            batches = {r // mb for r, *_ in pieces}
+            if kind != LIVE_BOTH or not group:
+                assert len(batches) <= 1
+            ends = []
+            for r, e0, count, at, flags in pieces:
+                assert count > 0
+                owned[r, e0:e0 + count] += 1
+                assert at % 4 == (first + r * k + e0) % 4
+                ends.append((at, at + count))
+                assert bool(flags & LIVE_FIRST) == (e0 == 0)
+                assert bool(flags & LIVE_LAST) \
+                    == (e0 + count == lengths[r])
+                assert bool(flags & LIVE_TAIL) \
+                    == (r // mb == (n - 1) // mb and n % mb != 0)
+            ends.sort()
+            assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+            assert not ends or (ends[0][0] >= 0 and ends[-1][1] <= words)
+            seen = [r // mb for r, *_ in pieces]
+            assert seen == sorted(seen)
+        want = np.arange(k)[None] < lengths[:, None]
+        assert (owned == want).all()
+    both = [r // mb for kind, pieces in fills
+            if kind == LIVE_BOTH for r, *_ in pieces]
+    split = {r // mb for kind, pieces in fills
+             if kind != LIVE_BOTH for r, *_ in pieces}
+    assert not split & set(both)
+    if not group:
+        assert len(set(both)) == len(
+            [1 for kind, pieces in fills
+             if kind == LIVE_BOTH and pieces])
+
+
+def _live_epoch(task, w, values, indices, y, step, mb, words, group):
+    """An epoch as the live-prefix chain runs it, from ``_live_fills``: a
+    fill's batches in turn (each run of pieces of one batch), their
+    pieces' margins summed piece by piece into their rows, each row's pull
+    at its last piece, every pull of a batch against the same w, then the
+    scatter from the pieces of its scatter fills."""
+    from repro_torch.core import glm
+
+    w = w.clone().double()
+    v, i = values.double(), indices.long()
+    lengths = sgd_sparse_ops.live_lengths(values).numpy()
+    n = len(lengths)
+    pull = glm.PULLS[task]
+    acc = {}
+    for kind, pieces in _live_fills(lengths, mb, words,
+                                                  group=group):
+        batch = []
+        for at, piece in enumerate(pieces):
+            batch.append(piece)
+            if at + 1 < len(pieces) and pieces[at + 1][0] // mb \
+                    == piece[0] // mb:
+                continue
+            rows = n % mb if batch[0][4] & LIVE_TAIL else mb
+            if kind != LIVE_SCATTER:
+                for r, e0, count, _, flags in batch:
+                    m = 0.0 if flags & LIVE_FIRST else acc[r]
+                    m += float((v[r, e0:e0 + count]
+                                * w[i[r, e0:e0 + count]]).sum())
+                    acc[r] = m
+                    if flags & LIVE_LAST:
+                        yr = torch.tensor(float(y[r]), dtype=torch.float64)
+                        acc[r] = -step / rows * float(pull(yr * m, yr))
+            if kind != LIVE_MARGINS:
+                for r, e0, count, _, _ in batch:
+                    w.index_add_(0, i[r, e0:e0 + count],
+                                 acc[r] * v[r, e0:e0 + count])
+            batch = []
+        assert not batch
+    return w.float()
+
+
+@pytest.mark.parametrize("group", [True, False])
+@pytest.mark.parametrize("mb,words", [(1, 2_048), (10, 2_048), (16, 64),
+                                      (23, 2_048), (40, 48)])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_sparse_live_fills_run_the_plain_epoch(task, mb, words, group):
+    """The live-prefix chain's schedule (``_live_fills``) computes the plain
+    version's epoch: rows of K = 300 with their padding spread through
+    them and every 7th all padding, batches that fit a fill (grouped or
+    alone) and batches over several (16 rows in 64-word stages, 40 in 48),
+    a ragged tail."""
+    k, n = 300, 203
+    live = _live_rows(n, k, seed=mb, spread=True)
+    rng = np.random.default_rng(mb)
+    values = (rng.normal(0, 1, (n, k)) * live).astype(np.float32)
+    indices = (rng.integers(0, 500, (n, k)) * live).astype(np.int32)
+    values[1, :3], indices[1, :3] = 1.0, 5
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    w = rng.normal(0, 0.1, 500).astype(np.float32)
+    args = _t(w, values, indices, y)
+    out = _live_epoch(task, *args, 0.05, mb, words, group)
+    ref = sgd_sparse_ops.R.ell_sgd_epoch_ref(
+        task, args[0][None], args[1][None], args[2][None], args[3][None],
+        0.05, mb)[0]
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **EPOCH_TOL)
+
+
+def test_glm_sgd_sparse_live_lengths_end_at_the_last_nonzero():
+    """The length pass's plain version: a row of padding gives 0, a nonzero
+    after a zero counts (padding need not come last), K = 1 takes 0 or 1,
+    and a replica axis keeps its shape."""
+    values = torch.tensor([[0.0, 0.0, 0.0, 0.0], [0.0, 2.0, 0.0, 0.0],
+                           [1.0, 0.0, 0.0, -3.0], [0.0, 0.0, 0.5, 0.0]])
+    assert sgd_sparse_ops.live_lengths(values).tolist() == [0, 2, 4, 3]
+    assert sgd_sparse_ops.live_lengths(values).dtype == torch.int32
+    assert sgd_sparse_ops.live_lengths(
+        torch.tensor([[0.0], [4.0], [0.0]])).tolist() == [0, 1, 0]
+    stacked = torch.stack([values, values.flip(1), torch.zeros(4, 4)])
+    assert sgd_sparse_ops.live_lengths(stacked).tolist() == [
+        [0, 2, 4, 3], [0, 3, 4, 2], [0, 0, 0, 0]]
+
+
+def _long_rows(n, d, k, seed):
+    """Padded-ELL rows of up to k entries with each row's padding spread
+    through it, every 7th row all padding, one feature three times in the
+    second row, and labels and a model, seeded."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(1, k + 1, n)
+    live = np.arange(k)[None] < nnz[:, None]
+    values = (rng.normal(0, 1, (n, k)) * live).astype(np.float32)
+    indices = (rng.integers(0, d, (n, k)) * live).astype(np.int32)
+    cols = rng.permutation(k)
+    values, indices = values[:, cols].copy(), indices[:, cols].copy()
+    values[::7], indices[::7] = 0.0, 0
+    values[1, :3], indices[1, :3] = 1.0, 5
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    w = rng.normal(0, 0.1, d).astype(np.float32)
+    return values, indices, y, w
+
+
+@pytest.mark.parametrize("mb", [1, 10])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_sparse_long_rows_in_shared_memory_match_jax_kernel(task, mb):
+    """live_smem's shapes (rows past WARP_MAX_K, the model in shared
+    memory) at K = 1,100, d = 2,000 with the padding spread through each
+    row, rows of all padding and a feature repeated in a row, over three
+    replicas, against the Pallas kernel (interpret mode; it takes no
+    ragged tail)."""
+    d, k, n, reps = 2_000, 1_100, 30, 3
+    assert sgd_sparse_ops.variant(d, k, mb) == "live_smem"
+    values, indices, y, w = _long_rows(n * reps, d, k, seed=mb)
+    v, i, yr = (values.reshape(reps, n, k), indices.reshape(reps, n, k),
+                y.reshape(reps, n))
+    W = np.stack([w, 0.5 * w, -w])
+    out = tk.ell_sgd_epoch(task, *_t(W, v, i, yr), step=0.05, micro_batch=mb)
+    for r in range(reps):
+        ref = jell_sgd_epoch(task, *_j(W[r], v[r], i[r], yr[r]), step=0.05,
+                             micro_batch=mb, backend="pallas-interpret")
+        np.testing.assert_allclose(out[r].numpy(), np.asarray(ref),
+                                   **EPOCH_TOL)
+
+
+@pytest.mark.parametrize("mb", [1, 10])
+@pytest.mark.parametrize("task", TASKS)
+def test_glm_sgd_sparse_long_rows_in_global_memory_match_jax(task, mb):
+    """live_global's shapes (rows past STREAM_MAX_K, the model past a
+    block's shared memory) at K = 8,300, d = 70,000 with the padding spread
+    through each row, rows of all padding, a feature repeated in a row and
+    a ragged tail (23 rows at 10), over three replicas, against the JAX
+    reference (its Pallas flavor holds no such one-hot)."""
+    d, k, n, reps = 70_000, 8_300, 23, 3
+    assert sgd_sparse_ops.variant(d, k, mb) == "live_global"
+    values, indices, y, w = _long_rows(n * reps, d, k, seed=10 + mb)
+    v, i, yr = (values.reshape(reps, n, k), indices.reshape(reps, n, k),
+                y.reshape(reps, n))
+    W = np.stack([w, 0.5 * w, -w])
+    out = tk.ell_sgd_epoch(task, *_t(W, v, i, yr), step=0.05, micro_batch=mb)
+    for r in range(reps):
+        ref = jell_sgd_epoch(task, *_j(W[r], v[r], i[r], yr[r]), step=0.05,
+                             micro_batch=mb, backend="reference")
+        np.testing.assert_allclose(out[r].numpy(), np.asarray(ref),
+                                   **EPOCH_TOL)
 
 
 def _ell_shared(n, d, k, seed):
@@ -1687,6 +2043,46 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.mark.parametrize("name,n", [("real-sim", 40), ("news", 6)])
+def test_long_rows_dataset_reaches_the_table3_width(name, n):
+    """chip_smoke.py's draw of real-sim and news at their Table 3 row widths
+    (phase long_rows), at a few rows on the CPU: K is the set's max_nnz, the
+    first row holds exactly K entries, every other row at least one, the
+    padding is value 0 at index 0, the indices lie in [0, d), and the labels
+    are +-1."""
+    smoke = _chip_smoke()
+    m, y = smoke.long_rows_dataset("cpu", name, n=n)
+    rows, d, _, max_nnz, _ = jsynthetic.PAPER_DATASETS[name]
+    assert m.values.shape == m.indices.shape == (n, max_nnz)
+    assert m.d == d and y.shape == (n,)
+    assert int((m.values[0] != 0).sum()) == max_nnz
+    live = sgd_sparse_ops.live_lengths(m.values)
+    assert live[0] == max_nnz and (live >= 1).all()
+    assert (m.indices[m.values == 0] == 0).all()
+    assert (m.indices >= 0).all() and (m.indices < d).all()
+    assert set(y.tolist()) <= {-1.0, 1.0}
+
+
+def test_long_rows_paths_run_the_live_prefix_variants():
+    """phase long_rows' paths at the cut its parity runs on and at full
+    size pick the variants the phase checks (``LONG_ROWS_VARIANTS``): the
+    live-prefix kernels for the mini-batch and async paths, glm_sparse's
+    smem and hot kernels for SyncSGD()."""
+    from repro_torch.core import sparse
+
+    smoke = _chip_smoke()
+    for name in smoke.LONG_ROWS:
+        rows, d, _, k, _ = jsynthetic.PAPER_DATASETS[name]
+        for n in (rows, smoke.LONG_ROWS_CUT[name]):
+            # shapes alone: a broadcast row stands in for the draw
+            m = sparse.ELLMatrix(torch.zeros(1, 1).expand(n, k),
+                                 torch.zeros(1, 1, dtype=torch.int32)
+                                 .expand(n, k), d)
+            paths = smoke.long_rows_paths(name, (m, torch.ones(n)))
+            assert [smoke.path_variants(*p[1:]) for p in paths] \
+                == smoke.LONG_ROWS_VARIANTS[name]
 
 
 def test_layer_rule_holds_the_plain_forward_and_fails_a_window_one_short():
